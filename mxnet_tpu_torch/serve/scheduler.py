@@ -1,0 +1,631 @@
+"""Iteration-level continuous-batching scheduler (Orca-style).
+
+The port's copy of ``mxnet_tpu/serve/scheduler.py`` (host-side, numpy
+only), kept whole so the two packages schedule identically.
+
+Every engine step the scheduler re-decides the batch from scratch:
+finished requests leave between iterations, waiting requests join as
+soon as a decode slot AND cache blocks open up, so the device batch
+stays full without waiting for stragglers (continuous batching, vs the
+static-batch serving of the reference's predictor).
+
+Admission is a bounded FIFO queue — ``submit`` on a full queue raises
+``QueueFull`` (back-pressure to the caller) and a request whose
+``deadline_s`` expires before its prefill is rejected, never silently
+dropped.  When decode outgrows the cache mid-flight the LOWEST-priority
+running request (latest arrival) is preempted: its blocks are freed
+(refcount-decremented — blocks shared through the prefix cache with a
+still-running request are never reclaimed) and the request re-enters
+the front of the waiting queue to resume by recomputation — prompt plus
+already-generated tokens re-prefill together (minus whatever prefix the
+cache still holds), which greedy decoding makes token-exact (tested by
+test_serve.py's resume-equivalence case).
+
+Chunked prefill: a prompt whose uncached remainder exceeds
+``prefill_chunk`` tokens (env ``MXTPU_SERVE_PREFILL_CHUNK``) is
+admitted into the ``prefilling`` lane and prefilled one chunk per
+iteration, interleaved with the batched decode — one 32k-token prompt
+can no longer stall every running request for a whole-prompt prefill.
+The per-iteration prefill token budget is shared between the decode
+slots and AT MOST ONE chunk (the engine shrinks the chunk by the decode
+batch size), and while a chunked prefill is in flight no new request is
+admitted — the chunk owns the prefill budget.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+
+import numpy as np
+
+from ..telemetry.request_trace import NOOP_TRACER
+from .kv_block_manager import NoFreeBlocks, blocks_for
+
+__all__ = ["Request", "Scheduler", "QueueFull",
+           "WAITING", "RUNNING", "FINISHED", "REJECTED", "CANCELLED"]
+
+WAITING = "waiting"        # in the admission queue (incl. preempted)
+RUNNING = "running"        # holds cache blocks, in the decode batch
+FINISHED = "finished"      # produced max_new_tokens
+REJECTED = "rejected"      # back-pressure: deadline/capacity, never ran to completion
+CANCELLED = "cancelled"    # engine shutdown with the request in flight
+
+
+class QueueFull(Exception):
+    """Admission queue at capacity — back-pressure; resubmit later."""
+
+
+_rid_counter = itertools.count()
+
+
+class Request:
+    """One generation request and its serving-side bookkeeping."""
+
+    def __init__(self, prompt, max_new_tokens, deadline_s=None, tenant=None,
+                 handoff=False, temperature=0.0, top_p=1.0, top_k=None,
+                 logprobs=0, adapter_id=None):
+        self.rid = next(_rid_counter)
+        # prefill→decode handoff ingest (disaggregated fleets): the
+        # decode replica marks the re-submitted request so the admit
+        # trace and the /healthz waiting_handoffs load signal can tell
+        # an in-flight ingest from a plain prompt
+        self.handoff = bool(handoff)
+        self.prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if self.prompt.size < 1:
+            raise ValueError("prompt must hold at least one token")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        self.max_new_tokens = int(max_new_tokens)
+        self.deadline_s = deadline_s
+        self.tenant = str(tenant) if tenant is not None else None
+        # per-request sampling params: OPERANDS of the engine's
+        # sampling-mode programs, never trace keys (Engine.submit
+        # validates; the greedy defaults here keep bare Request users
+        # on the historical path)
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.top_k = int(top_k) if top_k else None
+        self.logprobs = int(logprobs)
+        # multi-tenant LoRA: adapter_id names a registered adapter on
+        # the engine's AdapterStore; adapter_slot is the pinned device
+        # slot (0 = base model, a true zero delta) — an OPERAND of the
+        # bucket programs like the sampling params, never a trace key
+        self.adapter_id = str(adapter_id) if adapter_id is not None else None
+        self.adapter_slot = 0
+        # n>1 sample-group bookkeeping (stamped by Engine.submit):
+        # every member shares the primary's rid as ``group`` and the
+        # primary carries the full handle list on ``samples``
+        self.group = None
+        self.sample_index = 0
+        self.samples = None
+        self.status = WAITING
+        self.trace_id = None           # stamped by the request tracer
+        self.tokens = []           # generated ids (ints)
+        self.token_logprobs = []   # per emitted token (sampling mode)
+        self.top_logprobs = []     # [[token, logprob] x logprobs] rows
+        self.cache_len = 0         # K/V slots valid for this request
+        self.cached_prefix_len = 0  # slots reused from the prefix cache
+        # of cached_prefix_len, the slots restored host->device from
+        # the DRAM offload tier (0 means all device-resident hits)
+        self.host_restored_len = 0
+        self.prefill_target = None  # prefill length at admission
+        self._prefill_started = False
+        self.submit_t = None       # stamped by the scheduler
+        self.first_token_t = None
+        self.finish_t = None
+        self.n_preemptions = 0
+        self.reject_reason = None
+
+    # -- derived -------------------------------------------------------------
+    @property
+    def done(self):
+        return self.status in (FINISHED, REJECTED, CANCELLED)
+
+    def prefill_ids(self):
+        """Token ids the next prefill must run over: the prompt plus —
+        after a preemption — everything already generated (resume by
+        recomputation)."""
+        if self.tokens:
+            return np.concatenate(
+                [self.prompt, np.asarray(self.tokens, np.int32)])
+        return self.prompt
+
+    def target_len(self):
+        """Total sequence length when this request completes."""
+        return self.prompt.size + self.max_new_tokens
+
+    def ttft(self):
+        if self.first_token_t is None or self.submit_t is None:
+            return None
+        return self.first_token_t - self.submit_t
+
+    def trace_sampling(self):
+        """Admit-event trace fields for per-request sampling params —
+        only-when-on, so plain greedy requests' trace lines stay
+        byte-identical to pre-sampling releases."""
+        if (self.temperature == 0.0 and self.top_p >= 1.0
+                and not self.top_k and not self.logprobs
+                and self.group is None):
+            return {}
+        samp = {"temperature": self.temperature, "top_p": self.top_p,
+                "top_k": self.top_k, "logprobs": self.logprobs}
+        if self.group is not None:
+            samp["group"] = self.group
+            samp["sample_index"] = self.sample_index
+        return {"sampling": samp}
+
+    def trace_adapter(self):
+        """Admit-event trace field for the request's adapter —
+        only-when-set (same rule as :meth:`trace_sampling`)."""
+        if self.adapter_id is None:
+            return {}
+        return {"adapter": self.adapter_id}
+
+
+class Scheduler:
+    """Iteration scheduler.  ``submit()`` may be called from request-
+    handler threads while the engine's step thread runs ``schedule()``;
+    the RLock below covers every mutation of the shared queues and
+    counters (reentrant, because ``schedule`` preempts inline).  The
+    ``# guarded-by`` annotations are enforced lexically by mxtpu-lint's
+    unlocked-shared-state checker."""
+
+    def __init__(self, block_mgr, max_batch, max_queue,
+                 max_prefills_per_step=1, clock=time.monotonic,
+                 trace=None, tenant_share=None, prefill_chunk=None,
+                 spec_slots=0):
+        self.blocks = block_mgr
+        self.max_batch = int(max_batch)
+        self.max_queue = int(max_queue)
+        self.max_prefills_per_step = int(max_prefills_per_step)
+        self.clock = clock
+        # speculative decoding: each decode iteration may write up to
+        # 1 + spec_slots cache positions per running request (the last
+        # token plus k drafted tokens through the verify program), so
+        # capacity checks reserve that many slots ahead instead of the
+        # plain-decode 1.  0 = plain decode (byte-for-byte the old
+        # arithmetic).
+        self.spec_slots = max(0, int(spec_slots))
+        # chunked prefill: a prompt whose uncached remainder exceeds
+        # this many tokens prefills one chunk per iteration instead of
+        # monopolizing a step (0 = whole-prompt prefills only)
+        if prefill_chunk is None:
+            from ..base import env_int
+
+            prefill_chunk = env_int("MXTPU_SERVE_PREFILL_CHUNK", 512)
+        self.prefill_chunk = max(0, int(prefill_chunk))
+        # fair-share admission: one tenant may hold at most this
+        # fraction of the queue (1.0 = off, the strict-FIFO default);
+        # below 1.0 admission also interleaves tenants round-robin
+        if tenant_share is None:
+            from ..base import env_float
+
+            tenant_share = env_float("MXTPU_SERVE_TENANT_SHARE", 1.0)
+        self.tenant_share = min(1.0, max(0.0, float(tenant_share)))
+        # request tracer (telemetry.request_trace) — every lifecycle
+        # decision this scheduler makes is an event on it; the default
+        # no-op keeps bare Scheduler tests wiring-free
+        self.trace = trace if trace is not None else NOOP_TRACER
+        self._lock = threading.RLock()
+        self.waiting = []          # guarded-by: _lock
+        self.running = []          # guarded-by: _lock
+        # admitted requests still mid-chunked-prefill: they hold cache
+        # blocks and a batch slot but are not yet in the decode batch
+        self.prefilling = []       # guarded-by: _lock
+        self.preemptions = 0       # guarded-by: _lock
+        self.rejections = 0        # guarded-by: _lock
+        self.reject_reasons = {}   # guarded-by: _lock
+        # per-tenant admission/outcome/latency accounting (statusz +
+        # ServeStats.tenants; the telemetry tenant series mirror it).
+        # Bounded: client-supplied tenant strings must not grow
+        # scheduler state without limit (oldest-seen evicted past cap)
+        self.tenants = {}          # guarded-by: _lock
+        self.max_tenants = 1024
+        # tenant label values ever exported to the telemetry registry:
+        # metric children are never evicted there, so past the cap new
+        # tenants fold into one "other" label (bounded cardinality)
+        self._tenant_labels = set()  # guarded-by: _lock
+        # fair-share rotation cursor over the (bounded, rebuilt per
+        # admission) list of tenants currently waiting
+        self._rr_idx = 0           # guarded-by: _lock
+
+    # -- admission -----------------------------------------------------------
+    def submit(self, req):
+        self.trace.submitted(req)
+        if req.deadline_s is not None and req.deadline_s <= 0:
+            # already expired when handed to us: reject at admission
+            # (same three-view accounting as a queue-expired deadline)
+            # instead of queuing work whose answer nobody can use
+            self._reject(req, "deadline_at_submit")
+            return req
+        with self._lock:
+            if len(self.waiting) >= self.max_queue:
+                # back-pressure raise: the request never queues, but it
+                # counts in rejections/reject_reasons and its trace
+                # closes with the same reason code — the scheduler is
+                # the single owner of the rejected total, so every view
+                # (ServeStats, monitor bracket, trace) agrees even for
+                # callers driving a bare Scheduler (the caller may
+                # retry with a NEW Request)
+                self.rejections += 1
+                self.reject_reasons["queue_full"] = \
+                    self.reject_reasons.get("queue_full", 0) + 1
+                outcome = "queue_full"
+            elif self.tenant_share < 1.0 and self._over_share(req):
+                # fair share: this tenant already holds its fraction of
+                # the queue — rejecting IT (retriable) leaves headroom
+                # for every other tenant, so one abusive client cannot
+                # starve the rest into QueueFull
+                outcome = "tenant_share"
+            elif not self.blocks.fits_at_all(req.target_len()):
+                # would OOM the cache even running alone: reject NOW,
+                # at submit, rather than deadlock in the waiting queue
+                outcome = "exceeds_cache"
+            else:
+                req.submit_t = self.clock()
+                self.waiting.append(req)
+                outcome = None
+        # trace/telemetry emission stays OUTSIDE the lock: the step
+        # thread's schedule()/finish() must never contend with an
+        # admission's metric-registry work
+        if outcome == "queue_full":
+            self._tenant_event(req, "rejected", reason="queue_full")
+            self.trace.terminal(req, "rejected", reason="queue_full")
+            raise QueueFull(
+                f"admission queue full ({self.max_queue} waiting)")
+        if outcome is not None:
+            self._reject(req, outcome)
+            return req
+        self._tenant_event(req, "submitted")
+        return req
+
+    def _over_share(self, req):
+        """Whether admitting ``req`` would push its tenant past its
+        fair share of the waiting queue (called under ``_lock``).
+        Tenant identity uses the same ``None -> "default"`` coalescing
+        as admission rotation and tenant_stats — an untagged request
+        and an explicit "default" are ONE tenant sharing one cap."""
+        cap = max(1, int(self.max_queue * self.tenant_share))
+        tenant = req.tenant or "default"
+        held = sum(1 for r in self.waiting
+                   if (r.tenant or "default") == tenant)
+        return held >= cap
+
+    def _tenant_event(self, req, outcome, reason=None, latency_s=None):
+        """Fold one lifecycle outcome into the per-tenant table and the
+        telemetry tenant series (no-ops unless MXTPU_TELEMETRY)."""
+        tenant = req.tenant or "default"
+        with self._lock:
+            t = self.tenants.setdefault(
+                tenant, {"submitted": 0, "completed": 0, "rejected": 0,
+                         "latency_s_sum": 0.0, "latency_s_max": 0.0})
+            if outcome in t:
+                t[outcome] += 1
+            if latency_s is not None:
+                t["latency_s_sum"] += latency_s
+                t["latency_s_max"] = max(t["latency_s_max"], latency_s)
+            while len(self.tenants) > self.max_tenants:
+                # oldest-seen eviction (insertion-ordered dict): an
+                # attacker minting fresh tenant strings loses history,
+                # never grows the table
+                self.tenants.pop(next(iter(self.tenants)))
+            if tenant in self._tenant_labels \
+                    or len(self._tenant_labels) < self.max_tenants:
+                self._tenant_labels.add(tenant)
+                label = tenant
+            else:
+                label = "other"    # registry children never evict
+        from .. import telemetry
+
+        if outcome == "rejected":
+            telemetry.counter(
+                "mxtpu_serve_tenant_rejections_total",
+                "per-tenant rejected requests",
+                ("tenant", "reason")).labels(
+                    tenant=label, reason=reason or "unknown").inc()
+        elif outcome == "completed":
+            telemetry.counter(
+                "mxtpu_serve_tenant_completed_total",
+                "per-tenant finished requests",
+                ("tenant",)).labels(tenant=label).inc()
+            if latency_s is not None:
+                telemetry.histogram(
+                    "mxtpu_serve_tenant_latency_seconds",
+                    "per-tenant submit-to-finish latency",
+                    ("tenant",)).labels(tenant=label).observe(latency_s)
+
+    def tenant_stats(self):
+        """Immutable per-tenant snapshot: submitted/completed/rejected
+        counts plus mean/max end-to-end latency of finished requests."""
+        with self._lock:
+            out = {}
+            for tenant, t in self.tenants.items():
+                row = dict(t)
+                done = row["completed"]
+                lat_sum = row.pop("latency_s_sum")
+                row["latency_s_mean"] = (round(lat_sum / done, 6)
+                                         if done else None)
+                row["latency_s_max"] = (round(row["latency_s_max"], 6)
+                                        if done else None)
+                out[tenant] = row
+            return out
+
+    def _reject(self, req, reason):
+        req.status = REJECTED
+        req.reject_reason = reason
+        req.finish_t = self.clock()
+        with self._lock:
+            self.rejections += 1
+            self.reject_reasons[reason] = \
+                self.reject_reasons.get(reason, 0) + 1
+        self._tenant_event(req, "rejected", reason=reason)
+        if getattr(req, "_trace_sampled", None) is None:
+            # rejected before the TRACER ever saw it (the engine's
+            # exceeds_max_len guard): open the trace so the timeline is
+            # still submitted -> rejected.  Keyed on the tracer's own
+            # sampling mark, not on trace_id — a fleet router
+            # pre-stamps trace ids, and those requests still need
+            # their JSONL line
+            self.trace.submitted(req)
+        self.trace.terminal(req, "rejected", reason=reason)
+
+    @property
+    def queue_depth(self):
+        return len(self.waiting)
+
+    def waiting_handoffs(self):
+        """Handoff-ingested requests still awaiting admission — the
+        decode replica's /healthz load signal: a router's least-loaded
+        pick must see in-flight ingests, not just decode occupancy."""
+        with self._lock:
+            return sum(1 for r in self.waiting if r.handoff)
+
+    def has_work(self):
+        return bool(self.waiting or self.running or self.prefilling)
+
+    # -- one iteration's decisions -------------------------------------------
+    def schedule(self):
+        """Decide this iteration's work: ``(prefills, decodes)``.
+
+        1. Expire overdue waiting requests (deadline -> REJECTED).
+        2. Secure the next cache slot for every running request,
+           preempting latest arrivals when blocks run out.
+        3. Continue any in-flight chunked prefill: its request leads
+           ``prefills`` (the engine runs ONE chunk) and owns this
+           iteration's prefill budget — no new admissions until it
+           finishes.
+        4. Admit from the queue front while a batch slot, the prefill
+           budget, and blocks for prompt+1 tokens are all available
+           (the +1 guarantees the first decode step cannot be the one
+           that discovers the cache is full).  Allocation walks the
+           prefix cache: cached blocks head the request's table and
+           ``cache_len`` starts at the cached span, so the engine
+           prefills only the suffix.  A request whose uncached
+           remainder exceeds ``prefill_chunk`` enters the
+           ``prefilling`` lane instead of prefilling whole.  Decode
+           slots were secured FIRST, so admission never steals a
+           running request's block and a just-admitted request is
+           never the same iteration's preemption victim.
+        """
+        now = self.clock()
+        with self._lock:
+            keep = []
+            for req in self.waiting:
+                if (req.deadline_s is not None
+                        and now - req.submit_t > req.deadline_s):
+                    self._reject(req, "deadline")
+                else:
+                    keep.append(req)
+            self.waiting = keep
+
+            decodes = []
+            for req in list(self.running):
+                if req not in self.running:
+                    continue       # preempted as an earlier victim
+                # with speculative decoding the verify program writes
+                # up to spec_slots positions past the plain-decode one
+                # — reserve them NOW so the dispatch can never be the
+                # step that discovers the cache is full.  Capped at the
+                # request's final length: speculative positions beyond
+                # it route to the null block inside the programs, so
+                # they never need (and must never allocate — the block
+                # table has exactly max_model_len/block_size slots)
+                # real blocks
+                need = min(req.cache_len + 1 + self.spec_slots,
+                           req.target_len())
+                try:
+                    self.blocks.ensure_capacity(req.rid, need)
+                except NoFreeBlocks:
+                    victim = self._pick_victim(req)
+                    self.preempt(victim)
+                    if victim is not req:
+                        # retry once with the victim's blocks reclaimed
+                        try:
+                            self.blocks.ensure_capacity(req.rid, need)
+                        except NoFreeBlocks:
+                            self.preempt(req)
+                            continue
+                    else:
+                        continue
+                decodes.append(req)
+            # a request scheduled early in the loop can still become a
+            # later request's preemption victim — keep only survivors
+            decodes = [r for r in decodes if r in self.running]
+
+            prefills = []
+            if self.prefilling:
+                # one chunk per iteration, and it owns the prefill
+                # budget: no whole-prefill admissions ride along
+                prefills.append(self.prefilling[0])
+                return prefills, decodes
+            while (self.waiting
+                   and (len(self.running) + len(prefills)
+                        < self.max_batch)
+                   and len(prefills) < self.max_prefills_per_step):
+                req = self._next_admission()
+                ids = req.prefill_ids()
+                # same target_len() cap as the decode loop above (and
+                # ids.size + 1 <= target_len() always, so the cap can
+                # never starve the plain prompt+1 reservation)
+                need = min(ids.size + 1 + self.spec_slots,
+                           req.target_len())
+                try:
+                    # one call, one prefix walk: allocate prechecks the
+                    # clear miss itself (nothing mutated or evicted on
+                    # that path — FIFO head-of-line, no skipping ahead).
+                    # It can also fail AFTER partial eviction: its
+                    # fit estimate is optimistic under sharing (the
+                    # blocks a prefix walk would reuse may BE the
+                    # reclaimable blocks it counted, and an LRU interior
+                    # pinned by a cached child is counted free but not
+                    # evictable).  A failed allocate undoes its hit
+                    # refs, so treating both as does-not-fit-yet is
+                    # safe — the request stays at the queue head
+                    _, cached = self.blocks.allocate(
+                        req.rid, need, token_ids=ids,
+                        # adapter-salted radix chain: an adapter row
+                        # can only ever reuse same-adapter K/V
+                        salt=req.adapter_id)
+                except NoFreeBlocks:
+                    break
+                self.waiting.remove(req)
+                req.cache_len = cached
+                req.cached_prefix_len = cached
+                req.host_restored_len = self.blocks.host_tokens(req.rid)
+                req.prefill_target = int(ids.size)
+                if self.tenant_share < 1.0:
+                    self._rr_idx += 1    # rotation advances on ADMIT
+                req.status = RUNNING
+                chunked = (self.prefill_chunk > 0
+                           and ids.size - cached > self.prefill_chunk)
+                self.trace.event(
+                    req, "resumed" if req.n_preemptions else "admitted",
+                    queue_depth=len(self.waiting),
+                    n_preemptions=req.n_preemptions,
+                    cached_tokens=cached,
+                    host_tokens=req.host_restored_len, chunked=chunked,
+                    # only-when-on: plain requests' trace lines stay
+                    # byte-identical to pre-handoff releases
+                    **({"handoff": True} if req.handoff else {}),
+                    # per-request sampling params (only-when-on too)
+                    **req.trace_sampling(),
+                    # the request's LoRA adapter (only-when-set)
+                    **req.trace_adapter())
+                prefills.append(req)
+                if chunked:
+                    self.prefilling.append(req)
+                    break          # the chunk consumed the budget
+            return prefills, decodes
+
+    def _next_admission(self):
+        """The next waiting request to consider (called under ``_lock``
+        with ``waiting`` non-empty).  Strict FIFO by default; under
+        fair share (``tenant_share < 1.0``) admission rotates
+        round-robin across the tenants CURRENTLY waiting — FIFO within
+        each tenant — so a deep single-tenant backlog cannot
+        head-of-line-block everyone else's first request.  The tenant
+        list is rebuilt from the waiting queue each call (bounded by
+        ``max_queue``, so cost is O(queue), never O(tenants-ever-seen)).
+
+        The ``_rr_idx`` cursor advances in the admission loop, only
+        AFTER a candidate actually got its blocks: when the picked
+        request cannot allocate, the same tenant's head is retried
+        first on every following step — other tenants cannot leapfrog
+        and refill the cache indefinitely, so strict FIFO's progress
+        guarantee (a big request eventually fits as running work
+        drains) survives inside each rotation slot."""
+        with self._lock:           # reentrant: schedule() holds it
+            if self.tenant_share >= 1.0:
+                return self.waiting[0]
+            tenants = []
+            for r in self.waiting:
+                t = r.tenant or "default"
+                if t not in tenants:
+                    tenants.append(t)
+            tenant = tenants[self._rr_idx % len(tenants)]
+            for r in self.waiting:
+                if (r.tenant or "default") == tenant:
+                    return r
+            return self.waiting[0]
+
+    def _pick_victim(self, needy):
+        """Lowest priority = latest arrival among running requests —
+        but refcount-aware: a request whose blocks are ALL shared with
+        other live tables reclaims nothing when preempted (``free`` is
+        a decref, never a blind release), so prefer the latest arrival
+        that would actually return blocks.  Falls back to plain latest
+        arrival when every candidate is a pure sharer (preempting one
+        still drops refcounts, unblocking a later eviction)."""
+        yielding = [r for r in self.running
+                    if self.blocks.reclaimable_blocks(r.rid) > 0]
+        return max(yielding or self.running, key=lambda r: r.rid)
+
+    def preempt(self, req):
+        """Release ``req``'s block references and push it back to the
+        FRONT of the waiting queue (it arrived before everything
+        waiting behind it, so resuming it first preserves FIFO
+        fairness).  Blocks shared with another running request are
+        refcount-decremented, never freed from under the sharer."""
+        with self._lock:
+            self.running.remove(req)
+            self.blocks.free(req.rid, retain=True)
+            req.status = WAITING
+            req.cache_len = 0
+            req.cached_prefix_len = 0
+            req.host_restored_len = 0
+            req.prefill_target = None
+            req._prefill_started = False
+            req.n_preemptions += 1
+            self.preemptions += 1
+            self.trace.event(req, "preempted", reason="cache_pressure",
+                             generated=len(req.tokens))
+            self.waiting.append(req)
+            self.waiting.sort(key=lambda r: r.rid)   # arrival order
+
+    def is_prefilling(self, req):
+        """Whether ``req`` is mid-chunked-prefill (holds blocks and a
+        batch slot, not yet in the decode batch)."""
+        with self._lock:
+            return req in self.prefilling
+
+    def prefill_done(self, req):
+        """Engine hook: ``req``'s last prefill chunk ran — it leaves
+        the prefilling lane (no-op for whole-prompt prefills)."""
+        with self._lock:
+            if req in self.prefilling:
+                self.prefilling.remove(req)
+
+    def finish(self, req, status=FINISHED):
+        with self._lock:
+            if req in self.running:
+                self.running.remove(req)
+                self.blocks.free(req.rid, retain=True)
+            elif req in self.prefilling:
+                # cancelled mid-chunked-prefill (engine shutdown): it
+                # holds cache blocks without ever reaching the decode
+                # batch — release its references like a running peer's
+                self.prefilling.remove(req)
+                self.blocks.free(req.rid, retain=True)
+        req.status = status
+        req.finish_t = self.clock()
+        if status == FINISHED:
+            self._tenant_event(
+                req, "completed",
+                latency_s=(req.finish_t - req.submit_t
+                           if req.submit_t is not None else None))
+        self.trace.terminal(req, status, generated=len(req.tokens))
+
+    def admit_running(self, req):
+        """Engine hook: a prefilled request enters the decode batch."""
+        with self._lock:
+            self.running.append(req)
+
+    def drain_waiting(self):
+        """Engine shutdown: atomically take (and clear) the waiting
+        queue so a racing ``submit`` cannot land a request in a list
+        nobody will ever schedule again."""
+        with self._lock:
+            drained, self.waiting = self.waiting, []
+            return drained
