@@ -3,15 +3,15 @@
 
 Run from the root of a checkout:
 
-    python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --kernel-only  # build + kernel-vs-plain only
+    python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
   1. set-up: the card's name and power limit (nvidia-smi), the kernel
      built by nvcc from mxnet_tpu_torch/csrc/ (build seconds printed);
   2. the paged-attention kernel held against its plain torch version on
      the card, at the serving decode shape and at a long-context shape,
-     in bfloat16, float32 and int8+scales, each with its stated bound;
+     in bfloat16, float32 and int8+scales, each with its stated bound
+     (bfloat16 element by element, relative to each output);
   3. the main path: a full-width 12-layer GPT (the repo's on-chip serve
      config, random weights from a seed) served by serve.Engine through
      the kernel — 8 concurrent requests, prompts 16/32/64/128, 32 new
@@ -51,15 +51,23 @@ PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
 SERVE_CFG = dict(vocab=50304, num_layers=12, d_model=768, num_heads=12,
                  kv_heads=3, mlp="swiglu", norm="rmsnorm", pos_embed="rope",
                  tie_embeddings=True)
-# stated kernel-vs-plain bounds (max |kernel - plain|):
-#  float32 / int8 with float32 q: the same float32 math summed in another
-#    order over <= 2048 positions (plus expf vs torch.exp) — ~1e-7 per
-#    op, so 1e-5 is loose yet far below any bf16 effect;
-#  bfloat16: the plain path rounds scores and probabilities to bf16
-#    (relative 2^-8 each) before the PV product, the kernel keeps them in
-#    float32; with |scores| <= ~4 that moves outputs of magnitude ~1 by a
-#    few 1e-2 at most.
-BOUNDS = {"float32": 1e-5, "int8": 1e-5, "bfloat16": 5e-2}
+# stated kernel-vs-plain bounds:
+#  float32 / int8 with float32 q: max |kernel - plain| <= F32_BOUND.  The
+#    same float32 math summed in another order over <= 2048 positions
+#    (plus expf vs torch.exp), ~1e-7 per op: 1e-5 is loose, yet a block
+#    dropped or mis-weighted moves outputs by ~1e-3 or more.
+#  bfloat16: the kernel reads the bf16 values, computes in float32 and
+#    rounds once, to nearest, at the end (|error| <= 2^-8 |x|).  So it is
+#    held element by element against the plain path run in float32 on
+#    the same values (the upcast is exact):
+#        |kernel - plain32| <= 2^-8 |plain32| + 2 * F32_BOUND.
+#    The bound scales with each output, so it is as tight at ctx 2048
+#    (outputs ~0.03) as at ctx 1 (outputs ~1).  max |kernel - plain| with
+#    the plain path in bf16 (which also rounds scores and probabilities)
+#    is reported beside it; it obeys the triangle bound
+#    2^-8 |plain32| + 2 * F32_BOUND + |plain32 - plain_bf16|, implied.
+F32_BOUND = 1e-5
+BF16_REL = 2.0 ** -8
 # full-width float32 decode-step logits, kernel vs plain attention
 # inside the engine: 1e-6-scale attention differences carried through 12
 # residual layers and the 768-wide tied head
@@ -159,13 +167,27 @@ def check_kernel(tag, ctx, dtype, **shape):
     torch.cuda.synchronize()
     ref = paged_attention_torch(*args, **kw)
     err = float((out.float() - ref.float()).abs().max())
+    row = {"phase": "kernel_check", "shape": tag, "dtype": dtype,
+           "max_abs_err": err}
+    if dtype == "bfloat16":
+        ref32 = paged_attention_torch(*[a.float() if a.is_floating_point()
+                                        else a for a in args], **kw)
+        dev = (out.float() - ref32).abs()
+        allowed = BF16_REL * ref32.abs() + 2 * F32_BOUND
+        within = bool((dev <= allowed).all())
+        row.update({"max_abs_err_vs_plain_f32": float(dev.max()),
+                    "bound": "2^-8 |plain32| + 2e-5 per element",
+                    "max_ref_abs": float(ref32.abs().max()),
+                    "worst_share_of_bound": float((dev / allowed).max())})
+    else:
+        within = err <= F32_BOUND
+        row["bound"] = F32_BOUND
     finite = bool(torch.isfinite(out).all())
     empty = [b for b, c in enumerate(ctx) if c == 0]
     zeros = all(float(out[b].abs().max()) == 0.0 for b in empty)
-    ok = finite and zeros and err <= BOUNDS[dtype]
-    emit({"phase": "kernel_check", "shape": tag, "dtype": dtype,
-          "max_abs_err": err, "bound": BOUNDS[dtype], "finite": finite,
-          "empty_rows_zero": zeros, "ok": ok})
+    ok = finite and zeros and within
+    row.update({"finite": finite, "empty_rows_zero": zeros, "ok": ok})
+    emit(row)
     if not ok:
         raise SystemExit(f"kernel disagrees with plain path: {tag} {dtype}")
     return err
@@ -391,8 +413,6 @@ def small_model_check():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel-only", action="store_true",
-                    help="build and check the kernel, then stop")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "chip_smoke.json"))
     args = ap.parse_args()
@@ -427,12 +447,6 @@ def main():
             "decode", decode_ctx, dtype, W=16, nb=512,
             padded=(6,))
         errs[("long", dtype)] = check_kernel("long2048", long_ctx, dtype)
-    if args.kernel_only:
-        print(card)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": name,
-            "count": torch.cuda.device_count()}}))
-        return 0
 
     small_model_check()
     np_params = gpt_params(SERVE_CFG["vocab"], 256,

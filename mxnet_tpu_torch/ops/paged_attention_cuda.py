@@ -21,7 +21,7 @@ import torch
 
 from .._build import load_library
 
-__all__ = ["paged_attention_cuda", "launches", "smem_bytes"]
+__all__ = ["paged_attention_cuda", "launches"]
 
 LIB_NAME = "mxtt_paged_attention"
 SOURCES = ("paged_attention.cu",)
@@ -30,22 +30,6 @@ SOURCES = ("paged_attention.cu",)
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_DH = 256
-_MAX_BS = 128
-_MAX_GROUP = 32
-_MAX_SMEM = 227 * 1024
-
-
-def smem_bytes(block_size, head_dim, group, elt=2, quant=False, stages=2):
-    """Dynamic shared memory of one CTA with ``stages`` K/V blocks in
-    flight (mirrors the launcher's ``Layout``: rows padded by 16 bytes,
-    int8 scales beside each block, then the group's queries and one
-    block of weights per q head).  The launcher takes 4 stages where
-    they fit and 2 otherwise."""
-    row = head_dim * elt + 16
-    stage = (2 * block_size * row + (8 * block_size if quant else 0)
-             + 15) // 16 * 16
-    return stages * stage + 4 * (group * head_dim + group * block_size)
 
 
 def _fn():
@@ -84,14 +68,6 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens,
     _need(cDh == Dh, f"cache head_dim {cDh} != q head_dim {Dh}")
     _need(Hkv > 0 and Hq % Hkv == 0,
           f"q heads ({Hq}) must be a multiple of kv heads ({Hkv})")
-    group = Hq // Hkv
-    _need(group <= _MAX_GROUP, f"group {group} > {_MAX_GROUP}")
-    _need(0 < Dh <= _MAX_DH and Dh % 8 == 0,
-          f"head_dim {Dh} must be a multiple of 8 in (0, {_MAX_DH}]")
-    _need(0 < bs <= _MAX_BS, f"block_size {bs} outside (0, {_MAX_BS}]")
-    _need(smem_bytes(bs, Dh, group, k_cache.element_size(),
-                     k_cache.dtype == torch.int8) <= _MAX_SMEM,
-          "shared memory of one CTA exceeds 227 KB")
     _need(q.dtype in (torch.float32, torch.bfloat16),
           f"q dtype {q.dtype} not float32/bfloat16")
     _need(window >= 0, f"window must be >= 0 (got {window})")
@@ -141,7 +117,11 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens,
                 out.data_ptr(), B, Hq, Hkv, Dh, bs, W, int(window), scale,
                 stream)
     if rc != 0:
+        # 1 (cudaErrorInvalidValue) is also the kernel refusing a geometry
+        # outside the limits stated in csrc/paged_attention.cu
         raise RuntimeError(
-            f"paged_attention_cuda: launch failed with cudaError {rc}")
+            f"paged_attention_cuda: launch failed with cudaError {rc}"
+            + (" (invalid value: head_dim, block_size, group or shared "
+               "memory outside the kernel's limits)" if rc == 1 else ""))
     launches += 1
     return out

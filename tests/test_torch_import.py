@@ -145,3 +145,23 @@ def test_kernel_build_is_lazy_and_targets_sm90a():
                                        "paged_attention.cu"))
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "/build/" in f.read().split()
+
+
+def test_kernel_build_dir_and_missing_nvcc(monkeypatch, tmp_path):
+    """Libraries land in MXTPU_TORCH_BUILD_DIR, else in the checkout's
+    gitignored build/; without nvcc the first launch says how to fix it."""
+    from mxnet_tpu_torch import _build
+
+    monkeypatch.delenv("MXTPU_TORCH_BUILD_DIR", raising=False)
+    assert _build.build_dir() == os.path.join(REPO, "build",
+                                              "mxnet_tpu_torch")
+    monkeypatch.setenv("MXTPU_TORCH_BUILD_DIR", str(tmp_path))
+    assert _build.build_dir() == str(tmp_path)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    real_isfile = os.path.isfile
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False
+                        if p.endswith("nvcc") else real_isfile(p))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_library("mxtt_paged_attention", ("paged_attention.cu",))
+    assert list(tmp_path.iterdir()) == []

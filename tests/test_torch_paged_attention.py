@@ -185,16 +185,6 @@ def test_cuda_impl_on_cpu_tensors_raises_never_falls_back():
     assert torch.equal(paged_attention_torch(*args), paged_attention(*args))
 
 
-def test_kernel_smem_budget_covers_serving_shapes():
-    """The launcher's shared-memory layout fits one CTA at the slice's
-    shape and at the wrapper's largest accepted geometry."""
-    assert pac.smem_bytes(16, 64, 4, 2, stages=4) < 48 * 1024
-    assert pac.smem_bytes(16, 64, 4, 4, stages=4) < 48 * 1024
-    assert pac.smem_bytes(16, 64, 4, 1, True, stages=4) < 48 * 1024
-    assert pac.smem_bytes(128, 256, 32, 4) > 227 * 1024    # refused
-    assert pac.smem_bytes(64, 128, 8, 4) <= 227 * 1024
-
-
 # -- the CUDA kernel (needs the card) ----------------------------------------
 def _need_cuda():
     if not torch.cuda.is_available():
@@ -204,12 +194,20 @@ def _need_cuda():
                     "the card")
 
 
+# kernel vs plain path on the card, as chip_smoke.py states them: float32
+# math summed in another order (max-abs 1e-5); in bfloat16 the kernel
+# computes in float32 and rounds once, so each output lies within
+# 2^-8 of itself (round to nearest) of the plain path run in float32 on
+# the same bf16 values, plus twice the float32 bound
+F32_TOL = 1e-5
+BF16_REL = 2.0 ** -8
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("int8", 1e-5),
-                                       ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
 @pytest.mark.parametrize("hq,hkv,window", [(8, 2, 0), (8, 2, 5), (4, 4, 0),
                                            (4, 1, 3), (12, 3, 0)])
-def test_cuda_kernel_matches_plain_path(dtype, tol, hq, hkv, window):
+def test_cuda_kernel_matches_plain_path(dtype, hq, hkv, window):
     _need_cuda()
     rng = np.random.RandomState(7)
     q, kc, vc, bt, ctx = _case(rng, Hq=hq, Hkv=hkv, ctx=(9, 0, 21))
@@ -231,10 +229,16 @@ def test_cuda_kernel_matches_plain_path(dtype, tol, hq, hkv, window):
     out = paged_attention(*t, window=window, **kw)
     torch.cuda.synchronize()
     assert pac.launches == before + 1
-    ref = paged_attention_torch(*t, window=window, **kw)
     assert torch.isfinite(out).all()
     assert float(out[1].abs().max()) == 0.0
-    assert float((out.float() - ref.float()).abs().max()) <= tol
+    if dtype == "bfloat16":
+        ref32 = paged_attention_torch(*[a.float() for a in t[:3]], *t[3:],
+                                      window=window)
+        dev = (out.float() - ref32).abs()
+        assert bool((dev <= BF16_REL * ref32.abs() + 2 * F32_TOL).all())
+    else:
+        ref = paged_attention_torch(*t, window=window, **kw)
+        assert float((out - ref).abs().max()) <= F32_TOL
 
 
 @pytest.mark.cuda
@@ -249,3 +253,11 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
                                  .transpose(0, 1), *args[1:])
     with pytest.raises(ValueError, match="dtype"):
         pac.paged_attention_cuda(args[0].double(), *args[1:])
+    # a geometry outside the kernel's limits (head_dim not a multiple of
+    # 8) passes the wrapper and is refused by the C entry point
+    odd = [torch.from_numpy(a).cuda() for a in
+           _case(np.random.RandomState(8), Dh=12)]
+    before = pac.launches
+    with pytest.raises(RuntimeError, match="cudaError 1 "):
+        pac.paged_attention_cuda(*odd)
+    assert pac.launches == before
