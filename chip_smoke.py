@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
-"""The port's main path on one NVIDIA GPU: build, check, serve, time.
+"""The port's main paths on one NVIDIA GPU: build, check, serve, train,
+time.
 
 Run from the root of a checkout:
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. set-up: the card's name and power limit (nvidia-smi), the kernel
-     built by nvcc from mxnet_tpu_torch/csrc/ (build seconds printed);
-  2. the paged-attention kernel held against its plain torch version on
-     the card, at the serving decode shape and at a long-context shape,
-     in bfloat16, float32 and int8+scales, each with its stated bound
-     (bfloat16 element by element, relative to each output);
-  3. the main path: a full-width 12-layer GPT (the repo's on-chip serve
-     config, random weights from a seed) served by serve.Engine through
-     the kernel — 8 concurrent requests, prompts 16/32/64/128, 32 new
-     tokens each — with the kernel's launch count checked against
-     12 x decode steps; then one decode step at full width in float32
-     through the kernel and through the plain path, and a small model's
-     tokens held against the single-request oracle and the CPU engine;
-  4. timings with CUDA events (warm-up excluded, L2 flushed before each
-     launch, medians): kernel, plain version, the SDPA yardstick, the
-     bytes bound, and serving tokens/s.
+  1. set-up: the card's name and power limit (nvidia-smi); the two kernel
+     libraries built by nvcc from mxnet_tpu_torch/csrc/, one nvcc each,
+     started together (build seconds and the ptxas report printed);
+  2. kernels against their plain torch versions on the card, each with
+     its stated bound: paged attention at the serving decode shape and at
+     ctx 2048, in bfloat16, float32 and int8+scales; the flash-attention
+     forward, dQ and dK/dV kernels (o, lse, dq, dk, dv, with a non-zero
+     dlse) in bfloat16 and float32 at the training shape and at two
+     contract shapes (bshd, 12 q / 3 kv heads, Sq != Sk, offsets with
+     fully-masked rows, a 256 window; and without a mask).  bfloat16 is
+     held element by element, scaled by each output, and the check is
+     shown to fail on an output that skipped one tile;
+  3. serving: a full-width 12-layer GPT (the repo's on-chip serve config,
+     random weights from a seed) served by serve.Engine through the
+     paged kernel — 8 concurrent requests, prompts 16/32/64/128, 32 new
+     tokens each — with its launches checked against 12 x decode steps;
+     one full-width float32 decode step through the kernel and the plain
+     path; a small model's tokens against the oracle and the CPU engine;
+  4. training: bench.py's on-chip GPT (vocab 32768, S 1024, 8 layers,
+     d_model 512, 8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier)
+     trained by parallel.ShardedTrainer for 2 warm-up and 10 timed steps
+     on bench.py's fixed synthetic batch, each flash kernel's launches
+     checked against 8 x steps and the NLL finite and falling; one
+     full-width float32 step's gradients through the kernels against the
+     dense attention; a small model's CUDA trainer against its CPU
+     trainer over 3 Adam steps;
+  5. timings with CUDA events (warm-up excluded, L2 flushed before each
+     launch, medians): each kernel, its plain version, a PyTorch
+     yardstick (SDPA) and the bound computed from this run's shapes.
 
 Prints JSON lines, then the card's name and power limit, then the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -37,6 +51,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -411,6 +426,495 @@ def small_model_check():
         raise SystemExit("small-model tokens disagree")
 
 
+# -- training: flash-attention kernels vs their plain versions ---------------
+# the slice's training model: bench.py's on-chip GPT (BENCH_MODEL=gpt)
+TRAIN_CFG = dict(vocab=32768, seq_len=1024, num_layers=8, d_model=512,
+                 num_heads=8, fused_qkv=True, attn_layout="bhsd",
+                 loss="softmax")
+TRAIN_BATCH = 16
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# the attention shape of one layer of that model, and two contract
+# shapes: bshd with grouped-query heads (12 q / 3 kv), ragged lengths
+# Sq != Sk, offsets that leave the first 36 q rows fully masked and a
+# 256 window; then the same without a mask
+FLASH_SHAPES = {
+    "train": dict(layout="bhsd", B=16, Hq=8, Hkv=8, Sq=1024, Sk=1024, D=64,
+                  causal=True, window=0, q_offset=0, k_offset=0),
+    "contract_window": dict(layout="bshd", B=2, Hq=12, Hkv=3, Sq=300,
+                            Sk=450, D=64, causal=True, window=256,
+                            q_offset=64, k_offset=100),
+    "contract_full": dict(layout="bshd", B=2, Hq=12, Hkv=3, Sq=300, Sk=450,
+                          D=64, causal=False, window=0, q_offset=0,
+                          k_offset=0),
+}
+# stated flash kernel-vs-plain bounds, element by element, against the
+# plain versions run in float32 on the same (bf16 or f32) values, each
+# output X beside A, the sum of the magnitudes of the terms X adds up
+# (o: P|V|; dq: |dS||K|; dk: |dS|^T|Q|; dv: P^T|dO|, in float32):
+#   float32:  |kernel - plain32| <= F32_REL A + F32_ABS.  The same products
+#     summed in another order over <= 1024 terms (~sqrt(1024) 6e-8 A) and
+#     expf against torch.exp: 1e-5 A is a 5x margin.
+#   bfloat16: |kernel - plain32| <= 2^-8 |plain32| + 2^-8 A + F32_REL A
+#     + F32_ABS.  The kernel rounds p (or ds) to bf16 before the product,
+#     each term off by at most 2^-8 of itself (2^-8 A in all), and rounds
+#     the float32 result once at the end (2^-8 |X|).
+#   lse (both): |kernel - plain32| <= F32_REL (1 + |lse|); fully-masked
+#     rows exactly -1e30 in both.
+# The bound scales with each output, and the check is shown to bind: the
+# train-shape bf16 check is run again on the plain output with one k
+# tile dropped (forward, dQ) or one q tile dropped (dK/dV), and must fail.
+F32_REL, F32_ABS = 1e-5, 1e-6
+# full-width float32 step: each parameter's gradient through the kernels
+# vs through the dense (impl="xla") attention, max |diff| <= GRAD_REL
+# max |grad|: ~1e-6-relative attention differences carried back through
+# 8 layers and the softmax head
+GRAD_REL = 1e-3
+
+
+def flash_case(shape, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    B, Hq, Hkv, Sq, Sk, D = (shape[k] for k in ("B", "Hq", "Hkv", "Sq",
+                                                "Sk", "D"))
+    if shape["layout"] == "bhsd":
+        qs, ks = (B, Hq, Sq, D), (B, Hkv, Sk, D)
+    else:
+        qs, ks = (B, Sq, Hq, D), (B, Sk, Hkv, D)
+    dev = torch.device(DEVICE)
+    q, k, v, do = (torch.randn(s, generator=g).to(dev, dtype)
+                   for s in (qs, ks, ks, qs))
+    dlse = torch.randn(B, Hq, Sq, generator=g).to(dev)
+    kw = {k: shape[k] for k in ("causal", "window", "q_offset", "k_offset",
+                                "layout")}
+    return (q, k, v, do, dlse), kw
+
+
+def flash_through_autograd(q, k, v, do, dlse, kw):
+    """(o, lse, dq, dk, dv) through flash_attention's autograd Function,
+    as the model runs it (kernels on CUDA tensors)."""
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    o, lse = flash_attention(*qkv, return_lse=True, **kw)
+    dq, dk, dv = torch.autograd.grad((o, lse), qkv, (do, dlse))
+    return o.detach(), lse.detach(), dq, dk, dv
+
+
+def _bhsd(x, layout):
+    return x if layout == "bhsd" else x.transpose(1, 2)
+
+
+def magnitude_terms(q, k, v, o, lse, do, dlse, kw, drop_k=None,
+                    drop_q=None):
+    """Float32 A-terms of each output (see the bounds above), and, with
+    ``drop_k``/``drop_q`` (a 64-row tile index), the outputs of a kernel
+    that skipped that k tile (forward, dQ) or q tile (dK/dV)."""
+    from mxnet_tpu_torch.ops.flash_attention import NEG_INF, _keep
+
+    lay = kw["layout"]
+    qh, kh, vh, oh, doh = (_bhsd(t, lay).float() for t in (q, k, v, o, do))
+    B, H, Sq, D = qh.shape
+    Hkv, Sk = kh.shape[1], kh.shape[2]
+    grp = H // Hkv
+    kh, vh = (t.repeat_interleave(grp, dim=1) for t in (kh, vh))
+    keep = _keep(Sq, Sk, kw["causal"], kw["q_offset"], kw["k_offset"],
+                 kw["window"], qh.device)
+    if keep is None:
+        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=qh.device)
+    scale = 1.0 / D ** 0.5
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    p = torch.exp(s.masked_fill(~keep, NEG_INF) - lse[..., None])
+    p = p.masked_fill(~keep, 0.0)
+    delta = (doh * oh).sum(-1)
+    ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta[..., None]
+              + dlse[..., None]) * scale
+
+    def group_sum(x):
+        return x.reshape(B, Hkv, grp, Sk, D).sum(2)
+
+    def out(x):
+        return _bhsd(x, lay)
+
+    if drop_k is not None or drop_q is not None:
+        res = {}
+        if drop_k is not None:
+            cols = torch.zeros(Sk, dtype=torch.bool, device=qh.device)
+            cols[64 * drop_k:64 * (drop_k + 1)] = True
+            keep_m = keep & ~cols[None, :]
+            sm = s.masked_fill(~keep_m, NEG_INF)
+            pm = torch.exp(sm - sm.amax(-1, keepdim=True)).masked_fill(
+                ~keep_m, 0.0)
+            lm = pm.sum(-1, keepdim=True).clamp_min(1e-30)
+            res["o"] = out(torch.matmul(pm / lm, vh))
+            res["dq"] = out(torch.matmul(ds.masked_fill(cols, 0.0), kh))
+        if drop_q is not None:
+            rows = torch.zeros(Sq, dtype=torch.bool, device=qh.device)
+            rows[64 * drop_q:64 * (drop_q + 1)] = True
+            dsm = ds.masked_fill(rows[:, None], 0.0)
+            pmq = p.masked_fill(rows[:, None], 0.0)
+            res["dk"] = out(group_sum(torch.matmul(dsm.transpose(-1, -2),
+                                                   qh)))
+            res["dv"] = out(group_sum(torch.matmul(pmq.transpose(-1, -2),
+                                                   doh)))
+        return res
+    return {"o": out(torch.matmul(p, vh.abs())),
+            "dq": out(torch.matmul(ds.abs(), kh.abs())),
+            "dk": out(group_sum(torch.matmul(ds.abs().transpose(-1, -2),
+                                             qh.abs()))),
+            "dv": out(group_sum(torch.matmul(p.transpose(-1, -2),
+                                             doh.abs())))}
+
+
+def within_bound(got, ref32, A, dtype):
+    dev = (got.float() - ref32).abs()
+    allowed = F32_REL * A + F32_ABS
+    if dtype == torch.bfloat16:
+        allowed = allowed + BF16_REL * (ref32.abs() + A)
+    return bool((dev <= allowed).all()), float((dev / allowed).max())
+
+
+def check_flash(tag, shape, dtype):
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_torch, flash_attention_fwd_torch)
+
+    args, kw = flash_case(shape, dtype)
+    q, k, v, do, dlse = args
+    o, lse, dq, dk, dv = flash_through_autograd(*args, kw)
+    torch.cuda.synchronize()
+    up = [t.float() for t in (q, k, v, do)]
+    p_o, p_lse = flash_attention_fwd_torch(*up[:3], **kw)
+    p_grads = flash_attention_bwd_torch(*up[:3], o.float(), lse, up[3],
+                                        dlse, **kw)
+    A = magnitude_terms(q, k, v, o, lse, do, dlse, kw)
+    got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+    ref = dict(zip(("dq", "dk", "dv"), p_grads), o=p_o)
+    row = {"phase": "flash_check", "shape": tag, "dtype": str(dtype)[6:]}
+    ok = True
+    for name in got:
+        fine, share = within_bound(got[name], ref[name], A[name], dtype)
+        row[f"{name}_worst_share_of_bound"] = share
+        row[f"{name}_max_abs_err_vs_plain32"] = float(
+            (got[name].float() - ref[name]).abs().max())
+        ok = ok and fine and bool(torch.isfinite(got[name]).all())
+    masked = lse <= -1e29
+    lse_ok = (torch.equal(masked, p_lse <= -1e29)
+              and bool((lse[masked] == -1e30).all())
+              and bool(((lse - p_lse).abs()[~masked]
+                        <= F32_REL * (1 + p_lse.abs()[~masked])).all()))
+    zero_rows = bool((_bhsd(o, kw["layout"])[masked] == 0).all())
+    row.update({"masked_rows": int(masked.sum()), "lse_ok": lse_ok,
+                "masked_rows_zero": zero_rows})
+    ok = ok and lse_ok and zero_rows
+    # max |kernel - plain| with the plain versions in the same dtype (the
+    # kernels line's max_abs_err)
+    s_o, s_lse = flash_attention_fwd_torch(q, k, v, **kw)
+    s_grads = flash_attention_bwd_torch(q, k, v, o, lse, do, dlse, **kw)
+    same = dict(zip(("dq", "dk", "dv"), s_grads), o=s_o)
+    row["max_abs_err_same_dtype"] = {
+        n: float((got[n].float() - same[n].float()).abs().max())
+        for n in got}
+    if tag == "train" and dtype == torch.bfloat16:
+        # the check binds: a kernel that skipped one tile must fail it
+        mut = {**magnitude_terms(q, k, v, o, lse, do, dlse, kw, drop_k=8),
+               **magnitude_terms(q, k, v, o, lse, do, dlse, kw, drop_q=8)}
+        caught = {n: not within_bound(mut[n], ref[n], A[n], dtype)[0]
+                  for n in mut}
+        row["dropped_tile_caught"] = caught
+        ok = ok and all(caught.values())
+    row["bound"] = ("|k - plain32| <= 2^-8 (|plain32| + A) + 1e-5 A + 1e-6"
+                    if dtype == torch.bfloat16 else
+                    "|k - plain32| <= 1e-5 A + 1e-6")
+    row["ok"] = ok
+    emit(row)
+    if not ok:
+        raise SystemExit(f"flash kernels disagree with plain: {tag} {dtype}")
+    return row
+
+
+def live_pairs(shape):
+    """Kept (q, k) score pairs of one (batch, head): the work the data
+    needs, whatever tiles the kernel visits."""
+    from mxnet_tpu_torch.ops.flash_attention import _keep
+
+    keep = _keep(shape["Sq"], shape["Sk"], shape["causal"],
+                 shape["q_offset"], shape["k_offset"], shape["window"],
+                 "cpu")
+    return (shape["Sq"] * shape["Sk"] if keep is None
+            else int(keep.sum()))
+
+
+def flash_bounds(shape, dtype):
+    """Least time of each kernel at ``shape``: each input read once and
+    each output written once at the HBM rate, against its products at
+    the tensor-core (bf16) or FMA (f32) peak."""
+    B, Hq, Hkv, Sq, Sk, D = (shape[k] for k in ("B", "Hq", "Hkv", "Sq",
+                                                "Sk", "D"))
+    es = torch.tensor([], dtype=dtype).element_size()
+    qb, kb = B * Hq * Sq * D * es, B * Hkv * Sk * D * es
+    row = B * Hq * Sq * 4
+    pairs = B * Hq * live_pairs(shape)
+    work = {"flash_fwd": (4 * D * pairs, 2 * qb + 2 * kb + row),
+            "flash_dq": (6 * D * pairs, 3 * qb + 2 * kb + 3 * row),
+            "flash_dkv": (8 * D * pairs, 2 * qb + 4 * kb + 3 * row)}
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]
+        out[name] = (1e3 * max(t_b, t_o),
+                     "bytes" if t_b >= t_o else "operations", ops, nbytes)
+    return out
+
+
+def time_flash(shape, dtype):
+    from mxnet_tpu_torch.ops import flash_attention_cuda as fac
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_torch, flash_attention_fwd_torch)
+
+    F = torch.nn.functional
+    (q, k, v, do, dlse), kw = flash_case(shape, dtype, seed=1)
+    saved = dict(fac.launches)
+    o, lse = fac.flash_fwd_cuda(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    bwd = (q, k, v, do, lse, delta, dlse)
+    t = {"flash_fwd": time_ms(lambda: fac.flash_fwd_cuda(q, k, v, **kw)),
+         "flash_dq": time_ms(lambda: fac.flash_dq_cuda(*bwd, **kw)),
+         "flash_dkv": time_ms(lambda: fac.flash_dkv_cuda(*bwd, **kw))}
+    fac.launches.update(saved)        # timing launches are not the path's
+    plain_fwd = time_ms(lambda: flash_attention_fwd_torch(q, k, v, **kw),
+                        reps=10)
+    plain_bwd = time_ms(lambda: flash_attention_bwd_torch(
+        q, k, v, o, lse, do, dlse, **kw), reps=10)
+    # yardsticks the port never calls: SDPA forward, and SDPA's backward
+    # alone (dq, dk, dv together) on a retained graph
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+    s_out = F.scaled_dot_product_attention(*qkv, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(s_out, qkv, do,
+                                                  retain_graph=True))
+    bounds = flash_bounds(shape, dtype)
+    rows = {}
+    for name in t:
+        b_ms, b_by, ops, nbytes = bounds[name]
+        rows[name] = {
+            "phase": "flash_time", "kernel": name, "shape": "train",
+            "dtype": str(dtype)[6:], "ms": t[name],
+            "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
+            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+            "bound_ms": b_ms, "bound_by": b_by, "ops": ops, "bytes": nbytes,
+            "bound_share": b_ms / t[name],
+            "plain": ("flash_attention_fwd_torch" if name == "flash_fwd" else
+                      "flash_attention_bwd_torch (dq, dk, dv together)"),
+            "library": ("F.scaled_dot_product_attention(is_causal=True)"
+                        if name == "flash_fwd" else
+                        "SDPA backward alone (dq, dk, dv together)")}
+        emit(rows[name])
+    return rows
+
+
+# -- training: the main path --------------------------------------------------
+def train_batch(vocab, batch, seq_len, seed=0):
+    """bench.py's fixed synthetic batch (RandomState(0) ids, labels)."""
+    rng = np.random.RandomState(seed)
+    data = rng.randint(0, vocab, (batch, seq_len))
+    label = rng.randint(0, vocab, (batch, seq_len)).astype(np.int32)
+    return {"data": data.astype(np.int32), "softmax_label": label}
+
+
+def make_trainer(cfg, batch, dtype, optimizer="adam", impl="auto",
+                 device=None, **extra):
+    from mxnet_tpu_torch import initializer, models, parallel
+
+    net = models.gpt(cfg["vocab"], cfg["seq_len"],
+                     num_layers=cfg["num_layers"], d_model=cfg["d_model"],
+                     num_heads=cfg["num_heads"], attn_impl=impl,
+                     **{k: cfg[k] for k in cfg
+                        if k not in ("vocab", "seq_len", "num_layers",
+                                     "d_model", "num_heads")})
+    shape = (batch, cfg["seq_len"])
+    return parallel.ShardedTrainer(
+        net, {"data": shape, "softmax_label": shape}, optimizer=optimizer,
+        optimizer_params={"learning_rate": 3e-4}, dtype=dtype,
+        initializer=initializer.Xavier(),
+        input_dtypes={"data": np.int32, "softmax_label": np.int32},
+        device=device or DEVICE, **extra)
+
+
+def nll_of(probs, labels):
+    p = probs.float().gather(1, labels.reshape(-1, 1).long())
+    return float(-torch.log(p).mean())
+
+
+def train_main_path():
+    from mxnet_tpu_torch.ops import flash_attention_cuda as fac
+
+    cfg = TRAIN_CFG
+    tr = make_trainer(cfg, TRAIN_BATCH, "bfloat16")
+    placed = tr._place_batch(train_batch(cfg["vocab"], TRAIN_BATCH,
+                                         cfg["seq_len"]))
+    labels = placed["softmax_label"]
+    nll = []
+    for _ in range(TRAIN_WARMUP):
+        nll.append(nll_of(tr.step(placed)[0], labels))
+    torch.cuda.synchronize()
+    for name in fac.launches:          # the main path's window opens
+        fac.launches[name] = 0
+    step_ms = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        ts = time.perf_counter()
+        probs = tr.step(placed)[0]
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - ts))
+        nll.append(nll_of(probs, labels))
+    wall = time.perf_counter() - t0
+    launches = dict(fac.launches)      # ... and closes
+    profile = train_profile(tr, placed)
+    want = cfg["num_layers"] * TRAIN_STEPS
+    finite = all(np.isfinite(nll))
+    ok = (finite and nll[-1] < nll[0]
+          and all(n == want for n in launches.values())
+          and tuple(probs.shape) == (TRAIN_BATCH * cfg["seq_len"],
+                                     cfg["vocab"]))
+    row = {"phase": "train", "dtype": "bfloat16", "config": cfg,
+           "batch": TRAIN_BATCH, "params": sum(p.numel() for p in
+                                               tr.params.values()),
+           "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+           "kernel_launches": launches, "launches_expected_each": want,
+           "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+           "wall_s": wall,
+           "tokens_per_s": TRAIN_BATCH * cfg["seq_len"] * TRAIN_STEPS / wall,
+           "nll": nll, "peak_mem_gib": torch.cuda.max_memory_allocated()
+           / 2 ** 30, "profile": profile, "ok": ok}
+    emit(row)
+    del tr, placed, probs
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("full-width training failed its checks")
+    return row
+
+
+def _kernel_kind(name):
+    low = name.lower()
+    for key, kind in (("flash_fwd", "flash_fwd"), ("flash_dq", "flash_dq"),
+                      ("flash_dkv", "flash_dkv"), ("gemm", "matmul"),
+                      ("xmma", "matmul"), ("cutlass", "matmul"),
+                      ("nvjet", "matmul"),
+                      ("softmax", "softmax"), ("embedding", "embedding"),
+                      ("reduce", "reduction"), ("elementwise", "elementwise"),
+                      ("vectorized", "elementwise"), ("copy", "copy")):
+        if key in low:
+            return kind
+    return "other"
+
+
+def train_profile(tr, placed, steps=2):
+    """Device time by kernel over ``steps`` more train steps
+    (torch.profiler), and the device's busy share of their wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tr.step(placed)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us and getattr(ev, "device_type", None) is not None \
+                and "CUDA" in str(ev.device_type):
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    kinds = {}
+    for name, ms in kernels.items():
+        kind = _kernel_kind(name)
+        kinds[kind] = kinds.get(kind, 0.0) + ms / steps
+    device_ms = sum(kernels.values()) / steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms * steps / wall_ms,
+            "ms_per_step_by_kind": kinds,
+            "top_kernels_ms_per_step": [(n[:120], ms / steps)
+                                        for n, ms in top]}
+
+
+def train_grad_check():
+    """One full-width float32 step: gradients through the kernels vs the
+    same step with the dense (impl="xla") attention."""
+    cfg = TRAIN_CFG
+    batch = train_batch(cfg["vocab"], TRAIN_BATCH, cfg["seq_len"])
+    grads = {}
+    start = None
+    for impl in ("auto", "xla"):
+        tr = make_trainer(cfg, TRAIN_BATCH, "float32", optimizer="sgd",
+                          impl=impl)
+        if start is None:
+            start = tr.get_params()
+        else:
+            tr.set_params(start)
+        g, _ = tr._grads_of(tr._place_batch(batch))
+        grads[impl] = g
+        del tr
+    worst, worst_name = 0.0, None
+    for name, gk in grads["auto"].items():
+        gx = grads["xla"][name]
+        share = float((gk - gx).abs().max()) / max(
+            float(gx.abs().max()) * GRAD_REL, 1e-30)
+        if share > worst:
+            worst, worst_name = share, name
+    finite = all(bool(torch.isfinite(g).all())
+                 for g in grads["auto"].values())
+    ok = finite and worst <= 1.0
+    emit({"phase": "train_grad_check", "dtype": "float32",
+          "bound": "max|g_kernel - g_dense| <= 1e-3 max|g_dense| per param",
+          "worst_share_of_bound": worst, "worst_param": worst_name,
+          "ok": ok})
+    del grads
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("full-width gradients: kernels vs dense disagree")
+
+
+def small_train_check():
+    """A small model: the CUDA trainer (flash kernels) against the CPU
+    trainer (dense attention) from the same parameters, 3 Adam steps in
+    float32.  Outputs within 1e-5 at step 1 and 1e-4 after (Adam's first
+    step moves near-zero-gradient elements by +-lr either way); params
+    within 2e-5 + 3 lr min(2, 1e-5 max|g| / |g_i|), the key biases (an
+    exactly-zero gradient) within 2e-5 + 6 lr."""
+    cfg = dict(vocab=53, seq_len=64, num_layers=2, d_model=64, num_heads=4,
+               kv_heads=2, attn_layout="bshd", attn_window=24)
+    batch = train_batch(53, 4, 64, seed=3)
+    cuda_tr = make_trainer(cfg, 4, "float32")
+    cpu_tr = make_trainer(cfg, 4, "float32", device="cpu")
+    cpu_tr.set_params(cuda_tr.get_params())
+    grads, _ = cpu_tr._grads_of(cpu_tr._place_batch(batch))
+    out_err = []
+    for step in range(3):
+        a = cuda_tr.step(batch)[0].cpu()
+        b = cpu_tr.step(batch)[0]
+        out_err.append(float((a - b).abs().max()))
+    ok = out_err[0] <= 1e-5 and max(out_err) <= 1e-4
+    lr, worst = 3e-4, 0.0
+    got, want = cuda_tr.get_params(), cpu_tr.get_params()
+    for name in want:
+        g = grads[name].abs().numpy()
+        allowed = 2e-5 + 3 * lr * np.minimum(
+            2.0, 1e-5 * float(g.max()) / np.maximum(g, 1e-30))
+        if name.endswith("_k_bias"):
+            allowed = np.full_like(allowed, 2e-5 + 6 * lr)
+        worst = max(worst, float((np.abs(got[name] - want[name])
+                                  / allowed).max()))
+    ok = ok and worst <= 1.0
+    emit({"phase": "small_train_check", "out_max_abs_err": out_err,
+          "param_worst_share_of_bound": worst, "ok": ok})
+    if not ok:
+        raise SystemExit("small-model training: CUDA vs CPU disagree")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
@@ -422,6 +926,7 @@ def main():
     import mxnet_tpu_torch  # noqa: F401  (fails alone: no package)
     from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.models import gpt_params
+    from mxnet_tpu_torch.ops import flash_attention_cuda as fac
     from mxnet_tpu_torch.ops import paged_attention_cuda as pac
 
     t_start = time.perf_counter()
@@ -429,12 +934,19 @@ def main():
     name = torch.cuda.get_device_name(0)
     emit({"phase": "setup", "device": name, "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    # one nvcc per library, started together
     t0 = time.perf_counter()
-    pac._fn()
-    emit({"phase": "build", "library": pac.LIB_NAME,
-          "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": _build.BUILD_SECONDS.get(pac.LIB_NAME),
-          "ptxas": _build.BUILD_LOGS.get(pac.LIB_NAME, "").strip()[-2000:]})
+    builds = [threading.Thread(target=f) for f in (pac._fn, fac._lib)]
+    for b in builds:
+        b.start()
+    for b in builds:
+        b.join()
+    pac._fn(), fac._lib()             # re-raise a failed build here
+    for lib in (pac.LIB_NAME, fac.LIB_NAME):
+        emit({"phase": "build", "library": lib,
+              "seconds": time.perf_counter() - t0,
+              "nvcc_seconds": _build.BUILD_SECONDS.get(lib),
+              "ptxas": _build.BUILD_LOGS.get(lib, "").strip()[-3000:]})
 
     # the slice's decode shape: 8 rows, contexts 1..160, one dead slot,
     # one padded row (table all null, pos 0 -> ctx 1); W = the engine's
@@ -447,6 +959,11 @@ def main():
             "decode", decode_ctx, dtype, W=16, nb=512,
             padded=(6,))
         errs[("long", dtype)] = check_kernel("long2048", long_ctx, dtype)
+    flash_rows = {}
+    for tag, shape in FLASH_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            flash_rows[(tag, dtype)] = check_flash(tag, shape, dtype)
+    torch.cuda.empty_cache()
 
     small_model_check()
     np_params = gpt_params(SERVE_CFG["vocab"], 256,
@@ -460,6 +977,11 @@ def main():
                            seed=0)
     serve = serve_main_path(np_params)
     logits_check(np_params)
+    del np_params
+
+    train = train_main_path()
+    train_grad_check()
+    small_train_check()
 
     timings = {}
     for dtype in ("bfloat16", "float32", "int8"):
@@ -467,6 +989,7 @@ def main():
             "decode", decode_ctx, dtype, W=16, nb=512,
             padded=(6,))
         timings[("long", dtype)] = time_kernel("long2048", long_ctx, dtype)
+    flash_t = time_flash(FLASH_SHAPES["train"], torch.bfloat16)
     main_t = timings[("decode", "bfloat16")]
     kernels = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
@@ -477,6 +1000,22 @@ def main():
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"]}]}
+    train_err = flash_rows[("train", torch.bfloat16)]["max_abs_err_same_dtype"]
+    for kname, replaces, outs in (
+            ("flash_fwd", "mxnet_tpu/ops/flash_attention.py:406", ("o",)),
+            ("flash_dq", "mxnet_tpu/ops/flash_attention.py:451", ("dq",)),
+            ("flash_dkv", "mxnet_tpu/ops/flash_attention.py:497",
+             ("dk", "dv"))):
+        t = flash_t[kname]
+        kernels["kernels"].append({
+            "name": kname, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": train["kernel_launches"][kname],
+            "max_abs_err": max(train_err[o] for o in outs),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     REPORT["kernels"] = kernels
     REPORT["card"] = card
     REPORT["seconds"] = time.perf_counter() - t_start

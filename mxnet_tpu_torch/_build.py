@@ -39,6 +39,7 @@ BUILD_SECONDS = {}
 BUILD_LOGS = {}
 _LOADED = {}
 _LOCK = threading.Lock()
+_LIB_LOCKS = {}     # one per library, so two libraries build in parallel
 
 
 def build_dir():
@@ -82,8 +83,11 @@ def build_library(name, sources):
 
 
 def load_library(name, sources):
-    """The ``ctypes.CDLL`` of library ``name``, built on first call."""
+    """The ``ctypes.CDLL`` of library ``name``, built on first call.
+    Different libraries may build at once from different threads."""
     with _LOCK:
+        lock = _LIB_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LOADED.get(name)
         if lib is None:
             lib = ctypes.CDLL(build_library(name, sources))

@@ -1,23 +1,32 @@
-"""Paged attention for serving: the dispatcher and its plain version.
+"""Attention-era operators: the training half and paged attention.
 
-The port of ``mxnet_tpu/ops/attention.py``'s serving half.  A CUDA
-tensor goes to the hand-written Hopper kernel
-(``ops/paged_attention_cuda.py``); a CPU tensor goes to the plain torch
-path below, which repeats the reference's jnp path step for step (gather
-through the block tables, masked float32 softmax, grouped-query heads)
-and is the kernel's parity oracle.  ``impl="torch"`` (or
-``MXTPU_TORCH_PAGED_ATTENTION=torch``) forces the plain path on any
-device; it is a caller's explicit choice, never an automatic retreat.
+The port of ``mxnet_tpu/ops/attention.py``, as plain functions on
+tensors.  Training half: :func:`LayerNorm`, :func:`RMSNorm`,
+:func:`gelu`, :func:`silu` (statistics and activations in float32, cast
+back to the input dtype), :func:`FlashAttention` (the op: the Hopper
+kernels or the dense formulation, by ``impl``) and :func:`RoPE`.
+``spmd_attention`` is not ported: the port has no mesh yet.
+
+Serving half: a CUDA tensor goes to the hand-written Hopper
+paged-attention kernel (``ops/paged_attention_cuda.py``); a CPU tensor
+goes to the plain torch path below, which repeats the reference's jnp
+path step for step (gather through the block tables, masked float32
+softmax, grouped-query heads) and is the kernel's parity oracle.
+``impl="torch"`` (or ``MXTPU_TORCH_PAGED_ATTENTION=torch``) forces the
+plain path on any device; it is a caller's explicit choice, never an
+automatic retreat.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
 
 __all__ = ["paged_eligible", "resolve_paged_impl", "paged_attention",
-           "paged_attention_torch", "gqa_group"]
+           "paged_attention_torch", "gqa_group", "LayerNorm", "RMSNorm",
+           "gelu", "silu", "FlashAttention", "RoPE"]
 
 ENV_IMPL = "MXTPU_TORCH_PAGED_ATTENTION"
 
@@ -143,3 +152,132 @@ def paged_attention_torch(q, k_cache, v_cache, block_tables, context_lens,
     out = torch.where((ctx > 0)[:, :, None, None], out,
                       torch.zeros((), dtype=out.dtype, device=out.device))
     return out.reshape(B, Hq, Dh)
+
+
+# -- training half -----------------------------------------------------------
+def _axis_shape(x, axis):
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    return shape
+
+
+def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
+    """Normalize over ``axis`` with scale and shift; statistics in
+    float32 whatever the input dtype, the result cast back to it."""
+    axis = axis % data.dim()
+    xf = data.float()
+    mean = xf.mean(dim=axis, keepdim=True)
+    var = (xf - mean).square().mean(dim=axis, keepdim=True)
+    shape = _axis_shape(data, axis)
+    y = ((xf - mean) * torch.rsqrt(var + eps)
+         * gamma.float().reshape(shape) + beta.float().reshape(shape))
+    return y.to(data.dtype)
+
+
+def RMSNorm(data, gamma, axis=-1, eps=1e-5):
+    """y = x / rms(x) * gamma (llama-style); statistics in float32."""
+    axis = axis % data.dim()
+    xf = data.float()
+    ms = xf.square().mean(dim=axis, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps) * gamma.float().reshape(
+        _axis_shape(data, axis))
+    return y.to(data.dtype)
+
+
+def gelu(x):
+    """Exact (erf) GELU in float32, cast back to x's dtype."""
+    xf = x.float()
+    return (0.5 * xf * (1.0 + torch.erf(xf / math.sqrt(2.0)))).to(x.dtype)
+
+
+def silu(x):
+    """x * sigmoid(x) in float32, cast back to x's dtype."""
+    xf = x.float()
+    return (xf * torch.sigmoid(xf)).to(x.dtype)
+
+
+def FlashAttention(query, key, value, causal=False, window=0, block_q=512,
+                   block_k=512, impl="auto", layout="bhsd"):
+    """The ``FlashAttention`` op: softmax(Q K^T / sqrt(D)) V over
+    (B, H, S, D) [``layout="bhsd"``] or (B, S, H, D) [``"bshd"``]
+    self-attention; K/V may carry fewer heads than Q (grouped-query).
+
+    ``impl`` selects the implementation, as the reference op's does:
+    ``"auto"`` launches the Hopper kernels (``ops.flash_attention``) on
+    CUDA tensors and runs the dense formulation below on CPU tensors (the
+    reference runs its dense path off the TPU); ``"flash"`` runs
+    :func:`~mxnet_tpu_torch.ops.flash_attention.flash_attention` on any
+    device (its plain version on the CPU); ``"xla"`` runs the dense
+    formulation on any device.  The kernels take any sequence length and
+    mask ragged tiles, so unlike the reference's ``flash_eligible`` gate
+    ``"auto"`` needs no length check.  ``block_q``/``block_k`` are the
+    reference's TPU tile bounds, passed through and not used."""
+    if impl not in ("auto", "flash", "xla"):
+        raise ValueError(f"FlashAttention: impl must be auto|flash|xla "
+                         f"(got {impl!r})")
+    if layout not in ("bhsd", "bshd"):
+        raise ValueError(f"FlashAttention: layout must be bhsd|bshd "
+                         f"(got {layout!r})")
+    if window < 0:
+        raise ValueError(f"FlashAttention: window must be >= 0 "
+                         f"(got {window})")
+    if impl == "flash" or (impl == "auto" and query.is_cuda):
+        from .flash_attention import flash_attention
+        return flash_attention(query, key, value, causal=causal,
+                               block_q=block_q, block_k=block_k,
+                               layout=layout, window=window)
+    seq_axis = 1 if layout == "bshd" else 2
+    h_ax = 2 if layout == "bshd" else 1
+    S = query.shape[seq_axis]
+    scale = 1.0 / math.sqrt(query.shape[-1])
+    if key.shape[h_ax] != query.shape[h_ax]:
+        rep = gqa_group(query.shape[h_ax], key.shape[h_ax])
+        key = key.repeat_interleave(rep, dim=h_ax)
+        value = value.repeat_interleave(rep, dim=h_ax)
+    if layout == "bshd":
+        s = torch.einsum("bqhd,bkhd->bhqk", query, key) * scale
+    else:
+        s = torch.einsum("bhqd,bhkd->bhqk", query, key) * scale
+    pos_q = torch.arange(S, device=query.device)[:, None]
+    pos_k = torch.arange(S, device=query.device)[None, :]
+    keep = None
+    if causal:
+        keep = pos_q >= pos_k
+    if window:
+        band = pos_q - pos_k < window
+        if not causal:
+            band = band & (pos_k - pos_q < window)
+        keep = band if keep is None else keep & band
+    if keep is not None:
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(s.float(), dim=-1).to(query.dtype)
+    if layout == "bshd":
+        return torch.einsum("bhqk,bkhd->bqhd", p, value)
+    return torch.einsum("bhqk,bhkd->bhqd", p, value)
+
+
+def RoPE(data, base=10000.0, layout="bshd", offset=0):
+    """Rotary position embedding: rotates each head-dim pair
+    (x_i, x_{i+D/2}) by pos * base^(-2i/D), pos = offset + sequence
+    index; computed in float32, cast back to the input dtype."""
+    if layout not in ("bshd", "bhsd"):
+        raise ValueError(f"RoPE: layout must be bshd|bhsd (got {layout!r})")
+    seq_axis = 1 if layout == "bshd" else 2
+    S, D = data.shape[seq_axis], data.shape[-1]
+    if D % 2:
+        raise ValueError(f"RoPE: head_dim must be even, got {D}")
+    half = D // 2
+    dev = data.device
+    inv_freq = torch.pow(
+        torch.tensor(float(base), dtype=torch.float32, device=dev),
+        -torch.arange(0, half, dtype=torch.float32, device=dev) / half)
+    pos = torch.arange(S, dtype=torch.float32, device=dev) + offset
+    ang = pos[:, None] * inv_freq[None, :]
+    shape = [1] * data.dim()
+    shape[seq_axis] = S
+    shape[-1] = half
+    cos, sin = torch.cos(ang).reshape(shape), torch.sin(ang).reshape(shape)
+    xf = data.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(data.dtype)

@@ -26,6 +26,11 @@ import mxnet_tpu_torch.models, mxnet_tpu_torch.models.generate
 import mxnet_tpu_torch.models.transformer
 import mxnet_tpu_torch.ops, mxnet_tpu_torch.ops.attention
 import mxnet_tpu_torch.ops.paged_attention_cuda
+import mxnet_tpu_torch.ops.flash_attention
+import mxnet_tpu_torch.ops.flash_attention_cuda
+import mxnet_tpu_torch.ops.nn, mxnet_tpu_torch.ops.loss
+import mxnet_tpu_torch.initializer
+import mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.trainer
 import mxnet_tpu_torch.serve, mxnet_tpu_torch.serve.engine
 import mxnet_tpu_torch.serve.kv_block_manager, mxnet_tpu_torch.serve.scheduler
 import mxnet_tpu_torch.serve.stats
@@ -37,6 +42,7 @@ bad = sorted(k for k in sys.modules
              if k in ("jax", "jaxlib", "mxnet_tpu")
              or k.startswith(("jax.", "jaxlib.", "mxnet_tpu.")))
 print("BAD=" + ",".join(bad))
+print("BUILT=" + ",".join(sorted(mxnet_tpu_torch._build.BUILD_SECONDS)))
 """
 
 
@@ -47,6 +53,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("BAD=")]
     assert line == ["BAD="], out.stdout
+    # importing every module builds no CUDA source
+    assert "BUILT=" in out.stdout.splitlines(), out.stdout
 
 
 def test_probe_would_see_a_reference_import():
@@ -68,7 +76,8 @@ def _require_no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "params_from_numpy",
-                                   "gpt_generate", "Engine"])
+                                   "gpt_generate", "Engine",
+                                   "ShardedTrainer"])
 def test_default_device_is_cuda_and_raises_without_it(entry):
     _require_no_cuda()
     import numpy as np
@@ -82,6 +91,9 @@ def test_default_device_is_cuda_and_raises_without_it(entry):
         "gpt_generate": lambda: mt.models.gpt_generate(
             params, np.zeros((1, 2), np.int32), 2, num_heads=1, window=0),
         "Engine": lambda: mt.serve.Engine(params, num_heads=1),
+        "ShardedTrainer": lambda: mt.parallel.ShardedTrainer(
+            mt.models.gpt(8, 4, num_layers=1, d_model=4, num_heads=1),
+            {"data": (1, 4), "softmax_label": (1, 4)}),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -141,8 +153,8 @@ def test_kernel_build_is_lazy_and_targets_sm90a():
 
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_SECONDS == {}
-    assert os.path.isfile(os.path.join(_build.CSRC_DIR,
-                                       "paged_attention.cu"))
+    for src in ("paged_attention.cu", "flash_attention.cu"):
+        assert os.path.isfile(os.path.join(_build.CSRC_DIR, src))
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "/build/" in f.read().split()
 

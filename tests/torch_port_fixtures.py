@@ -58,3 +58,50 @@ def prompts(n, seed=7, lo=6, hi=22):
     rng = np.random.RandomState(seed)
     return [rng.randint(0, VOCAB, (rng.randint(lo, hi),)).astype(np.int32)
             for _ in range(n)]
+
+
+# -- training: the reference ShardedTrainer and the port's on one batch ----
+TRAIN_SEQ, TRAIN_BATCH = 16, 4
+TRAIN_BASE = dict(num_layers=2, d_model=32, num_heads=4)
+TRAIN_VARIANTS = {
+    "gpt2": {},
+    "llama": dict(kv_heads=2, mlp="swiglu", norm="rmsnorm",
+                  pos_embed="rope", tie_embeddings=True),
+    "fused_qkv": dict(fused_qkv=True),
+    "ce": dict(loss="ce"),
+    "window_bshd": dict(attn_window=5, attn_layout="bshd"),
+    "flash_interpret": dict(attn_impl="flash"),
+}
+TRAIN_OPTS = {"sgd": {"learning_rate": 0.1},
+              "adam": {"learning_rate": 3e-3}}
+
+
+def train_batch(seed=0):
+    rng = np.random.RandomState(seed)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    return {"data": rng.randint(0, VOCAB, shape).astype(np.int32),
+            "softmax_label": rng.randint(0, VOCAB, shape).astype(np.int32)}
+
+
+def train_pair(variant, optimizer):
+    """(reference trainer, port trainer) for one variant, both starting
+    from the reference trainer's Xavier-initialised parameters."""
+    import mxnet_tpu as mx
+    import mxnet_tpu_torch as mt
+
+    extra = {**TRAIN_BASE, **TRAIN_VARIANTS[variant]}
+    shapes = {"data": (TRAIN_BATCH, TRAIN_SEQ),
+              "softmax_label": (TRAIN_BATCH, TRAIN_SEQ)}
+    dtypes = {"data": np.int32, "softmax_label": np.int32}
+    ref = mx.parallel.ShardedTrainer(
+        mx.models.gpt(VOCAB, TRAIN_SEQ, **extra), shapes,
+        mesh=mx.parallel.make_mesh({"dp": 1}), optimizer=optimizer,
+        optimizer_params=TRAIN_OPTS[optimizer],
+        initializer=mx.initializer.Xavier(), input_dtypes=dtypes)
+    port = mt.parallel.ShardedTrainer(
+        mt.models.gpt(VOCAB, TRAIN_SEQ, **extra), shapes,
+        optimizer=optimizer, optimizer_params=TRAIN_OPTS[optimizer],
+        initializer=mt.initializer.Xavier(), input_dtypes=dtypes,
+        device="cpu")
+    port.set_params(ref.get_params())
+    return ref, port
