@@ -4,10 +4,9 @@ A ``mxnet_tpu`` parameter dict (``Module.get_params()``, a checkpoint
 file, ``models.gpt_params``) is a dict of numpy arrays.
 :func:`params_from_numpy` normalizes it (``normalize_gpt_params``:
 dequantized ``*_wscale`` weights, split ``fused_qkv`` projections) and
-turns it into the port's dict of torch tensors on one device;
-``normalize=False`` carries the names and layouts across as they are
-(the form ``parallel.ShardedTrainer.set_params`` and the training tests
-take).
+turns it into the port's dict of torch tensors on one device.
+``parallel.ShardedTrainer.set_params`` takes a trainer's dict as it is,
+one :func:`to_tensor` per entry.
 """
 
 from __future__ import annotations
@@ -39,13 +38,11 @@ def to_tensor(a, device, dtype=None):
     return a.to(device=device)
 
 
-def params_from_numpy(np_params, device="cuda", dtype=None, name="gpt",
-                      normalize=True):
+def params_from_numpy(np_params, device="cuda", dtype=None, name="gpt"):
     """``{name: tensor}`` on ``device`` (default ``"cuda"``, which raises
-    when CUDA is absent), normalized for decoding unless ``normalize`` is
-    False.  ``dtype`` (e.g. ``torch.bfloat16``) casts every
-    floating-point entry; None keeps each entry's own dtype."""
+    when CUDA is absent), normalized for decoding.  ``dtype`` (e.g.
+    ``torch.bfloat16``) casts every floating-point entry; None keeps each
+    entry's own dtype."""
     dev = resolve_device(device)
-    params = (normalize_gpt_params(np_params, name) if normalize
-              else np_params)
-    return {k: to_tensor(v, dev, dtype) for k, v in params.items()}
+    return {k: to_tensor(v, dev, dtype)
+            for k, v in normalize_gpt_params(np_params, name).items()}

@@ -431,7 +431,9 @@ __global__ void __launch_bounds__(NT)
   float* delta_s = lse_s + BM;
   float* dlse_s = delta_s + BM;
 
-  const int kt = gridDim.x - 1 - blockIdx.x;
+  // heaviest causal tiles first: k tile 0 meets every q tile, the last
+  // k tile only the last q tile
+  const int kt = blockIdx.x;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * BN, kn = min(BN, g.Sk - k0);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;

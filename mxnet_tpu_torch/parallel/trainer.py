@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..context import resolve_device
-from ..convert import params_from_numpy, to_tensor
+from ..convert import to_tensor
 from ..initializer import Uniform
 
 __all__ = ["ShardedTrainer", "sgd_opt", "adam_opt", "adamw_opt"]
@@ -152,8 +152,9 @@ class ShardedTrainer:
     names.  ``optimizer`` is ``"sgd"``, ``"adam"``, ``"adamw"`` or an
     ``(init, update)`` pair; ``dtype`` the parameters' stored dtype
     (float data inputs follow it, labels and integer inputs do not);
-    ``initializer`` defaults to ``Uniform(0.07)``, drawing from a
-    ``torch.Generator`` seeded with ``seed``.  ``rescale_grad`` defaults
+    ``initializer`` defaults to ``Uniform(0.07)`` and draws from a
+    ``torch.Generator`` seeded with 0 (a caller wanting other values
+    passes its own initializer or calls ``set_params``).  ``rescale_grad`` defaults
     to ``1 / batch`` (the first input's leading dimension): the loss
     heads' gradients are un-normalized.  ``lr_scheduler`` is any
     ``step -> lr`` callable, evaluated each step.  ``device`` defaults to
@@ -166,7 +167,7 @@ class ShardedTrainer:
                  input_dtypes=None, rescale_grad=None, grad_accum_steps=1,
                  shard_optimizer_state=False, lr_scheduler=None,
                  fsdp=False, fsdp_min_size=2 ** 17, seq_axis=None,
-                 device="cuda", seed=0):
+                 device="cuda"):
         if mesh is not None and math.prod(
                 dict(getattr(mesh, "shape", mesh)).values()) > 1:
             raise _not_ported("a mesh of more than one device")
@@ -197,7 +198,7 @@ class ShardedTrainer:
 
         # place the model's parameters and initialise them by name
         initializer = initializer or Uniform(0.07)
-        gen = torch.Generator().manual_seed(seed)
+        gen = torch.Generator().manual_seed(0)
         symbol.to_empty(device=self.device)
         self.params = dict(symbol.named_parameters())
         self.param_names = list(self.params)
@@ -284,10 +285,10 @@ class ShardedTrainer:
 
     def set_params(self, arg_params):
         """Copy ``{name: array}`` (numpy, incl. bfloat16, or torch) into
-        the parameters, cast to the trainer's dtype; unknown names are
-        skipped."""
-        known = {k: v for k, v in arg_params.items() if k in self.params}
+        the parameters as they are, cast to the trainer's dtype; unknown
+        names are skipped."""
         with torch.no_grad():
-            for k, v in params_from_numpy(known, self.device, self._dtype,
-                                          normalize=False).items():
-                self.params[k].copy_(v)
+            for k, v in arg_params.items():
+                if k in self.params:
+                    self.params[k].copy_(to_tensor(v, self.device,
+                                                   self._dtype))
