@@ -7,9 +7,11 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-  1. set-up: the card's name and power limit (nvidia-smi); the two kernel
-     libraries built by nvcc from mxnet_tpu_torch/csrc/, one nvcc each,
-     started together (build seconds and the ptxas report printed);
+  1. set-up: the card's name and power limit (nvidia-smi); the three
+     kernel libraries built by nvcc from mxnet_tpu_torch/csrc/, one nvcc
+     per source, all started together (build seconds and the ptxas report
+     printed), the flash checks' host draws and the profiler's first
+     start done meanwhile;
   2. kernels against their plain torch versions on the card, each with
      its stated bound: paged attention at the serving decode shape and at
      ctx 2048, in bfloat16, float32 and int8+scales; the flash-attention
@@ -21,24 +23,42 @@ Phases (any failure exits non-zero; nothing is caught):
      rows, a 256 window; and without a mask).  bfloat16 is
      held element by element, scaled by each output, and the check is
      shown to fail on an output that skipped one tile;
-  3. serving: a full-width 12-layer GPT (the repo's on-chip serve config,
-     random weights from a seed) served by serve.Engine through the
-     paged kernel — 8 concurrent requests, prompts 16/32/64/128, 32 new
-     tokens each — with its launches checked against 12 x decode steps;
+  3. serving: a full-width GPT (the repo's on-chip serve config, its
+     depth cut from 12 layers to 4, random weights from a seed) served by
+     serve.Engine through the paged kernel — 8 concurrent requests,
+     prompts 16/32/64/128, 32 new tokens each — with its launches checked
+     against layers x decode steps;
      one full-width float32 decode step through the kernel and the plain
      path; a small model's tokens against the oracle and the CPU engine;
-  4. training: bench.py's on-chip GPT (vocab 32768, S 1024, 8 layers,
-     d_model 512, 8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier)
-     trained by parallel.ShardedTrainer for 2 warm-up and 10 timed steps
-     on bench.py's fixed synthetic batch, each flash kernel's launches
-     checked against 8 x steps and the NLL finite and falling; one
+  4. training: bench.py's on-chip GPT (vocab 32768, S 1024, d_model 512,
+     8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier; its depth cut
+     from 8 layers to 2) trained by parallel.ShardedTrainer for 2 warm-up
+     and 10 timed steps on bench.py's fixed synthetic batch, each flash
+     kernel's launches checked against layers x steps and the NLL finite
+     and falling; one
      full-width float32 step's gradients through the kernels against the
      dense attention, the check shown to fail on a planted fault; a small
      model's CUDA trainer against its CPU
      trainer over 3 Adam steps;
-  5. timings with CUDA events (warm-up excluded, L2 flushed before each
+  5. RNN training: the fused-LSTM and fused-GRU forward and backward
+     kernels against their plain versions (ys, hT, cT, the residuals,
+     dgx, dWh, dbh, dh0, dc0, non-zero hT/cT cotangents) in float32 and
+     bfloat16 at the language model's shape (T 128, N 32, H 512) and at
+     contract shapes (H 200 with N 3, T 1, a reverse direction's flipped
+     input), each bound stated and shown to fail on planted faults; the
+     float32 kernels against cuDNN's nn.LSTM / nn.GRU; the RNN-op LM of
+     examples/rnn_time_major.py (vocab 10,000, embedding and hidden 512,
+     2 layers, T 128, N 32, bf16, Adam 0.01, Xavier) trained by
+     ShardedTrainer for 2 + 10 steps as an LSTM and 2 + 5 as a GRU, each
+     kernel's launches checked against 2 x steps and the NLL finite and
+     falling; one full-width float32 step's gradients through the kernels
+     against the eager scan, shown to fail on a planted fault; a small
+     LSTM LM's CUDA trainer against its CPU trainer over 3 Adam steps;
+  6. timings with CUDA events (warm-up excluded, L2 flushed before each
      launch, medians): each kernel, its plain version, a PyTorch
-     yardstick (SDPA) and the bound computed from this run's shapes.
+     yardstick (SDPA; cuDNN's nn.LSTM / nn.GRU) and the bound computed
+     from this run's shapes, and for the RNN kernels the barrier floor
+     (an empty cooperative kernel of T grid barriers).
 
 Prints JSON lines, then the card's name and power limit, then the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -57,6 +77,7 @@ import sys
 import threading
 import time
 
+_T_LAUNCH = time.perf_counter()   # before numpy, torch and the package load
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
@@ -66,7 +87,9 @@ import torch  # noqa: E402
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12}
-SERVE_CFG = dict(vocab=50304, num_layers=12, d_model=768, num_heads=12,
+# the repo's on-chip serve config (tools/serve_bench.py) at its full width,
+# its depth cut from 12 layers to 4 to keep the script's time
+SERVE_CFG = dict(vocab=50304, num_layers=4, d_model=768, num_heads=12,
                  kv_heads=3, mlp="swiglu", norm="rmsnorm", pos_embed="rope",
                  tie_embeddings=True)
 # stated kernel-vs-plain bounds:
@@ -92,6 +115,16 @@ BF16_REL = 2.0 ** -8
 LOGITS_BOUND = 5e-4
 REPORT = {}
 DEVICE = "cuda"
+PHASE_SECONDS = {}     # seconds of each phase, in the order they ran
+_LAP = [None]
+
+
+def lap(phase):
+    """Record the seconds since the previous lap under ``phase``."""
+    now = time.perf_counter()
+    if _LAP[0] is not None:
+        PHASE_SECONDS[phase] = now - _LAP[0]
+    _LAP[0] = now
 
 
 def emit(obj):
@@ -296,6 +329,24 @@ def serve_prompts(seed=0):
             for n in (16, 32, 64, 128, 16, 32, 64, 128)]
 
 
+def serve_params(seed=0):
+    """The serving model's random weights, drawn on the card from a seed
+    (a host draw of ~67M values would take seconds): gpt()'s argument
+    names and shapes with gpt_params' scales (weights N(0, 0.02^2),
+    biases and norm shifts 0, norm gains 1), float32."""
+    from mxnet_tpu_torch.models import gpt_arguments
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = {}
+    for arg, shp in gpt_arguments(SERVE_CFG["vocab"], 256,
+                                  **{k: v for k, v in SERVE_CFG.items()
+                                     if k != "vocab"}):
+        s = 0.02 if arg.endswith("weight") else 0.0
+        params[arg] = (torch.randn(shp, generator=g, device=DEVICE) * s
+                       + (1.0 if arg.endswith("gamma") else 0.0))
+    return params
+
+
 def full_width_engine(np_params, dtype):
     from mxnet_tpu_torch import serve
 
@@ -430,8 +481,9 @@ def small_model_check():
 
 
 # -- training: flash-attention kernels vs their plain versions ---------------
-# the slice's training model: bench.py's on-chip GPT (BENCH_MODEL=gpt)
-TRAIN_CFG = dict(vocab=32768, seq_len=1024, num_layers=8, d_model=512,
+# the training model: bench.py's on-chip GPT (BENCH_MODEL=gpt) at its full
+# width, its depth cut from 8 layers to 2 to keep the script's time
+TRAIN_CFG = dict(vocab=32768, seq_len=1024, num_layers=2, d_model=512,
                  num_heads=8, fused_qkv=True, attn_layout="bhsd",
                  loss="softmax")
 TRAIN_BATCH = 16
@@ -477,8 +529,9 @@ F32_REL, F32_ABS = 1e-5, 1e-6
 # vs through the dense (impl="xla") attention, max |diff| <= GRAD_REL
 # max |grad|.  The float32 kernels differ from the plain versions by
 # summation order alone (held per element above, at the main path's
-# strides too); carried back through 8 layers and the softmax head that
-# measured 1.9e-6 of max |grad| on an H100, so 2e-5 leaves a 10x margin.
+# strides too); carried back through the layers and the softmax head that
+# measured 1.9e-6 of max |grad| on an H100 at 8 layers, so 2e-5 leaves a
+# 10x margin.
 # The check is shown to bind: the same step with a planted fault, a
 # forward kernel that stores o through bfloat16 in float32 mode (2^-9
 # relative, the size of a float32 path that rounds like the bf16 one),
@@ -486,29 +539,48 @@ F32_REL, F32_ABS = 1e-5, 1e-6
 GRAD_REL = 2e-5
 
 
+_FLASH_DRAWS = {}
+
+
+def flash_draws(shape, seed=0):
+    """The float32 host draws of one flash case, drawn once per (shape,
+    seed) and shared by its dtypes (they are cast on the way to the
+    card): q, k, v, dO (or the fused QKV projection and dO) and dlse."""
+    key = (tuple(sorted(shape.items())), seed)
+    if key not in _FLASH_DRAWS:
+        g = torch.Generator().manual_seed(seed)
+        B, Hq, Hkv, Sq, Sk, D = (shape[k] for k in ("B", "Hq", "Hkv", "Sq",
+                                                    "Sk", "D"))
+        if shape["layout"] == "bhsd":
+            qs, ks = (B, Hq, Sq, D), (B, Hkv, Sk, D)
+        else:
+            qs, ks = (B, Sq, Hq, D), (B, Sk, Hkv, D)
+        if shape.get("fused"):
+            sizes = [(B, Sq, (Hq + 2 * Hkv) * D), (B, Sq, Hq, D)]
+        else:
+            sizes = [qs, ks, ks, qs]
+        _FLASH_DRAWS[key] = [torch.randn(s, generator=g)
+                             for s in sizes + [(B, Hq, Sq)]]
+    return _FLASH_DRAWS[key]
+
+
 def flash_case(shape, dtype, seed=0):
-    g = torch.Generator().manual_seed(seed)
     B, Hq, Hkv, Sq, Sk, D = (shape[k] for k in ("B", "Hq", "Hkv", "Sq",
                                                 "Sk", "D"))
-    if shape["layout"] == "bhsd":
-        qs, ks = (B, Hq, Sq, D), (B, Hkv, Sk, D)
-    else:
-        qs, ks = (B, Sq, Hq, D), (B, Sk, Hkv, D)
     dev = torch.device(DEVICE)
+    *draws, dlse = flash_draws(shape, seed)
     if shape.get("fused"):
         # the model's operands: slices of one fused QKV projection (bhsd,
         # Sq == Sk) and dO as the gradient of attn.transpose(1, 2)
         dq_, dkv = Hq * D, Hkv * D
-        qkv = torch.randn(B, Sq, dq_ + 2 * dkv, generator=g).to(dev, dtype)
+        qkv = draws[0].to(dev, dtype)
         q = qkv[..., :dq_].view(B, Sq, Hq, D).transpose(1, 2)
         k = qkv[..., dq_:dq_ + dkv].view(B, Sk, Hkv, D).transpose(1, 2)
         v = qkv[..., dq_ + dkv:].view(B, Sk, Hkv, D).transpose(1, 2)
-        do = torch.randn(B, Sq, Hq, D, generator=g).to(dev, dtype)
-        do = do.transpose(1, 2)
+        do = draws[1].to(dev, dtype).transpose(1, 2)
     else:
-        q, k, v, do = (torch.randn(s, generator=g).to(dev, dtype)
-                       for s in (qs, ks, ks, qs))
-    dlse = torch.randn(B, Hq, Sq, generator=g).to(dev)
+        q, k, v, do = (x.to(dev, dtype) for x in draws)
+    dlse = dlse.to(dev)
     kw = {k: shape[k] for k in ("causal", "window", "q_offset", "k_offset",
                                 "layout")}
     return (q, k, v, do, dlse), kw
@@ -777,6 +849,7 @@ def train_main_path():
     placed = tr._place_batch(train_batch(cfg["vocab"], TRAIN_BATCH,
                                          cfg["seq_len"]))
     labels = placed["softmax_label"]
+    lap("gpt_train_setup")
     nll = []
     for _ in range(TRAIN_WARMUP):
         nll.append(nll_of(tr.step(placed)[0], labels))
@@ -793,7 +866,9 @@ def train_main_path():
         nll.append(nll_of(probs, labels))
     wall = time.perf_counter() - t0
     launches = dict(fac.launches)      # ... and closes
+    lap("gpt_train_steps")
     profile = train_profile(tr, placed)
+    lap("gpt_train_profile")
     want = cfg["num_layers"] * TRAIN_STEPS
     finite = all(np.isfinite(nll))
     ok = (finite and nll[-1] < nll[0]
@@ -821,7 +896,9 @@ def train_main_path():
 def _kernel_kind(name):
     low = name.lower()
     for key, kind in (("flash_fwd", "flash_fwd"), ("flash_dq", "flash_dq"),
-                      ("flash_dkv", "flash_dkv"), ("gemm", "matmul"),
+                      ("flash_dkv", "flash_dkv"),
+                      ("rnn_fwd_kernel", "fused_rnn_fwd"),
+                      ("rnn_bwd_kernel", "fused_rnn_bwd"), ("gemm", "matmul"),
                       ("xmma", "matmul"), ("cutlass", "matmul"),
                       ("nvjet", "matmul"),
                       ("softmax", "softmax"), ("embedding", "embedding"),
@@ -830,6 +907,19 @@ def _kernel_kind(name):
         if key in low:
             return kind
     return "other"
+
+
+def profiler_warmup():
+    """Start torch.profiler once around one small CUDA op: its first
+    start (CUPTI and kineto set-up) takes seconds, spent here, beside the
+    build, rather than inside the first profile window's phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(8, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+    prof.key_averages()
 
 
 def train_profile(tr, placed, steps=2):
@@ -962,6 +1052,573 @@ def small_train_check():
         raise SystemExit("small-model training: CUDA vs CPU disagree")
 
 
+# -- RNN training: fused LSTM/GRU kernels vs their plain versions ------------
+# the slice's model: the RNN-op language model of examples/rnn_time_major.py
+# (Embedding -> RNN, time-major (T, N) -> Reshape(-1, H) -> FullyConnected
+# -> SoftmaxOutput) at the fused-RNN benchmark's width (T 128, N 32, H 512),
+# 2 layers (examples/lstm_bucketing.py --num-layers 2), embedding 512, PTB's
+# 10,000-word vocabulary, bf16, Adam 0.01, Xavier, rescale_grad 1/N
+RNN_CFG = dict(vocab=10000, seq_len=128, batch=32, hidden=512,
+               num_layers=2)
+RNN_WARMUP, RNN_STEPS, GRU_STEPS = 2, 10, 5
+# kernel-check shapes: the main path's (T, N, H) and the contract shapes
+# (the PTB example's width H 200 with a ragged batch N 3; T 1; and the
+# reverse direction's flipped input at the main shape)
+RNN_SHAPES = {"main": (128, 32, 512), "h200_n3": (35, 3, 200),
+              "t1": (1, 32, 512), "flipped": (35, 32, 512)}
+# stated kernel-vs-plain bounds, per output X (ys, hT, cT, the saved
+# residuals, dgx, dWh, dbh, dh0, dc0), on the same inputs in the same dtype:
+#   float32: max |kernel - plain| <= RNN_F32_REL max |plain|.  The same
+#     float32 math summed in another order (~1e-7 relative per product),
+#     carried through T 128 steps of a recurrence whose gain is ~1 at the
+#     model's initial scale (U(+-0.07) weights): 1e-5 is a wide margin.
+#   bfloat16: one flipped bf16 rounding of h at step t feeds every later
+#     step, so a single-op bound does not hold.  The bound is derived from
+#     the spread of legitimate summation orders instead: the plain version
+#     is run twice more with the hidden units permuted (reversed, and a
+#     seeded shuffle: the same math, the recurrent products summed in
+#     another order), and
+#         max |kernel - plain| <= 2 spread + 2^-8 max |plain|,
+#     spread = the larger of the two permuted runs' max |alt - plain|; the
+#     floor is one bf16 rounding of the output's largest value.
+# Each check is shown to bind: the plain output of a forward whose step
+# T/2 dropped its recurrent product (the state fed to it zeroed), and the
+# backward from its residuals, must fail it for every output.
+RNN_F32_REL = 1e-5
+# f32 kernels against cuDNN's nn.LSTM / nn.GRU (an independent
+# implementation, TF32 off) at the main shape: outputs and input gradients
+# within RNN_CUDNN_REL of each one's max magnitude
+RNN_CUDNN_REL = 2e-5
+# full-width float32 step: each parameter's gradient through the kernels vs
+# through the eager scan (MXNET_TPU_FUSED_RNN=0), max |diff| <=
+# RNN_GRAD_REL max |grad|: summation order only, ~1e-7 per op carried
+# through 128 steps, two layers and the 10,000-way head; the planted fault
+# (the forward kernel's ys stored through bfloat16, 2^-9 relative) must fail
+RNN_GRAD_REL = 1e-4
+_GATES = {"lstm": 4, "gru": 3}
+
+
+def rnn_lm(mode, cfg, batch):
+    """The RNN-op LM as an nn.Module whose parameters carry the reference
+    build_net's argument names and order (embed_weight,
+    <mode>_parameters, <mode>_state[, lstm_state_cell], cls_weight,
+    cls_bias)."""
+    from torch import nn
+
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.ops.rnn import rnn_infer_shape
+
+    V, H, L = cfg["vocab"], cfg["hidden"], cfg["num_layers"]
+
+    class RNNLM(nn.Module):
+        def __init__(self):
+            super().__init__()
+            shapes = rnn_infer_shape((1, batch, H), H, L, mode)[0][1:]
+            names = ["parameters", "state", "state_cell"][:len(shapes)]
+            args = [("embed_weight", (V, H))]
+            args += [(f"{mode}_{n}", s) for n, s in zip(names, shapes)]
+            args += [("cls_weight", (V, H)), ("cls_bias", (V,))]
+            for name, shape in args:
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(shape, device="meta")))
+
+        def forward(self, data, softmax_label):
+            p = self._parameters
+            x = ops.Embedding(data, p["embed_weight"])
+            y = ops.RNN(x, p[f"{mode}_parameters"], p[f"{mode}_state"],
+                        p.get("lstm_state_cell"), state_size=H,
+                        num_layers=L, mode=mode)
+            fc = ops.FullyConnected(y.reshape(-1, H), p["cls_weight"],
+                                    p["cls_bias"], num_hidden=V)
+            return ops.SoftmaxOutput(fc, softmax_label.reshape(-1))
+
+    return RNNLM()
+
+
+def make_rnn_trainer(mode, cfg, batch, dtype, device=None, lr=0.01):
+    from mxnet_tpu_torch import initializer, parallel
+
+    shape = (cfg["seq_len"], batch)
+    return parallel.ShardedTrainer(
+        rnn_lm(mode, cfg, batch), {"data": shape, "softmax_label": shape},
+        optimizer="adam", optimizer_params={"learning_rate": lr},
+        dtype=dtype, initializer=initializer.Xavier(),
+        input_dtypes={"data": np.int32, "softmax_label": np.int32},
+        rescale_grad=1.0 / batch, device=device or DEVICE)
+
+
+def rnn_batch(cfg, batch, seed=0):
+    rng = np.random.RandomState(seed)
+    shape = (cfg["seq_len"], batch)
+    return {"data": rng.randint(0, cfg["vocab"], shape).astype(np.int32),
+            "softmax_label": rng.randint(0, cfg["vocab"], shape)
+            .astype(np.int32)}
+
+
+def rnn_case(mode, shape, dtype, seed=0):
+    """One layer's kernel inputs at the model's initial scale (recurrent
+    weights and bias U(+-0.07), as the Initializer draws *_parameters),
+    gx and the initial states N(0, 0.5^2), and non-zero cotangents of
+    ys, hT and cT."""
+    T, N, H = shape
+    G = _GATES[mode]
+    g = torch.Generator().manual_seed(seed)
+    dev = torch.device(DEVICE)
+    u = lambda *s: (torch.rand(*s, generator=g) * 2 - 1) * 0.07
+    n = lambda *s: torch.randn(*s, generator=g)
+    gx = (n(T, N, G * H) * 0.5).to(dev, dtype)
+    ins = {"gx": gx, "h0": (n(N, H) * 0.5).to(dev),
+           "c0": (n(N, H) * 0.5).to(dev), "wh": u(G * H, H).to(dev, dtype),
+           "bh": u(G * H).to(dev)}
+    if mode == "gru":
+        del ins["c0"]
+    cot = {"dys": n(T, N, H).to(dev, dtype), "dhT": n(N, H).to(dev, dtype),
+           "dcT": n(N, H).to(dev, dtype)}
+    if mode == "gru":
+        del cot["dcT"]
+    return ins, cot
+
+
+def rnn_kernels(mode, ins, cot):
+    """Kernel outputs by name: the forward kernel with residuals, then the
+    backward kernel from them."""
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
+
+    if mode == "lstm":
+        ys, hT, cT, acts, cells = frc.lstm_fwd_cuda(**ins, save=True)
+        dgx, dwh, dbh, dh0, dc0 = frc.lstm_bwd_cuda(
+            acts, cells, ys, ins["h0"], ins["c0"], ins["wh"], **cot)
+        return dict(ys=ys, hT=hT, cT=cT, acts=acts, cells=cells, dgx=dgx,
+                    dwh=dwh, dbh=dbh, dh0=dh0, dc0=dc0)
+    ys, hT, acts = frc.gru_fwd_cuda(**ins, save=True)
+    dgx, dwh, dbh, dh0 = frc.gru_bwd_cuda(acts, ys, ins["h0"], ins["wh"],
+                                          **cot)
+    return dict(ys=ys, hT=hT, acts=acts, dgx=dgx, dwh=dwh, dbh=dbh, dh0=dh0)
+
+
+def rnn_plain(mode, ins, cot, fault_step=None):
+    """The plain versions' outputs by name on the same inputs.  With
+    ``fault_step`` the forward is a planted fault: that step's recurrent
+    product dropped (the state fed to it zeroed), the backward run from
+    its residuals."""
+    from mxnet_tpu_torch.ops import fused_gru as fg
+    from mxnet_tpu_torch.ops import fused_lstm as fl
+
+    lstm = mode == "lstm"
+    fwd = fl.fused_lstm_fwd_torch if lstm else fg.fused_gru_fwd_torch
+    gx, h0 = ins["gx"], ins["h0"]
+    state = (h0, ins["c0"]) if lstm else (h0,)
+    rest = (ins["wh"], ins["bh"])
+    if fault_step is None:
+        out = fwd(gx, *state, *rest, save=True)
+    else:
+        # steps [0, s), step s fed a zero h (its product dropped; the
+        # LSTM's float32 cell carried on), then steps (s, T)
+        s = fault_step
+        a = fwd(gx[:s], *state, *rest, save=True)
+        hz = torch.zeros_like(h0)
+        cell = lambda o: (o[4][-1],) if lstm else ()
+        b = fwd(gx[s:s + 1], hz, *(cell(a) if s else state[1:]), *rest,
+                save=True)
+        c = fwd(gx[s + 1:], b[0][-1].float(), *cell(b), *rest, save=True)
+        out = [torch.cat([a[0], b[0], c[0]]), c[1]]
+        if lstm:
+            out += [c[2], torch.cat([a[3], b[3], c[3]]),
+                    torch.cat([a[4], b[4], c[4]])]
+        else:
+            out += [torch.cat([a[2], b[2], c[2]])]
+    if lstm:
+        ys, hT, cT, acts, cells = out
+        dgx, dwh, dbh, dh0, dc0 = fl.fused_lstm_bwd_torch(
+            acts, cells, ys, h0, ins["c0"], ins["wh"], **cot)
+        return dict(ys=ys, hT=hT, cT=cT, acts=acts, cells=cells, dgx=dgx,
+                    dwh=dwh, dbh=dbh, dh0=dh0, dc0=dc0)
+    ys, hT, acts = out
+    dgx, dwh, dbh, dh0 = fg.fused_gru_bwd_torch(acts, ys, h0, ins["wh"],
+                                                **cot)
+    return dict(ys=ys, hT=hT, acts=acts, dgx=dgx, dwh=dwh, dbh=dbh, dh0=dh0)
+
+
+def rnn_plain_permuted(mode, ins, cot, perm):
+    """The plain versions with the hidden units permuted by ``perm``
+    (gx, wh rows and columns, bh, states, cotangents), outputs permuted
+    back: the same math with the recurrent products summed in another
+    order."""
+    G = _GATES[mode]
+    H = ins["h0"].shape[-1]
+    rows = torch.cat([perm + q * H for q in range(G)])
+    rows4 = torch.cat([perm + q * H for q in range(4)])
+    inv = torch.argsort(perm)
+    inv_g = torch.argsort(rows)
+    p_ins = {"gx": ins["gx"][..., rows], "h0": ins["h0"][:, perm],
+             "wh": ins["wh"][rows][:, perm], "bh": ins["bh"][rows]}
+    if "c0" in ins:
+        p_ins["c0"] = ins["c0"][:, perm]
+    p_cot = {k: v[..., perm] for k, v in cot.items()}
+    out = rnn_plain(mode, p_ins, p_cot)
+    back = {"ys": inv, "hT": inv, "cT": inv, "cells": inv, "dh0": inv,
+            "dc0": inv, "dgx": inv_g, "dbh": inv_g,
+            "acts": torch.argsort(rows4)}
+    res = {k: v[..., back[k]] for k, v in out.items() if k in back}
+    res["dwh"] = out["dwh"][inv_g][:, inv]
+    return res
+
+
+def check_rnn(mode, tag, dtype):
+    """The forward and backward kernels against their plain versions at
+    one shape and dtype (bounds above); returns the report row."""
+    shape = RNN_SHAPES[tag]
+    ins, cot = rnn_case(mode, shape, dtype)
+    if tag == "flipped":           # the reverse direction's input
+        ins["gx"] = ins["gx"].flip(0)
+    got = rnn_kernels(mode, ins, cot)
+    torch.cuda.synchronize()
+    ref = rnn_plain(mode, ins, cot)
+    row = {"phase": "rnn_check", "mode": mode, "shape": tag,
+           "tnh": list(shape), "dtype": str(dtype)[6:]}
+    bound = {}
+    if dtype == torch.bfloat16:
+        H = shape[2]
+        g = torch.Generator().manual_seed(1)
+        perms = [torch.arange(H - 1, -1, -1), torch.randperm(H, generator=g)]
+        alts = [rnn_plain_permuted(mode, ins, cot, p.to(DEVICE))
+                for p in perms]
+        spread = {k: max(float((a[k].float() - v.float()).abs().max())
+                         for a in alts) for k, v in ref.items()}
+        for k, v in ref.items():
+            bound[k] = 2 * spread[k] + BF16_REL * float(v.float().abs().max())
+        row["spread_of_orders"] = spread
+        row["bound"] = "2 spread + 2^-8 max|plain| per output"
+    else:
+        for k, v in ref.items():
+            bound[k] = RNN_F32_REL * float(v.float().abs().max())
+        row["bound"] = "1e-5 max|plain| per output"
+    err = {k: float((got[k].float() - ref[k].float()).abs().max())
+           for k in ref}
+    share = {k: err[k] / max(bound[k], 1e-30) for k in ref}
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    ok = finite and all(s <= 1.0 for s in share.values())
+    row.update({"max_abs_err": err, "worst_share_of_bound":
+                max(share.values()), "share_by_output": share})
+    if tag == "main":
+        # the check binds: a plain output with one step's recurrent
+        # product dropped must fail it, for every output, at the step
+        # nearest that output (0: dh0, dc0; T-1: hT, cT; T/2: the rest)
+        caught = {k: [] for k in ref}
+        for step in (0, shape[0] // 2, shape[0] - 1):
+            bad = rnn_plain(mode, ins, cot, fault_step=step)
+            for k in ref:
+                diff = float((bad[k].float() - ref[k].float()).abs().max())
+                if diff > bound[k]:
+                    caught[k].append(step)
+        row["planted_fault"] = ("one step's recurrent product dropped, at "
+                                "step 0, T/2 or T-1")
+        row["planted_caught_at_steps"] = caught
+        ok = ok and all(caught.values())
+    row.update({"finite": finite, "ok": ok})
+    emit(row)
+    if not ok:
+        raise SystemExit(f"fused {mode} kernels disagree with plain: {tag} "
+                         f"{dtype}")
+    return row
+
+
+def cudnn_check(mode):
+    """float32 kernels through the port's fused path against cuDNN's
+    nn.LSTM / nn.GRU with the same Wi, Wh, bi, bh (gate orders match):
+    ys, hT (cT) and the gradients of x, h0 (c0)."""
+    from mxnet_tpu_torch.ops.fused_gru import fused_gru
+    from mxnet_tpu_torch.ops.fused_lstm import fused_lstm
+
+    T, N, H = RNN_SHAPES["main"]
+    g = torch.Generator().manual_seed(5)
+    cls = torch.nn.LSTM if mode == "lstm" else torch.nn.GRU
+    cell = cls(H, H).to(DEVICE)
+    with torch.no_grad():
+        for p in cell.parameters():
+            p.copy_((torch.rand(p.shape, generator=g) * 2 - 1) * 0.07)
+    x = (torch.randn(T, N, H, generator=g) * 0.5).to(DEVICE)
+    h0 = (torch.randn(1, N, H, generator=g) * 0.5).to(DEVICE)
+    c0 = (torch.randn(1, N, H, generator=g) * 0.5).to(DEVICE)
+    cot = [torch.randn(T, N, H, generator=g).to(DEVICE),
+           torch.randn(1, N, H, generator=g).to(DEVICE),
+           torch.randn(1, N, H, generator=g).to(DEVICE)]
+    leaves = [t.clone().requires_grad_() for t in (x, h0, c0)]
+    if mode == "lstm":
+        ys, (hT, cT) = cell(leaves[0], (leaves[1], leaves[2]))
+        ref_out = [ys, hT, cT]
+    else:
+        ys, hT = cell(leaves[0], leaves[1])
+        ref_out = [ys, hT]
+        leaves = leaves[:2]
+    ref_grads = torch.autograd.grad(ref_out, leaves, cot[:len(ref_out)])
+    mine = [t.clone().requires_grad_() for t in (x, h0, c0)][:len(leaves)]
+    gx = mine[0] @ cell.weight_ih_l0.t() + cell.bias_ih_l0
+    if mode == "lstm":
+        out = fused_lstm(gx, mine[1][0], mine[2][0], cell.weight_hh_l0,
+                         cell.bias_hh_l0)
+    else:
+        out = fused_gru(gx, mine[1][0], cell.weight_hh_l0, cell.bias_hh_l0)
+    out = [out[0]] + [o[None] for o in out[1:]]
+    grads = torch.autograd.grad(out, mine, cot[:len(out)])
+    names = ["ys", "hT", "cT"][:len(out)] + ["dx", "dh0", "dc0"][:len(out)]
+    share = {}
+    for name, a, b in zip(names, list(out) + list(grads),
+                          ref_out + list(ref_grads)):
+        share[name] = float((a - b).detach().abs().max()) / (
+            RNN_CUDNN_REL * float(b.detach().abs().max()))
+    ok = max(share.values()) <= 1.0
+    emit({"phase": "rnn_cudnn_check", "mode": mode, "dtype": "float32",
+          "bound": "max|kernel - cudnn| <= 2e-5 max|cudnn| per output",
+          "share_by_output": share, "ok": ok})
+    if not ok:
+        raise SystemExit(f"fused {mode} kernels disagree with cuDNN")
+
+
+def rnn_bounds(mode, shape, dtype):
+    """Least time of each kernel: each input read once and each output
+    written once at the HBM rate, against 2 T N G H^2 (forward) or
+    4 T N G H^2 (backward) operations at the dtype's peak."""
+    T, N, H = shape
+    G = _GATES[mode]
+    es = torch.tensor([], dtype=dtype).element_size()
+    lstm = mode == "lstm"
+    res = T * N * 4 * H * 4 + (T * N * H * 4 if lstm else 0)   # residuals
+    states = (2 if lstm else 1) * N * H
+    fwd_bytes = (T * N * G * H * es + states * 4 + G * H * H * es + G * H * 4
+                 + T * N * H * es + states * es + res)
+    bwd_bytes = (res + T * N * H * es + states * 4 + G * H * H * es
+                 + T * N * H * es + states * es                 # dys, dhT
+                 + T * N * G * H * es + G * H * H * 4 + G * H * 4
+                 + states * 4)
+    out = {}
+    for kind, ops, nbytes in (("fwd", 2 * T * N * G * H * H, fwd_bytes),
+                              ("bwd", 4 * T * N * G * H * H, bwd_bytes)):
+        t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]
+        out[f"{mode}_{kind}"] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o
+                                 else "operations", ops, nbytes)
+    return out
+
+
+def time_rnn(mode, dtype=torch.bfloat16):
+    """Kernel, plain, library (cuDNN) and barrier-floor times at the main
+    shape; the bound from this run's shapes."""
+    from mxnet_tpu_torch.ops import fused_gru as fg
+    from mxnet_tpu_torch.ops import fused_lstm as fl
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
+
+    shape = RNN_SHAPES["main"]
+    T, N, H = shape
+    ins, cot = rnn_case(mode, shape, dtype, seed=1)
+    saved = dict(frc.launches)
+    res = rnn_kernels(mode, ins, cot)
+    if mode == "lstm":
+        fwd, bwd = frc.lstm_fwd_cuda, frc.lstm_bwd_cuda
+        p_fwd_fn, p_bwd_fn = fl.fused_lstm_fwd_torch, fl.fused_lstm_bwd_torch
+        bwd_args = (res["acts"], res["cells"], res["ys"], ins["h0"],
+                    ins["c0"], ins["wh"])
+    else:
+        fwd, bwd = frc.gru_fwd_cuda, frc.gru_bwd_cuda
+        p_fwd_fn, p_bwd_fn = fg.fused_gru_fwd_torch, fg.fused_gru_bwd_torch
+        bwd_args = (res["acts"], res["ys"], ins["h0"], ins["wh"])
+    k_fwd = time_ms(lambda: fwd(**ins, save=True))
+    k_bwd = time_ms(lambda: bwd(*bwd_args, **cot))
+    frc.launches.update(saved)        # timing launches are not the path's
+    floor = time_ms(lambda: frc.barrier_floor_cuda(T, H, DEVICE))
+    p_fwd = time_ms(lambda: p_fwd_fn(**ins, save=True), reps=3, warmup=1)
+    p_bwd = time_ms(lambda: p_bwd_fn(*bwd_args, **cot), reps=3, warmup=1)
+    # the library yardstick the port never calls: cuDNN's nn.LSTM / nn.GRU
+    # in the same dtype, forward (with its input projection) and its
+    # backward alone on a retained graph
+    cls = torch.nn.LSTM if mode == "lstm" else torch.nn.GRU
+    cell = cls(H, H).to(DEVICE, dtype)
+    cell.flatten_parameters()         # one contiguous weight buffer
+    x = torch.randn(T, N, H, device=DEVICE, dtype=dtype).requires_grad_()
+    h0 = ins["h0"][None].to(dtype)
+    state = (h0, ins["c0"][None].to(dtype)) if mode == "lstm" else h0
+    lib_fwd = time_ms(lambda: cell(x, state))
+    y = cell(x, state)[0]
+    leaves = [x] + list(cell.parameters())
+    lib_bwd = time_ms(lambda: torch.autograd.grad(y, leaves, cot["dys"],
+                                                  retain_graph=True))
+    bounds = rnn_bounds(mode, shape, dtype)
+    rows = {}
+    for kind, k_ms, p_ms, l_ms in (("fwd", k_fwd, p_fwd, lib_fwd),
+                                   ("bwd", k_bwd, p_bwd, lib_bwd)):
+        name = f"{mode}_{kind}"
+        b_ms, b_by, ops, nbytes = bounds[name]
+        rows[name] = {
+            "phase": "rnn_time", "kernel": name, "shape": "main",
+            "dtype": str(dtype)[6:], "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "ops": ops, "bytes": nbytes, "bound_share": b_ms / k_ms,
+            "barrier_floor_ms": floor,
+            "library": f"cuDNN nn.{cls.__name__} "
+                       + ("forward" if kind == "fwd"
+                          else "backward alone on a retained graph"),
+            "plain_and_library_cover":
+                "the plain times cover the recurrence only; the library "
+                "times also include the input projection x Wi^T + bi"
+                + (" and its gradients" if kind == "bwd" else "")}
+        emit(rows[name])
+    return rows
+
+
+def rnn_train_main_path(mode, steps):
+    """The full-width LM trained by ShardedTrainer: the launches of the
+    mode's two kernels counted over ``steps`` timed steps."""
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
+
+    cfg = RNN_CFG
+    B = cfg["batch"]
+    tr = make_rnn_trainer(mode, cfg, B, "bfloat16")
+    placed = tr._place_batch(rnn_batch(cfg, B))
+    labels = placed["softmax_label"]
+    lap(f"{mode}_train_setup")
+    nll = []
+    for _ in range(RNN_WARMUP):
+        nll.append(nll_of(tr.step(placed)[0], labels))
+    torch.cuda.synchronize()
+    for name in frc.launches:          # the main path's window opens
+        frc.launches[name] = 0
+    step_ms = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ts = time.perf_counter()
+        probs = tr.step(placed)[0]
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - ts))
+        nll.append(nll_of(probs, labels))
+    wall = time.perf_counter() - t0
+    launches = dict(frc.launches)      # ... and closes
+    lap(f"{mode}_train_steps")
+    profile = train_profile(tr, placed) if mode == "lstm" else None
+    lap(f"{mode}_train_profile")
+    want = cfg["num_layers"] * steps
+    path = {k: v for k, v in launches.items() if k.startswith(mode)}
+    tokens = cfg["seq_len"] * B
+    # Adam at the example's lr 0.01 spikes the loss around step 5 on the
+    # repeated batch: the LSTM's 12 steps end below the start, the GRU's 7
+    # are held to having gone below it
+    falls = nll[-1] < nll[0] if mode == "lstm" else min(nll[1:]) < nll[0]
+    ok = (all(np.isfinite(nll)) and falls
+          and all(n == want for n in path.values())
+          and tuple(probs.shape) == (tokens, cfg["vocab"]))
+    row = {"phase": f"train_{mode}", "dtype": "bfloat16", "config": cfg,
+           "params": sum(p.numel() for p in tr.params.values()),
+           "warmup_steps": RNN_WARMUP, "steps": steps,
+           "kernel_launches": launches, "launches_expected_each": want,
+           "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+           "wall_s": wall, "tokens_per_s": tokens * steps / wall, "nll": nll,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "profile": profile, "ok": ok}
+    emit(row)
+    del tr, placed, probs
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit(f"full-width {mode} LM training failed its checks")
+    return row
+
+
+def rnn_grad_check():
+    """One full-width float32 LSTM-LM step: gradients through the kernels
+    vs through the eager scan (MXNET_TPU_FUSED_RNN=0), and through a
+    planted faulty forward kernel, which must fail the bound."""
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
+
+    cfg = RNN_CFG
+    batch = rnn_batch(cfg, cfg["batch"])
+    real_fwd = frc.lstm_fwd_cuda
+
+    def planted_fwd(*args, **kw):
+        ys, *rest = real_fwd(*args, **kw)
+        return (ys.to(torch.bfloat16).to(ys.dtype), *rest)
+
+    grads, start = {}, None
+    env = os.environ.get("MXNET_TPU_FUSED_RNN")
+    for arm in ("kernel", "scan", "planted"):
+        tr = make_rnn_trainer("lstm", cfg, cfg["batch"], "float32")
+        if start is None:
+            start = tr.get_params()
+        else:
+            tr.set_params(start)
+        if arm == "scan":
+            os.environ["MXNET_TPU_FUSED_RNN"] = "0"
+        if arm == "planted":
+            frc.lstm_fwd_cuda = planted_fwd
+        try:
+            grads[arm], _ = tr._grads_of(tr._place_batch(batch))
+        finally:
+            frc.lstm_fwd_cuda = real_fwd
+            if env is None:
+                os.environ.pop("MXNET_TPU_FUSED_RNN", None)
+            else:
+                os.environ["MXNET_TPU_FUSED_RNN"] = env
+        del tr
+
+    def worst_share(arm):
+        worst, worst_name = 0.0, None
+        for name, gk in grads[arm].items():
+            gs = grads["scan"][name]
+            share = float((gk - gs).abs().max()) / max(
+                float(gs.abs().max()) * RNN_GRAD_REL, 1e-30)
+            if share > worst:
+                worst, worst_name = share, name
+        return worst, worst_name
+
+    worst, worst_name = worst_share("kernel")
+    planted, _ = worst_share("planted")
+    finite = all(bool(torch.isfinite(g).all())
+                 for g in grads["kernel"].values())
+    ok = finite and worst <= 1.0 and planted > 1.0
+    emit({"phase": "rnn_grad_check", "dtype": "float32",
+          "bound": "max|g_kernel - g_scan| <= 1e-4 max|g_scan| per param",
+          "worst_share_of_bound": worst, "worst_param": worst_name,
+          "planted_fault": "forward kernel's ys stored through bfloat16",
+          "planted_worst_share_of_bound": planted,
+          "planted_caught": planted > 1.0, "ok": ok})
+    del grads
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("full-width LSTM gradients: kernels vs scan "
+                         "disagree")
+
+
+def rnn_small_train_check():
+    """A small LSTM LM (V 53, T 16, N 4, H 32, 2 layers): the CUDA trainer
+    (kernels: T >= 8) against the CPU trainer (the eager scan) from the
+    same parameters, 3 Adam steps (lr 3e-3) in float32.  Outputs within
+    1e-5 at step 1 and 1e-4 after; parameters within 2e-5 + 3 lr
+    min(2, 1e-5 max|g| / |g_i|), as the GPT check derives."""
+    cfg = dict(vocab=53, seq_len=16, batch=4, hidden=32, num_layers=2)
+    batch = rnn_batch(cfg, 4, seed=3)
+    lr = 3e-3
+    cuda_tr = make_rnn_trainer("lstm", cfg, 4, "float32", lr=lr)
+    cpu_tr = make_rnn_trainer("lstm", cfg, 4, "float32", device="cpu",
+                              lr=lr)
+    cpu_tr.set_params(cuda_tr.get_params())
+    grads, _ = cpu_tr._grads_of(cpu_tr._place_batch(batch))
+    out_err = []
+    for _ in range(3):
+        a = cuda_tr.step(batch)[0].cpu()
+        b = cpu_tr.step(batch)[0]
+        out_err.append(float((a - b).abs().max()))
+    ok = out_err[0] <= 1e-5 and max(out_err) <= 1e-4
+    worst = 0.0
+    got, want = cuda_tr.get_params(), cpu_tr.get_params()
+    for name in want:
+        g = grads[name].abs().numpy()
+        allowed = 2e-5 + 3 * lr * np.minimum(
+            2.0, 1e-5 * float(g.max()) / np.maximum(g, 1e-30))
+        worst = max(worst, float((np.abs(got[name] - want[name])
+                                  / allowed).max()))
+    ok = ok and worst <= 1.0
+    emit({"phase": "rnn_small_train_check", "out_max_abs_err": out_err,
+          "param_worst_share_of_bound": worst, "ok": ok})
+    if not ok:
+        raise SystemExit("small LSTM LM: CUDA vs CPU trainers disagree")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
@@ -972,28 +1629,45 @@ def main():
         return 2
     import mxnet_tpu_torch  # noqa: F401  (fails alone: no package)
     from mxnet_tpu_torch import _build
-    from mxnet_tpu_torch.models import gpt_params
     from mxnet_tpu_torch.ops import flash_attention_cuda as fac
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
     from mxnet_tpu_torch.ops import paged_attention_cuda as pac
 
-    t_start = time.perf_counter()
+    REPORT["phase_seconds"] = PHASE_SECONDS
+    _LAP[0] = _T_LAUNCH
+    lap("imports_and_cuda_init")
+    t_start = _LAP[0]
+
     card = card_line()
     name = torch.cuda.get_device_name(0)
     emit({"phase": "setup", "device": name, "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    # one nvcc per library, started together
+    # one nvcc per source, started together; while they run, the host
+    # work that needs no kernel: the flash checks' draws and the
+    # profiler's first start
     t0 = time.perf_counter()
-    builds = [threading.Thread(target=f) for f in (pac._fn, fac._lib)]
+    libs = (pac._fn, fac._lib, frc._lib)
+    builds = [threading.Thread(target=f) for f in libs]
     for b in builds:
         b.start()
+    overlap = {}
+    for shape in FLASH_SHAPES.values():
+        flash_draws(shape)
+    flash_draws(FLASH_SHAPES["train"], seed=1)      # the timings' case
+    overlap["flash_draws"] = time.perf_counter() - t0
+    profiler_warmup()
+    overlap["profiler_warmup"] = time.perf_counter() - t0
     for b in builds:
         b.join()
-    pac._fn(), fac._lib()             # re-raise a failed build here
-    for lib in (pac.LIB_NAME, fac.LIB_NAME):
+    for f in libs:                    # re-raise a failed build here
+        f()
+    for lib in (pac.LIB_NAME, fac.LIB_NAME, frc.LIB_NAME):
         emit({"phase": "build", "library": lib,
               "seconds": time.perf_counter() - t0,
               "nvcc_seconds": _build.BUILD_SECONDS.get(lib),
               "ptxas": _build.BUILD_LOGS.get(lib, "").strip()[-3000:]})
+    emit({"phase": "overlapped_with_build", "seconds_since_start": overlap})
+    lap("setup_and_build")
 
     # the slice's decode shape: 8 rows, contexts 1..160, one dead slot,
     # one padded row (table all null, pos 0 -> ctx 1); W = the engine's
@@ -1006,29 +1680,43 @@ def main():
             "decode", decode_ctx, dtype, W=16, nb=512,
             padded=(6,))
         errs[("long", dtype)] = check_kernel("long2048", long_ctx, dtype)
+    lap("paged_checks")
     flash_rows = {}
     for tag, shape in FLASH_SHAPES.items():
         for dtype in (torch.bfloat16, torch.float32):
             flash_rows[(tag, dtype)] = check_flash(tag, shape, dtype)
+    lap("flash_checks")
+    rnn_rows = {}
+    for mode in ("lstm", "gru"):
+        for tag in RNN_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                rnn_rows[(mode, tag, dtype)] = check_rnn(mode, tag, dtype)
+        cudnn_check(mode)
     torch.cuda.empty_cache()
+    lap("rnn_checks")
 
     small_model_check()
-    np_params = gpt_params(SERVE_CFG["vocab"], 256,
-                           num_layers=SERVE_CFG["num_layers"],
-                           d_model=SERVE_CFG["d_model"],
-                           num_heads=SERVE_CFG["num_heads"],
-                           kv_heads=SERVE_CFG["kv_heads"],
-                           mlp=SERVE_CFG["mlp"], norm=SERVE_CFG["norm"],
-                           pos_embed=SERVE_CFG["pos_embed"],
-                           tie_embeddings=SERVE_CFG["tie_embeddings"],
-                           seed=0)
+    lap("serve_small_model")
+    np_params = serve_params()
     serve = serve_main_path(np_params)
+    lap("serve")
     logits_check(np_params)
     del np_params
+    lap("serve_logits_check")
 
     train = train_main_path()
     train_grad_check()
+    lap("gpt_train_grad_check")
     small_train_check()
+    lap("gpt_train_small_check")
+
+    rnn_train = {"lstm": rnn_train_main_path("lstm", RNN_STEPS),
+                 "gru": rnn_train_main_path("gru", GRU_STEPS)}
+    lap("rnn_train_end")
+    rnn_grad_check()
+    lap("rnn_grad_check")
+    rnn_small_train_check()
+    lap("rnn_small_check")
 
     timings = {}
     for dtype in ("bfloat16", "float32", "int8"):
@@ -1036,7 +1724,11 @@ def main():
             "decode", decode_ctx, dtype, W=16, nb=512,
             padded=(6,))
         timings[("long", dtype)] = time_kernel("long2048", long_ctx, dtype)
+    lap("paged_time")
     flash_t = time_flash(FLASH_SHAPES["train"], torch.bfloat16)
+    lap("flash_time")
+    rnn_t = {**time_rnn("lstm"), **time_rnn("gru")}
+    lap("rnn_time")
     main_t = timings[("decode", "bfloat16")]
     kernels = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
@@ -1073,13 +1765,37 @@ def main():
         if cover == "dq+dk+dv":
             entry["kernels_ms_dq_plus_dkv"] = bwd_ms
         kernels["kernels"].append(entry)
+    rnn_outs = {"fwd": ("ys", "hT", "cT", "acts", "cells"),
+                "bwd": ("dgx", "dwh", "dbh", "dh0", "dc0")}
+    for kname, replaces in (
+            ("lstm_fwd", "mxnet_tpu/ops/pallas_lstm.py:102"),
+            ("lstm_bwd", "mxnet_tpu/ops/pallas_lstm.py:206"),
+            ("gru_fwd", "mxnet_tpu/ops/pallas_gru.py:79"),
+            ("gru_bwd", "mxnet_tpu/ops/pallas_gru.py:161")):
+        mode, kind = kname.split("_")
+        t = rnn_t[kname]
+        err = rnn_rows[(mode, "main", torch.bfloat16)]["max_abs_err"]
+        kernels["kernels"].append({
+            "name": kname, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/fused_rnn.cuh",
+            "replaces": replaces,
+            "launches": rnn_train[mode]["kernel_launches"][kname],
+            "max_abs_err": max(err[o] for o in rnn_outs[kind] if o in err),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "barrier_floor_ms": t["barrier_floor_ms"],
+            "plain_and_library_cover": t["plain_and_library_cover"]})
     REPORT["kernels"] = kernels
     REPORT["card"] = card
     REPORT["seconds"] = time.perf_counter() - t_start
+    REPORT["seconds_since_launch"] = time.perf_counter() - _T_LAUNCH
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(REPORT, f, indent=1)
-    emit({"phase": "done", "seconds": REPORT["seconds"]})
+    emit({"phase": "done", "seconds": REPORT["seconds"],
+          "seconds_since_launch": REPORT["seconds_since_launch"],
+          "phase_seconds": PHASE_SECONDS})
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

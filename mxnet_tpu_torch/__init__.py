@@ -6,7 +6,10 @@ held against it.  It serves greedy GPT through continuous batching
 kernel (``ops.paged_attention_cuda``), and trains GPT through
 ``parallel.ShardedTrainer`` (``models.gpt``), with attention in
 hand-written Hopper flash-attention kernels
-(``ops.flash_attention_cuda``).  The package imports
+(``ops.flash_attention_cuda``), and trains RNN language models through
+the ``RNN`` op (``ops.rnn``), whose LSTM and GRU layers run hand-written
+Hopper fused-LSTM and fused-GRU kernels (``ops.fused_rnn_cuda``).  The
+package imports
 ``torch`` and ``numpy`` only — never ``jax`` and nothing of
 ``mxnet_tpu``.  Entry points default to ``device="cuda"`` and raise
 when CUDA is absent.

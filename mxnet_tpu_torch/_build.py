@@ -2,7 +2,9 @@
 
 Each library is compiled by ``nvcc`` for ``sm_90a`` from the sources
 under ``mxnet_tpu_torch/csrc/`` into a plain-C-interface ``.so`` and
-loaded with ``ctypes``.  Nothing is built when a module is imported:
+loaded with ``ctypes``: one ``nvcc -c`` per ``.cu`` source, all started
+together, then one link (headers listed among the sources are hashed,
+not compiled).  Nothing is built when a module is imported:
 the first launch builds, so the CPU test run, which never launches a
 kernel, needs no ``nvcc``.
 
@@ -31,7 +33,7 @@ __all__ = ["build_dir", "build_library", "load_library", "BUILD_SECONDS",
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # seconds each library took to build in this process (absent: loaded
 # from an earlier build), and nvcc's output (ptxas register/smem report)
@@ -68,17 +70,39 @@ def build_library(name, sources):
     lib = os.path.join(out_dir, f"lib{name}-{h.hexdigest()[:12]}.so")
     if os.path.isfile(lib):
         return lib
+    nvcc = _nvcc()
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+    units = [p for p in paths if p.endswith(".cu")]
+    objs = [f"{tmp}.{i}.o" for i in range(len(units))]
+    runs = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, u] for u, o in zip(units, objs)]
+    results = [None] * len(runs)
+
+    def run(i):
+        results[i] = subprocess.run(runs[i], capture_output=True, text=True)
+
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {name} "
-                           f"(rc {res.returncode}):\n{res.stderr}")
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(runs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    try:
+        if all(r.returncode == 0 for r in results):
+            results.append(subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                          capture_output=True, text=True))
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    for res in results:
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {name} "
+                               f"(rc {res.returncode}):\n{res.stderr}")
     os.replace(tmp, lib)
     BUILD_SECONDS[name] = time.perf_counter() - t0
-    BUILD_LOGS[name] = res.stdout + res.stderr
+    BUILD_LOGS[name] = "".join(r.stdout + r.stderr for r in results)
     return lib
 
 

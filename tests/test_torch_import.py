@@ -28,6 +28,9 @@ import mxnet_tpu_torch.ops, mxnet_tpu_torch.ops.attention
 import mxnet_tpu_torch.ops.paged_attention_cuda
 import mxnet_tpu_torch.ops.flash_attention
 import mxnet_tpu_torch.ops.flash_attention_cuda
+import mxnet_tpu_torch.ops.rnn, mxnet_tpu_torch.ops.fused_lstm
+import mxnet_tpu_torch.ops.fused_gru, mxnet_tpu_torch.ops.fused_rnn_cuda
+import mxnet_tpu_torch.models.lstm
 import mxnet_tpu_torch.ops.nn, mxnet_tpu_torch.ops.loss
 import mxnet_tpu_torch.initializer
 import mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.trainer
@@ -153,7 +156,9 @@ def test_kernel_build_is_lazy_and_targets_sm90a():
 
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_SECONDS == {}
-    for src in ("paged_attention.cu", "flash_attention.cu"):
+    for src in ("paged_attention.cu", "flash_attention.cu", "fused_rnn.cuh",
+                "fused_lstm_fwd.cu", "fused_lstm_bwd.cu", "fused_gru_fwd.cu",
+                "fused_gru_bwd.cu"):
         assert os.path.isfile(os.path.join(_build.CSRC_DIR, src))
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "/build/" in f.read().split()
@@ -177,3 +182,45 @@ def test_kernel_build_dir_and_missing_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_library("mxtt_paged_attention", ("paged_attention.cu",))
     assert list(tmp_path.iterdir()) == []
+
+
+def test_kernel_build_compiles_each_unit_at_once_then_links(monkeypatch,
+                                                           tmp_path):
+    """One ``nvcc -c`` per ``.cu`` source (headers are hashed, not
+    compiled), then one link; the objects are removed, and a unit that
+    fails raises with nvcc's message."""
+    from mxnet_tpu_torch import _build
+
+    csrc, out, bin_ = (tmp_path / d for d in ("csrc", "out", "bin"))
+    for d in (csrc, out, bin_):
+        d.mkdir()
+    (csrc / "k.cuh").write_text("// header\n")
+    (csrc / "a.cu").write_text("// a\n")
+    (csrc / "b.cu").write_text("// b\n")
+    log = tmp_path / "calls.txt"
+    nvcc = bin_ / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {log}\n'
+        'case "$*" in *bad.cu*) echo "bad.cu: error" >&2; exit 2;; esac\n'
+        'while [ $# -gt 0 ]; do [ "$1" = -o ] && touch "$2"; shift; done\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("MXTPU_TORCH_BUILD_DIR", str(out))
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_SECONDS", {})
+    monkeypatch.setattr(_build, "BUILD_LOGS", {})
+    lib = _build.build_library("mxtt_fake", ("k.cuh", "a.cu", "b.cu"))
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in f" {c} "]
+    assert len(compiles) == 2 and len(calls) == 3
+    assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
+    assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in compiles) == [
+        "a.cu", "b.cu"]
+    assert calls[-1].startswith("-shared -o ")
+    assert [p.name for p in out.iterdir()] == [os.path.basename(lib)]
+    assert "mxtt_fake" in _build.BUILD_SECONDS
+    (csrc / "bad.cu").write_text("// bad\n")
+    with pytest.raises(RuntimeError, match="bad.cu: error"):
+        _build.build_library("mxtt_bad", ("a.cu", "bad.cu"))
+    assert [p.name for p in out.iterdir()] == [os.path.basename(lib)]
