@@ -22,7 +22,9 @@ Phases (any failure exits non-zero; nothing is caught):
      shapes (bshd, 12 q / 3 kv heads, Sq != Sk, offsets with fully-masked
      rows, a 256 window; and without a mask).  bfloat16 is
      held element by element, scaled by each output, and the check is
-     shown to fail on an output that skipped one tile;
+     shown to fail on an output that skipped one tile; each check says
+     which forward kernel ran (bf16: the tensor-core one; float32: the
+     other);
   3. serving: a full-width GPT (the repo's on-chip serve config, its
      depth cut from 12 layers to 4, random weights from a seed) served by
      serve.Engine through the paged kernel — 8 concurrent requests,
@@ -34,8 +36,9 @@ Phases (any failure exits non-zero; nothing is caught):
      8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier; its depth cut
      from 8 layers to 2) trained by parallel.ShardedTrainer for 2 warm-up
      and 10 timed steps on bench.py's fixed synthetic batch, each flash
-     kernel's launches checked against layers x steps and the NLL finite
-     and falling; one
+     kernel's launches checked against layers x steps (every forward on
+     the tensor-core kernel, none on the other) and the NLL finite and
+     falling; one
      full-width float32 step's gradients through the kernels against the
      dense attention, the check shown to fail on a planted fault; a small
      model's CUDA trainer against its CPU
@@ -57,8 +60,10 @@ Phases (any failure exits non-zero; nothing is caught):
   6. timings with CUDA events (warm-up excluded, L2 flushed before each
      launch, medians): each kernel, its plain version, a PyTorch
      yardstick (SDPA; cuDNN's nn.LSTM / nn.GRU) and the bound computed
-     from this run's shapes, and for the RNN kernels the barrier floor
-     (an empty cooperative kernel of T grid barriers).
+     from this run's shapes, for the flash forward the other (float32-FMA)
+     kernel at the same bf16 shape and the tensor-core kernel's ptxas
+     registers and spills, and for the RNN kernels the barrier floor (an
+     empty cooperative kernel of T grid barriers).
 
 Prints JSON lines, then the card's name and power limit, then the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -71,6 +76,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -671,13 +677,20 @@ def within_bound(got, ref32, A, dtype):
 
 
 def check_flash(tag, shape, dtype):
+    from mxnet_tpu_torch.ops import flash_attention_cuda as fac
     from mxnet_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_torch, flash_attention_fwd_torch)
 
     args, kw = flash_case(shape, dtype)
     q, k, v, do, dlse = args
+    before = dict(fac.launches)
     o, lse, dq, dk, dv = flash_through_autograd(*args, kw)
     torch.cuda.synchronize()
+    # every shape here is within the tensor-core forward's limits: bf16
+    # runs it, float32 the other forward
+    fwd_ran = [n for n in ("flash_fwd", "flash_fwd_simt")
+               if fac.launches[n] != before[n]]
+    fwd_want = "flash_fwd" if dtype == torch.bfloat16 else "flash_fwd_simt"
     up = [t.float() for t in (q, k, v, do)]
     p_o, p_lse = flash_attention_fwd_torch(*up[:3], **kw)
     p_grads = flash_attention_bwd_torch(*up[:3], o.float(), lse, up[3],
@@ -685,8 +698,9 @@ def check_flash(tag, shape, dtype):
     A = magnitude_terms(q, k, v, o, lse, do, dlse, kw)
     got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
     ref = dict(zip(("dq", "dk", "dv"), p_grads), o=p_o)
-    row = {"phase": "flash_check", "shape": tag, "dtype": str(dtype)[6:]}
-    ok = True
+    row = {"phase": "flash_check", "shape": tag, "dtype": str(dtype)[6:],
+           "fwd_kernel": fwd_ran}
+    ok = fwd_ran == [fwd_want]
     for name in got:
         fine, share = within_bound(got[name], ref[name], A[name], dtype)
         row[f"{name}_worst_share_of_bound"] = share
@@ -761,21 +775,67 @@ def flash_bounds(shape, dtype):
     return out
 
 
+def misaligned_copy(t):
+    """A copy of contiguous ``t`` (same shape and strides) whose data
+    starts 2 bytes past a 16-byte boundary: the forward's variant
+    selector sends it to the float32-FMA kernel."""
+    assert t.is_contiguous()
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def ptxas_report(log, kernel):
+    """Registers and spill bytes of each instantiation of ``kernel`` in
+    nvcc's -Xptxas -v output, keyed by its template argument (D)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            d = re.search(r"ILi(\d+)E", m.group(1))
+            cur = (f"D{d.group(1)}" if d else m.group(1)) \
+                if kernel in m.group(1) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
+
+
 def time_flash(shape, dtype):
+    from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops import flash_attention_cuda as fac
     from mxnet_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_torch, flash_attention_fwd_torch)
 
     F = torch.nn.functional
     (q, k, v, do, dlse), kw = flash_case(shape, dtype, seed=1)
+    q_simt = misaligned_copy(q)
     saved = dict(fac.launches)
     o, lse = fac.flash_fwd_cuda(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1).contiguous()
     bwd = (q, k, v, do, lse, delta, dlse)
+    # the tensor-core forward and, in the same run, the other forward at
+    # the same shape (through the selector: q 2 bytes off alignment)
+    fac.launches.update({n: 0 for n in fac.launches})
     t = {"flash_fwd": time_ms(lambda: fac.flash_fwd_cuda(q, k, v, **kw)),
          "flash_dq": time_ms(lambda: fac.flash_dq_cuda(*bwd, **kw)),
          "flash_dkv": time_ms(lambda: fac.flash_dkv_cuda(*bwd, **kw))}
+    ms_simt = time_ms(lambda: fac.flash_fwd_cuda(q_simt, k, v, **kw))
+    timed = dict(fac.launches)
     fac.launches.update(saved)        # timing launches are not the path's
+    if timed["flash_fwd"] != timed["flash_fwd_simt"] or \
+            timed["flash_fwd"] != timed["flash_dq"]:
+        raise SystemExit(f"flash_time: forward variants not as timed: "
+                         f"{timed}")
     plain_fwd = time_ms(lambda: flash_attention_fwd_torch(q, k, v, **kw),
                         reps=10)
     plain_bwd = time_ms(lambda: flash_attention_bwd_torch(
@@ -804,6 +864,15 @@ def time_flash(shape, dtype):
             "library": ("F.scaled_dot_product_attention(is_causal=True)"
                         if name == "flash_fwd" else
                         "SDPA backward alone (dq, dk, dv together)")}
+        if name == "flash_fwd":
+            rows[name].update({
+                "source": "csrc/flash_fwd_tc.cu",
+                "ms_simt": ms_simt, "simt_over_tc": ms_simt / t[name],
+                "simt": "flash_fwd_kernel (csrc/flash_attention.cu), the "
+                        "same shape with q 2 bytes off 16-byte alignment",
+                "ptxas": ptxas_report(
+                    _build.BUILD_LOGS.get(fac.LIB_NAME, ""),
+                    "flash_fwd_tc_kernel")})
         emit(rows[name])
     return rows
 
@@ -870,16 +939,18 @@ def train_main_path():
     profile = train_profile(tr, placed)
     lap("gpt_train_profile")
     want = cfg["num_layers"] * TRAIN_STEPS
+    # every bf16 forward on the tensor-core kernel, none on the other
+    expected = {"flash_fwd": want, "flash_fwd_simt": 0, "flash_dq": want,
+                "flash_dkv": want}
     finite = all(np.isfinite(nll))
-    ok = (finite and nll[-1] < nll[0]
-          and all(n == want for n in launches.values())
+    ok = (finite and nll[-1] < nll[0] and launches == expected
           and tuple(probs.shape) == (TRAIN_BATCH * cfg["seq_len"],
                                      cfg["vocab"]))
     row = {"phase": "train", "dtype": "bfloat16", "config": cfg,
            "batch": TRAIN_BATCH, "params": sum(p.numel() for p in
                                                tr.params.values()),
            "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
-           "kernel_launches": launches, "launches_expected_each": want,
+           "kernel_launches": launches, "launches_expected": expected,
            "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
            "wall_s": wall,
            "tokens_per_s": TRAIN_BATCH * cfg["seq_len"] * TRAIN_STEPS / wall,
@@ -1754,7 +1825,9 @@ def main():
         t = flash_t[kname]
         entry = {
             "name": kname, "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "source": ("mxnet_tpu_torch/csrc/flash_fwd_tc.cu"
+                       if kname == "flash_fwd" else
+                       "mxnet_tpu_torch/csrc/flash_attention.cu"),
             "replaces": replaces,
             "launches": train["kernel_launches"][kname],
             "max_abs_err": max(train_err[o] for o in outs),

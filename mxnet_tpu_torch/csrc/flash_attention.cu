@@ -26,11 +26,14 @@
 // What bounds it.  At the training shape (B 16, H 8, S 1024, D 64,
 // causal) the work is ~17 GFLOP forward and ~26 / ~34 GFLOP for dQ and
 // dK/dV against ~17 MB per tensor, so the tensor cores' rate sets the
-// bound (tens of microseconds).  This first version does its products as
+// bound (tens of microseconds).  These kernels do their products as
 // float32 FMAs from shared memory, each thread owning a 4 x 4 score tile
-// and a 4 x D/16 accumulator; it is bound by shared-memory reads and the
-// FMA rate, far from that bound.  Tensor-core products (mma.sync, then
-// wgmma with TMA-fed shared-memory rings) are the next step.
+// and a 4 x D/16 accumulator; they are bound by shared-memory reads and
+// the FMA rate, far from that bound.  The bfloat16 forward within its
+// limits runs on the tensor cores in flash_fwd_tc.cu (mma.sync on
+// cp.async-fed tiles, tc_tile.cuh); flash_fwd_kernel here now serves
+// float32 and the bf16 geometries outside those limits.  dQ and dK/dV
+// on the tensor cores are the next step.
 //
 // Limits: head_dim <= 128; float32 or bfloat16; the last dimension of
 // every tensor contiguous.  A launch outside them returns

@@ -1,14 +1,20 @@
 """Wrappers of the Hopper flash-attention kernels.
 
-The kernels (``csrc/flash_attention.cu``) replace the TPU kernels of
-``mxnet_tpu/ops/flash_attention.py``: ``_fwd_kernel`` (forward: ``o`` and
-the per-row log-sum-exp), ``_bwd_dq_kernel`` (dQ) and ``_bwd_dkv_kernel``
-(dK/dV).  They are built with ``nvcc`` at the first launch and called
-through ``ctypes``.  Each wrapper checks what its kernel takes and raises
-on anything else; there is no fallback to the plain versions (those are
+The kernels replace the TPU kernels of ``mxnet_tpu/ops/flash_attention.py``:
+``_fwd_kernel`` (forward: ``o`` and the per-row log-sum-exp),
+``_bwd_dq_kernel`` (dQ) and ``_bwd_dkv_kernel`` (dK/dV).  The forward has
+two variants, picked by :func:`_fwd_variant` from the operands: ``tc``
+(``csrc/flash_fwd_tc.cu``, bf16 tensor cores, within its limits) and
+``simt`` (``csrc/flash_attention.cu``, float32 FMAs: float32 and every
+other bf16 geometry).  dQ and dK/dV are in ``csrc/flash_attention.cu``.
+They are built with ``nvcc`` at the first launch and called through
+``ctypes``.  Each wrapper checks what its kernel takes and raises on
+anything else; there is no fallback to the plain versions (those are
 ``ops.flash_attention.flash_attention_fwd_torch`` /
-``flash_attention_bwd_torch``, which the CPU path runs).  ``launches``
-counts each kernel's launches in this process.
+``flash_attention_bwd_torch``, which the CPU path runs), and no retreat
+from one variant to the other.  ``launches`` counts each kernel's
+launches in this process (``flash_fwd``: the tensor-core forward;
+``flash_fwd_simt``: the other).
 
 Tensors are 4-D in either layout (``bhsd``: (B, H, S, D); ``bshd``:
 (B, S, H, D)), float32 or bfloat16, on one CUDA device, with a
@@ -28,11 +34,22 @@ from .._build import load_library
 __all__ = ["flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda", "launches"]
 
 LIB_NAME = "mxtt_flash_attention"
-SOURCES = ("flash_attention.cu",)
+SOURCES = ("flash_attention.cu", "flash_fwd_tc.cu", "tc_tile.cuh")
 
 # kernel launches in this process, per kernel; reset by whoever counts a
 # window
-launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+launches = {"flash_fwd": 0, "flash_fwd_simt": 0, "flash_dq": 0,
+            "flash_dkv": 0}
+
+# what each kernel takes; a launch outside it returns cudaErrorInvalidValue
+LIMITS = {
+    "flash_fwd": "bfloat16, head_dim 64 or 128, q/k/v/o 16-byte aligned, "
+                 "batch/head/sequence strides multiples of 8 elements",
+    "flash_fwd_simt": "float32 or bfloat16, head_dim <= 128",
+    "flash_dq": "float32 or bfloat16, head_dim <= 128",
+    "flash_dkv": "float32 or bfloat16, head_dim <= 128",
+}
+_TC_HEAD_DIMS = (64, 128)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,10 +60,11 @@ def _lib():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [vp, vp, i, i, i, i, f, vp]    # dims, strides, mask, stream
         lib.mxtt_flash_fwd.argtypes = [i] + [vp] * 5 + tail
+        lib.mxtt_flash_fwd_tc.argtypes = [i] + [vp] * 5 + tail
         lib.mxtt_flash_dq.argtypes = [i] + [vp] * 8 + tail
         lib.mxtt_flash_dkv.argtypes = [i] + [vp] * 9 + tail
-        for fn in (lib.mxtt_flash_fwd, lib.mxtt_flash_dq,
-                   lib.mxtt_flash_dkv):
+        for fn in (lib.mxtt_flash_fwd, lib.mxtt_flash_fwd_tc,
+                   lib.mxtt_flash_dq, lib.mxtt_flash_dkv):
             fn.restype = ctypes.c_int
     return lib
 
@@ -105,18 +123,31 @@ def _call(fn, dtype, ptrs, dims, strides, causal, window, q_offset,
                 stream)
     if rc != 0:
         # 1 (cudaErrorInvalidValue) is also the kernel refusing a geometry
-        # outside the limits stated in csrc/flash_attention.cu
+        # outside its limits
         raise RuntimeError(
             f"flash_attention_cuda: {name} launch failed with cudaError "
-            f"{rc}" + (" (invalid value: head_dim > 128 or a geometry "
-                       "outside the kernel's limits)" if rc == 1 else ""))
+            f"{rc}" + (f" (invalid value: the {name} kernel takes "
+                       f"{LIMITS[name]})" if rc == 1 else ""))
     launches[name] += 1
+
+
+def _fwd_variant(dtype, D, ptrs, strides):
+    """The forward kernel that takes a call: ``"tc"`` (tensor cores) for
+    bfloat16 at head_dim 64 or 128 with 16-byte-aligned ``ptrs`` (q, k,
+    v, o) and every stride in ``strides`` (batch, head, sequence of each)
+    a multiple of 8 elements; ``"simt"`` for everything else."""
+    if dtype != torch.bfloat16 or D not in _TC_HEAD_DIMS:
+        return "simt"
+    if any(p % 16 for p in ptrs) or any(s % 8 for s in strides):
+        return "simt"
+    return "tc"
 
 
 def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_offset=0,
                    k_offset=0, layout="bhsd", window=0):
-    """Forward kernel: ``(o, lse)``, ``o`` like q, ``lse`` float32
-    (B, Hq, Sq) (-1e30 on fully-masked rows, whose ``o`` is 0)."""
+    """Forward kernel (the variant :func:`_fwd_variant` picks): ``(o,
+    lse)``, ``o`` like q, ``lse`` float32 (B, Hq, Sq) (-1e30 on
+    fully-masked rows, whose ``o`` is 0)."""
     B, Hq, Hkv, Sq, Sk, D = _geometry(q, k, v, layout)
     _need(window >= 0, f"window must be >= 0 (got {window})")
     o = torch.empty_like(q)
@@ -125,10 +156,13 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_offset=0,
         return o, lse
     scale = 1.0 / D ** 0.5 if scale is None else scale
     strides = sum((_strides(t, layout) for t in (q, k, v, o)), ())
-    _call(_lib().mxtt_flash_fwd, q.dtype,
-          (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-           lse.data_ptr()), (B, Hq, Hkv, Sq, Sk, D), strides, causal,
-          window, q_offset, k_offset, scale, q.device, "flash_fwd")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    lib = _lib()
+    fn, name = ((lib.mxtt_flash_fwd_tc, "flash_fwd")
+                if _fwd_variant(q.dtype, D, ptrs, strides) == "tc" else
+                (lib.mxtt_flash_fwd, "flash_fwd_simt"))
+    _call(fn, q.dtype, ptrs + (lse.data_ptr(),), (B, Hq, Hkv, Sq, Sk, D),
+          strides, causal, window, q_offset, k_offset, scale, q.device, name)
     return o, lse
 
 

@@ -16,7 +16,8 @@ The Hopper kernels' own cases carry the ``cuda`` marker and skip without
 a CUDA device: the kernels are compiled by nvcc for sm_90a at first
 launch and have no CPU or interpret mode.  ``python3 chip_smoke.py``
 holds them against the plain versions on the card at the training
-shape.
+shape.  Which forward kernel takes a call (tensor cores or not) is a
+plain function of the operands, tested here on the CPU.
 """
 
 import numpy as np
@@ -240,4 +241,144 @@ def test_cuda_kernels_reject_what_they_do_not_take():
                            v.transpose(-1, -2))
     wide = torch.zeros(1, 1, 4, 160, device="cuda")
     with pytest.raises(RuntimeError, match="cudaError 1 "):
+        fac.flash_fwd_cuda(wide, wide, wide)
+
+
+# -- the forward's two variants ---------------------------------------------
+# (dtype, head_dim, q/k/v/o data pointers, batch/head/sequence strides of
+# q, k, v, o): the contiguous bhsd training shape, its fused-QKV views
+# (rows 3 d_model apart, k and v 1024 and 2048 bytes into the row), and
+# one departure from the tensor-core kernel's limits each
+_PTRS = (0x7F0000000000, 0x7F0000100000, 0x7F0000200000, 0x7F0000300000)
+_BHSD = (8 * 1024 * 64, 1024 * 64, 64) * 4
+_FUSED_PTRS = (0x7F0000000000, 0x7F0000000400, 0x7F0000000800,
+               0x7F0000300000)
+_FUSED = (1024 * 1536, 64, 1536) * 3 + (8 * 1024 * 64, 1024 * 64, 64)
+VARIANT_CASES = {
+    "bf16_d64": (torch.bfloat16, 64, _PTRS, _BHSD, "tc"),
+    "bf16_d128": (torch.bfloat16, 128, _PTRS,
+                  tuple(2 * x for x in _BHSD), "tc"),
+    "bf16_fused_qkv_views": (torch.bfloat16, 64, _FUSED_PTRS, _FUSED, "tc"),
+    "float32": (torch.float32, 64, _PTRS, _BHSD, "simt"),
+    "bf16_d80": (torch.bfloat16, 80, _PTRS, (8 * 1024 * 80, 1024 * 80, 80)
+                 * 4, "simt"),
+    "bf16_d32": (torch.bfloat16, 32, _PTRS, (8 * 1024 * 32, 1024 * 32, 32)
+                 * 4, "simt"),
+    "bf16_odd_sequence_stride": (torch.bfloat16, 64, _PTRS,
+                                 (8 * 1024 * 65, 1024 * 65, 65) * 4, "simt"),
+    "bf16_misaligned_k": (torch.bfloat16, 64,
+                          (_PTRS[0], _PTRS[1] + 2) + _PTRS[2:], _BHSD,
+                          "simt"),
+    "bf16_misaligned_o": (torch.bfloat16, 64, _PTRS[:3] + (_PTRS[3] + 8,),
+                          _BHSD, "simt"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VARIANT_CASES))
+def test_fwd_variant_follows_the_tensor_core_limits(name):
+    dtype, D, ptrs, strides, want = VARIANT_CASES[name]
+    assert fac._fwd_variant(dtype, D, ptrs, strides) == want
+
+
+def test_every_counted_kernel_states_its_limits():
+    """The launch error names the kernel that refused and what it takes."""
+    assert set(fac.LIMITS) == set(fac.launches)
+    assert "head_dim 64 or 128" in fac.LIMITS["flash_fwd"]
+
+
+# the tensor-core forward on the card, against the plain forward run in
+# float32 on the same bf16 values, under chip_smoke.py's bf16 bound:
+# |kernel - plain32| <= 2^-8 (|plain32| + A) + 1e-5 A + 1e-6, A = P|V|
+# (p rounded to bf16 before P.V: 2^-8 A; o rounded once: 2^-8 |o|)
+TC_CASES = {
+    "bhsd_causal_d64": ("bhsd", 2, 4, 4, 256, 256, 64, True, 0, 0, 0),
+    "bhsd_causal_d128": ("bhsd", 2, 4, 4, 256, 256, 128, True, 0, 0, 0),
+    # q rows 0..35 (positions 64..99) see no key (positions from 100)
+    "bshd_gqa_window_offsets": ("bshd", 2, 12, 3, 300, 450, 64, True, 256,
+                                64, 100),
+    "bhsd_bidir_ragged": ("bhsd", 2, 2, 2, 200, 333, 64, False, 0, 0, 0),
+    "bshd_bidir_window_ragged": ("bshd", 1, 4, 2, 130, 77, 128, False, 40,
+                                 0, 0),
+}
+
+
+def _tc_operands(case, fused=False, seed=4):
+    """bf16 CUDA q, k, v: contiguous, or bhsd views of one fused QKV
+    projection (B, S, (Hq + 2 Hkv) D) as the GPT model makes them."""
+    layout, B, Hq, Hkv, Sq, Sk, D = case[:7]
+    rng = np.random.RandomState(seed)
+    if fused:
+        qkv = torch.from_numpy(rng.randn(B, Sq, (Hq + 2 * Hkv) * D).astype(
+            np.float32)).to("cuda", torch.bfloat16)
+        parts = qkv.split([Hq * D, Hkv * D, Hkv * D], dim=-1)
+        return [x.view(B, Sq, -1, D).transpose(1, 2) for x in parts]
+    q, k, v, _, _ = _inputs(case, seed)
+    return [torch.from_numpy(a).to("cuda", torch.bfloat16)
+            for a in (q, k, v)]
+
+
+def _within_bf16_bound(case, q, k, v, o, lse):
+    """Asserts o and lse within the bf16 bound; returns the number of
+    fully-masked rows (o exactly 0, lse exactly -1e30)."""
+    up = [t.float() for t in (q, k, v)]
+    po, plse = flash_attention_fwd_torch(*up, **_kw(case))
+    A, _ = flash_attention_fwd_torch(up[0], up[1], up[2].abs(), **_kw(case))
+    allowed = 2.0 ** -8 * (po.abs() + A) + F32_GRAD * A + 1e-6
+    assert bool(((o.float() - po).abs() <= allowed).all())
+    masked = plse <= -1e29
+    assert torch.equal(lse <= -1e29, masked)
+    assert bool((lse[masked] == -1e30).all())
+    assert bool(((lse - plse).abs()[~masked]
+                 <= F32_GRAD * (1 + plse.abs()[~masked])).all())
+    rows = o if case[0] == "bhsd" else o.transpose(1, 2)
+    assert bool((rows[masked] == 0).all())
+    return int(masked.sum())
+
+
+def _check_tc_forward(case, q, k, v):
+    before = dict(fac.launches)
+    o, lse = fac.flash_fwd_cuda(q, k, v, **_kw(case))
+    torch.cuda.synchronize()
+    assert fac.launches["flash_fwd"] == before["flash_fwd"] + 1
+    assert fac.launches["flash_fwd_simt"] == before["flash_fwd_simt"]
+    return _within_bf16_bound(case, q, k, v, o, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TC_CASES))
+def test_cuda_tensor_core_forward_within_bf16_bound(name):
+    _need_cuda()
+    case = TC_CASES[name]
+    masked = _check_tc_forward(case, *_tc_operands(case))
+    if name == "bshd_gqa_window_offsets":
+        assert masked == 2 * 12 * 36
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_forward_on_fused_qkv_views():
+    _need_cuda()
+    case = ("bhsd", 2, 8, 8, 256, 256, 64, True, 0, 0, 0)
+    q, k, v = _tc_operands(case, fused=True)
+    assert q.stride(2) == 3 * 8 * 64 and not q.is_contiguous()
+    _check_tc_forward(case, q, k, v)
+
+
+@pytest.mark.cuda
+def test_cuda_float32_and_misaligned_bf16_run_the_simt_forward():
+    _need_cuda()
+    case = TC_CASES["bhsd_causal_d64"]
+    q, k, v = _tc_operands(case)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    q_off = buf[1:].view(q.shape)       # 2 bytes past a 16-byte boundary
+    q_off.copy_(q)
+    before = dict(fac.launches)
+    fac.flash_fwd_cuda(q.float(), k.float(), v.float(), **_kw(case))
+    o_simt, lse_simt = fac.flash_fwd_cuda(q_off, k, v, **_kw(case))
+    assert fac.launches["flash_fwd_simt"] == before["flash_fwd_simt"] + 2
+    assert fac.launches["flash_fwd"] == before["flash_fwd"]
+    torch.cuda.synchronize()
+    _within_bf16_bound(case, q, k, v, o_simt, lse_simt)
+    wide = torch.zeros(1, 1, 4, 160, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="flash_fwd_simt launch failed "
+                                           "with cudaError 1 "):
         fac.flash_fwd_cuda(wide, wide, wide)

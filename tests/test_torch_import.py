@@ -156,9 +156,9 @@ def test_kernel_build_is_lazy_and_targets_sm90a():
 
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_SECONDS == {}
-    for src in ("paged_attention.cu", "flash_attention.cu", "fused_rnn.cuh",
-                "fused_lstm_fwd.cu", "fused_lstm_bwd.cu", "fused_gru_fwd.cu",
-                "fused_gru_bwd.cu"):
+    for src in ("paged_attention.cu", "flash_attention.cu", "flash_fwd_tc.cu",
+                "tc_tile.cuh", "fused_rnn.cuh", "fused_lstm_fwd.cu",
+                "fused_lstm_bwd.cu", "fused_gru_fwd.cu", "fused_gru_bwd.cu"):
         assert os.path.isfile(os.path.join(_build.CSRC_DIR, src))
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "/build/" in f.read().split()
