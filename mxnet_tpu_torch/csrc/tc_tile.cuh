@@ -1,8 +1,9 @@
 // Tensor-core tile building blocks for Hopper (sm_90a) through mma.sync.
 //
 // The pieces a flash-attention kernel (forward, dQ, dK/dV) is built from:
-//   - cp.async 16-byte copies global -> shared, with zero-fill, in commit
-//     groups, so the next tile is in flight while this one is multiplied;
+//   - cp.async 16-byte copies global -> shared (4-byte ones for float32
+//     rows), with zero-fill, in commit groups, so the next tile is in
+//     flight while this one is multiplied;
 //   - a swizzled bf16 tile in shared memory (16-byte chunks XOR row), so
 //     ldmatrix and cp.async hit 8 different bank groups for 8 rows;
 //   - ldmatrix x4 loaders (plain and .trans) that give mma fragments;
@@ -44,6 +45,18 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   const int n = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+
+// 4 bytes global -> shared through L1 (.ca: the only cp.async form that
+// takes fewer than 16 bytes), for float32 rows whose starts are only
+// 4-byte aligned (a q tile's lse, delta and dlse: element i of the row
+// lands at dst + 4 i, one copy a lane).  With valid false nothing is read
+// and the 4 bytes are zero-filled; src must still be a mapped address.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(n));
 }
 

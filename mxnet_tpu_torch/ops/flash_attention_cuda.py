@@ -6,15 +6,18 @@ The kernels replace the TPU kernels of ``mxnet_tpu/ops/flash_attention.py``:
 two variants, picked by :func:`_fwd_variant` from the operands: ``tc``
 (``csrc/flash_fwd_tc.cu``, bf16 tensor cores, within its limits) and
 ``simt`` (``csrc/flash_attention.cu``, float32 FMAs: float32 and every
-other bf16 geometry).  dQ and dK/dV are in ``csrc/flash_attention.cu``.
+other bf16 geometry).  dK/dV has the same two variants, picked by
+:func:`_dkv_variant`: ``tc`` (``csrc/flash_dkv_tc.cu``) and ``simt``
+(``csrc/flash_attention.cu``).  dQ is in ``csrc/flash_attention.cu``.
 They are built with ``nvcc`` at the first launch and called through
 ``ctypes``.  Each wrapper checks what its kernel takes and raises on
 anything else; there is no fallback to the plain versions (those are
 ``ops.flash_attention.flash_attention_fwd_torch`` /
 ``flash_attention_bwd_torch``, which the CPU path runs), and no retreat
 from one variant to the other.  ``launches`` counts each kernel's
-launches in this process (``flash_fwd``: the tensor-core forward;
-``flash_fwd_simt``: the other).
+launches in this process (``flash_fwd`` and ``flash_dkv``: the
+tensor-core kernels; ``flash_fwd_simt`` and ``flash_dkv_simt``: the
+others).
 
 Tensors are 4-D in either layout (``bhsd``: (B, H, S, D); ``bshd``:
 (B, S, H, D)), float32 or bfloat16, on one CUDA device, with a
@@ -25,6 +28,7 @@ K/V may carry fewer heads than q (grouped-query attention).  Row tensors
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -34,12 +38,13 @@ from .._build import load_library
 __all__ = ["flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda", "launches"]
 
 LIB_NAME = "mxtt_flash_attention"
-SOURCES = ("flash_attention.cu", "flash_fwd_tc.cu", "tc_tile.cuh")
+SOURCES = ("flash_attention.cu", "flash_fwd_tc.cu", "flash_dkv_tc.cu",
+           "tc_tile.cuh")
 
 # kernel launches in this process, per kernel; reset by whoever counts a
 # window
 launches = {"flash_fwd": 0, "flash_fwd_simt": 0, "flash_dq": 0,
-            "flash_dkv": 0}
+            "flash_dkv": 0, "flash_dkv_simt": 0}
 
 # what each kernel takes; a launch outside it returns cudaErrorInvalidValue
 LIMITS = {
@@ -47,9 +52,12 @@ LIMITS = {
                  "batch/head/sequence strides multiples of 8 elements",
     "flash_fwd_simt": "float32 or bfloat16, head_dim <= 128",
     "flash_dq": "float32 or bfloat16, head_dim <= 128",
-    "flash_dkv": "float32 or bfloat16, head_dim <= 128",
+    "flash_dkv": "bfloat16, head_dim 64, q/k/v/dO/dk/dv 16-byte aligned, "
+                 "batch/head/sequence strides multiples of 8 elements",
+    "flash_dkv_simt": "float32 or bfloat16, head_dim <= 128",
 }
-_TC_HEAD_DIMS = (64, 128)
+_TC_HEAD_DIMS = (64, 128)         # the forward's
+_TC_DKV_HEAD_DIMS = (64,)         # at 128 the tensor-core dK/dV spills
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -63,8 +71,10 @@ def _lib():
         lib.mxtt_flash_fwd_tc.argtypes = [i] + [vp] * 5 + tail
         lib.mxtt_flash_dq.argtypes = [i] + [vp] * 8 + tail
         lib.mxtt_flash_dkv.argtypes = [i] + [vp] * 9 + tail
+        lib.mxtt_flash_dkv_tc.argtypes = [i] + [vp] * 9 + tail
         for fn in (lib.mxtt_flash_fwd, lib.mxtt_flash_fwd_tc,
-                   lib.mxtt_flash_dq, lib.mxtt_flash_dkv):
+                   lib.mxtt_flash_dq, lib.mxtt_flash_dkv,
+                   lib.mxtt_flash_dkv_tc):
             fn.restype = ctypes.c_int
     return lib
 
@@ -112,12 +122,18 @@ def _rows(t, B, H, Sq, name):
           f"{name} must be float32 ({B}, {H}, {Sq}) contiguous")
 
 
+@contextlib.contextmanager
+def _launch_stream(device):
+    """Makes ``device`` current and yields its current stream (an int)."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
 def _call(fn, dtype, ptrs, dims, strides, causal, window, q_offset,
           k_offset, scale, device, name):
     dims_c = (ctypes.c_int * 6)(*dims)
     strides_c = (ctypes.c_longlong * len(strides))(*strides)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with _launch_stream(device) as stream:
         rc = fn(_DTYPE_CODE[dtype], *ptrs, dims_c, strides_c, int(causal),
                 int(window), int(q_offset), int(k_offset), float(scale),
                 stream)
@@ -131,16 +147,27 @@ def _call(fn, dtype, ptrs, dims, strides, causal, window, q_offset,
     launches[name] += 1
 
 
+def _tc_variant(dtype, D, ptrs, strides, head_dims):
+    if dtype != torch.bfloat16 or D not in head_dims:
+        return "simt"
+    if any(p % 16 for p in ptrs) or any(s % 8 for s in strides):
+        return "simt"
+    return "tc"
+
+
 def _fwd_variant(dtype, D, ptrs, strides):
     """The forward kernel that takes a call: ``"tc"`` (tensor cores) for
     bfloat16 at head_dim 64 or 128 with 16-byte-aligned ``ptrs`` (q, k,
     v, o) and every stride in ``strides`` (batch, head, sequence of each)
     a multiple of 8 elements; ``"simt"`` for everything else."""
-    if dtype != torch.bfloat16 or D not in _TC_HEAD_DIMS:
-        return "simt"
-    if any(p % 16 for p in ptrs) or any(s % 8 for s in strides):
-        return "simt"
-    return "tc"
+    return _tc_variant(dtype, D, ptrs, strides, _TC_HEAD_DIMS)
+
+
+def _dkv_variant(dtype, D, ptrs, strides):
+    """The dK/dV kernel that takes a call, by the same rule as
+    :func:`_fwd_variant` over ``ptrs`` q, k, v, dO, dk, dv and their
+    strides, at the head dims in ``_TC_DKV_HEAD_DIMS``."""
+    return _tc_variant(dtype, D, ptrs, strides, _TC_DKV_HEAD_DIMS)
 
 
 def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_offset=0,
@@ -198,8 +225,9 @@ def flash_dq_cuda(q, k, v, do, lse, delta, dlse, causal=False, scale=None,
 
 def flash_dkv_cuda(q, k, v, do, lse, delta, dlse, causal=False, scale=None,
                    q_offset=0, k_offset=0, layout="bhsd", window=0):
-    """dK/dV kernel: ``(dk, dv)`` like k and v; each kv head sums the
-    gradients of its q-head group in registers (no atomics)."""
+    """dK/dV kernel (the variant :func:`_dkv_variant` picks): ``(dk,
+    dv)`` like k and v; each kv head sums the gradients of its q-head
+    group in registers (no atomics)."""
     B, Hq, Hkv, Sq, Sk, D = _bwd_checks(q, k, v, do, lse, delta, dlse,
                                         layout, window)
     dk = torch.empty_like(k)
@@ -208,9 +236,14 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, dlse, causal=False, scale=None,
         return dk, dv
     scale = 1.0 / D ** 0.5 if scale is None else scale
     strides = sum((_strides(t, layout) for t in (q, k, v, do, dk, dv)), ())
-    _call(_lib().mxtt_flash_dkv, q.dtype,
-          (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(),
-           dk.data_ptr(), dv.data_ptr()), (B, Hq, Hkv, Sq, Sk, D), strides,
-          causal, window, q_offset, k_offset, scale, q.device, "flash_dkv")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
+    outs = (dk.data_ptr(), dv.data_ptr())
+    lib = _lib()
+    fn, name = ((lib.mxtt_flash_dkv_tc, "flash_dkv")
+                if _dkv_variant(q.dtype, D, ptrs + outs, strides) == "tc"
+                else (lib.mxtt_flash_dkv, "flash_dkv_simt"))
+    _call(fn, q.dtype, ptrs + (lse.data_ptr(), delta.data_ptr(),
+                               dlse.data_ptr()) + outs,
+          (B, Hq, Hkv, Sq, Sk, D), strides, causal, window, q_offset,
+          k_offset, scale, q.device, name)
     return dk, dv

@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from ..base import MXNetError
 from ..context import resolve_device
 from ..convert import to_tensor
 from ..initializer import Uniform
@@ -127,6 +128,35 @@ def adamw_opt(learning_rate=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
 
 
 _OPTS = {"sgd": sgd_opt, "adam": adam_opt, "adamw": adamw_opt}
+_UNPORTED_OPTS = ("lars", "lamb")
+
+
+def _wrap_update(update_fn, lr_scheduler):
+    """A custom ``update`` called as ``update(grads, state, params,
+    lr_scale=s)``, as the reference wraps it: an update that names
+    ``lr_scale`` (or takes ``**kwargs``) gets it by keyword, the legacy
+    4-positional form gets 1.0, the 3-argument form nothing.  A schedule
+    that the update cannot take raises rather than training flat."""
+    try:
+        sig = inspect.signature(update_fn)
+    except (TypeError, ValueError):
+        return update_fn        # not introspectable: passed by keyword
+    try:
+        sig.bind(None, None, None, lr_scale=1.0)
+        return update_fn
+    except TypeError:
+        pass
+    if lr_scheduler is not None:
+        raise MXNetError(
+            "lr_scheduler requires the custom optimizer's update(grads, "
+            "state, params, lr_scale) to accept an 'lr_scale' argument")
+    try:
+        sig.bind(None, None, None, 1.0)
+        return (lambda grads, state, params, lr_scale=1.0:
+                update_fn(grads, state, params, 1.0))
+    except TypeError:
+        return (lambda grads, state, params, lr_scale=1.0:
+                update_fn(grads, state, params))
 
 
 def _torch_dtype(dtype):
@@ -150,14 +180,18 @@ class ShardedTrainer:
     inputs named by ``input_shapes`` and returns the loss head's outputs
     (a tensor or a tuple of them); its parameters carry checkpoint
     names.  ``optimizer`` is ``"sgd"``, ``"adam"``, ``"adamw"`` or an
-    ``(init, update)`` pair; ``dtype`` the parameters' stored dtype
-    (float data inputs follow it, labels and integer inputs do not);
+    ``(init, update)`` pair whose ``update(grads, state, params[,
+    lr_scale])`` returns ``(params, state)`` (new parameter tensors are
+    copied into the parameters in place); ``dtype`` the parameters'
+    stored dtype (float data inputs follow it, labels and integer inputs
+    do not);
     ``initializer`` defaults to ``Uniform(0.07)`` and draws from a
     ``torch.Generator`` seeded with 0 (a caller wanting other values
     passes its own initializer or calls ``set_params``).  ``rescale_grad`` defaults
     to ``1 / batch`` (the first input's leading dimension): the loss
     heads' gradients are un-normalized.  ``lr_scheduler`` is any
-    ``step -> lr`` callable, evaluated each step.  ``device`` defaults to
+    ``step -> lr`` callable, evaluated each step (a custom ``update``
+    must then take ``lr_scale``).  ``device`` defaults to
     ``"cuda"`` and raises when CUDA is absent.
     """
 
@@ -207,6 +241,8 @@ class ShardedTrainer:
             initializer(name, host, gen)
             p.data = host.to(device=self.device, dtype=self._dtype)
 
+        if optimizer in _UNPORTED_OPTS:
+            raise _not_ported(f"optimizer={optimizer!r}")
         if isinstance(optimizer, str):
             factory = _OPTS[optimizer]
             init_fn, self._update_fn = factory(**(optimizer_params or {}))
@@ -215,7 +251,8 @@ class ShardedTrainer:
             base_lr = float((optimizer_params or {}).get("learning_rate",
                                                          default))
         else:
-            init_fn, self._update_fn = optimizer
+            init_fn, update_fn = optimizer
+            self._update_fn = _wrap_update(update_fn, lr_scheduler)
             base_lr = float((optimizer_params or {}).get("learning_rate",
                                                          1.0))
         self._lr_scheduler = lr_scheduler
@@ -267,8 +304,13 @@ class ShardedTrainer:
         grads, outs = self._grads_of(self._place_batch(batch))
         scale = self._rescale_grad
         grads = {k: g * scale for k, g in grads.items()}
-        self._update_fn(grads, self.opt_state, self.params,
-                        lr_scale=self._lr_scale())
+        with torch.no_grad():
+            params, self.opt_state = self._update_fn(
+                grads, self.opt_state, self.params,
+                lr_scale=self._lr_scale())
+            for k, p in params.items():     # the built-ins return these
+                if p is not self.params[k]:
+                    self.params[k].copy_(p)
         return outs
 
     def eval(self, batch):

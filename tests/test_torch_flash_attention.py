@@ -16,8 +16,9 @@ The Hopper kernels' own cases carry the ``cuda`` marker and skip without
 a CUDA device: the kernels are compiled by nvcc for sm_90a at first
 launch and have no CPU or interpret mode.  ``python3 chip_smoke.py``
 holds them against the plain versions on the card at the training
-shape.  Which forward kernel takes a call (tensor cores or not) is a
-plain function of the operands, tested here on the CPU.
+shape.  Which forward and which dK/dV kernel takes a call (tensor cores
+or not) is a plain function of the operands, tested here on the CPU, as
+is the dK/dV wrapper's launch path with the library replaced by a fake.
 """
 
 import numpy as np
@@ -284,6 +285,7 @@ def test_every_counted_kernel_states_its_limits():
     """The launch error names the kernel that refused and what it takes."""
     assert set(fac.LIMITS) == set(fac.launches)
     assert "head_dim 64 or 128" in fac.LIMITS["flash_fwd"]
+    assert "head_dim 64," in fac.LIMITS["flash_dkv"]
 
 
 # the tensor-core forward on the card, against the plain forward run in
@@ -382,3 +384,215 @@ def test_cuda_float32_and_misaligned_bf16_run_the_simt_forward():
     with pytest.raises(RuntimeError, match="flash_fwd_simt launch failed "
                                            "with cudaError 1 "):
         fac.flash_fwd_cuda(wide, wide, wide)
+
+
+# -- dK/dV's two variants ----------------------------------------------------
+# (dtype, head_dim, q/k/v/dO/dk/dv data pointers, batch/head/sequence
+# strides of each): the contiguous bhsd training shape, the model's
+# operands (q, k, v fused-QKV views, dO a bhsd view of a bshd gradient,
+# dk/dv contiguous), and one departure from the tensor-core kernel's
+# limits each
+_DKV_PTRS = _PTRS + (0x7F0000400000, 0x7F0000500000)
+_DKV_BHSD = (8 * 1024 * 64, 1024 * 64, 64) * 6
+_DKV_FUSED_PTRS = _FUSED_PTRS[:3] + (0x7F0000300000, 0x7F0000400000,
+                                     0x7F0000500000)
+_DKV_FUSED = ((1024 * 1536, 64, 1536) * 3 + (1024 * 512, 64, 512)
+              + (8 * 1024 * 64, 1024 * 64, 64) * 2)
+DKV_VARIANT_CASES = {
+    "bf16_d64": (torch.bfloat16, 64, _DKV_PTRS, _DKV_BHSD, "tc"),
+    # at head_dim 128 the tensor-core dK/dV spilled (ptxas), so it stays
+    # on the other kernel
+    "bf16_d128": (torch.bfloat16, 128, _DKV_PTRS,
+                  tuple(2 * x for x in _DKV_BHSD), "simt"),
+    "bf16_model_operands": (torch.bfloat16, 64, _DKV_FUSED_PTRS, _DKV_FUSED,
+                            "tc"),
+    "float32": (torch.float32, 64, _DKV_PTRS, _DKV_BHSD, "simt"),
+    "bf16_d80": (torch.bfloat16, 80, _DKV_PTRS,
+                 (8 * 1024 * 80, 1024 * 80, 80) * 6, "simt"),
+    "bf16_odd_sequence_stride": (torch.bfloat16, 64, _DKV_PTRS,
+                                 (8 * 1024 * 65, 1024 * 65, 65) * 6, "simt"),
+    "bf16_head_stride_not_multiple_of_8": (
+        torch.bfloat16, 64, _DKV_PTRS,
+        _DKV_BHSD[:3] + (8 * 1024 * 64, 1028, 64) + _DKV_BHSD[6:], "simt"),
+    "bf16_misaligned_do": (torch.bfloat16, 64,
+                           _DKV_PTRS[:3] + (_DKV_PTRS[3] + 2,)
+                           + _DKV_PTRS[4:], _DKV_BHSD, "simt"),
+    "bf16_misaligned_dk": (torch.bfloat16, 64,
+                           _DKV_PTRS[:4] + (_DKV_PTRS[4] + 8,)
+                           + _DKV_PTRS[5:], _DKV_BHSD, "simt"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DKV_VARIANT_CASES))
+def test_dkv_variant_follows_the_tensor_core_limits(name):
+    dtype, D, ptrs, strides, want = DKV_VARIANT_CASES[name]
+    assert fac._dkv_variant(dtype, D, ptrs, strides) == want
+
+
+class _FakeLib:
+    """Stands in for the built library: each entry point records its call
+    and returns the given cudaError_t."""
+
+    def __init__(self, rc):
+        self.calls = []
+        for name in ("mxtt_flash_dkv_tc", "mxtt_flash_dkv"):
+            setattr(self, name, self._entry(name, rc))
+
+    def _entry(self, name, rc):
+        def fn(*args):
+            self.calls.append(name)
+            return rc
+        return fn
+
+
+def _dkv_wrapper_on_cpu(monkeypatch, dtype, rc):
+    """flash_dkv_cuda on CPU tensors of the D 64 training layout, with the
+    library replaced by a fake (no device is needed to pick and call a
+    variant): (fake, launches after the call or the raised error)."""
+    import contextlib
+
+    case = ("bhsd", 1, 2, 2, 64, 64, 64, True, 0, 0, 0)
+    q, k, v, do, dlse = (torch.from_numpy(a) for a in _inputs(case))
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    lse = torch.zeros(1, 2, 64)
+    fake = _FakeLib(rc)
+    monkeypatch.setattr(fac, "launches", dict.fromkeys(fac.launches, 0))
+    monkeypatch.setattr(fac, "_lib", lambda: fake)
+    monkeypatch.setattr(fac, "_bwd_checks",
+                        lambda *a: (1, 2, 2, 64, 64, 64))
+    monkeypatch.setattr(fac, "_launch_stream",
+                        lambda device: contextlib.nullcontext(0))
+    try:
+        fac.flash_dkv_cuda(q, k, v, do, lse, lse, dlse, causal=True)
+    except RuntimeError as err:
+        return fake, err
+    return fake, dict(fac.launches)
+
+
+def test_dkv_tensor_core_failure_raises_without_retreat(monkeypatch):
+    """A failed tensor-core dK/dV launch raises with the kernel's name and
+    limits; neither the other kernel nor the plain version runs."""
+    fake, err = _dkv_wrapper_on_cpu(monkeypatch, torch.bfloat16, rc=1)
+    assert isinstance(err, RuntimeError)
+    assert "flash_dkv launch failed with cudaError 1 " in str(err)
+    assert fac.LIMITS["flash_dkv"] in str(err)
+    assert fake.calls == ["mxtt_flash_dkv_tc"]
+    assert fac.launches == dict.fromkeys(fac.launches, 0)
+
+
+@pytest.mark.parametrize("dtype,entry,counted", [
+    (torch.bfloat16, "mxtt_flash_dkv_tc", "flash_dkv"),
+    (torch.float32, "mxtt_flash_dkv", "flash_dkv_simt")])
+def test_dkv_wrapper_counts_the_variant_it_launched(monkeypatch, dtype,
+                                                    entry, counted):
+    fake, launched = _dkv_wrapper_on_cpu(monkeypatch, dtype, rc=0)
+    assert fake.calls == [entry]
+    assert launched == {**dict.fromkeys(launched, 0), counted: 1}
+
+
+# the tensor-core dK/dV on the card, against the plain backward run in
+# float32 on the same bf16 values, under chip_smoke.py's bf16 bound:
+# |kernel - plain32| <= 2^-8 (|plain32| + A) + 1e-5 A + 1e-6, with
+# A = |dS|^T |Q| for dk and P^T |dO| for dv, each summed over the GQA group
+# (p and ds rounded to bf16 before the products: 2^-8 A; the result
+# rounded once: 2^-8 |x|)
+def _dkv_terms(case, q, k, v, o, lse, do, dlse):
+    from mxnet_tpu_torch.ops.flash_attention import NEG_INF, _keep
+
+    kw = _kw(case)
+    lay = kw["layout"]
+    bh = (lambda t: t) if lay == "bhsd" else (lambda t: t.transpose(1, 2))
+    qh, kh, vh, oh, doh = (bh(t).float() for t in (q, k, v, o, do))
+    B, H, Sq, D = qh.shape
+    Hkv, Sk = kh.shape[1], kh.shape[2]
+    grp = H // Hkv
+    kh, vh = (t.repeat_interleave(grp, dim=1) for t in (kh, vh))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) / D ** 0.5
+    keep = _keep(Sq, Sk, kw["causal"], kw["q_offset"], kw["k_offset"],
+                 kw["window"], q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
+    delta = (doh * oh).sum(-1)
+    ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta[..., None]
+              + dlse[..., None]) / D ** 0.5
+
+    def group_sum(x):
+        return bh(x.reshape(B, Hkv, grp, Sk, D).sum(2))
+
+    return (group_sum(torch.matmul(ds.abs().transpose(-1, -2), qh.abs())),
+            group_sum(torch.matmul(p.transpose(-1, -2), doh.abs())))
+
+
+def _check_dkv(case, q, k, v, do, dlse, want):
+    """Runs the dK/dV wrapper and asserts which kernel ran (``want``) and
+    dk, dv within the bound of the operands' dtype (float32: the same
+    products summed in another order, 1e-5 A + 1e-6)."""
+    kw = _kw(case)
+    o, lse = fac.flash_fwd_cuda(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    if case[0] == "bshd":
+        delta = delta.transpose(1, 2)
+    delta = delta.contiguous()
+    before = dict(fac.launches)
+    dk, dv = fac.flash_dkv_cuda(q, k, v, do, lse, delta, dlse, **kw)
+    torch.cuda.synchronize()
+    ran = {n: fac.launches[n] - before[n]
+           for n in ("flash_dkv", "flash_dkv_simt")}
+    assert ran == {n: int(n == want) for n in ran}
+    up = [t.float() for t in (q, k, v, do)]
+    _, pdk, pdv = flash_attention_bwd_torch(*up[:3], o.float(), lse, up[3],
+                                            dlse, **kw)
+    for got, ref, A in zip((dk, dv), (pdk, pdv),
+                           _dkv_terms(case, q, k, v, o, lse, do, dlse)):
+        assert bool(torch.isfinite(got).all())
+        allowed = F32_GRAD * A + 1e-6
+        if q.dtype == torch.bfloat16:
+            allowed = allowed + 2.0 ** -8 * (ref.abs() + A)
+        assert bool(((got.float() - ref).abs() <= allowed).all())
+
+
+def _bf16_grads_in(case, seed=5):
+    """dO and dlse of a case, dO bf16 on the card."""
+    _, _, _, do, dlse = _inputs(case, seed)
+    return (torch.from_numpy(do).to("cuda", torch.bfloat16),
+            torch.from_numpy(dlse).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TC_CASES))
+def test_cuda_tensor_core_dkv_within_bf16_bound(name):
+    _need_cuda()
+    case = TC_CASES[name]
+    want = ("flash_dkv" if case[6] in fac._TC_DKV_HEAD_DIMS
+            else "flash_dkv_simt")
+    _check_dkv(case, *_tc_operands(case), *_bf16_grads_in(case), want)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_dkv_on_model_operands():
+    """q, k, v as fused-QKV views and dO as the bhsd view of a bshd
+    gradient, as the GPT model hands them to the backward."""
+    _need_cuda()
+    case = ("bhsd", 2, 8, 8, 256, 256, 64, True, 0, 0, 0)
+    q, k, v = _tc_operands(case, fused=True)
+    do, dlse = _bf16_grads_in(case)
+    do = do.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not do.is_contiguous() and not k.is_contiguous()
+    _check_dkv(case, q, k, v, do, dlse, "flash_dkv")
+
+
+@pytest.mark.cuda
+def test_cuda_float32_and_misaligned_bf16_run_the_simt_dkv():
+    _need_cuda()
+    case = TC_CASES["bhsd_causal_d64"]
+    q, k, v = _tc_operands(case)
+    do, dlse = _bf16_grads_in(case)
+    buf = torch.empty(do.numel() + 1, dtype=do.dtype, device="cuda")
+    do_off = buf[1:].view(do.shape)     # 2 bytes past a 16-byte boundary
+    do_off.copy_(do)
+    _check_dkv(case, q, k, v, do_off, dlse, "flash_dkv_simt")
+    _check_dkv(case, *(t.float() for t in (q, k, v, do)), dlse,
+               "flash_dkv_simt")

@@ -24,6 +24,12 @@ import torch_port_fixtures as fx
 OUT_TOL, SGD_PARAM_TOL = 5e-6, 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _pinned_threads():
+    with fx.pinned_threads():
+        yield
+
+
 @pytest.mark.parametrize("variant", sorted(fx.TRAIN_VARIANTS))
 def test_three_sgd_steps_match_reference(variant):
     ref, port = fx.train_pair(variant, "sgd")

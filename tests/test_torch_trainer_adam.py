@@ -36,6 +36,12 @@ OUT_TOL, LATER_OUT_TOL, ADAM_PARAM_TOL, GRAD_NOISE = (5e-6, 1e-4,
 ROUNDING_LEVEL = 1e-6      # |grad| of an exactly-zero gradient in f32
 
 
+@pytest.fixture(autouse=True)
+def _pinned_threads():
+    with fx.pinned_threads():
+        yield
+
+
 def _zero_grad_rows(name, variant):
     """Rows of ``name`` whose exact gradient is zero (key biases without
     rope), or None."""

@@ -10,6 +10,7 @@ logit margins.  For RNN training, the RNN-op language model of
 ``port_rnn_lm``) and a trainer pair on it (``rnn_train_pair``).
 """
 
+import contextlib
 import os
 import sys
 
@@ -76,6 +77,24 @@ TRAIN_VARIANTS = {
 }
 TRAIN_OPTS = {"sgd": {"learning_rate": 0.1},
               "adam": {"learning_rate": 3e-3}}
+
+
+# intra-op threads of the trainer comparisons: one fixed count, so that
+# no float32 sum of the port's changes order with the machine's load
+# (ROADMAP §C4 records what pinning did and did not settle)
+TRAIN_THREADS = 1
+
+
+@contextlib.contextmanager
+def pinned_threads(n=TRAIN_THREADS):
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def train_batch(seed=0):
