@@ -23,7 +23,7 @@ Phases (any failure exits non-zero; nothing is caught):
      rows, a 256 window; and without a mask).  bfloat16 is
      held element by element, scaled by each output, and the check is
      shown to fail on an output that skipped one tile; each check says
-     which forward and which dK/dV kernel ran (bf16: the tensor-core ones;
+     which forward, dQ and dK/dV kernel ran (bf16: the tensor-core ones;
      float32: the others);
   3. serving: a full-width GPT (the repo's on-chip serve config, its
      depth cut from 12 layers to 4, random weights from a seed) served by
@@ -36,8 +36,8 @@ Phases (any failure exits non-zero; nothing is caught):
      8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier; its depth cut
      from 8 layers to 2) trained by parallel.ShardedTrainer for 2 warm-up
      and 10 timed steps on bench.py's fixed synthetic batch, each flash
-     kernel's launches checked against layers x steps (every forward and
-     dK/dV on the tensor-core kernels, none on the others) and the NLL
+     kernel's launches checked against layers x steps (every forward, dQ
+     and dK/dV on the tensor-core kernels, none on the others) and the NLL
      finite and falling; one
      full-width float32 step's gradients through the kernels against the
      dense attention, the check shown to fail on a planted fault; a small
@@ -60,7 +60,7 @@ Phases (any failure exits non-zero; nothing is caught):
   6. timings with CUDA events (warm-up excluded, L2 flushed before each
      launch, medians): each kernel, its plain version, a PyTorch
      yardstick (SDPA; cuDNN's nn.LSTM / nn.GRU) and the bound computed
-     from this run's shapes, for the flash forward and dK/dV the other
+     from this run's shapes, for the flash forward, dQ and dK/dV the other
      (float32-FMA) kernel at the same bf16 shape and the tensor-core
      kernel's ptxas registers and spills, and for the RNN kernels the
      barrier floor (an
@@ -687,13 +687,16 @@ def check_flash(tag, shape, dtype):
     before = dict(fac.launches)
     o, lse, dq, dk, dv = flash_through_autograd(*args, kw)
     torch.cuda.synchronize()
-    # every shape here is within the tensor-core forward's and dK/dV's
-    # limits: bf16 runs them, float32 the others
-    fwd_ran, dkv_ran = ([n for n in names if fac.launches[n] != before[n]]
-                        for names in (("flash_fwd", "flash_fwd_simt"),
-                                      ("flash_dkv", "flash_dkv_simt")))
+    # every shape here is within the tensor-core forward's, dQ's and
+    # dK/dV's limits: bf16 runs them, float32 the others
+    fwd_ran, dq_ran, dkv_ran = (
+        [n for n in names if fac.launches[n] != before[n]]
+        for names in (("flash_fwd", "flash_fwd_simt"),
+                      ("flash_dq", "flash_dq_simt"),
+                      ("flash_dkv", "flash_dkv_simt")))
     tc = dtype == torch.bfloat16
     fwd_want = "flash_fwd" if tc else "flash_fwd_simt"
+    dq_want = "flash_dq" if tc else "flash_dq_simt"
     dkv_want = "flash_dkv" if tc else "flash_dkv_simt"
     up = [t.float() for t in (q, k, v, do)]
     p_o, p_lse = flash_attention_fwd_torch(*up[:3], **kw)
@@ -703,8 +706,10 @@ def check_flash(tag, shape, dtype):
     got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
     ref = dict(zip(("dq", "dk", "dv"), p_grads), o=p_o)
     row = {"phase": "flash_check", "shape": tag, "dtype": str(dtype)[6:],
-           "fwd_kernel": fwd_ran, "dkv_kernel": dkv_ran}
-    ok = fwd_ran == [fwd_want] and dkv_ran == [dkv_want]
+           "fwd_kernel": fwd_ran, "dq_kernel": dq_ran,
+           "dkv_kernel": dkv_ran}
+    ok = (fwd_ran == [fwd_want] and dq_ran == [dq_want]
+          and dkv_ran == [dkv_want])
     for name in got:
         fine, share = within_bound(got[name], ref[name], A[name], dtype)
         row[f"{name}_worst_share_of_bound"] = share
@@ -781,8 +786,8 @@ def flash_bounds(shape, dtype):
 
 def misaligned_copy(t):
     """A copy of contiguous ``t`` (same shape and strides) whose data
-    starts 2 bytes past a 16-byte boundary: the forward's and dK/dV's
-    variant selectors send it to the float32-FMA kernels."""
+    starts 2 bytes past a 16-byte boundary: the forward's, dQ's and
+    dK/dV's variant selectors send it to the float32-FMA kernels."""
     assert t.is_contiguous()
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     out = buf[1:].view(t.shape)
@@ -827,15 +832,16 @@ def time_flash(shape, dtype):
     o, lse = fac.flash_fwd_cuda(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1).contiguous()
     bwd = (q, k, v, do, lse, delta, dlse)
-    # the tensor-core forward and dK/dV and, in the same run, the other
-    # kernels at the same shape (through the selectors: q 2 bytes off
-    # alignment)
+    # the tensor-core kernels and, in the same run, the other kernels at
+    # the same shape (through the selectors: q 2 bytes off alignment)
     fac.launches.update({n: 0 for n in fac.launches})
     t = {"flash_fwd": time_ms(lambda: fac.flash_fwd_cuda(q, k, v, **kw)),
          "flash_dq": time_ms(lambda: fac.flash_dq_cuda(*bwd, **kw)),
          "flash_dkv": time_ms(lambda: fac.flash_dkv_cuda(*bwd, **kw))}
     ms_simt = {
         "flash_fwd": time_ms(lambda: fac.flash_fwd_cuda(q_simt, k, v, **kw)),
+        "flash_dq": time_ms(lambda: fac.flash_dq_cuda(q_simt, *bwd[1:],
+                                                      **kw)),
         "flash_dkv": time_ms(lambda: fac.flash_dkv_cuda(q_simt, *bwd[1:],
                                                         **kw))}
     timed = dict(fac.launches)
@@ -946,10 +952,10 @@ def train_main_path():
     profile = train_profile(tr, placed)
     lap("gpt_train_profile")
     want = cfg["num_layers"] * TRAIN_STEPS
-    # every bf16 forward and dK/dV on the tensor-core kernels, none on the
+    # every bf16 flash launch on the tensor-core kernels, none on the
     # others
     expected = {"flash_fwd": want, "flash_fwd_simt": 0, "flash_dq": want,
-                "flash_dkv": want, "flash_dkv_simt": 0}
+                "flash_dq_simt": 0, "flash_dkv": want, "flash_dkv_simt": 0}
     finite = all(np.isfinite(nll))
     ok = (finite and nll[-1] < nll[0] and launches == expected
           and tuple(probs.shape) == (TRAIN_BATCH * cfg["seq_len"],
@@ -1833,9 +1839,7 @@ def main():
         t = flash_t[kname]
         entry = {
             "name": kname, "route": "cuda",
-            "source": ("mxnet_tpu_torch/csrc/flash_attention.cu"
-                       if kname == "flash_dq" else
-                       f"mxnet_tpu_torch/csrc/{kname}_tc.cu"),
+            "source": f"mxnet_tpu_torch/csrc/{kname}_tc.cu",
             "replaces": replaces,
             "launches": train["kernel_launches"][kname],
             "max_abs_err": max(train_err[o] for o in outs),

@@ -29,12 +29,11 @@
 // bound (tens of microseconds).  These kernels do their products as
 // float32 FMAs from shared memory, each thread owning a 4 x 4 score tile
 // and a 4 x D/16 accumulator; they are bound by shared-memory reads and
-// the FMA rate, far from that bound.  The bfloat16 forward and dK/dV
-// within their limits run on the tensor cores in flash_fwd_tc.cu and
-// flash_dkv_tc.cu (mma.sync on cp.async-fed tiles, tc_tile.cuh);
-// flash_fwd_kernel and flash_dkv_kernel here now serve float32 and the
-// bf16 geometries outside those limits.  dQ on the tensor cores is the
-// next step.
+// the FMA rate, far from that bound.  The bfloat16 forward, dQ and dK/dV
+// within their limits run on the tensor cores in flash_fwd_tc.cu,
+// flash_dq_tc.cu and flash_dkv_tc.cu (mma.sync on cp.async-fed tiles,
+// tc_tile.cuh); the three kernels here now serve float32 and the bf16
+// geometries outside those limits.
 //
 // Limits: head_dim <= 128; float32 or bfloat16; the last dimension of
 // every tensor contiguous.  A launch outside them returns

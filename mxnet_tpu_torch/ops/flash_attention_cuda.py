@@ -6,18 +6,18 @@ The kernels replace the TPU kernels of ``mxnet_tpu/ops/flash_attention.py``:
 two variants, picked by :func:`_fwd_variant` from the operands: ``tc``
 (``csrc/flash_fwd_tc.cu``, bf16 tensor cores, within its limits) and
 ``simt`` (``csrc/flash_attention.cu``, float32 FMAs: float32 and every
-other bf16 geometry).  dK/dV has the same two variants, picked by
-:func:`_dkv_variant`: ``tc`` (``csrc/flash_dkv_tc.cu``) and ``simt``
-(``csrc/flash_attention.cu``).  dQ is in ``csrc/flash_attention.cu``.
-They are built with ``nvcc`` at the first launch and called through
-``ctypes``.  Each wrapper checks what its kernel takes and raises on
+other bf16 geometry).  dQ and dK/dV have the same two variants each,
+picked by :func:`_dq_variant` and :func:`_dkv_variant`: ``tc``
+(``csrc/flash_dq_tc.cu``, ``csrc/flash_dkv_tc.cu``) and ``simt``
+(``csrc/flash_attention.cu``).  They are built with ``nvcc`` at the
+first launch and called through ``ctypes``.  Each wrapper checks what its kernel takes and raises on
 anything else; there is no fallback to the plain versions (those are
 ``ops.flash_attention.flash_attention_fwd_torch`` /
 ``flash_attention_bwd_torch``, which the CPU path runs), and no retreat
 from one variant to the other.  ``launches`` counts each kernel's
-launches in this process (``flash_fwd`` and ``flash_dkv``: the
-tensor-core kernels; ``flash_fwd_simt`` and ``flash_dkv_simt``: the
-others).
+launches in this process (``flash_fwd``, ``flash_dq`` and
+``flash_dkv``: the tensor-core kernels; ``flash_fwd_simt``,
+``flash_dq_simt`` and ``flash_dkv_simt``: the others).
 
 Tensors are 4-D in either layout (``bhsd``: (B, H, S, D); ``bshd``:
 (B, S, H, D)), float32 or bfloat16, on one CUDA device, with a
@@ -38,25 +38,28 @@ from .._build import load_library
 __all__ = ["flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda", "launches"]
 
 LIB_NAME = "mxtt_flash_attention"
-SOURCES = ("flash_attention.cu", "flash_fwd_tc.cu", "flash_dkv_tc.cu",
-           "tc_tile.cuh")
+SOURCES = ("flash_attention.cu", "flash_fwd_tc.cu", "flash_dq_tc.cu",
+           "flash_dkv_tc.cu", "tc_tile.cuh")
 
 # kernel launches in this process, per kernel; reset by whoever counts a
 # window
 launches = {"flash_fwd": 0, "flash_fwd_simt": 0, "flash_dq": 0,
-            "flash_dkv": 0, "flash_dkv_simt": 0}
+            "flash_dq_simt": 0, "flash_dkv": 0, "flash_dkv_simt": 0}
 
 # what each kernel takes; a launch outside it returns cudaErrorInvalidValue
 LIMITS = {
     "flash_fwd": "bfloat16, head_dim 64 or 128, q/k/v/o 16-byte aligned, "
                  "batch/head/sequence strides multiples of 8 elements",
     "flash_fwd_simt": "float32 or bfloat16, head_dim <= 128",
-    "flash_dq": "float32 or bfloat16, head_dim <= 128",
+    "flash_dq": "bfloat16, head_dim 64 or 128, q/k/v/dO/dq 16-byte aligned, "
+                "batch/head/sequence strides multiples of 8 elements",
+    "flash_dq_simt": "float32 or bfloat16, head_dim <= 128",
     "flash_dkv": "bfloat16, head_dim 64, q/k/v/dO/dk/dv 16-byte aligned, "
                  "batch/head/sequence strides multiples of 8 elements",
     "flash_dkv_simt": "float32 or bfloat16, head_dim <= 128",
 }
 _TC_HEAD_DIMS = (64, 128)         # the forward's
+_TC_DQ_HEAD_DIMS = (64, 128)
 _TC_DKV_HEAD_DIMS = (64,)         # at 128 the tensor-core dK/dV spills
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,11 +73,12 @@ def _lib():
         lib.mxtt_flash_fwd.argtypes = [i] + [vp] * 5 + tail
         lib.mxtt_flash_fwd_tc.argtypes = [i] + [vp] * 5 + tail
         lib.mxtt_flash_dq.argtypes = [i] + [vp] * 8 + tail
+        lib.mxtt_flash_dq_tc.argtypes = [i] + [vp] * 8 + tail
         lib.mxtt_flash_dkv.argtypes = [i] + [vp] * 9 + tail
         lib.mxtt_flash_dkv_tc.argtypes = [i] + [vp] * 9 + tail
         for fn in (lib.mxtt_flash_fwd, lib.mxtt_flash_fwd_tc,
-                   lib.mxtt_flash_dq, lib.mxtt_flash_dkv,
-                   lib.mxtt_flash_dkv_tc):
+                   lib.mxtt_flash_dq, lib.mxtt_flash_dq_tc,
+                   lib.mxtt_flash_dkv, lib.mxtt_flash_dkv_tc):
             fn.restype = ctypes.c_int
     return lib
 
@@ -163,6 +167,13 @@ def _fwd_variant(dtype, D, ptrs, strides):
     return _tc_variant(dtype, D, ptrs, strides, _TC_HEAD_DIMS)
 
 
+def _dq_variant(dtype, D, ptrs, strides):
+    """The dQ kernel that takes a call, by the same rule as
+    :func:`_fwd_variant` over ``ptrs`` q, k, v, dO, dq and their strides,
+    at the head dims in ``_TC_DQ_HEAD_DIMS``."""
+    return _tc_variant(dtype, D, ptrs, strides, _TC_DQ_HEAD_DIMS)
+
+
 def _dkv_variant(dtype, D, ptrs, strides):
     """The dK/dV kernel that takes a call, by the same rule as
     :func:`_fwd_variant` over ``ptrs`` q, k, v, dO, dk, dv and their
@@ -206,8 +217,9 @@ def _bwd_checks(q, k, v, do, lse, delta, dlse, layout, window):
 
 def flash_dq_cuda(q, k, v, do, lse, delta, dlse, causal=False, scale=None,
                   q_offset=0, k_offset=0, layout="bhsd", window=0):
-    """dQ kernel: ``dq`` like q, from the forward's ``lse`` and the row
-    terms ``delta = rowsum(dO * O)`` and ``dlse`` (float32 (B, Hq, Sq))."""
+    """dQ kernel (the variant :func:`_dq_variant` picks): ``dq`` like q,
+    from the forward's ``lse`` and the row terms ``delta = rowsum(dO *
+    O)`` and ``dlse`` (float32 (B, Hq, Sq))."""
     B, Hq, Hkv, Sq, Sk, D = _bwd_checks(q, k, v, do, lse, delta, dlse,
                                         layout, window)
     dq = torch.empty_like(q)
@@ -215,11 +227,16 @@ def flash_dq_cuda(q, k, v, do, lse, delta, dlse, causal=False, scale=None,
         return dq
     scale = 1.0 / D ** 0.5 if scale is None else scale
     strides = sum((_strides(t, layout) for t in (q, k, v, do, dq)), ())
-    _call(_lib().mxtt_flash_dq, q.dtype,
-          (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-           lse.data_ptr(), delta.data_ptr(), dlse.data_ptr(),
-           dq.data_ptr()), (B, Hq, Hkv, Sq, Sk, D), strides, causal,
-          window, q_offset, k_offset, scale, q.device, "flash_dq")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
+    lib = _lib()
+    fn, name = ((lib.mxtt_flash_dq_tc, "flash_dq")
+                if _dq_variant(q.dtype, D, ptrs + (dq.data_ptr(),),
+                               strides) == "tc"
+                else (lib.mxtt_flash_dq, "flash_dq_simt"))
+    _call(fn, q.dtype, ptrs + (lse.data_ptr(), delta.data_ptr(),
+                               dlse.data_ptr(), dq.data_ptr()),
+          (B, Hq, Hkv, Sq, Sk, D), strides, causal, window, q_offset,
+          k_offset, scale, q.device, name)
     return dq
 
 

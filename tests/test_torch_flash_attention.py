@@ -16,9 +16,10 @@ The Hopper kernels' own cases carry the ``cuda`` marker and skip without
 a CUDA device: the kernels are compiled by nvcc for sm_90a at first
 launch and have no CPU or interpret mode.  ``python3 chip_smoke.py``
 holds them against the plain versions on the card at the training
-shape.  Which forward and which dK/dV kernel takes a call (tensor cores
+shape.  Which forward, dQ and dK/dV kernel takes a call (tensor cores
 or not) is a plain function of the operands, tested here on the CPU, as
-is the dK/dV wrapper's launch path with the library replaced by a fake.
+are the dQ and dK/dV wrappers' launch paths with the library replaced by
+a fake.
 """
 
 import numpy as np
@@ -286,6 +287,8 @@ def test_every_counted_kernel_states_its_limits():
     assert set(fac.LIMITS) == set(fac.launches)
     assert "head_dim 64 or 128" in fac.LIMITS["flash_fwd"]
     assert "head_dim 64," in fac.LIMITS["flash_dkv"]
+    dims = " or ".join(str(d) for d in fac._TC_DQ_HEAD_DIMS)
+    assert f"head_dim {dims}," in fac.LIMITS["flash_dq"]
 
 
 # the tensor-core forward on the card, against the plain forward run in
@@ -435,7 +438,8 @@ class _FakeLib:
 
     def __init__(self, rc):
         self.calls = []
-        for name in ("mxtt_flash_dkv_tc", "mxtt_flash_dkv"):
+        for name in ("mxtt_flash_dq_tc", "mxtt_flash_dq",
+                     "mxtt_flash_dkv_tc", "mxtt_flash_dkv"):
             setattr(self, name, self._entry(name, rc))
 
     def _entry(self, name, rc):
@@ -445,10 +449,11 @@ class _FakeLib:
         return fn
 
 
-def _dkv_wrapper_on_cpu(monkeypatch, dtype, rc):
-    """flash_dkv_cuda on CPU tensors of the D 64 training layout, with the
-    library replaced by a fake (no device is needed to pick and call a
-    variant): (fake, launches after the call or the raised error)."""
+def _bwd_wrapper_on_cpu(monkeypatch, wrapper, dtype, rc):
+    """``wrapper`` (flash_dq_cuda or flash_dkv_cuda) on CPU tensors of
+    the D 64 training layout, with the library replaced by a fake (no
+    device is needed to pick and call a variant): (fake, launches after
+    the call or the raised error)."""
     import contextlib
 
     case = ("bhsd", 1, 2, 2, 64, 64, 64, True, 0, 0, 0)
@@ -463,7 +468,7 @@ def _dkv_wrapper_on_cpu(monkeypatch, dtype, rc):
     monkeypatch.setattr(fac, "_launch_stream",
                         lambda device: contextlib.nullcontext(0))
     try:
-        fac.flash_dkv_cuda(q, k, v, do, lse, lse, dlse, causal=True)
+        getattr(fac, wrapper)(q, k, v, do, lse, lse, dlse, causal=True)
     except RuntimeError as err:
         return fake, err
     return fake, dict(fac.launches)
@@ -472,7 +477,8 @@ def _dkv_wrapper_on_cpu(monkeypatch, dtype, rc):
 def test_dkv_tensor_core_failure_raises_without_retreat(monkeypatch):
     """A failed tensor-core dK/dV launch raises with the kernel's name and
     limits; neither the other kernel nor the plain version runs."""
-    fake, err = _dkv_wrapper_on_cpu(monkeypatch, torch.bfloat16, rc=1)
+    fake, err = _bwd_wrapper_on_cpu(monkeypatch, "flash_dkv_cuda",
+                                    torch.bfloat16, rc=1)
     assert isinstance(err, RuntimeError)
     assert "flash_dkv launch failed with cudaError 1 " in str(err)
     assert fac.LIMITS["flash_dkv"] in str(err)
@@ -485,7 +491,8 @@ def test_dkv_tensor_core_failure_raises_without_retreat(monkeypatch):
     (torch.float32, "mxtt_flash_dkv", "flash_dkv_simt")])
 def test_dkv_wrapper_counts_the_variant_it_launched(monkeypatch, dtype,
                                                     entry, counted):
-    fake, launched = _dkv_wrapper_on_cpu(monkeypatch, dtype, rc=0)
+    fake, launched = _bwd_wrapper_on_cpu(monkeypatch, "flash_dkv_cuda",
+                                         dtype, rc=0)
     assert fake.calls == [entry]
     assert launched == {**dict.fromkeys(launched, 0), counted: 1}
 
@@ -496,7 +503,9 @@ def test_dkv_wrapper_counts_the_variant_it_launched(monkeypatch, dtype,
 # A = |dS|^T |Q| for dk and P^T |dO| for dv, each summed over the GQA group
 # (p and ds rounded to bf16 before the products: 2^-8 A; the result
 # rounded once: 2^-8 |x|)
-def _dkv_terms(case, q, k, v, o, lse, do, dlse):
+def _p_ds(case, q, k, v, o, lse, do, dlse):
+    """Float32 (bhsd of the case's layout, |Q|, |K| and dO with K/V
+    repeated over the GQA group, P, dS) of a case's backward."""
     from mxnet_tpu_torch.ops.flash_attention import NEG_INF, _keep
 
     kw = _kw(case)
@@ -518,11 +527,19 @@ def _dkv_terms(case, q, k, v, o, lse, do, dlse):
     delta = (doh * oh).sum(-1)
     ds = p * (torch.matmul(doh, vh.transpose(-1, -2)) - delta[..., None]
               + dlse[..., None]) / D ** 0.5
+    return bh, qh.abs(), kh.abs(), doh, p, ds
+
+
+def _dkv_terms(case, q, k, v, o, lse, do, dlse):
+    bh, qa, _, doh, p, ds = _p_ds(case, q, k, v, o, lse, do, dlse)
+    B, H, Sq, D = qa.shape
+    Hkv, Sk = (k.shape[1], k.shape[2]) if case[0] == "bhsd" else (
+        k.shape[2], k.shape[1])
 
     def group_sum(x):
-        return bh(x.reshape(B, Hkv, grp, Sk, D).sum(2))
+        return bh(x.reshape(B, Hkv, H // Hkv, Sk, D).sum(2))
 
-    return (group_sum(torch.matmul(ds.abs().transpose(-1, -2), qh.abs())),
+    return (group_sum(torch.matmul(ds.abs().transpose(-1, -2), qa)),
             group_sum(torch.matmul(p.transpose(-1, -2), doh.abs())))
 
 
@@ -596,3 +613,143 @@ def test_cuda_float32_and_misaligned_bf16_run_the_simt_dkv():
     _check_dkv(case, q, k, v, do_off, dlse, "flash_dkv_simt")
     _check_dkv(case, *(t.float() for t in (q, k, v, do)), dlse,
                "flash_dkv_simt")
+
+
+# -- dQ's two variants --------------------------------------------------------
+# (dtype, head_dim, q/k/v/dO/dq data pointers, batch/head/sequence strides
+# of each): the contiguous bhsd training shape, the model's operands (q, k,
+# v fused-QKV views, dO a bhsd view of a bshd gradient, dq contiguous), and
+# one departure from the tensor-core kernel's limits each
+_DQ_PTRS = _PTRS + (0x7F0000400000,)
+_DQ_BHSD = (8 * 1024 * 64, 1024 * 64, 64) * 5
+_DQ_FUSED_PTRS = _FUSED_PTRS[:3] + (0x7F0000300000, 0x7F0000400000)
+_DQ_FUSED = ((1024 * 1536, 64, 1536) * 3 + (1024 * 512, 64, 512)
+             + (8 * 1024 * 64, 1024 * 64, 64))
+DQ_VARIANT_CASES = {
+    "bf16_d64": (torch.bfloat16, 64, _DQ_PTRS, _DQ_BHSD, "tc"),
+    "bf16_d128": (torch.bfloat16, 128, _DQ_PTRS,
+                  tuple(2 * x for x in _DQ_BHSD), "tc"),
+    "bf16_model_operands": (torch.bfloat16, 64, _DQ_FUSED_PTRS, _DQ_FUSED,
+                            "tc"),
+    "float32": (torch.float32, 64, _DQ_PTRS, _DQ_BHSD, "simt"),
+    "bf16_d80": (torch.bfloat16, 80, _DQ_PTRS,
+                 (8 * 1024 * 80, 1024 * 80, 80) * 5, "simt"),
+    "bf16_odd_sequence_stride": (torch.bfloat16, 64, _DQ_PTRS,
+                                 (8 * 1024 * 65, 1024 * 65, 65) * 5, "simt"),
+    "bf16_head_stride_not_multiple_of_8": (
+        torch.bfloat16, 64, _DQ_PTRS,
+        _DQ_BHSD[:3] + (8 * 1024 * 64, 1028, 64) + _DQ_BHSD[6:], "simt"),
+    "bf16_misaligned_do": (torch.bfloat16, 64,
+                           _DQ_PTRS[:3] + (_DQ_PTRS[3] + 2,) + _DQ_PTRS[4:],
+                           _DQ_BHSD, "simt"),
+    "bf16_misaligned_dq": (torch.bfloat16, 64,
+                           _DQ_PTRS[:4] + (_DQ_PTRS[4] + 8,), _DQ_BHSD,
+                           "simt"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DQ_VARIANT_CASES))
+def test_dq_variant_follows_the_tensor_core_limits(name):
+    dtype, D, ptrs, strides, want = DQ_VARIANT_CASES[name]
+    assert fac._dq_variant(dtype, D, ptrs, strides) == want
+
+
+def test_dq_tensor_core_failure_raises_without_retreat(monkeypatch):
+    """A failed tensor-core dQ launch raises with the kernel's name and
+    limits; neither the other kernel nor the plain version runs."""
+    fake, err = _bwd_wrapper_on_cpu(monkeypatch, "flash_dq_cuda",
+                                    torch.bfloat16, rc=1)
+    assert isinstance(err, RuntimeError)
+    assert "flash_dq launch failed with cudaError 1 " in str(err)
+    assert fac.LIMITS["flash_dq"] in str(err)
+    assert fake.calls == ["mxtt_flash_dq_tc"]
+    assert fac.launches == dict.fromkeys(fac.launches, 0)
+
+
+@pytest.mark.parametrize("dtype,entry,counted", [
+    (torch.bfloat16, "mxtt_flash_dq_tc", "flash_dq"),
+    (torch.float32, "mxtt_flash_dq", "flash_dq_simt")])
+def test_dq_wrapper_counts_the_variant_it_launched(monkeypatch, dtype,
+                                                   entry, counted):
+    fake, launched = _bwd_wrapper_on_cpu(monkeypatch, "flash_dq_cuda",
+                                         dtype, rc=0)
+    assert fake.calls == [entry]
+    assert launched == {**dict.fromkeys(launched, 0), counted: 1}
+
+
+# the tensor-core dQ on the card, against the plain backward run in float32
+# on the same bf16 values, under chip_smoke.py's bf16 bound:
+# |kernel - plain32| <= 2^-8 (|plain32| + A) + 1e-5 A + 1e-6, with
+# A = |dS| |K| (ds rounded to bf16 before the product: 2^-8 A; the result
+# rounded once: 2^-8 |dq|)
+def _dq_terms(case, q, k, v, o, lse, do, dlse):
+    bh, _, ka, _, _, ds = _p_ds(case, q, k, v, o, lse, do, dlse)
+    return bh(torch.matmul(ds.abs(), ka))
+
+
+def _check_dq(case, q, k, v, do, dlse, want):
+    """Runs the dQ wrapper and asserts which kernel ran (``want``) and dq
+    within the bound of the operands' dtype (float32: the same products
+    summed in another order, 1e-5 A + 1e-6); returns dq."""
+    kw = _kw(case)
+    o, lse = fac.flash_fwd_cuda(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    if case[0] == "bshd":
+        delta = delta.transpose(1, 2)
+    delta = delta.contiguous()
+    before = dict(fac.launches)
+    dq = fac.flash_dq_cuda(q, k, v, do, lse, delta, dlse, **kw)
+    torch.cuda.synchronize()
+    ran = {n: fac.launches[n] - before[n]
+           for n in ("flash_dq", "flash_dq_simt")}
+    assert ran == {n: int(n == want) for n in ran}
+    up = [t.float() for t in (q, k, v, do)]
+    ref, _, _ = flash_attention_bwd_torch(*up[:3], o.float(), lse, up[3],
+                                          dlse, **kw)
+    A = _dq_terms(case, q, k, v, o, lse, do, dlse)
+    assert bool(torch.isfinite(dq).all())
+    allowed = F32_GRAD * A + 1e-6
+    if q.dtype == torch.bfloat16:
+        allowed = allowed + 2.0 ** -8 * (ref.abs() + A)
+    assert bool(((dq.float() - ref).abs() <= allowed).all())
+    masked = lse <= -1e29
+    rows = dq if case[0] == "bhsd" else dq.transpose(1, 2)
+    assert bool((rows[masked] == 0).all())
+    return dq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TC_CASES))
+def test_cuda_tensor_core_dq_within_bf16_bound(name):
+    _need_cuda()
+    case = TC_CASES[name]
+    want = ("flash_dq" if case[6] in fac._TC_DQ_HEAD_DIMS
+            else "flash_dq_simt")
+    _check_dq(case, *_tc_operands(case), *_bf16_grads_in(case), want)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_dq_on_model_operands():
+    """q, k, v as fused-QKV views and dO as the bhsd view of a bshd
+    gradient, as the GPT model hands them to the backward."""
+    _need_cuda()
+    case = ("bhsd", 2, 8, 8, 256, 256, 64, True, 0, 0, 0)
+    q, k, v = _tc_operands(case, fused=True)
+    do, dlse = _bf16_grads_in(case)
+    do = do.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not do.is_contiguous() and not q.is_contiguous()
+    _check_dq(case, q, k, v, do, dlse, "flash_dq")
+
+
+@pytest.mark.cuda
+def test_cuda_float32_and_misaligned_bf16_run_the_simt_dq():
+    _need_cuda()
+    case = TC_CASES["bhsd_causal_d64"]
+    q, k, v = _tc_operands(case)
+    do, dlse = _bf16_grads_in(case)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    q_off = buf[1:].view(q.shape)       # 2 bytes past a 16-byte boundary
+    q_off.copy_(q)
+    _check_dq(case, q_off, k, v, do, dlse, "flash_dq_simt")
+    _check_dq(case, *(t.float() for t in (q, k, v, do)), dlse,
+              "flash_dq_simt")

@@ -77,6 +77,10 @@ TRAIN_VARIANTS = {
 }
 TRAIN_OPTS = {"sgd": {"learning_rate": 0.1},
               "adam": {"learning_rate": 3e-3}}
+# numpy's global RNG seed of the reference's Xavier draw in train_pair:
+# every run, and every xdist worker whatever it ran before, trains from
+# the same parameters
+TRAIN_INIT_SEED = 0
 
 
 # intra-op threads of the trainer comparisons: one fixed count, so that
@@ -104,28 +108,41 @@ def train_batch(seed=0):
             "softmax_label": rng.randint(0, VOCAB, shape).astype(np.int32)}
 
 
-def train_pair(variant, optimizer):
+def train_pair(variant, optimizer, seed=TRAIN_INIT_SEED):
     """(reference trainer, port trainer) for one variant, both starting
-    from the reference trainer's Xavier-initialised parameters."""
+    from the reference trainer's Xavier-initialised parameters, drawn
+    from numpy's global RNG seeded with ``seed``."""
     import mxnet_tpu as mx
-    import mxnet_tpu_torch as mt
 
     extra = {**TRAIN_BASE, **TRAIN_VARIANTS[variant]}
     shapes = {"data": (TRAIN_BATCH, TRAIN_SEQ),
               "softmax_label": (TRAIN_BATCH, TRAIN_SEQ)}
     dtypes = {"data": np.int32, "softmax_label": np.int32}
+    np.random.seed(seed)
     ref = mx.parallel.ShardedTrainer(
         mx.models.gpt(VOCAB, TRAIN_SEQ, **extra), shapes,
         mesh=mx.parallel.make_mesh({"dp": 1}), optimizer=optimizer,
         optimizer_params=TRAIN_OPTS[optimizer],
         initializer=mx.initializer.Xavier(), input_dtypes=dtypes)
-    port = mt.parallel.ShardedTrainer(
-        mt.models.gpt(VOCAB, TRAIN_SEQ, **extra), shapes,
-        optimizer=optimizer, optimizer_params=TRAIN_OPTS[optimizer],
-        initializer=mt.initializer.Xavier(), input_dtypes=dtypes,
-        device="cpu")
+    port = port_trainer(variant, optimizer)
     port.set_params(ref.get_params())
     return ref, port
+
+
+def port_trainer(variant, optimizer):
+    """The port's trainer of ``train_pair`` (parameters from its own
+    initializer)."""
+    import mxnet_tpu_torch as mt
+
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    return mt.parallel.ShardedTrainer(
+        mt.models.gpt(VOCAB, TRAIN_SEQ, **TRAIN_BASE,
+                      **TRAIN_VARIANTS[variant]),
+        {"data": shape, "softmax_label": shape}, optimizer=optimizer,
+        optimizer_params=TRAIN_OPTS[optimizer],
+        initializer=mt.initializer.Xavier(),
+        input_dtypes={"data": np.int32, "softmax_label": np.int32},
+        device="cpu")
 
 
 # -- RNN training: the RNN-op language model of examples/rnn_time_major.py --
