@@ -13,8 +13,14 @@ Phases (any failure exits non-zero; nothing is caught):
      printed), the flash checks' host draws and the profiler's first
      start done meanwhile;
   2. kernels against their plain torch versions on the card, each with
-     its stated bound: paged attention at the serving decode shape and at
-     ctx 2048, in bfloat16, float32 and int8+scales; the flash-attention
+     its stated bound: paged attention (split kernel, plus the combine
+     kernel where the plan splits) at the serving decode shape, at ctx
+     2048, at a mixed long batch (ctx 0/1 padded/15/16/17/700/1999/2048)
+     with and without a 300 window, and at ctx 2048 with the split count
+     forced to 1 and to the table width, in bfloat16, float32 and
+     int8+scales, each call counted once and combined exactly where it
+     split; the paged bound shown to fail on the plain split and combine
+     with one split's positions (512-639) dropped; the flash-attention
      forward, dQ and dK/dV kernels (o, lse, dq, dk, dv, with a non-zero
      dlse) in bfloat16 and float32 at the training shape, at the same shape
      with the main path's strides (q, k, v bhsd views of one fused QKV
@@ -27,9 +33,10 @@ Phases (any failure exits non-zero; nothing is caught):
      float32: the others);
   3. serving: a full-width GPT (the repo's on-chip serve config, its
      depth cut from 12 layers to 4, random weights from a seed) served by
-     serve.Engine through the paged kernel — 8 concurrent requests,
+     serve.Engine through the paged kernels — 8 concurrent requests,
      prompts 16/32/64/128, 32 new tokens each — with its launches checked
-     against layers x decode steps;
+     against layers x decode steps and its combine launches against the
+     decode buckets' split plans;
      one full-width float32 decode step through the kernel and the plain
      path; a small model's tokens against the oracle and the CPU engine;
   4. training: bench.py's on-chip GPT (vocab 32768, S 1024, d_model 512,
@@ -60,7 +67,12 @@ Phases (any failure exits non-zero; nothing is caught):
   6. timings with CUDA events (warm-up excluded, L2 flushed before each
      launch, medians): each kernel, its plain version, a PyTorch
      yardstick (SDPA; cuDNN's nn.LSTM / nn.GRU) and the bound computed
-     from this run's shapes, for the flash forward, dQ and dK/dV the other
+     from this run's shapes (paged: with its split plan and CTAs, at the
+     decode, ctx 2048 and mixed shapes, plus bf16 sweeps of forced split
+     counts, from which the plan's constants were chosen, the two
+     paged kernels' ptxas registers and spills, and the launch floor:
+     one and two back-to-back one-element kernels), for the flash forward,
+     dQ and dK/dV the other
      (float32-FMA) kernel at the same bf16 shape and the tensor-core
      kernel's ptxas registers and spills, and for the RNN kernels the
      barrier floor (an
@@ -216,17 +228,14 @@ def bound_ms(args, kw):
                                        else "operations")
 
 
-def check_kernel(tag, ctx, dtype, **shape):
-    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+def paged_bound_row(out, args, kw, dtype):
+    """Hold ``out`` against the plain path at the stated bound; returns
+    (within, row fields)."""
     from mxnet_tpu_torch.ops.attention import paged_attention_torch
 
-    args, kw = paged_case(ctx, dtype, **shape)
-    out = pac.paged_attention_cuda(*args, **kw)
-    torch.cuda.synchronize()
     ref = paged_attention_torch(*args, **kw)
     err = float((out.float() - ref.float()).abs().max())
-    row = {"phase": "kernel_check", "shape": tag, "dtype": dtype,
-           "max_abs_err": err}
+    row = {"max_abs_err": err}
     if dtype == "bfloat16":
         ref32 = paged_attention_torch(*[a.float() if a.is_floating_point()
                                         else a for a in args], **kw)
@@ -240,15 +249,82 @@ def check_kernel(tag, ctx, dtype, **shape):
     else:
         within = err <= F32_BOUND
         row["bound"] = F32_BOUND
+    return within, row
+
+
+def paged_plan(args, splits=None):
+    """(splits, blocks_per_split, CTAs) the wrapper launches for these
+    inputs: its own plan, or ``splits`` forced."""
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    q, kc, bt = args[0], args[1], args[3]
+    B, W, bs, Hkv = q.shape[0], bt.shape[1], kc.shape[1], kc.shape[2]
+    if splits is None:
+        splits, bps = pac._split_plan(
+            B, Hkv, W, bs,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+    else:
+        bps = -(-W // splits)
+    return {"splits": splits, "blocks_per_split": bps,
+            "ctas": splits * B * Hkv}
+
+
+def check_kernel(tag, ctx, dtype, splits=None, window=0, **shape):
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    args, kw = paged_case(ctx, dtype, **shape)
+    if window:
+        kw["window"] = window
+    before = (pac.launches, pac.combine_launches)
+    out = pac.paged_attention_cuda(*args, _splits=splits, **kw)
+    torch.cuda.synchronize()
+    plan = paged_plan(args, splits)
+    # one op call, one combine exactly where it split
+    counted = (pac.launches - before[0] == 1
+               and pac.combine_launches - before[1]
+               == int(plan["splits"] > 1))
+    pac.launches, pac.combine_launches = before   # checks are not the path
+    within, fields = paged_bound_row(out, args, kw, dtype)
+    row = {"phase": "kernel_check", "shape": tag, "dtype": dtype,
+           "window": window, "forced_splits": splits, **plan, **fields}
     finite = bool(torch.isfinite(out).all())
     empty = [b for b, c in enumerate(ctx) if c == 0]
     zeros = all(float(out[b].abs().max()) == 0.0 for b in empty)
-    ok = finite and zeros and within
-    row.update({"finite": finite, "empty_rows_zero": zeros, "ok": ok})
+    ok = finite and zeros and within and counted
+    row.update({"finite": finite, "empty_rows_zero": zeros,
+                "counted": counted, "ok": ok})
     emit(row)
     if not ok:
         raise SystemExit(f"kernel disagrees with plain path: {tag} {dtype}")
-    return err
+    return fields["max_abs_err"]
+
+
+def dropped_split_check(ctx, drop=(512, 640)):
+    """The bound binds: the plain split and combine with one split's
+    positions (``drop``) left out must fail it, in bf16 and float32,
+    while the same composition with nothing left out passes."""
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    for dtype in ("bfloat16", "float32"):
+        args, kw = paged_case(ctx, dtype)
+        bs, W = args[1].shape[1], args[3].shape[1]
+        bps = (drop[1] - drop[0]) // bs
+        splits, s = -(-W // bps), drop[0] // (bps * bs)
+        acc, m, l = pac.paged_partials_torch(*args, splits, bps, **kw)
+        whole, _ = paged_bound_row(
+            pac.paged_combine_torch(acc, m, l, args[0].dtype), args, kw,
+            dtype)
+        acc[:, :, s], m[:, :, s], l[:, :, s] = 0.0, -1e30, 0.0
+        within, fields = paged_bound_row(
+            pac.paged_combine_torch(acc, m, l, args[0].dtype), args, kw,
+            dtype)
+        ok = whole and not within
+        emit({"phase": "dropped_split_check", "dtype": dtype,
+              "dropped_positions": list(drop), "splits": splits,
+              "blocks_per_split": bps, "plain_split_within": whole,
+              "dropped_split_caught": not within, **fields, "ok": ok})
+        if not ok:
+            raise SystemExit(f"paged bound does not bind: {dtype}")
 
 
 # -- timing -----------------------------------------------------------------
@@ -312,9 +388,9 @@ def time_kernel(tag, ctx, dtype, **shape):
     from mxnet_tpu_torch.ops.attention import paged_attention_torch
 
     args, kw = paged_case(ctx, dtype, **shape)
-    saved = pac.launches
+    saved = (pac.launches, pac.combine_launches)
     k_ms = time_ms(lambda: pac.paged_attention_cuda(*args, **kw))
-    pac.launches = saved              # timing launches are not the path's
+    pac.launches, pac.combine_launches = saved   # not the path's launches
     p_ms = time_ms(lambda: paged_attention_torch(*args, **kw))
     lib_ms = time_ms(sdpa_yardstick(args, kw))
     b_ms, b_by = bound_ms(args, kw)
@@ -324,7 +400,38 @@ def time_kernel(tag, ctx, dtype, **shape):
            "library": "F.scaled_dot_product_attention over pre-gathered "
                       "dense K/V (gather excluded)",
            "bound_ms": b_ms, "bound_by": b_by, "live_bytes": nbytes,
-           "live_tokens": tokens, "bound_share": b_ms / k_ms}
+           "live_tokens": tokens, "bound_share": b_ms / k_ms,
+           **paged_plan(args)}
+    emit(row)
+    return row
+
+
+def launch_floor():
+    """ms of one and of two back-to-back one-element kernels under
+    time_ms: the floor of a call of one launch and of one of two (the
+    split kernel and the combine)."""
+    tiny = torch.zeros(1, device=DEVICE)
+    row = {"phase": "launch_floor",
+           "one_kernel_ms": time_ms(lambda: tiny.add_(1)),
+           "two_kernels_ms": time_ms(lambda: (tiny.add_(1), tiny.add_(1)))}
+    emit(row)
+    return row
+
+
+def paged_split_sweep(tag, ctx, split_counts, **shape):
+    """bf16 kernel ms at forced split counts (the plan's constants are
+    chosen from these lines), beside the plan's own choice."""
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    args, kw = paged_case(ctx, "bfloat16", **shape)
+    saved = (pac.launches, pac.combine_launches)
+    ms = {n: time_ms(lambda: pac.paged_attention_cuda(*args, _splits=n,
+                                                      **kw))
+          for n in split_counts}
+    pac.launches, pac.combine_launches = saved
+    row = {"phase": "paged_split_sweep", "shape": tag, "dtype": "bfloat16",
+           "ms_by_splits": {str(n): t for n, t in ms.items()},
+           "plan": paged_plan(args)}
     emit(row)
     return row
 
@@ -377,7 +484,7 @@ def serve_main_path(np_params):
         raise SystemExit(f"engine resolved paged_impl={eng.paged_impl}")
     prompts = serve_prompts(0)
     torch.cuda.synchronize()
-    pac.launches = 0                  # the main path's window opens
+    pac.launches = pac.combine_launches = 0   # the main path's window opens
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
     decode_ms = []
@@ -391,16 +498,27 @@ def serve_main_path(np_params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pac.launches           # ... and closes
+    combines = pac.combine_launches
     n_layers = SERVE_CFG["num_layers"]
     toks = [r.tokens for r in reqs]
+    # the decode batch buckets' plans (shapes only): every bucket splits
+    # its 16-block tables, so every call launches the combine kernel too
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {b: pac._split_plan(b, SERVE_CFG["kv_heads"], eng.table_width,
+                                eng.block_size, sms)
+             for b in (1, 2, 4, 8)}
     ok = (all(r.status == "finished" and len(r.tokens) == 32 for r in reqs)
           and all(0 <= t < SERVE_CFG["vocab"] for ts in toks for t in ts)
           and launches == n_layers * eng.decode_steps
-          and eng.decode_steps > 0)
+          and eng.decode_steps > 0
+          and all(n > 1 for n, _ in plans.values())
+          and combines == launches)
     st = eng.stats()
     row = {"phase": "serve", "dtype": "bfloat16", "requests": len(reqs),
            "new_tokens": 32, "prompt_lens": [len(p) for p in prompts],
            "decode_steps": eng.decode_steps, "kernel_launches": launches,
+           "combine_launches": combines,
+           "split_plans": {str(b): list(p) for b, p in plans.items()},
            "launches_per_decode_step": launches / max(1, eng.decode_steps),
            "tokens_generated": st.tokens_generated, "wall_s": wall,
            "tok_per_s": st.tokens_generated / wall,
@@ -1731,7 +1849,7 @@ def main():
     # work that needs no kernel: the flash checks' draws and the
     # profiler's first start
     t0 = time.perf_counter()
-    libs = (pac._fn, fac._lib, frc._lib)
+    libs = (pac._fns, fac._lib, frc._lib)
     builds = [threading.Thread(target=f) for f in libs]
     for b in builds:
         b.start()
@@ -1751,6 +1869,11 @@ def main():
               "seconds": time.perf_counter() - t0,
               "nvcc_seconds": _build.BUILD_SECONDS.get(lib),
               "ptxas": _build.BUILD_LOGS.get(lib, "").strip()[-3000:]})
+    paged_log = _build.BUILD_LOGS.get(pac.LIB_NAME, "")
+    paged_ptxas = {k: ptxas_report(paged_log, k)
+                   for k in ("paged_attention_split",
+                             "paged_attention_combine")}
+    emit({"phase": "ptxas", "library": pac.LIB_NAME, **paged_ptxas})
     emit({"phase": "overlapped_with_build", "seconds_since_start": overlap})
     lap("setup_and_build")
 
@@ -1759,12 +1882,21 @@ def main():
     # table width at max_model_len=256
     decode_ctx = [1, 17, 48, 100, 160, 0, 1, 33]
     long_ctx = [2048] * 8
+    # a mixed long batch: a dead row, a padded row (ctx 1 through an
+    # all-null table), rows around one block, and long rows
+    mixed_ctx = [0, 1, 15, 16, 17, 700, 1999, 2048]
     errs = {}
     for dtype in ("bfloat16", "float32", "int8"):
         errs[("decode", dtype)] = check_kernel(
             "decode", decode_ctx, dtype, W=16, nb=512,
             padded=(6,))
         errs[("long", dtype)] = check_kernel("long2048", long_ctx, dtype)
+        check_kernel("mixed", mixed_ctx, dtype, padded=(1,))
+        check_kernel("mixed_w300", mixed_ctx, dtype, window=300,
+                     padded=(1,))
+        for n in (1, 2048 // 16):     # one split; one block a split
+            check_kernel("long2048", long_ctx, dtype, splits=n)
+    dropped_split_check(long_ctx)
     lap("paged_checks")
     flash_rows = {}
     for tag, shape in FLASH_SHAPES.items():
@@ -1809,6 +1941,12 @@ def main():
             "decode", decode_ctx, dtype, W=16, nb=512,
             padded=(6,))
         timings[("long", dtype)] = time_kernel("long2048", long_ctx, dtype)
+        timings[("mixed", dtype)] = time_kernel("mixed", mixed_ctx, dtype,
+                                                padded=(1,))
+    paged_split_sweep("decode", decode_ctx, (1, 2, 4, 8, 16), W=16, nb=512,
+                      padded=(6,))
+    paged_split_sweep("long2048", long_ctx, (1, 2, 4, 8, 16, 32, 64, 128))
+    floor = launch_floor()
     lap("paged_time")
     flash_t = time_flash(FLASH_SHAPES["train"], torch.bfloat16)
     lap("flash_time")
@@ -1817,13 +1955,21 @@ def main():
     main_t = timings[("decode", "bfloat16")]
     kernels = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
+        "cuda_kernels": ["paged_attention_split", "paged_attention_combine"],
         "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
         "replaces": "mxnet_tpu/ops/pallas_paged_attention.py:143",
         "launches": serve["kernel_launches"],
+        "combine_launches": serve["combine_launches"],
+        "splits": main_t["splits"],
+        "blocks_per_split": main_t["blocks_per_split"],
         "max_abs_err": errs[("decode", "bfloat16")],
         "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
-        "library_ms": main_t["library_ms"]}]}
+        "library_ms": main_t["library_ms"],
+        "launch_floor_ms": floor["two_kernels_ms"
+                                 if main_t["splits"] > 1
+                                 else "one_kernel_ms"],
+        "ptxas": paged_ptxas}]}
     train_err = flash_rows[("train", torch.bfloat16)]["max_abs_err_same_dtype"]
     # the plain and library backwards compute dq, dk and dv in one call:
     # the dQ and dK/dV entries carry that whole time, and the two kernels'

@@ -7,10 +7,11 @@ through the Pallas interpreter off-TPU (``impl="pallas"``, as
 across grouped-query / MHA / MQA / window / int8 / padded / null-block /
 empty-row cases.
 
-The CUDA kernel's own cases carry the ``cuda`` marker and skip without a
-CUDA device: the kernel is compiled by nvcc for sm_90a at first launch
-and has no CPU or interpret mode.  ``python3 chip_smoke.py`` holds it
-against the plain path on the card.
+The CUDA kernels' own cases (the split kernel, and the combine kernel
+where a call splits, also at forced split counts) carry the ``cuda``
+marker and skip without a CUDA device: the kernels are compiled by nvcc
+for sm_90a at first launch and have no CPU or interpret mode.
+``python3 chip_smoke.py`` holds them against the plain path on the card.
 """
 
 import numpy as np
@@ -41,6 +42,20 @@ def _case(rng, B=3, Hq=8, Hkv=2, Dh=32, bs=4, nb=16, W=6, ctx=(9, 0, 21)):
         nblk = -(-int(ctx[b]) // bs)
         bt[b, :nblk] = rng.choice(np.arange(1, nb), nblk, replace=False)
     return q, kc, vc, bt, ctx
+
+
+W_CASE = 6      # _case's table width
+
+
+def _int8(rng, args):
+    """int8 K/V with per-slot-per-head float32 scales from float32 ones."""
+    q, kc, vc, bt, ctx = args
+    nb, bs, hkv, _ = kc.shape
+    ksc = (rng.rand(nb, bs, hkv) * 0.02 + 0.005).astype(np.float32)
+    vsc = (rng.rand(nb, bs, hkv) * 0.02 + 0.005).astype(np.float32)
+    kq = np.clip(np.round(kc / ksc[..., None]), -127, 127).astype(np.int8)
+    vq = np.clip(np.round(vc / vsc[..., None]), -127, 127).astype(np.int8)
+    return (q, kq, vq, bt, ctx), {"k_scale": ksc, "v_scale": vsc}
 
 
 def _ref():
@@ -261,3 +276,62 @@ def test_cuda_kernel_rejects_what_it_does_not_take():
     with pytest.raises(RuntimeError, match="cudaError 1 "):
         pac.paged_attention_cuda(*odd)
     assert pac.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 7, W_CASE])
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,window", [(8, 2, 0), (8, 2, 5), (4, 4, 0),
+                                           (4, 1, 3), (12, 3, 0)])
+def test_cuda_kernels_match_plain_path_at_forced_splits(dtype, hq, hkv,
+                                                        window, splits):
+    """test_cuda_kernel_matches_plain_path's cases at forced split
+    counts (7 > W leaves a split with nothing live), at the same bounds;
+    every call counts once, and combines exactly when it splits."""
+    _need_cuda()
+    rng = np.random.RandomState(7)
+    q, kc, vc, bt, ctx = _case(rng, Hq=hq, Hkv=hkv, ctx=(9, 0, 21))
+    kw = {}
+    if dtype == "int8":
+        (q, kc, vc, bt, ctx), sc = _int8(rng, (q, kc, vc, bt, ctx))
+        kw = {k: torch.from_numpy(v).cuda() for k, v in sc.items()}
+    fdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    t = [torch.from_numpy(a).cuda() for a in (q, kc, vc, bt, ctx)]
+    t[0] = t[0].to(fdt)
+    if dtype == "bfloat16":
+        t[1], t[2] = t[1].to(fdt), t[2].to(fdt)
+    before = (pac.launches, pac.combine_launches)
+    out = pac.paged_attention_cuda(*t, window=window, _splits=splits, **kw)
+    torch.cuda.synchronize()
+    assert pac.launches == before[0] + 1
+    assert pac.combine_launches == before[1] + int(splits > 1)
+    assert torch.isfinite(out).all()
+    assert float(out[1].abs().max()) == 0.0
+    if dtype == "bfloat16":
+        ref32 = paged_attention_torch(*[a.float() for a in t[:3]], *t[3:],
+                                      window=window)
+        dev = (out.float() - ref32).abs()
+        assert bool((dev <= BF16_REL * ref32.abs() + 2 * F32_TOL).all())
+    else:
+        ref = paged_attention_torch(*t, window=window, **kw)
+        assert float((out - ref).abs().max()) <= F32_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_plan_combines_exactly_when_it_splits():
+    """The wrapper's own plan: a wide table splits and combines, a
+    one-block table does neither; each call counts once."""
+    _need_cuda()
+    for W, ctx in ((128, (2048, 0, 1000)), (1, (3, 0, 4))):
+        args = [torch.from_numpy(a).cuda() for a in _case(
+            np.random.RandomState(16), bs=16, nb=400, W=W, ctx=ctx)]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits, _ = pac._split_plan(3, 2, W, 16, sms)
+        before = (pac.launches, pac.combine_launches)
+        out = pac.paged_attention_cuda(*args)
+        torch.cuda.synchronize()
+        assert (splits > 1) == (W > 1)
+        assert pac.launches == before[0] + 1
+        assert pac.combine_launches == before[1] + int(splits > 1)
+        ref = paged_attention_torch(*args)
+        assert float((out - ref).abs().max()) <= F32_TOL
