@@ -55,12 +55,16 @@ Phases (any failure exits non-zero; nothing is caught):
      dgx, dWh, dbh, dh0, dc0, non-zero hT/cT cotangents) in float32 and
      bfloat16 at the language model's shape (T 128, N 32, H 512) and at
      contract shapes (H 200 with N 3, T 1, a reverse direction's flipped
-     input), each bound stated and shown to fail on planted faults; the
+     input), each bound stated and shown to fail on planted faults, each
+     check saying which backward ran (bf16: the tensor-core one, also
+     the other one held to the same bounds at the main shape; float32:
+     the other one); the
      float32 kernels against cuDNN's nn.LSTM / nn.GRU; the RNN-op LM of
      examples/rnn_time_major.py (vocab 10,000, embedding and hidden 512,
      2 layers, T 128, N 32, bf16, Adam 0.01, Xavier) trained by
      ShardedTrainer for 2 + 10 steps as an LSTM and 2 + 5 as a GRU, each
-     kernel's launches checked against 2 x steps and the NLL finite and
+     kernel's launches checked against 2 x steps (every backward on the
+     tensor-core kernel, none on the other) and the NLL finite and
      falling; one full-width float32 step's gradients through the kernels
      against the eager scan, shown to fail on a planted fault; a small
      LSTM LM's CUDA trainer against its CPU trainer over 3 Adam steps;
@@ -76,7 +80,10 @@ Phases (any failure exits non-zero; nothing is caught):
      (float32-FMA) kernel at the same bf16 shape and the tensor-core
      kernel's ptxas registers and spills, and for the RNN kernels the
      barrier floor (an
-     empty cooperative kernel of T grid barriers).
+     empty cooperative kernel of T grid barriers), and for the RNN
+     backward the other kernel at the same bf16 inputs, the tensor-core
+     kernel's cluster size, units a CTA, ptxas registers and spills and
+     the floor of its split barrier (T arrive/wait pairs alone).
 
 Prints JSON lines, then the card's name and power limit, then the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -913,16 +920,17 @@ def misaligned_copy(t):
     return out
 
 
-def ptxas_report(log, kernel):
+def ptxas_report(log, kernel, names=("D",)):
     """Registers and spill bytes of each instantiation of ``kernel`` in
-    nvcc's -Xptxas -v output, keyed by its template argument (D)."""
+    nvcc's -Xptxas -v output, keyed by its integer template arguments
+    under ``names`` (the flash kernels' D; the RNN kernel's G)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            d = re.search(r"ILi(\d+)E", m.group(1))
-            cur = (f"D{d.group(1)}" if d else m.group(1)) \
-                if kernel in m.group(1) else None
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            key = "_".join(f"{n}{v}" for n, v in zip(names, args))
+            cur = (key or m.group(1)) if kernel in m.group(1) else None
             continue
         if cur is None:
             continue
@@ -1101,7 +1109,8 @@ def _kernel_kind(name):
     for key, kind in (("flash_fwd", "flash_fwd"), ("flash_dq", "flash_dq"),
                       ("flash_dkv", "flash_dkv"),
                       ("rnn_fwd_kernel", "fused_rnn_fwd"),
-                      ("rnn_bwd_kernel", "fused_rnn_bwd"), ("gemm", "matmul"),
+                      ("rnn_bwd_kernel", "fused_rnn_bwd"),
+                      ("rnn_bwd_tc_kernel", "fused_rnn_bwd"), ("gemm", "matmul"),
                       ("xmma", "matmul"), ("cutlass", "matmul"),
                       ("nvjet", "matmul"),
                       ("softmax", "softmax"), ("embedding", "embedding"),
@@ -1382,20 +1391,22 @@ def rnn_case(mode, shape, dtype, seed=0):
     return ins, cot
 
 
-def rnn_kernels(mode, ins, cot):
+def rnn_kernels(mode, ins, cot, variant=None):
     """Kernel outputs by name: the forward kernel with residuals, then the
-    backward kernel from them."""
+    backward kernel from them (``variant`` forces the backward's: "tc" or
+    "simt"; by default the wrapper's rule picks it)."""
     from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
 
     if mode == "lstm":
         ys, hT, cT, acts, cells = frc.lstm_fwd_cuda(**ins, save=True)
         dgx, dwh, dbh, dh0, dc0 = frc.lstm_bwd_cuda(
-            acts, cells, ys, ins["h0"], ins["c0"], ins["wh"], **cot)
+            acts, cells, ys, ins["h0"], ins["c0"], ins["wh"], **cot,
+            _variant=variant)
         return dict(ys=ys, hT=hT, cT=cT, acts=acts, cells=cells, dgx=dgx,
                     dwh=dwh, dbh=dbh, dh0=dh0, dc0=dc0)
     ys, hT, acts = frc.gru_fwd_cuda(**ins, save=True)
     dgx, dwh, dbh, dh0 = frc.gru_bwd_cuda(acts, ys, ins["h0"], ins["wh"],
-                                          **cot)
+                                          **cot, _variant=variant)
     return dict(ys=ys, hT=hT, acts=acts, dgx=dgx, dwh=dwh, dbh=dbh, dh0=dh0)
 
 
@@ -1469,16 +1480,29 @@ def rnn_plain_permuted(mode, ins, cot, perm):
 
 def check_rnn(mode, tag, dtype):
     """The forward and backward kernels against their plain versions at
-    one shape and dtype (bounds above); returns the report row."""
+    one shape and dtype (bounds above); returns the report row.  The
+    backward is the tensor-core kernel in bfloat16 and the other one in
+    float32 (the row says which ran); at the main shape in bfloat16 the
+    other backward (``_variant="simt"``) is held to the same bounds."""
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
+
     shape = RNN_SHAPES[tag]
     ins, cot = rnn_case(mode, shape, dtype)
     if tag == "flipped":           # the reverse direction's input
         ins["gx"] = ins["gx"].flip(0)
+    before = dict(frc.launches)
     got = rnn_kernels(mode, ins, cot)
     torch.cuda.synchronize()
+    ran = [k for k in frc.launches
+           if "bwd" in k and frc.launches[k] != before[k]]
+    want_bwd = (f"{mode}_bwd" if dtype == torch.bfloat16
+                else f"{mode}_bwd_simt")
     ref = rnn_plain(mode, ins, cot)
     row = {"phase": "rnn_check", "mode": mode, "shape": tag,
-           "tnh": list(shape), "dtype": str(dtype)[6:]}
+           "tnh": list(shape), "dtype": str(dtype)[6:], "bwd_kernel": ran,
+           "bwd_kernel_expected": want_bwd}
+    if dtype == torch.bfloat16:
+        row["tc_plan"] = dict(frc.last_tc_plan)
     bound = {}
     if dtype == torch.bfloat16:
         H = shape[2]
@@ -1500,7 +1524,16 @@ def check_rnn(mode, tag, dtype):
            for k in ref}
     share = {k: err[k] / max(bound[k], 1e-30) for k in ref}
     finite = all(bool(torch.isfinite(v).all()) for v in got.values())
-    ok = finite and all(s <= 1.0 for s in share.values())
+    ok = (finite and all(s <= 1.0 for s in share.values())
+          and ran == [want_bwd])
+    if dtype == torch.bfloat16 and tag == "main":
+        simt = rnn_kernels(mode, ins, cot, variant="simt")
+        simt_share = {k: float((simt[k].float() - ref[k].float()).abs()
+                               .max()) / max(bound[k], 1e-30)
+                      for k in ("dgx", "dwh", "dbh", "dh0", "dc0")
+                      if k in ref}
+        row["simt_bwd_share_by_output"] = simt_share
+        ok = ok and all(v <= 1.0 for v in simt_share.values())
     row.update({"max_abs_err": err, "worst_share_of_bound":
                 max(share.values()), "share_by_output": share})
     if tag == "main":
@@ -1605,7 +1638,12 @@ def rnn_bounds(mode, shape, dtype):
 
 def time_rnn(mode, dtype=torch.bfloat16):
     """Kernel, plain, library (cuDNN) and barrier-floor times at the main
-    shape; the bound from this run's shapes."""
+    shape; the bound from this run's shapes.  The backward is timed on
+    the tensor-core kernel and, in the same run, on the other one
+    (``_variant="simt"``, ``ms_simt``), with the tensor-core kernel's
+    plan (cluster size, CTAs, units a CTA), its ptxas registers and spills
+    and the floor of its split barrier."""
+    from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops import fused_gru as fg
     from mxnet_tpu_torch.ops import fused_lstm as fl
     from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
@@ -1625,9 +1663,21 @@ def time_rnn(mode, dtype=torch.bfloat16):
         p_fwd_fn, p_bwd_fn = fg.fused_gru_fwd_torch, fg.fused_gru_bwd_torch
         bwd_args = (res["acts"], res["ys"], ins["h0"], ins["wh"])
     k_fwd = time_ms(lambda: fwd(**ins, save=True))
+    frc.launches.update({n: 0 for n in frc.launches})
     k_bwd = time_ms(lambda: bwd(*bwd_args, **cot))
+    plan = dict(frc.last_tc_plan)
+    tc_calls = dict(frc.launches)
+    k_bwd_simt = time_ms(lambda: bwd(*bwd_args, **cot, _variant="simt"))
+    simt_calls = {k: v - tc_calls[k] for k, v in frc.launches.items()}
     frc.launches.update(saved)        # timing launches are not the path's
+    if (not tc_calls[f"{mode}_bwd"] or tc_calls[f"{mode}_bwd_simt"]
+            or simt_calls[f"{mode}_bwd"]
+            or not simt_calls[f"{mode}_bwd_simt"]):
+        raise SystemExit(f"rnn_time: {mode} backward variants not as timed: "
+                         f"{tc_calls} then {simt_calls}")
     floor = time_ms(lambda: frc.barrier_floor_cuda(T, H, DEVICE))
+    split_floor = time_ms(lambda: frc.split_barrier_floor_cuda(T, N, H,
+                                                               DEVICE))
     p_fwd = time_ms(lambda: p_fwd_fn(**ins, save=True), reps=3, warmup=1)
     p_bwd = time_ms(lambda: p_bwd_fn(*bwd_args, **cot), reps=3, warmup=1)
     # the library yardstick the port never calls: cuDNN's nn.LSTM / nn.GRU
@@ -1663,6 +1713,22 @@ def time_rnn(mode, dtype=torch.bfloat16):
                 "the plain times cover the recurrence only; the library "
                 "times also include the input projection x Wi^T + bi"
                 + (" and its gradients" if kind == "bwd" else "")}
+        if kind == "bwd":
+            G = _GATES[mode]
+            rows[name].update({
+                "source": "csrc/fused_rnn_bwd_tc.cuh",
+                "ms_simt": k_bwd_simt, "simt_over_tc": k_bwd_simt / k_ms,
+                "simt": "rnn_bwd_kernel (csrc/fused_rnn.cuh), the same "
+                        "inputs through _variant='simt'",
+                "cluster_size": plan["C"], "hs": plan["hs"],
+                "grid_ctas": plan["grid"], "smem_bytes": plan["smem_bytes"],
+                "split_barrier_floor_ms": split_floor,
+                "split_barrier_floor": "the tensor-core kernel's split "
+                                       f"barrier alone, {T} arrive/wait "
+                                       "pairs on the LSTM kernel's launch",
+                "ptxas": ptxas_report(
+                    _build.BUILD_LOGS.get(frc.LIB_NAME, ""),
+                    "rnn_bwd_tc_kernel", ("G",)).get(f"G{G}")})
         emit(rows[name])
     return rows
 
@@ -1699,18 +1765,20 @@ def rnn_train_main_path(mode, steps):
     lap(f"{mode}_train_profile")
     want = cfg["num_layers"] * steps
     path = {k: v for k, v in launches.items() if k.startswith(mode)}
+    # bf16: every backward on the tensor-core kernel, none on the other
+    expected = {k: 0 if k.endswith("_simt") else want for k in path}
     tokens = cfg["seq_len"] * B
     # Adam at the example's lr 0.01 spikes the loss around step 5 on the
     # repeated batch: the LSTM's 12 steps end below the start, the GRU's 7
     # are held to having gone below it
     falls = nll[-1] < nll[0] if mode == "lstm" else min(nll[1:]) < nll[0]
     ok = (all(np.isfinite(nll)) and falls
-          and all(n == want for n in path.values())
+          and path == expected
           and tuple(probs.shape) == (tokens, cfg["vocab"]))
     row = {"phase": f"train_{mode}", "dtype": "bfloat16", "config": cfg,
            "params": sum(p.numel() for p in tr.params.values()),
            "warmup_steps": RNN_WARMUP, "steps": steps,
-           "kernel_launches": launches, "launches_expected_each": want,
+           "kernel_launches": launches, "launches_expected": expected,
            "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
            "wall_s": wall, "tokens_per_s": tokens * steps / wall, "nll": nll,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -2006,9 +2074,11 @@ def main():
         mode, kind = kname.split("_")
         t = rnn_t[kname]
         err = rnn_rows[(mode, "main", torch.bfloat16)]["max_abs_err"]
-        kernels["kernels"].append({
+        entry = {
             "name": kname, "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/fused_rnn.cuh",
+            "source": "mxnet_tpu_torch/csrc/" + ("fused_rnn_bwd_tc.cuh"
+                                                 if kind == "bwd"
+                                                 else "fused_rnn.cuh"),
             "replaces": replaces,
             "launches": rnn_train[mode]["kernel_launches"][kname],
             "max_abs_err": max(err[o] for o in rnn_outs[kind] if o in err),
@@ -2016,7 +2086,14 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "barrier_floor_ms": t["barrier_floor_ms"],
-            "plain_and_library_cover": t["plain_and_library_cover"]})
+            "plain_and_library_cover": t["plain_and_library_cover"]}
+        if kind == "bwd":
+            entry.update({k: t[k] for k in (
+                "ms_simt", "cluster_size", "hs", "split_barrier_floor_ms",
+                "ptxas")})
+            entry["launches_simt"] = rnn_train[mode]["kernel_launches"][
+                f"{kname}_simt"]
+        kernels["kernels"].append(entry)
     REPORT["kernels"] = kernels
     REPORT["card"] = card
     REPORT["seconds"] = time.perf_counter() - t_start

@@ -3,14 +3,22 @@
 The kernels (``csrc/fused_rnn.cuh``, one translation unit each:
 ``csrc/fused_{lstm,gru}_{fwd,bwd}.cu``) replace the TPU kernels of
 ``mxnet_tpu/ops/pallas_lstm.py`` (``_fwd_kernel``, ``_bwd_kernel``) and
-``mxnet_tpu/ops/pallas_gru.py`` (``_fwd_kernel``, ``_bwd_kernel``).  They
-are built with ``nvcc`` at the first launch and called through
-``ctypes``.  Each wrapper checks what its kernel takes and raises on
-anything else; a failed build or launch raises its ``cudaError``, and
-there is no fallback to the plain versions (those are
-``ops.fused_lstm.fused_lstm_{fwd,bwd}_torch`` and
-``ops.fused_gru.fused_gru_{fwd,bwd}_torch``, which the CPU path runs).
-``launches`` counts each kernel's launches in this process.
+``mxnet_tpu/ops/pallas_gru.py`` (``_fwd_kernel``, ``_bwd_kernel``).  The
+backward has two variants, picked by :func:`_bwd_variant` from the dtype
+and the geometry: ``tc`` (``csrc/fused_rnn_bwd_tc.cuh``, units
+``csrc/fused_{lstm,gru}_bwd_tc.cu``: bf16 tensor cores, the recurrent
+product split by K across a thread-block cluster of 16 CTAs) and ``simt``
+(``rnn_bwd_kernel`` in ``csrc/fused_rnn.cuh``: float32 FMAs, for float32
+and every geometry outside the tensor-core kernel's limits).  They are
+built with ``nvcc`` at the first launch and called through ``ctypes``.
+Each wrapper checks what its kernel takes and raises on anything else; a
+failed build or launch (a refused cluster or cooperative launch too)
+raises its ``cudaError``, and there is no fallback to the plain versions
+(those are ``ops.fused_lstm.fused_lstm_{fwd,bwd}_torch`` and
+``ops.fused_gru.fused_gru_{fwd,bwd}_torch``, which the CPU path runs) nor
+from one variant to the other.  ``launches`` counts each kernel's
+launches in this process (``lstm_bwd``/``gru_bwd``: the tensor-core
+backward; ``lstm_bwd_simt``/``gru_bwd_simt``: the other).
 
 gx (T, N, G H) is float32 or bfloat16; wh is cast to gx's dtype (the
 product's operand type, as the TPU kernels cast it) and bh to float32;
@@ -19,6 +27,7 @@ h0/c0 are float32 (N, H).  Every tensor is made contiguous.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -27,15 +36,32 @@ from .._build import load_library
 from .fused_lstm import KERNEL_DTYPES
 
 __all__ = ["lstm_fwd_cuda", "lstm_bwd_cuda", "gru_fwd_cuda", "gru_bwd_cuda",
-           "barrier_floor_cuda", "launches"]
+           "barrier_floor_cuda", "split_barrier_floor_cuda", "launches",
+           "last_tc_plan"]
 
 LIB_NAME = "mxtt_fused_rnn"
 SOURCES = ("fused_rnn.cuh", "fused_lstm_fwd.cu", "fused_lstm_bwd.cu",
-           "fused_gru_fwd.cu", "fused_gru_bwd.cu")
+           "fused_gru_fwd.cu", "fused_gru_bwd.cu", "fused_rnn_bwd_tc.cuh",
+           "tc_tile.cuh", "fused_lstm_bwd_tc.cu", "fused_gru_bwd_tc.cu")
 
 # kernel launches in this process, per kernel; reset by whoever counts a
 # window
-launches = {"lstm_fwd": 0, "lstm_bwd": 0, "gru_fwd": 0, "gru_bwd": 0}
+launches = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_bwd_simt": 0, "gru_fwd": 0,
+            "gru_bwd": 0, "gru_bwd_simt": 0}
+
+# the last tensor-core backward launch's plan: cluster size C, grid CTAs
+# and shared-memory bytes
+last_tc_plan = {}
+
+# The tensor-core backward's limits (csrc/fused_rnn_bwd_tc.cuh, Limits):
+# registers sized for N <= 32 (two m16 tiles of the batch) and H <= 512
+# (4 pairs of dWh n-tiles a warp; 8 k-steps of Wh fragments a warp), H a
+# multiple of 8 (16-byte rows), and its shared memory (tc_smem_bytes)
+# within a block's 227 KB.  A CTA owns TC_HS hidden units, a cluster
+# TC_CLUSTER CTAs.
+TC_MAX_N, TC_MAX_H = 32, 512
+TC_HS, TC_CLUSTER = 8, 16
+_SMEM_MAX = 232448
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -52,6 +78,12 @@ def _lib():
             fwd.restype = bwd.restype = ctypes.c_int
         lib.mxtt_rnn_barrier_floor.argtypes = [i, i, vp]
         lib.mxtt_rnn_barrier_floor.restype = ctypes.c_int
+        for mode in ("lstm", "gru"):
+            tc = getattr(lib, f"mxtt_{mode}_bwd_tc")
+            tc.argtypes = [vp] * 16 + [i] * 3 + [vp, vp]
+            tc.restype = ctypes.c_int
+        lib.mxtt_rnn_split_barrier_floor.argtypes = [i] * 3 + [vp] * 3
+        lib.mxtt_rnn_split_barrier_floor.restype = ctypes.c_int
     return lib
 
 
@@ -71,7 +103,8 @@ def _stream(device):
 def _check(rc, name):
     if rc != 0:
         # 1 (cudaErrorInvalidValue): a geometry outside the kernels' limits;
-        # 82 (cudaErrorCooperativeLaunchTooLarge): a grid not co-resident
+        # 82 (cudaErrorCooperativeLaunchTooLarge): a grid (or, for the
+        # tensor-core backward, its clusters) not co-resident
         raise RuntimeError(f"fused_rnn_cuda: {name} launch failed with "
                            f"cudaError {rc}")
     launches[name] += 1
@@ -135,7 +168,37 @@ def gru_fwd_cuda(gx, h0, wh, bh, save=True):
     return ys, hT, acts
 
 
-def _bwd(G, name, acts, cells, ys, h0, c0, wh, dys, dhT, dcT):
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def tc_smem_bytes(N, H, G):
+    """Shared memory of the tensor-core backward, in bytes: the layout of
+    ``tc_geo`` (csrc/fused_rnn_bwd_tc.cuh) in closed form."""
+    up = lambda a, b: _cdiv(a, b) * b
+    mt = _cdiv(N, 16)                          # m16 tiles of the batch
+    r = G * TC_HS                              # the CTA's rows of dWh
+    return (16 * mt * (up(_cdiv(G * H, TC_CLUSTER), 16) + 8) * 2  # slice
+            + 2 * 16 * mt * (up(H, 16) + 8) * 2         # h_prev, two halves
+            + 2 * up(r, 16) * (16 * mt + 8) * 2         # dg_lo^T, two halves
+            + 2 * up(N * r * 4, 16)                     # dgates, two halves
+            + N * r * 2                                 # staged X_t
+            + TC_CLUSTER * 16 * mt * 8 * 4 + 16)        # partials, mbarriers
+
+
+def _bwd_variant(dtype, N, H, G):
+    """Which backward kernel takes a layer: ``"tc"`` (bf16 tensor cores)
+    where its limits hold (bfloat16, N <= 32, H a multiple of 8 up to
+    512, its shared memory within 227 KB), else ``"simt"``.
+    A pure function of its arguments, decided on the host."""
+    if (dtype == torch.bfloat16 and 1 <= N <= TC_MAX_N and H % 8 == 0
+            and 8 <= H <= TC_MAX_H and tc_smem_bytes(N, H, G) <= _SMEM_MAX):
+        return "tc"
+    return "simt"
+
+
+def _bwd_checks(G, acts, cells, ys, h0, c0, wh, dys, dhT, dcT):
+    """Checks the backward's operands and returns (T, N, H)."""
     _need(ys.is_cuda, f"ys must be a CUDA tensor (got {ys.device})")
     dt, dev = ys.dtype, ys.device
     _need(dt in KERNEL_DTYPES, f"dtype {dt} not float32/bfloat16")
@@ -158,8 +221,25 @@ def _bwd(G, name, acts, cells, ys, h0, c0, wh, dys, dhT, dcT):
     for t, nm in ((dys, "dys"), (dhT, "dhT"), (dcT, "dcT")):
         if t is not None:
             _need(t.dtype == dt, f"{nm} must be in ys's dtype {dt}")
+    return T, N, H
+
+
+@contextlib.contextmanager
+def _launch_stream(device):
+    """Makes ``device`` current and yields its current stream (an int)."""
+    with torch.cuda.device(device):
+        yield _stream(device)
+
+
+def _bwd(G, name, acts, cells, ys, h0, c0, wh, dys, dhT, dcT, variant=None):
+    T, N, H = _bwd_checks(G, acts, cells, ys, h0, c0, wh, dys, dhT, dcT)
+    dt, dev = ys.dtype, ys.device
+    variant = variant or _bwd_variant(dt, N, H, G)
+    _need(variant in ("tc", "simt"), f"unknown variant {variant!r}")
     c = [None if t is None else t.contiguous()
          for t in (acts, cells, ys, dys, dhT, dcT)]
+    if variant == "tc" and c[2].data_ptr() % 16:
+        c[2] = c[2].clone()      # the bulk copies of ys rows: 16-byte aligned
     h0 = h0.float().contiguous()
     c0 = None if c0 is None else c0.float().contiguous()
     wh = wh.to(dt).contiguous()
@@ -170,26 +250,40 @@ def _bwd(G, name, acts, cells, ys, h0, c0, wh, dys, dhT, dcT):
     dbh = torch.empty(G * H, device=dev)
     dh0 = torch.empty(N, H, device=dev)
     dc0 = torch.empty(N, H, device=dev) if G == 4 else None
-    with torch.cuda.device(dev):
-        rc = getattr(_lib(), f"mxtt_{name}")(
-            _DTYPE_CODE[dt], _ptr(c[0]), _ptr(c[1]), _ptr(c[2]),
-            _ptr(h0), _ptr(c0), _ptr(wh), _ptr(c[3]), _ptr(c[4]),
-            _ptr(c[5]), _ptr(dgx), _ptr(xbuf), _ptr(dwh), _ptr(dbh),
-            _ptr(dh0), _ptr(dc0), T, N, H, _stream(dev))
-    _check(rc, name)
+    ptrs = (_ptr(c[0]), _ptr(c[1]), _ptr(c[2]), _ptr(h0), _ptr(c0),
+            _ptr(wh), _ptr(c[3]), _ptr(c[4]), _ptr(c[5]), _ptr(dgx),
+            _ptr(xbuf), _ptr(dwh), _ptr(dbh), _ptr(dh0), _ptr(dc0))
+    with _launch_stream(dev) as stream:
+        if variant == "tc":
+            ctr = torch.zeros(1, dtype=torch.int32, device=dev)
+            info = (ctypes.c_int * 3)()
+            rc = getattr(_lib(), f"mxtt_{name}_tc")(
+                *ptrs, _ptr(ctr), T, N, H, info, stream)
+            if rc == 0:
+                last_tc_plan.clear()
+                last_tc_plan.update(C=info[0], grid=info[1],
+                                    smem_bytes=info[2], hs=TC_HS)
+        else:
+            rc = getattr(_lib(), f"mxtt_{name}")(
+                _DTYPE_CODE[dt], *ptrs, T, N, H, stream)
+    _check(rc, name if variant == "tc" else f"{name}_simt")
     return dgx, dwh, dbh, dh0, dc0
 
 
-def lstm_bwd_cuda(acts, cells, ys, h0, c0, wh, dys, dhT, dcT):
+def lstm_bwd_cuda(acts, cells, ys, h0, c0, wh, dys, dhT, dcT, _variant=None):
     """Fused-LSTM backward kernel: ``(dgx, dwh, dbh, dh0, dc0)``; the
-    cotangents in ys's dtype, dgx in ys's dtype, the rest float32."""
-    return _bwd(4, "lstm_bwd", acts, cells, ys, h0, c0, wh, dys, dhT, dcT)
+    cotangents in ys's dtype, dgx in ys's dtype, the rest float32.
+    ``_variant`` ("tc" or "simt") overrides :func:`_bwd_variant`: for
+    tests and timings only."""
+    return _bwd(4, "lstm_bwd", acts, cells, ys, h0, c0, wh, dys, dhT, dcT,
+                _variant)
 
 
-def gru_bwd_cuda(acts, ys, h0, wh, dys, dhT):
-    """Fused-GRU backward kernel: ``(dgx, dwh, dbh, dh0)``."""
+def gru_bwd_cuda(acts, ys, h0, wh, dys, dhT, _variant=None):
+    """Fused-GRU backward kernel: ``(dgx, dwh, dbh, dh0)``; ``_variant``
+    as :func:`lstm_bwd_cuda`'s."""
     dgx, dwh, dbh, dh0, _ = _bwd(3, "gru_bwd", acts, None, ys, h0, None, wh,
-                                 dys, dhT, None)
+                                 dys, dhT, None, _variant)
     return dgx, dwh, dbh, dh0
 
 
@@ -203,3 +297,21 @@ def barrier_floor_cuda(T, H, device):
     if rc != 0:
         raise RuntimeError(f"fused_rnn_cuda: barrier floor launch failed "
                            f"with cudaError {rc}")
+
+
+def split_barrier_floor_cuda(T, N, H, device):
+    """Launch T arrive/wait pairs of the tensor-core backward's split
+    barrier over the launch the LSTM kernel takes at (N, H) (same grid,
+    clusters and shared memory): its serial floor.  Returns the plan
+    (C, grid, shared-memory bytes).  Not counted in ``launches``."""
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        ctr = torch.zeros(1, dtype=torch.int32, device=dev)
+        info = (ctypes.c_int * 3)()
+        rc = _lib().mxtt_rnn_split_barrier_floor(T, N, H, _ptr(ctr), info,
+                                                 _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"fused_rnn_cuda: split barrier floor launch "
+                           f"failed with cudaError {rc}")
+    return {"C": info[0], "grid": info[1], "smem_bytes": info[2],
+            "hs": TC_HS}

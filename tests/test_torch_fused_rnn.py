@@ -17,7 +17,9 @@ The Hopper kernels' own cases carry the ``cuda`` marker and skip without
 a CUDA device: the kernels are compiled by nvcc for sm_90a at first
 launch and have no CPU or interpret mode.  ``python3 chip_smoke.py``
 holds them against the plain versions on the card at the language
-model's shape.
+model's shape.  Both bf16 backward kernels (the tensor-core one, and the
+other through ``_variant="simt"``) are held to the plain backward at
+chip_smoke.py's four check shapes.
 """
 
 import numpy as np
@@ -344,6 +346,61 @@ def test_cuda_kernels_track_plain_versions_bf16(mode, shape):
     loose scale-relative bound (chip_smoke derives the tight one)."""
     _need_cuda()
     assert _kernel_vs_plain(mode, shape, torch.bfloat16) <= 0.05
+
+
+# chip_smoke.py's RNN check shapes (T, N, H): the LM's, H 200 with N 3,
+# T 1, and the reverse direction's flipped input
+CHECK_SHAPES = {"main": (128, 32, 512), "h200_n3": (35, 3, 200),
+                "t1": (1, 32, 512), "flipped": (35, 32, 512)}
+# and the tensor-core kernel's edges: the least H, one m16 tile full, a
+# ragged second one, the widest H below 512
+EDGE_SHAPES = {"n1_h8": (3, 1, 8), "n16_h264": (3, 16, 264),
+               "n17_h512": (3, 17, 512), "n32_h504": (3, 32, 504)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["tc", "simt"])
+@pytest.mark.parametrize("tag", sorted(CHECK_SHAPES) + sorted(EDGE_SHAPES))
+@pytest.mark.parametrize("mode", ["lstm", "gru"])
+def test_cuda_bf16_backward_kernels_track_plain_versions(mode, tag, variant):
+    """Each bf16 backward kernel (the tensor-core one, and the other one
+    through ``_variant="simt"``) from the forward kernel's residuals,
+    against the plain backward from the same residuals on the card, every
+    output under the bf16 bound above; the launch is counted under the
+    kernel that ran."""
+    _need_cuda()
+    T, N, H = {**CHECK_SHAPES, **EDGE_SHAPES}[tag]
+    G = GATES[mode]
+    gx, h0, c0, wh, bh = (None if a is None else torch.from_numpy(a).cuda()
+                          for a in _rand(mode, T, N, H, seed=4))
+    if tag == "flipped":
+        gx = gx.flip(0).contiguous()
+    gx, wh = gx.bfloat16(), wh.bfloat16()
+    rng = np.random.RandomState(5)
+    dys, dhT, dcT = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                     .cuda().bfloat16() for s in ((T, N, H), (N, H), (N, H)))
+    before = dict(frc.launches)
+    if mode == "lstm":
+        ys, _, _, acts, cells = frc.lstm_fwd_cuda(gx, h0, c0, wh, bh)
+        got = frc.lstm_bwd_cuda(acts, cells, ys, h0, c0, wh, dys, dhT, dcT,
+                                _variant=variant)
+        ref = fl.fused_lstm_bwd_torch(acts, cells, ys, h0, c0, wh, dys, dhT,
+                                      dcT)
+    else:
+        ys, _, acts = frc.gru_fwd_cuda(gx, h0, wh, bh)
+        got = frc.gru_bwd_cuda(acts, ys, h0, wh, dys, dhT, _variant=variant)
+        ref = fg.fused_gru_bwd_torch(acts, ys, h0, wh, dys, dhT)
+    torch.cuda.synchronize()
+    counted = f"{mode}_bwd" + ("" if variant == "tc" else "_simt")
+    assert {k: frc.launches[k] - before[k] for k in frc.launches
+            if "bwd" in k and frc.launches[k] != before[k]} == {counted: 1}
+    assert G * H == wh.shape[0]
+    for a, b in zip(got, ref):
+        if b is None:
+            continue
+        assert bool(torch.isfinite(a).all())
+        scale = max(float(b.float().abs().max()), 1e-6)
+        assert float((a.float() - b.float()).abs().max()) <= 0.05 * scale
 
 
 @pytest.mark.cuda
