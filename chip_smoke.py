@@ -1109,6 +1109,7 @@ def _kernel_kind(name):
     for key, kind in (("flash_fwd", "flash_fwd"), ("flash_dq", "flash_dq"),
                       ("flash_dkv", "flash_dkv"),
                       ("rnn_fwd_kernel", "fused_rnn_fwd"),
+                      ("rnn_fwd_tc_kernel", "fused_rnn_fwd"),
                       ("rnn_bwd_kernel", "fused_rnn_bwd"),
                       ("rnn_bwd_tc_kernel", "fused_rnn_bwd"), ("gemm", "matmul"),
                       ("xmma", "matmul"), ("cutlass", "matmul"),
@@ -1308,6 +1309,8 @@ RNN_CUDNN_REL = 2e-5
 # (the forward kernel's ys stored through bfloat16, 2^-9 relative) must fail
 RNN_GRAD_REL = 1e-4
 _GATES = {"lstm": 4, "gru": 3}
+RNN_OUTPUTS = {"fwd": ("ys", "hT", "cT", "acts", "cells"),
+               "bwd": ("dgx", "dwh", "dbh", "dh0", "dc0")}
 
 
 def rnn_lm(mode, cfg, batch):
@@ -1391,20 +1394,22 @@ def rnn_case(mode, shape, dtype, seed=0):
     return ins, cot
 
 
-def rnn_kernels(mode, ins, cot, variant=None):
+def rnn_kernels(mode, ins, cot, variant=None, fwd_variant=None):
     """Kernel outputs by name: the forward kernel with residuals, then the
-    backward kernel from them (``variant`` forces the backward's: "tc" or
-    "simt"; by default the wrapper's rule picks it)."""
+    backward kernel from them (``fwd_variant`` and ``variant`` force the
+    forward's and the backward's: "tc" or "simt"; by default the
+    wrappers' rules pick them)."""
     from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
 
     if mode == "lstm":
-        ys, hT, cT, acts, cells = frc.lstm_fwd_cuda(**ins, save=True)
+        ys, hT, cT, acts, cells = frc.lstm_fwd_cuda(**ins, save=True,
+                                                    _variant=fwd_variant)
         dgx, dwh, dbh, dh0, dc0 = frc.lstm_bwd_cuda(
             acts, cells, ys, ins["h0"], ins["c0"], ins["wh"], **cot,
             _variant=variant)
         return dict(ys=ys, hT=hT, cT=cT, acts=acts, cells=cells, dgx=dgx,
                     dwh=dwh, dbh=dbh, dh0=dh0, dc0=dc0)
-    ys, hT, acts = frc.gru_fwd_cuda(**ins, save=True)
+    ys, hT, acts = frc.gru_fwd_cuda(**ins, save=True, _variant=fwd_variant)
     dgx, dwh, dbh, dh0 = frc.gru_bwd_cuda(acts, ys, ins["h0"], ins["wh"],
                                           **cot, _variant=variant)
     return dict(ys=ys, hT=hT, acts=acts, dgx=dgx, dwh=dwh, dbh=dbh, dh0=dh0)
@@ -1480,10 +1485,11 @@ def rnn_plain_permuted(mode, ins, cot, perm):
 
 def check_rnn(mode, tag, dtype):
     """The forward and backward kernels against their plain versions at
-    one shape and dtype (bounds above); returns the report row.  The
-    backward is the tensor-core kernel in bfloat16 and the other one in
-    float32 (the row says which ran); at the main shape in bfloat16 the
-    other backward (``_variant="simt"``) is held to the same bounds."""
+    one shape and dtype (bounds above); returns the report row.  Each is
+    the tensor-core kernel in bfloat16 and the other one in float32 (the
+    row says which ran); at the main shape in bfloat16 the other forward
+    and the other backward (``_variant="simt"``) are held to the same
+    bounds, each with the other pass on its tensor-core kernel."""
     from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
 
     shape = RNN_SHAPES[tag]
@@ -1493,15 +1499,18 @@ def check_rnn(mode, tag, dtype):
     before = dict(frc.launches)
     got = rnn_kernels(mode, ins, cot)
     torch.cuda.synchronize()
-    ran = [k for k in frc.launches
-           if "bwd" in k and frc.launches[k] != before[k]]
-    want_bwd = (f"{mode}_bwd" if dtype == torch.bfloat16
-                else f"{mode}_bwd_simt")
+    ran = {kind: [k for k in frc.launches
+                  if kind in k and frc.launches[k] != before[k]]
+           for kind in ("fwd", "bwd")}
+    suffix = "" if dtype == torch.bfloat16 else "_simt"
+    want = {kind: f"{mode}_{kind}{suffix}" for kind in ("fwd", "bwd")}
     ref = rnn_plain(mode, ins, cot)
     row = {"phase": "rnn_check", "mode": mode, "shape": tag,
-           "tnh": list(shape), "dtype": str(dtype)[6:], "bwd_kernel": ran,
-           "bwd_kernel_expected": want_bwd}
+           "tnh": list(shape), "dtype": str(dtype)[6:],
+           "fwd_kernel": ran["fwd"], "fwd_kernel_expected": want["fwd"],
+           "bwd_kernel": ran["bwd"], "bwd_kernel_expected": want["bwd"]}
     if dtype == torch.bfloat16:
+        row["fwd_tc_plan"] = dict(frc.last_fwd_tc_plan)
         row["tc_plan"] = dict(frc.last_tc_plan)
     bound = {}
     if dtype == torch.bfloat16:
@@ -1525,15 +1534,26 @@ def check_rnn(mode, tag, dtype):
     share = {k: err[k] / max(bound[k], 1e-30) for k in ref}
     finite = all(bool(torch.isfinite(v).all()) for v in got.values())
     ok = (finite and all(s <= 1.0 for s in share.values())
-          and ran == [want_bwd])
+          and all(ran[kind] == [want[kind]] for kind in ran))
     if dtype == torch.bfloat16 and tag == "main":
-        simt = rnn_kernels(mode, ins, cot, variant="simt")
-        simt_share = {k: float((simt[k].float() - ref[k].float()).abs()
-                               .max()) / max(bound[k], 1e-30)
-                      for k in ("dgx", "dwh", "dbh", "dh0", "dc0")
-                      if k in ref}
-        row["simt_bwd_share_by_output"] = simt_share
-        ok = ok and all(v <= 1.0 for v in simt_share.values())
+        # the other kernels on the same inputs: the simt backward from the
+        # tc forward's residuals, and the simt forward (with the tc
+        # backward from its residuals), every output held to the bounds
+        for kind, kw in (("bwd", {"variant": "simt"}),
+                         ("fwd", {"fwd_variant": "simt"})):
+            before = dict(frc.launches)
+            simt = rnn_kernels(mode, ins, cot, **kw)
+            torch.cuda.synchronize()
+            ran_simt = [k for k in frc.launches
+                        if kind in k and frc.launches[k] != before[k]]
+            outs = RNN_OUTPUTS[kind] if kind == "bwd" else ref
+            simt_share = {k: float((simt[k].float() - ref[k].float()).abs()
+                                   .max()) / max(bound[k], 1e-30)
+                          for k in outs if k in ref}
+            row[f"simt_{kind}_share_by_output"] = simt_share
+            row[f"simt_{kind}_kernel"] = ran_simt
+            ok = (ok and all(v <= 1.0 for v in simt_share.values())
+                  and ran_simt == [f"{mode}_{kind}_simt"])
     row.update({"max_abs_err": err, "worst_share_of_bound":
                 max(share.values()), "share_by_output": share})
     if tag == "main":
@@ -1638,11 +1658,11 @@ def rnn_bounds(mode, shape, dtype):
 
 def time_rnn(mode, dtype=torch.bfloat16):
     """Kernel, plain, library (cuDNN) and barrier-floor times at the main
-    shape; the bound from this run's shapes.  The backward is timed on
-    the tensor-core kernel and, in the same run, on the other one
-    (``_variant="simt"``, ``ms_simt``), with the tensor-core kernel's
-    plan (cluster size, CTAs, units a CTA), its ptxas registers and spills
-    and the floor of its split barrier."""
+    shape; the bound from this run's shapes.  The forward and the backward
+    are each timed on the tensor-core kernel and, in the same run, on the
+    other one (``_variant="simt"``, ``ms_simt``), with the tensor-core
+    kernel's plan (cluster size, CTAs, units a CTA, shared memory), its
+    ptxas registers and spills and the floor of its split barrier."""
     from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops import fused_gru as fg
     from mxnet_tpu_torch.ops import fused_lstm as fl
@@ -1662,19 +1682,25 @@ def time_rnn(mode, dtype=torch.bfloat16):
         fwd, bwd = frc.gru_fwd_cuda, frc.gru_bwd_cuda
         p_fwd_fn, p_bwd_fn = fg.fused_gru_fwd_torch, fg.fused_gru_bwd_torch
         bwd_args = (res["acts"], res["ys"], ins["h0"], ins["wh"])
-    k_fwd = time_ms(lambda: fwd(**ins, save=True))
-    frc.launches.update({n: 0 for n in frc.launches})
-    k_bwd = time_ms(lambda: bwd(*bwd_args, **cot))
-    plan = dict(frc.last_tc_plan)
-    tc_calls = dict(frc.launches)
-    k_bwd_simt = time_ms(lambda: bwd(*bwd_args, **cot, _variant="simt"))
-    simt_calls = {k: v - tc_calls[k] for k, v in frc.launches.items()}
+
+    def timed(fn):
+        """fn's time, and the kernels its calls launched."""
+        before = dict(frc.launches)
+        ms = time_ms(fn)
+        return ms, {k for k, v in frc.launches.items() if v != before[k]}
+
+    k_ms, simt_ms, plans, ran = {}, {}, {}, {}
+    for kind, call in (("fwd", lambda **kw: fwd(**ins, save=True, **kw)),
+                       ("bwd", lambda **kw: bwd(*bwd_args, **cot, **kw))):
+        k_ms[kind], ran[kind] = timed(call)
+        plans[kind] = dict(frc.last_fwd_tc_plan if kind == "fwd"
+                           else frc.last_tc_plan)
+        simt_ms[kind], ran[f"{kind}_simt"] = timed(
+            lambda: call(_variant="simt"))
     frc.launches.update(saved)        # timing launches are not the path's
-    if (not tc_calls[f"{mode}_bwd"] or tc_calls[f"{mode}_bwd_simt"]
-            or simt_calls[f"{mode}_bwd"]
-            or not simt_calls[f"{mode}_bwd_simt"]):
-        raise SystemExit(f"rnn_time: {mode} backward variants not as timed: "
-                         f"{tc_calls} then {simt_calls}")
+    if any(ran[k] != {f"{mode}_{k}"} for k in ran):
+        raise SystemExit(f"rnn_time: {mode} kernel variants not as timed: "
+                         f"{ran}")
     floor = time_ms(lambda: frc.barrier_floor_cuda(T, H, DEVICE))
     split_floor = time_ms(lambda: frc.split_barrier_floor_cuda(T, N, H,
                                                                DEVICE))
@@ -1695,16 +1721,17 @@ def time_rnn(mode, dtype=torch.bfloat16):
     lib_bwd = time_ms(lambda: torch.autograd.grad(y, leaves, cot["dys"],
                                                   retain_graph=True))
     bounds = rnn_bounds(mode, shape, dtype)
+    log = _build.BUILD_LOGS.get(frc.LIB_NAME, "")
     rows = {}
-    for kind, k_ms, p_ms, l_ms in (("fwd", k_fwd, p_fwd, lib_fwd),
-                                   ("bwd", k_bwd, p_bwd, lib_bwd)):
+    for kind, p_ms, l_ms in (("fwd", p_fwd, lib_fwd), ("bwd", p_bwd, lib_bwd)):
         name = f"{mode}_{kind}"
         b_ms, b_by, ops, nbytes = bounds[name]
+        plan = plans[kind]
         rows[name] = {
             "phase": "rnn_time", "kernel": name, "shape": "main",
-            "dtype": str(dtype)[6:], "ms": k_ms, "plain_ms": p_ms,
+            "dtype": str(dtype)[6:], "ms": k_ms[kind], "plain_ms": p_ms,
             "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "ops": ops, "bytes": nbytes, "bound_share": b_ms / k_ms,
+            "ops": ops, "bytes": nbytes, "bound_share": b_ms / k_ms[kind],
             "barrier_floor_ms": floor,
             "library": f"cuDNN nn.{cls.__name__} "
                        + ("forward" if kind == "fwd"
@@ -1712,23 +1739,20 @@ def time_rnn(mode, dtype=torch.bfloat16):
             "plain_and_library_cover":
                 "the plain times cover the recurrence only; the library "
                 "times also include the input projection x Wi^T + bi"
-                + (" and its gradients" if kind == "bwd" else "")}
-        if kind == "bwd":
-            G = _GATES[mode]
-            rows[name].update({
-                "source": "csrc/fused_rnn_bwd_tc.cuh",
-                "ms_simt": k_bwd_simt, "simt_over_tc": k_bwd_simt / k_ms,
-                "simt": "rnn_bwd_kernel (csrc/fused_rnn.cuh), the same "
-                        "inputs through _variant='simt'",
-                "cluster_size": plan["C"], "hs": plan["hs"],
-                "grid_ctas": plan["grid"], "smem_bytes": plan["smem_bytes"],
-                "split_barrier_floor_ms": split_floor,
-                "split_barrier_floor": "the tensor-core kernel's split "
-                                       f"barrier alone, {T} arrive/wait "
-                                       "pairs on the LSTM kernel's launch",
-                "ptxas": ptxas_report(
-                    _build.BUILD_LOGS.get(frc.LIB_NAME, ""),
-                    "rnn_bwd_tc_kernel", ("G",)).get(f"G{G}")})
+                + (" and its gradients" if kind == "bwd" else ""),
+            "source": f"csrc/fused_rnn_{kind}_tc.cuh",
+            "ms_simt": simt_ms[kind],
+            "simt_over_tc": simt_ms[kind] / k_ms[kind],
+            "simt": f"rnn_{kind}_kernel (csrc/fused_rnn.cuh), the same "
+                    "inputs through _variant='simt'",
+            "cluster_size": plan["C"], "hs": plan["hs"],
+            "grid_ctas": plan["grid"], "smem_bytes": plan["smem_bytes"],
+            "split_barrier_floor_ms": split_floor,
+            "split_barrier_floor": "the tensor-core kernels' split "
+                                   f"barrier alone, {T} arrive/wait pairs "
+                                   "on the LSTM backward's launch",
+            "ptxas": ptxas_report(log, f"rnn_{kind}_tc_kernel",
+                                  ("G",)).get(f"G{_GATES[mode]}")}
         emit(rows[name])
     return rows
 
@@ -1765,7 +1789,8 @@ def rnn_train_main_path(mode, steps):
     lap(f"{mode}_train_profile")
     want = cfg["num_layers"] * steps
     path = {k: v for k, v in launches.items() if k.startswith(mode)}
-    # bf16: every backward on the tensor-core kernel, none on the other
+    # bf16: every forward and backward on the tensor-core kernels, none
+    # on the others
     expected = {k: 0 if k.endswith("_simt") else want for k in path}
     tokens = cfg["seq_len"] * B
     # Adam at the example's lr 0.01 spikes the loss around step 5 on the
@@ -2064,8 +2089,6 @@ def main():
         if cover == "dq+dk+dv":
             entry["kernels_ms_dq_plus_dkv"] = bwd_ms
         kernels["kernels"].append(entry)
-    rnn_outs = {"fwd": ("ys", "hT", "cT", "acts", "cells"),
-                "bwd": ("dgx", "dwh", "dbh", "dh0", "dc0")}
     for kname, replaces in (
             ("lstm_fwd", "mxnet_tpu/ops/pallas_lstm.py:102"),
             ("lstm_bwd", "mxnet_tpu/ops/pallas_lstm.py:206"),
@@ -2076,23 +2099,21 @@ def main():
         err = rnn_rows[(mode, "main", torch.bfloat16)]["max_abs_err"]
         entry = {
             "name": kname, "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/" + ("fused_rnn_bwd_tc.cuh"
-                                                 if kind == "bwd"
-                                                 else "fused_rnn.cuh"),
+            "source": f"mxnet_tpu_torch/{t['source']}",
             "replaces": replaces,
             "launches": rnn_train[mode]["kernel_launches"][kname],
-            "max_abs_err": max(err[o] for o in rnn_outs[kind] if o in err),
+            "max_abs_err": max(err[o] for o in RNN_OUTPUTS[kind]
+                               if o in err),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "barrier_floor_ms": t["barrier_floor_ms"],
-            "plain_and_library_cover": t["plain_and_library_cover"]}
-        if kind == "bwd":
-            entry.update({k: t[k] for k in (
-                "ms_simt", "cluster_size", "hs", "split_barrier_floor_ms",
-                "ptxas")})
-            entry["launches_simt"] = rnn_train[mode]["kernel_launches"][
-                f"{kname}_simt"]
+            "plain_and_library_cover": t["plain_and_library_cover"],
+            "launches_simt": rnn_train[mode]["kernel_launches"][
+                f"{kname}_simt"]}
+        entry.update({k: t[k] for k in (
+            "ms_simt", "cluster_size", "hs", "split_barrier_floor_ms",
+            "ptxas")})
         kernels["kernels"].append(entry)
     REPORT["kernels"] = kernels
     REPORT["card"] = card

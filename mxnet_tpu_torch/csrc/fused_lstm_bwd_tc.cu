@@ -28,6 +28,7 @@ extern "C" int mxtt_rnn_split_barrier_floor(int T, int N, int H, void* ctr,
   int t = T;
   unsigned* c = static_cast<unsigned*>(ctr);
   void* args[] = {&t, &c};
-  return (int)tc_launch(split_barrier_floor_kernel, g, args,
-                        static_cast<cudaStream_t>(stream));
+  if (!tc_geo_ok(g)) return (int)cudaErrorInvalidValue;
+  return (int)tc_launch(split_barrier_floor_kernel, up(g.P, CL), g.total,
+                        args, static_cast<cudaStream_t>(stream));
 }

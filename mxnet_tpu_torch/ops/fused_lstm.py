@@ -8,9 +8,11 @@ the reference contract: one LSTM layer over precomputed gate inputs
 ``wh`` (4H, H) checked, differentiable in all five arrays.
 
 :class:`_FusedLSTM` replaces the reference's ``custom_vjp`` ``_fused``.
-On CUDA tensors its forward launches the fused-LSTM forward kernel and
-its backward the fused-LSTM backward kernel (``ops/fused_rnn_cuda``); on
-CPU tensors it runs :func:`fused_lstm_fwd_torch` and
+On CUDA tensors its forward launches a fused-LSTM forward kernel and its
+backward a fused-LSTM backward kernel, each picked by
+``ops/fused_rnn_cuda`` (``_fwd_variant``, ``_bwd_variant``: the
+tensor-core kernels in bf16 within their limits, else the float32-FMA
+ones); on CPU tensors it runs :func:`fused_lstm_fwd_torch` and
 :func:`fused_lstm_bwd_torch`, the plain versions.  Both keep the TPU
 kernels' cast points: the recurrent product's operands (h, Wh; dgates,
 Wh; dgates, h_prev) in gx's dtype and summed in float32; gx, bh, the

@@ -4,12 +4,15 @@ The kernels (``csrc/fused_rnn.cuh``, one translation unit each:
 ``csrc/fused_{lstm,gru}_{fwd,bwd}.cu``) replace the TPU kernels of
 ``mxnet_tpu/ops/pallas_lstm.py`` (``_fwd_kernel``, ``_bwd_kernel``) and
 ``mxnet_tpu/ops/pallas_gru.py`` (``_fwd_kernel``, ``_bwd_kernel``).  The
-backward has two variants, picked by :func:`_bwd_variant` from the dtype
-and the geometry: ``tc`` (``csrc/fused_rnn_bwd_tc.cuh``, units
-``csrc/fused_{lstm,gru}_bwd_tc.cu``: bf16 tensor cores, the recurrent
-product split by K across a thread-block cluster of 16 CTAs) and ``simt``
-(``rnn_bwd_kernel`` in ``csrc/fused_rnn.cuh``: float32 FMAs, for float32
-and every geometry outside the tensor-core kernel's limits).  They are
+forward and the backward each have two variants, picked by
+:func:`_fwd_variant` and :func:`_bwd_variant` from the dtype and the
+geometry: ``tc`` (bf16 tensor cores over thread-block clusters of 16
+CTAs: ``csrc/fused_rnn_fwd_tc.cuh``, units ``csrc/fused_{lstm,gru}_fwd_tc.cu``,
+h_{t-1} multicast to the cluster; ``csrc/fused_rnn_bwd_tc.cuh``, units
+``csrc/fused_{lstm,gru}_bwd_tc.cu``, the recurrent product split by K
+across the cluster) and ``simt`` (``rnn_fwd_kernel`` and
+``rnn_bwd_kernel`` in ``csrc/fused_rnn.cuh``: float32 FMAs, for float32
+and every geometry outside the tensor-core kernels' limits).  They are
 built with ``nvcc`` at the first launch and called through ``ctypes``.
 Each wrapper checks what its kernel takes and raises on anything else; a
 failed build or launch (a refused cluster or cooperative launch too)
@@ -17,8 +20,8 @@ raises its ``cudaError``, and there is no fallback to the plain versions
 (those are ``ops.fused_lstm.fused_lstm_{fwd,bwd}_torch`` and
 ``ops.fused_gru.fused_gru_{fwd,bwd}_torch``, which the CPU path runs) nor
 from one variant to the other.  ``launches`` counts each kernel's
-launches in this process (``lstm_bwd``/``gru_bwd``: the tensor-core
-backward; ``lstm_bwd_simt``/``gru_bwd_simt``: the other).
+launches in this process (``lstm_fwd``/``lstm_bwd``/``gru_fwd``/
+``gru_bwd``: the tensor-core kernels; the ``_simt`` names: the others).
 
 gx (T, N, G H) is float32 or bfloat16; wh is cast to gx's dtype (the
 product's operand type, as the TPU kernels cast it) and bh to float32;
@@ -37,31 +40,38 @@ from .fused_lstm import KERNEL_DTYPES
 
 __all__ = ["lstm_fwd_cuda", "lstm_bwd_cuda", "gru_fwd_cuda", "gru_bwd_cuda",
            "barrier_floor_cuda", "split_barrier_floor_cuda", "launches",
-           "last_tc_plan"]
+           "last_tc_plan", "last_fwd_tc_plan"]
 
 LIB_NAME = "mxtt_fused_rnn"
 SOURCES = ("fused_rnn.cuh", "fused_lstm_fwd.cu", "fused_lstm_bwd.cu",
-           "fused_gru_fwd.cu", "fused_gru_bwd.cu", "fused_rnn_bwd_tc.cuh",
-           "tc_tile.cuh", "fused_lstm_bwd_tc.cu", "fused_gru_bwd_tc.cu")
+           "fused_gru_fwd.cu", "fused_gru_bwd.cu", "rnn_tc_sync.cuh",
+           "tc_tile.cuh", "fused_rnn_bwd_tc.cuh", "fused_lstm_bwd_tc.cu",
+           "fused_gru_bwd_tc.cu", "fused_rnn_fwd_tc.cuh",
+           "fused_lstm_fwd_tc.cu", "fused_gru_fwd_tc.cu")
 
 # kernel launches in this process, per kernel; reset by whoever counts a
 # window
-launches = {"lstm_fwd": 0, "lstm_bwd": 0, "lstm_bwd_simt": 0, "gru_fwd": 0,
-            "gru_bwd": 0, "gru_bwd_simt": 0}
+launches = {"lstm_fwd": 0, "lstm_fwd_simt": 0, "lstm_bwd": 0,
+            "lstm_bwd_simt": 0, "gru_fwd": 0, "gru_fwd_simt": 0, "gru_bwd": 0,
+            "gru_bwd_simt": 0}
 
-# the last tensor-core backward launch's plan: cluster size C, grid CTAs
-# and shared-memory bytes
+# the last tensor-core backward's and forward's launch plans: cluster size
+# C, grid CTAs, shared-memory bytes and units a CTA
 last_tc_plan = {}
+last_fwd_tc_plan = {}
 
-# The tensor-core backward's limits (csrc/fused_rnn_bwd_tc.cuh, Limits):
-# registers sized for N <= 32 (two m16 tiles of the batch) and H <= 512
-# (4 pairs of dWh n-tiles a warp; 8 k-steps of Wh fragments a warp), H a
-# multiple of 8 (16-byte rows), and its shared memory (tc_smem_bytes)
-# within a block's 227 KB.  A CTA owns TC_HS hidden units, a cluster
-# TC_CLUSTER CTAs.
+# The tensor-core kernels' limits (csrc/fused_rnn_{fwd,bwd}_tc.cuh,
+# Limits): registers sized for N <= 32 (two m16 tiles of the batch) and
+# H <= 512 (the backward: 4 pairs of dWh n-tiles and 8 k-steps of Wh
+# fragments a warp; the forward: 4 k-steps a warp), H a multiple of 8
+# (16-byte rows), and their shared memory (tc_smem_bytes,
+# fwd_tc_smem_bytes) within a block's 227 KB.  A CTA owns TC_HS hidden
+# units, a cluster TC_CLUSTER CTAs.
 TC_MAX_N, TC_MAX_H = 32, 512
 TC_HS, TC_CLUSTER = 8, 16
 _SMEM_MAX = 232448
+_TC_FWD_SPLIT_K = 4            # the forward's product: K-quarters
+_TC_PART_STRIDE = 40           # floats a row of a quarter's partial sums
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,7 +91,9 @@ def _lib():
         for mode in ("lstm", "gru"):
             tc = getattr(lib, f"mxtt_{mode}_bwd_tc")
             tc.argtypes = [vp] * 16 + [i] * 3 + [vp, vp]
-            tc.restype = ctypes.c_int
+            fwd_tc = getattr(lib, f"mxtt_{mode}_fwd_tc")
+            fwd_tc.argtypes = [vp] * 11 + [i] * 4 + [vp, vp]
+            tc.restype = fwd_tc.restype = ctypes.c_int
         lib.mxtt_rnn_split_barrier_floor.argtypes = [i] * 3 + [vp] * 3
         lib.mxtt_rnn_split_barrier_floor.restype = ctypes.c_int
     return lib
@@ -128,11 +140,15 @@ def _fwd_checks(gx, h0, wh, G, c0=None):
     return T, N, H
 
 
-def _fwd(G, name, gx, h0, c0, wh, bh, save):
+def _fwd(G, name, gx, h0, c0, wh, bh, save, variant=None):
     T, N, H = _fwd_checks(gx, h0, wh, G, c0)
     dt, dev = gx.dtype, gx.device
     _need(bh.numel() == G * H and bh.device == dev,
           f"bh must hold {G * H} values on {dev}")
+    variant = variant or _fwd_variant(dt, N, H, G)
+    _need(variant in ("tc", "simt"), f"unknown variant {variant!r}")
+    _need(variant == "simt" or dt == torch.bfloat16,
+          f"the tc forward takes bfloat16, not {dt}")
     gx = gx.contiguous()
     h0 = h0.float().contiguous()
     c0 = None if c0 is None else c0.float().contiguous()
@@ -145,26 +161,39 @@ def _fwd(G, name, gx, h0, c0, wh, bh, save):
     if save:
         acts = torch.empty(T, N, 4 * H, device=dev)
         cells = torch.empty(T, N, H, device=dev) if G == 4 else None
-    with torch.cuda.device(dev):
-        rc = getattr(_lib(), f"mxtt_{name}")(
-            _DTYPE_CODE[dt], _ptr(gx), _ptr(h0), _ptr(c0), _ptr(wh),
-            _ptr(bh), _ptr(ys), _ptr(hT), _ptr(cT), _ptr(acts),
-            _ptr(cells), T, N, H, int(save), _stream(dev))
-    _check(rc, name)
+    ptrs = (_ptr(gx), _ptr(h0), _ptr(c0), _ptr(wh), _ptr(bh), _ptr(ys),
+            _ptr(hT), _ptr(cT), _ptr(acts), _ptr(cells))
+    with _launch_stream(dev) as stream:
+        if variant == "tc":
+            ctr = torch.zeros(1, dtype=torch.int32, device=dev)
+            info = (ctypes.c_int * 3)()
+            rc = getattr(_lib(), f"mxtt_{name}_tc")(
+                *ptrs, _ptr(ctr), T, N, H, int(save), info, stream)
+            if rc == 0:
+                last_fwd_tc_plan.clear()
+                last_fwd_tc_plan.update(C=info[0], grid=info[1],
+                                        smem_bytes=info[2], hs=TC_HS)
+        else:
+            rc = getattr(_lib(), f"mxtt_{name}")(
+                _DTYPE_CODE[dt], *ptrs, T, N, H, int(save), stream)
+    _check(rc, name if variant == "tc" else f"{name}_simt")
     return ys, hT, cT, acts, cells
 
 
-def lstm_fwd_cuda(gx, h0, c0, wh, bh, save=True):
+def lstm_fwd_cuda(gx, h0, c0, wh, bh, save=True, _variant=None):
     """Fused-LSTM forward kernel: ``(ys, hT, cT, acts, cells)``, the
     residuals (float32 acts (T, N, 4H), cells (T, N, H)) None without
-    ``save``."""
-    return _fwd(4, "lstm_fwd", gx, h0, c0, wh, bh, save)
+    ``save``.  ``_variant`` ("tc" or "simt") overrides
+    :func:`_fwd_variant`: for tests and timings only."""
+    return _fwd(4, "lstm_fwd", gx, h0, c0, wh, bh, save, _variant)
 
 
-def gru_fwd_cuda(gx, h0, wh, bh, save=True):
+def gru_fwd_cuda(gx, h0, wh, bh, save=True, _variant=None):
     """Fused-GRU forward kernel: ``(ys, hT, acts)``, acts the float32
-    (T, N, 4H) (r, z, n, hp_n), None without ``save``."""
-    ys, hT, _, acts, _ = _fwd(3, "gru_fwd", gx, h0, None, wh, bh, save)
+    (T, N, 4H) (r, z, n, hp_n), None without ``save``; ``_variant`` as
+    :func:`lstm_fwd_cuda`'s."""
+    ys, hT, _, acts, _ = _fwd(3, "gru_fwd", gx, h0, None, wh, bh, save,
+                              _variant)
     return ys, hT, acts
 
 
@@ -186,13 +215,39 @@ def tc_smem_bytes(N, H, G):
             + TC_CLUSTER * 16 * mt * 8 * 4 + 16)        # partials, mbarriers
 
 
+def fwd_tc_smem_bytes(N, H):
+    """Shared memory of the tensor-core forward, in bytes: the layout of
+    ``fwd_geo`` (csrc/fused_rnn_fwd_tc.cuh) in closed form, the same for
+    both gate counts."""
+    up = lambda a, b: _cdiv(a, b) * b
+    mt = _cdiv(N, 16)                          # m16 tiles of the batch
+    return (2 * 16 * mt * (up(H, 16) + 8) * 2           # h, two halves
+            + _TC_FWD_SPLIT_K * 16 * mt * _TC_PART_STRIDE * 4  # partials
+            + N * TC_HS * 2 + 16)                       # staged h, mbarriers
+
+
+def _tc_limits(dtype, N, H):
+    return (dtype == torch.bfloat16 and 1 <= N <= TC_MAX_N and H % 8 == 0
+            and 8 <= H <= TC_MAX_H)
+
+
+def _fwd_variant(dtype, N, H, G):
+    """Which forward kernel takes a layer of G gates: ``"tc"`` (bf16
+    tensor cores) where its limits hold (bfloat16, N <= 32, H a multiple
+    of 8 up to 512, its shared memory within 227 KB; the same for both
+    gate counts), else ``"simt"``.  A pure function of its arguments,
+    decided on the host."""
+    if _tc_limits(dtype, N, H) and fwd_tc_smem_bytes(N, H) <= _SMEM_MAX:
+        return "tc"
+    return "simt"
+
+
 def _bwd_variant(dtype, N, H, G):
     """Which backward kernel takes a layer: ``"tc"`` (bf16 tensor cores)
     where its limits hold (bfloat16, N <= 32, H a multiple of 8 up to
     512, its shared memory within 227 KB), else ``"simt"``.
     A pure function of its arguments, decided on the host."""
-    if (dtype == torch.bfloat16 and 1 <= N <= TC_MAX_N and H % 8 == 0
-            and 8 <= H <= TC_MAX_H and tc_smem_bytes(N, H, G) <= _SMEM_MAX):
+    if _tc_limits(dtype, N, H) and tc_smem_bytes(N, H, G) <= _SMEM_MAX:
         return "tc"
     return "simt"
 

@@ -17,9 +17,10 @@ The Hopper kernels' own cases carry the ``cuda`` marker and skip without
 a CUDA device: the kernels are compiled by nvcc for sm_90a at first
 launch and have no CPU or interpret mode.  ``python3 chip_smoke.py``
 holds them against the plain versions on the card at the language
-model's shape.  Both bf16 backward kernels (the tensor-core one, and the
-other through ``_variant="simt"``) are held to the plain backward at
-chip_smoke.py's four check shapes.
+model's shape.  Both bf16 forward kernels and both bf16 backward kernels
+(the tensor-core ones, and the others through ``_variant="simt"``) are
+held to the plain versions at chip_smoke.py's four check shapes and the
+tensor-core kernels' edges.
 """
 
 import numpy as np
@@ -395,6 +396,47 @@ def test_cuda_bf16_backward_kernels_track_plain_versions(mode, tag, variant):
     assert {k: frc.launches[k] - before[k] for k in frc.launches
             if "bwd" in k and frc.launches[k] != before[k]} == {counted: 1}
     assert G * H == wh.shape[0]
+    for a, b in zip(got, ref):
+        if b is None:
+            continue
+        assert bool(torch.isfinite(a).all())
+        scale = max(float(b.float().abs().max()), 1e-6)
+        assert float((a.float() - b.float()).abs().max()) <= 0.05 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save", [True, False])
+@pytest.mark.parametrize("variant", ["tc", "simt"])
+@pytest.mark.parametrize("tag", sorted(CHECK_SHAPES) + sorted(EDGE_SHAPES))
+@pytest.mark.parametrize("mode", ["lstm", "gru"])
+def test_cuda_bf16_forward_kernels_track_plain_versions(mode, tag, variant,
+                                                        save):
+    """Each bf16 forward kernel (the tensor-core one, and the other one
+    through ``_variant="simt"``) against the plain forward on the same
+    inputs on the card, every output under the bf16 bound above; without
+    ``save`` no residual is returned; the launch is counted under the
+    kernel that ran."""
+    _need_cuda()
+    T, N, H = {**CHECK_SHAPES, **EDGE_SHAPES}[tag]
+    gx, h0, c0, wh, bh = (None if a is None else torch.from_numpy(a).cuda()
+                          for a in _rand(mode, T, N, H, seed=6))
+    if tag == "flipped":
+        gx = gx.flip(0).contiguous()
+    gx, wh = gx.bfloat16(), wh.bfloat16()
+    before = dict(frc.launches)
+    if mode == "lstm":
+        got = frc.lstm_fwd_cuda(gx, h0, c0, wh, bh, save=save,
+                                _variant=variant)
+        ref = fl.fused_lstm_fwd_torch(gx, h0, c0, wh, bh, save=save)
+    else:
+        got = frc.gru_fwd_cuda(gx, h0, wh, bh, save=save, _variant=variant)
+        ref = fg.fused_gru_fwd_torch(gx, h0, wh, bh, save=save)
+    torch.cuda.synchronize()
+    counted = f"{mode}_fwd" + ("" if variant == "tc" else "_simt")
+    assert {k: frc.launches[k] - before[k] for k in frc.launches
+            if frc.launches[k] != before[k]} == {counted: 1}
+    n_out = 3 if mode == "lstm" else 2          # ys, hT (, cT)
+    assert all(r is None for r in got[n_out:]) == (not save)
     for a, b in zip(got, ref):
         if b is None:
             continue
