@@ -31,14 +31,27 @@ Phases (any failure exits non-zero; nothing is caught):
      shown to fail on an output that skipped one tile; each check says
      which forward, dQ and dK/dV kernel ran (bf16: the tensor-core ones;
      float32: the others);
-  3. serving: a full-width GPT (the repo's on-chip serve config, its
-     depth cut from 12 layers to 4, random weights from a seed) served by
-     serve.Engine through the paged kernels — 8 concurrent requests,
-     prompts 16/32/64/128, 32 new tokens each — with its launches checked
-     against layers x decode steps and its combine launches against the
-     decode buckets' split plans;
-     one full-width float32 decode step through the kernel and the plain
-     path; a small model's tokens against the oracle and the CPU engine;
+  3. serving: the paged op captured in a CUDA graph, replayed on new
+     inputs, against an eager call (decode shape and ctx 2048, bit for
+     bit); a full-width GPT (the repo's on-chip serve config, its depth
+     cut from 12 layers to 4, random weights from a seed) served by
+     serve.Engine at its defaults (prefix cache on, prefill_chunk 512):
+     warmup() captures every (kind, bucket) program as a CUDA graph, then
+     8 concurrent requests, prompts 16/32/64/128, 32 new tokens each,
+     must capture nothing, with the paged launches, counted through the
+     decode graphs' replays, checked against layers x decode steps and
+     the combine launches against the decode buckets' split plans; a
+     torch.profiler window over 16 decode-only steps (kernel ms, busy
+     share, host ms a step) whose trace must hold layers x steps
+     instances of each paged kernel, as many as the counters added; a
+     restarted engine warmed from the serve
+     engine's manifest serving the same prompts with no capture and the
+     same tokens; a float32 engine with the prefix cache and 64-token
+     chunks (8 requests on one 96-token prefix, a 200-token prompt)
+     against a cache-off engine, token for token; one full-width float32
+     decode step through the kernel and the plain path; a small model's
+     captured engine (prefix cache, 8-token chunks) against the oracle
+     and the CPU engine;
   4. training: bench.py's on-chip GPT (vocab 32768, S 1024, d_model 512,
      8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier; its depth cut
      from 8 layers to 2) trained by parallel.ShardedTrainer for 2 warm-up
@@ -100,6 +113,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -334,6 +348,45 @@ def dropped_split_check(ctx, drop=(512, 640)):
             raise SystemExit(f"paged bound does not bind: {dtype}")
 
 
+def captured_kernel_check(ctx, tag, **shape):
+    """The paged op as the engine's decode graphs hold it: captured in a
+    CUDA graph on inputs it then reads anew, a replay must equal an eager
+    call on the same inputs bit for bit.  At both shapes the split
+    kernel's 4-stage ring of 64-position slots takes 64 KB of shared
+    memory, over the 48 KB default, so its launch sets the kernel's
+    attribute inside the capture.  The capture itself counts one call on
+    the host, as the engine's programs see it."""
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    args, kw = paged_case(ctx, "bfloat16", **shape)
+    static = [a.clone() for a in args]
+    before = (pac.launches, pac.combine_launches)
+    pac.paged_attention_cuda(*static, **kw)          # eager first: build
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pac.paged_attention_cuda(*static, **kw)
+    counted = pac.launches - before[0] == 2
+    pac.launches, pac.combine_launches = before   # checks are not the path
+    # new inputs into the captured addresses: q and the cache rows
+    fresh, _ = paged_case(ctx, "bfloat16", seed=1, **shape)
+    for s, f in zip(static, fresh):
+        s.copy_(f)
+    graph.replay()
+    eager = pac.paged_attention_cuda(*static, **kw)
+    torch.cuda.synchronize()
+    pac.launches, pac.combine_launches = before
+    same = torch.equal(out, eager)
+    within, fields = paged_bound_row(out, static, kw, "bfloat16")
+    ok = same and within and counted
+    emit({"phase": "captured_kernel_check", "shape": tag,
+          **paged_plan(static), "replay_equals_eager": same,
+          "counted_at_capture": counted, **fields, "ok": ok})
+    del graph
+    if not ok:
+        raise SystemExit(f"captured paged op disagrees: {tag}")
+
+
 # -- timing -----------------------------------------------------------------
 _FLUSH = None
 
@@ -468,15 +521,98 @@ def serve_params(seed=0):
     return params
 
 
-def full_width_engine(np_params, dtype):
+def full_width_engine(np_params, dtype, **kw):
+    """The serve config's engine at the engine's defaults (prefix cache
+    on, prefill_chunk 512), unless ``kw`` says otherwise."""
     from mxnet_tpu_torch import serve
 
     return serve.Engine(np_params, num_heads=SERVE_CFG["num_heads"],
                         window=0, device=DEVICE, dtype=dtype, block_size=16,
-                        num_blocks=512, max_batch=8, max_model_len=256)
+                        num_blocks=512, max_batch=8, max_model_len=256, **kw)
 
 
-def serve_main_path(np_params):
+def captures_expected(eng, ready):
+    """What ``warmup()`` of ``ready`` programs captures: one graph each
+    on CUDA, none on the CPU (a rehearsal)."""
+    return ready if eng.device.type == "cuda" else 0
+
+
+def profile_kernels(prof, counts=None):
+    """Device ms by kernel name in a torch.profiler window; with a dict
+    ``counts``, also each name's instances in the trace."""
+    kernels = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us and getattr(ev, "device_type", None) is not None \
+                and "CUDA" in str(ev.device_type):
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+            if counts is not None:
+                counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    return kernels
+
+
+def serve_profile(eng, prompts, steps=16):
+    """Serve ``prompts`` once more on ``eng`` and profile ``steps``
+    decode-only steps (torch.profiler): kernel ms a step, the device's
+    busy share of the window's wall time, host ms a step (wall minus
+    kernels: the time the device waits for the host), and the paged
+    kernels' instances in the trace beside what the op's launch
+    counters added over the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    sched = eng.scheduler
+    while eng.has_work() and (sched.queue_depth or sched.prefilling
+                              or not sched.running):
+        eng.step()
+    torch.cuda.synchronize()
+    n = 0
+    counted = (pac.launches, pac.combine_launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while n < steps and eng.has_work():
+            eng.step()
+            n += 1
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    counted = (pac.launches - counted[0], pac.combine_launches - counted[1])
+    eng.run()
+    counts = {}
+    kernels = profile_kernels(prof, counts)
+    traced = {k: sum(c for name, c in counts.items() if k in name)
+              for k in ("paged_attention_split", "paged_attention_combine")}
+    kinds = {}
+    for name, ms in kernels.items():
+        kind = _kernel_kind(name)
+        kinds[kind] = kinds.get(kind, 0.0) + ms / n
+    device_ms = sum(kernels.values()) / n
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"decode_steps": n, "wall_ms_per_step": wall_ms / n,
+            "kernel_ms_per_step": device_ms,
+            "busy_share": device_ms * n / wall_ms,
+            "host_ms_per_step": wall_ms / n - device_ms,
+            "traced_paged_kernels": traced,
+            "counted_paged_launches": {
+                "paged_attention_split": counted[0],
+                "paged_attention_combine": counted[1]},
+            "ms_per_step_by_kind": kinds,
+            "top_kernels_ms_per_step": [(k[:120], ms / n) for k, ms in top]}
+
+
+def serve_main_path(np_params, manifest_path):
+    """Serve the 8 prompts through the engine's entry points: every
+    program is captured by ``warmup()`` first and the traffic must
+    capture nothing; launches counted through the decode graphs'
+    replays.  Then a profiler window over decode-only steps, whose trace
+    must hold each paged kernel layers x steps times, as many as the
+    counters added; and the manifest of what the traffic ran saved to
+    ``manifest_path``."""
     from mxnet_tpu_torch.ops import paged_attention_cuda as pac
 
     # warm-up on a separate engine: cuBLAS handles, allocator, kernel
@@ -489,6 +625,12 @@ def serve_main_path(np_params):
     eng = full_width_engine(np_params, torch.bfloat16)
     if eng.paged_impl != "cuda":
         raise SystemExit(f"engine resolved paged_impl={eng.paged_impl}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ready = eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_caps = eng.captures
     prompts = serve_prompts(0)
     torch.cuda.synchronize()
     pac.launches = pac.combine_launches = 0   # the main path's window opens
@@ -508,6 +650,8 @@ def serve_main_path(np_params):
     combines = pac.combine_launches
     n_layers = SERVE_CFG["num_layers"]
     toks = [r.tokens for r in reqs]
+    st = eng.stats()
+    traffic_caps = eng.captures - warm_caps
     # the decode batch buckets' plans (shapes only): every bucket splits
     # its 16-block tables, so every call launches the combine kernel too
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -519,8 +663,10 @@ def serve_main_path(np_params):
           and launches == n_layers * eng.decode_steps
           and eng.decode_steps > 0
           and all(n > 1 for n, _ in plans.values())
-          and combines == launches)
-    st = eng.stats()
+          and combines == launches
+          and ready == len(eng._warmup_grid())
+          and warm_caps == captures_expected(eng, ready)
+          and traffic_caps == 0)
     row = {"phase": "serve", "dtype": "bfloat16", "requests": len(reqs),
            "new_tokens": 32, "prompt_lens": [len(p) for p in prompts],
            "decode_steps": eng.decode_steps, "kernel_launches": launches,
@@ -534,17 +680,152 @@ def serve_main_path(np_params):
                                    if decode_ms else None),
            "decode_step_ms_median": (statistics.median(decode_ms)
                                      if decode_ms else None),
-           "preemptions": st.preemptions, "ok": ok}
+           "preemptions": st.preemptions, "warmup_programs": ready,
+           "warmup_s": warm_s, "warmup_captures": warm_caps,
+           "traffic_captures": traffic_caps,
+           "program_calls": {f"{k}/{b}": p.calls for (k, b), p
+                             in sorted(eng._programs.items()) if p.calls}}
+    prof = serve_profile(eng, prompts)
+    # the trace's own count of the kernels that ran: each decode step
+    # launches both paged kernels once a layer, and the counters the
+    # replays advanced must agree with it
+    want = n_layers * prof["decode_steps"]
+    traced = prof["traced_paged_kernels"]
+    ok = ok and (prof["decode_steps"] > 0
+                 and all(c == want for c in traced.values())
+                 and prof["counted_paged_launches"] == traced)
+    if decode_ms:
+        # an estimate across two windows: the profiled window's kernels
+        # against the unprofiled decode-only steps' wall
+        step = row["decode_step_ms_mean"]
+        prof["busy_share_estimate_unprofiled"] = (
+            prof["kernel_ms_per_step"] / step)
+        prof["host_ms_per_step_estimate_unprofiled"] = (
+            step - prof["kernel_ms_per_step"])
+    row["profile"] = prof
+    row["ok"] = ok
     emit(row)
+    eng.save_manifest(manifest_path)
     eng.shutdown()
     if not ok:
         raise SystemExit("full-width serve failed its checks")
-    return row
+    return row, toks
+
+
+def serve_restart(np_params, toks_a, manifest_path):
+    """The reference's cold/warm restart gate on the card: a new engine
+    warms from the serve phase's manifest, then serves the same prompts
+    capturing nothing, with the serve phase's tokens."""
+    with open(manifest_path) as f:
+        listed = sum(1 for line in f if line.strip())
+    eng = full_width_engine(np_params, torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ready = eng.warmup(manifest_path)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    caps = eng.captures
+    reqs = [eng.submit(p, max_new_tokens=32) for p in serve_prompts(0)]
+    eng.run()
+    toks = [r.tokens for r in reqs]
+    same = toks == toks_a
+    ok = (0 < ready == listed and caps == captures_expected(eng, ready)
+          and eng.captures == caps and same)
+    emit({"phase": "serve_restart", "manifest_programs": listed,
+          "warmup_programs": ready, "warmup_s": warm_s,
+          "warmup_captures": caps, "traffic_captures": eng.captures - caps,
+          "tokens_identical": same, "ok": ok})
+    eng.shutdown()
+    if not ok:
+        raise SystemExit("warm restart captured again or changed tokens")
+
+
+def logit_margin(eng, seq):
+    """Top-1 minus top-2 logit after ``seq``: ``eng``'s prefill body,
+    eager, on a scratch cache."""
+    from mxnet_tpu_torch.serve import engine as engine_mod
+
+    n, bs = len(seq), eng.block_size
+    shape = (eng._cfg.n_layers, -(-n // bs) + 1, bs, eng._cfg.kv_heads,
+             eng._cfg.head_dim)
+    ck = torch.zeros(shape, dtype=eng._cache_k.dtype, device=DEVICE)
+    cv = torch.zeros_like(ck)
+    pos = torch.arange(n, device=DEVICE)
+    with torch.no_grad():
+        logits = engine_mod._prefill_logits(
+            eng._cfg, n, eng.params, ck, cv,
+            torch.tensor(np.asarray(seq), device=DEVICE), n,
+            pos // bs + 1, pos % bs)[0]
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def flips(eng, prompts, want, got):
+    """Each request whose stream differs: its first differing token and
+    the logit margin there, on ``eng`` (the engine ``want`` came from)."""
+    out = []
+    for i, (p, a, b) in enumerate(zip(prompts, want, got)):
+        if a == b:
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        out.append({"request": i, "token": j,
+                    "want": a[j] if j < len(a) else None,
+                    "got": b[j] if j < len(b) else None,
+                    "margin": logit_margin(eng, list(p) + a[:j])})
+    return out
+
+
+def serve_prefix(np_params):
+    """Full width, float32 (TF32 off): 8 requests on one 96-token prefix
+    with distinct 8-40-token suffixes, and a 200-token prompt prefilled
+    in chunks of 64, on the engine with the prefix cache; its tokens must
+    equal a prefix_cache=False, prefill_chunk=0 engine's on the card.  A
+    flipped token fails the phase, printed with its logit margin."""
+    rng = np.random.RandomState(5)
+    V = SERVE_CFG["vocab"]
+    prefix = rng.randint(0, V, (96,)).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.randint(0, V, (n,))
+                               .astype(np.int32)])
+               for n in (8, 12, 16, 20, 24, 28, 36, 40)]
+    prompts.append(rng.randint(0, V, (200,)).astype(np.int32))
+    got = {}
+    for tag, kw in (("cached", dict(prefill_chunk=64)),
+                    ("cold", dict(prefix_cache=False, prefill_chunk=0))):
+        eng = full_width_engine(np_params, torch.float32, **kw)
+        reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        eng.run()
+        got[tag] = (eng, [r.tokens for r in reqs], eng.stats(),
+                    {f"{k}/{b}": p.calls for (k, b), p
+                     in sorted(eng._programs.items())})
+    cold, want, _, _ = got["cold"]
+    cached, toks, st, calls = got["cached"]
+    bad = flips(cold, prompts, want, toks)
+    chunk_calls = {k: n for k, n in calls.items() if k.startswith("chunk")}
+    ok = (not bad and st.prefix_hits > 0 and sum(chunk_calls.values()) > 0
+          and all(len(t) == 16 for t in toks))
+    emit({"phase": "serve_prefix", "dtype": "float32",
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "prompt_lens": [len(p) for p in prompts], "prefill_chunk": 64,
+          "prefix_hits": st.prefix_hits,
+          "prefix_tokens_saved": st.prefix_tokens_saved,
+          "prefill_tokens_computed": st.prefill_tokens_computed,
+          "cold_prefill_tokens_computed":
+              got["cold"][2].prefill_tokens_computed,
+          "chunk_calls_by_bucket": chunk_calls, "program_calls": calls,
+          "captures": cached.captures, "tokens_equal_cold": not bad,
+          "flips": bad, "ok": ok})
+    for eng, *_ in got.values():
+        eng.shutdown()
+    if not ok:
+        raise SystemExit("prefix-cache serving disagrees with the cold "
+                         "engine (or never hit / never chunked)")
 
 
 def logits_check(np_params):
     """One full-width float32 decode step, kernel vs plain attention
-    inside the engine, on the same cache and inputs."""
+    inside the engine (its decode body, eager), on the same cache and
+    inputs."""
     from mxnet_tpu_torch.serve import engine as engine_mod
 
     eng = full_width_engine(np_params, torch.float32)
@@ -568,7 +849,8 @@ def logits_check(np_params):
             cfg = eng._cfg._replace(paged_impl=impl)
             outs[impl] = engine_mod._forward_token_batch(
                 cfg, eng.params, eng._cache_k.clone(), eng._cache_v.clone(),
-                eng._tensor(toks), eng._tensor(pos), eng._tensor(tables))
+                *(torch.from_numpy(a).to(DEVICE) for a in (toks, pos,
+                                                            tables)))
     err = float((outs["cuda"] - outs["torch"]).abs().max())
     same = bool((outs["cuda"].argmax(-1) == outs["torch"].argmax(-1)).all())
     ok = err <= LOGITS_BOUND and bool(torch.isfinite(outs["cuda"]).all())
@@ -582,8 +864,10 @@ def logits_check(np_params):
 
 def small_model_check():
     """A small seeded model (the reference's serve-test shapes, rope +
-    GQA + SwiGLU + RMSNorm + tied): the CUDA engine's greedy tokens must
-    equal the single-request oracle's on the card and the CPU engine's."""
+    GQA + SwiGLU + RMSNorm + tied): the captured CUDA engine's greedy
+    tokens, prefix cache on and prefill_chunk 8, with a prompt sharing
+    another's prefix and a 40-token prompt that chunks, must equal the
+    single-request oracle's on the card and the CPU engine's."""
     from mxnet_tpu_torch import models, serve
 
     params = models.gpt_params(53, 96, num_layers=2, d_model=32,
@@ -593,20 +877,30 @@ def small_model_check():
     rng = np.random.RandomState(7)
     prompts = [rng.randint(0, 53, (rng.randint(6, 22),)).astype(np.int32)
                for _ in range(4)]
-    got = {}
+    prompts.append(np.concatenate([prompts[0], rng.randint(0, 53, (5,))
+                                   .astype(np.int32)]))
+    prompts.append(rng.randint(0, 53, (40,)).astype(np.int32))
+    got, st = {}, {}
     for dev in (DEVICE, "cpu"):
         eng = serve.Engine(params, num_heads=4, window=0, device=dev,
                            block_size=4, num_blocks=64, max_batch=4,
-                           max_model_len=64, max_prefills_per_step=2)
+                           max_model_len=64, max_prefills_per_step=2,
+                           prefill_chunk=8)
         reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
         eng.run()
         got[dev] = [r.tokens for r in reqs]
+        st[dev] = (eng.stats().prefix_hits, eng.captures,
+                   sum(p.calls for (k, _), p in eng._programs.items()
+                       if k == "chunk"), len(eng._programs))
     oracle = [models.gpt_generate(params, p[None], 16, num_heads=4,
                                   window=0, device=DEVICE)[0, p.size:]
               .tolist() for p in prompts]
-    ok = got[DEVICE] == got["cpu"] == oracle
+    hits, captures, chunks, programs = st[DEVICE]
+    ok = (got[DEVICE] == got["cpu"] == oracle and hits > 0 and chunks > 0
+          and captures == (programs if DEVICE == "cuda" else 0))
     emit({"phase": "small_model_check", "cuda_eq_cpu":
           got[DEVICE] == got["cpu"], "cuda_eq_oracle": got[DEVICE] == oracle,
+          "prefix_hits": hits, "chunk_calls": chunks, "captures": captures,
           "ok": ok})
     if not ok:
         raise SystemExit("small-model tokens disagree")
@@ -1111,7 +1405,9 @@ def _kernel_kind(name):
                       ("rnn_fwd_kernel", "fused_rnn_fwd"),
                       ("rnn_fwd_tc_kernel", "fused_rnn_fwd"),
                       ("rnn_bwd_kernel", "fused_rnn_bwd"),
-                      ("rnn_bwd_tc_kernel", "fused_rnn_bwd"), ("gemm", "matmul"),
+                      ("rnn_bwd_tc_kernel", "fused_rnn_bwd"),
+                      ("paged_attention", "paged_attention"),
+                      ("gemm", "matmul"),
                       ("xmma", "matmul"), ("cutlass", "matmul"),
                       ("nvjet", "matmul"),
                       ("softmax", "softmax"), ("embedding", "embedding"),
@@ -1148,14 +1444,7 @@ def train_profile(tr, placed, steps=2):
             tr.step(placed)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us and getattr(ev, "device_type", None) is not None \
-                and "CUDA" in str(ev.device_type):
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    kernels = profile_kernels(prof)
     kinds = {}
     for name, ms in kernels.items():
         kind = _kernel_kind(name)
@@ -1990,6 +2279,8 @@ def main():
         for n in (1, 2048 // 16):     # one split; one block a split
             check_kernel("long2048", long_ctx, dtype, splits=n)
     dropped_split_check(long_ctx)
+    captured_kernel_check(decode_ctx, "decode", W=16, nb=512, padded=(6,))
+    captured_kernel_check(long_ctx, "long2048")
     lap("paged_checks")
     flash_rows = {}
     for tag, shape in FLASH_SHAPES.items():
@@ -2008,8 +2299,14 @@ def main():
     small_model_check()
     lap("serve_small_model")
     np_params = serve_params()
-    serve = serve_main_path(np_params)
-    lap("serve")
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = os.path.join(tmp, "manifest.jsonl")
+        serve, serve_toks = serve_main_path(np_params, manifest)
+        lap("serve")
+        serve_restart(np_params, serve_toks, manifest)
+        lap("serve_restart")
+    serve_prefix(np_params)
+    lap("serve_prefix")
     logits_check(np_params)
     del np_params
     lap("serve_logits_check")

@@ -15,13 +15,13 @@ package imports
 when CUDA is absent.
 """
 
-from . import (base, context, convert, initializer, models, ops, parallel,
-               serve, telemetry)
+from . import (aot, base, context, convert, initializer, models, ops,
+               parallel, serve, telemetry)
 from .context import resolve_device
 from .convert import params_from_numpy
 
 __version__ = "0.1.0"
 
-__all__ = ["base", "context", "convert", "initializer", "models", "ops",
+__all__ = ["aot", "base", "context", "convert", "initializer", "models", "ops",
            "parallel", "serve", "telemetry", "resolve_device",
            "params_from_numpy"]

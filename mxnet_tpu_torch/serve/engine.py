@@ -3,38 +3,56 @@
 The port of ``mxnet_tpu/serve/engine.py``'s greedy core:
 
   eng = Engine(params, num_heads=12, device="cuda")
+  eng.warmup()                                      # optional: every program
   req = eng.submit(prompt_ids, max_new_tokens=64)   # may raise QueueFull
   for tok in eng.stream(req):
       ...
   eng.shutdown()
 
 Each ``step()`` is one scheduler iteration: at most
-``max_prefills_per_step`` whole-prompt prefills, then ONE batched
+``max_prefills_per_step`` prefills (a whole prompt, the uncached suffix
+of a prefix-cache hit, or one chunk of a long prompt), then ONE batched
 single-token decode over every running request.  Shapes are padded to
 the reference's power-of-two buckets and the block-table width is fixed
 at ``max_model_len / block_size``.  Cache-pressure policy (preemption by
-recomputation, back-pressure) lives in ``scheduler.Scheduler``; the
-engine executes the schedule it is handed.
+recomputation, back-pressure), the prefix cache's radix index and the
+chunked-prefill lane live in ``scheduler.Scheduler`` and
+``kv_block_manager.BlockManager``; the engine executes the schedule it
+is handed.
 
 The KV-cache is ONE device tensor pair per engine, (layers, num_blocks,
-block_size, kv_heads, head_dim), carved into blocks by
-``kv_block_manager.BlockManager``.  The reference's jit programs
-(``_build_prefill``, ``_build_decode``) are plain functions here that run
-eagerly and write the cache in place (``index_put_``) where the
-reference used ``.at[].set`` under buffer donation.  Decode attends
-through ``ops.attention.paged_attention`` — the Hopper kernel on CUDA;
-prefill attention is dense torch, as the reference's is dense jnp.
+block_size, kv_heads, head_dim), carved into blocks by the
+``BlockManager``.  The reference compiles one jit program per (kind,
+bucket) for three families, ``decode``, ``prefill`` and ``chunk``; here
+each is a :class:`_Program` that owns static input buffers and runs one
+body, which writes the cache in place (``index_put_``) where the
+reference used ``.at[].set`` under buffer donation.  On CUDA the program
+warms its body on a side stream and captures it once as a CUDA graph;
+every later call replays the graph.  On the CPU (which a caller must
+ask for) it calls the same body on the same buffers.  A failed capture
+or replay raises: nothing runs the body eagerly on CUDA in its place.
+
+Programs are per engine, where the reference's ``_STEP_CACHE`` is per
+process: a graph closes over one engine's parameter and cache
+addresses.  All of an engine's graphs share one memory pool; each
+replay's output is copied to the host before another graph replays.
+``warmup()`` builds every program a manifest (``aot/warmup.py``) or the
+full bucket grid lists, before traffic.  Decode attends through
+``ops.attention.paged_attention``, the Hopper kernel on CUDA; prefill
+and chunk attention are dense torch, as the reference's are dense jnp.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP §A item: the prefix cache and chunked prefill (6), quantized
-weights/KV (7), the host KV tier (8), sampling (9), speculative decoding
-(10), LoRA adapters (11), AOT program stores (12), tensor parallelism
-(13), and Symbol-driven config (15).
+ROADMAP §A item: quantized weights/KV (7), the host KV tier (8),
+sampling, incl. ``n > 1`` copy-on-write samples (9), speculative
+decoding (10), LoRA adapters (11), AOT program stores (the rest of 12),
+tensor parallelism (13), and Symbol-driven config (15).
 """
 
 from __future__ import annotations
 
 import collections
+import functools
+import json
 import math
 import os
 import time
@@ -42,11 +60,12 @@ import time
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import aot, telemetry
 from ..base import env_flag, env_int
 from ..context import resolve_device
 from ..convert import params_from_numpy
 from ..models.generate import _fc, _gelu, _ln, detect_gpt_variant
+from ..ops import paged_attention_cuda as _pac
 from ..ops.attention import paged_attention, resolve_paged_impl
 from .kv_block_manager import BlockManager
 from .scheduler import CANCELLED, FINISHED, QueueFull, Request, Scheduler
@@ -60,6 +79,27 @@ _ModelCfg = collections.namedtuple("_ModelCfg", [
     "name", "n_layers", "num_heads", "head_dim", "kv_heads", "pos_table",
     "swiglu", "tied", "rmsnorm", "window", "block_size", "paged_impl"])
 
+# eager runs of a body on a side stream before its capture: the first
+# builds the kernel libraries and sets their launch attributes, which a
+# capture must not do
+_WARM_RUNS = 2
+
+# the paged op's launch counters tick on the host when a graph is
+# captured, and a replay launches the kernels without calling the op: a
+# program restores them around its capture and adds what the capture
+# counted at every replay (chip_smoke.py holds these sums against the
+# kernel instances in a profiler trace)
+_COUNTERS = ("launches", "combine_launches")
+
+
+def _counts():
+    return [getattr(_pac, c) for c in _COUNTERS]
+
+
+def _set_counts(values):
+    for c, v in zip(_COUNTERS, values):
+        setattr(_pac, c, v)
+
 
 def _next_bucket(n, cap):
     """Smallest power-of-two >= n, clamped to cap."""
@@ -67,6 +107,16 @@ def _next_bucket(n, cap):
     while b < n:
         b *= 2
     return min(b, cap)
+
+
+def _bucket_ladder(cap):
+    """Power-of-two buckets up to (and always including) ``cap``: what
+    live traffic's ``_next_bucket`` clamp can hit."""
+    out, b = [], 1
+    while b < cap:
+        out.append(b)
+        b *= 2
+    return out + [cap]
 
 
 def _rope(u, pos, base=10000.0):
@@ -87,6 +137,85 @@ def _rope(u, pos, base=10000.0):
 def _unported(what, item):
     return NotImplementedError(
         f"serve.Engine: {what} is not ported yet (ROADMAP §A item {item})")
+
+
+class _Program:
+    """One (kind, bucket) program of one engine.
+
+    ``fields`` names the int32 inputs and their shapes.  They are views
+    of ONE device buffer, staged from one host buffer (pinned on CUDA)
+    by one ``non_blocking`` copy a call: fill :meth:`stage`'s numpy
+    views, then call the program for its output as a list.  ``body``
+    takes the inputs by name and returns one device tensor.
+
+    On CUDA the body runs ``_WARM_RUNS`` times on a side stream on
+    all-zero inputs (so every K/V write lands in the null block 0),
+    then is captured once into ``pool``; calls replay the graph.  The
+    launch counters are restored around warm-up and capture, and each
+    replay adds what the capture counted.  On the CPU a call runs the
+    body on the same buffers.  ``calls`` counts the calls.
+    """
+
+    def __init__(self, fields, body, device, pool=None):
+        cuda = device.type == "cuda"
+        sizes = [math.prod(shape) for _, shape in fields]
+        self._host = torch.zeros(sum(sizes), dtype=torch.int32,
+                                 pin_memory=cuda)
+        self._dev = torch.zeros(sum(sizes), dtype=torch.int32,
+                                device=device)
+        flat = self._host.numpy()
+        self._views, self._inputs, o = {}, {}, 0
+        for (name, shape), n in zip(fields, sizes):
+            self._views[name] = flat[o:o + n].reshape(shape)
+            self._inputs[name] = self._dev[o:o + n].view(shape)
+            o += n
+        self._flat = flat
+        self._body = body
+        self._device = device
+        self._graph = None
+        self.calls = 0
+        if cuda:
+            self._capture(pool)
+
+    def _capture(self, pool):
+        before = _counts()
+        cur = torch.cuda.current_stream(self._device)
+        side = torch.cuda.Stream(self._device)
+        side.wait_stream(cur)
+        with torch.no_grad(), torch.cuda.stream(side):
+            for _ in range(_WARM_RUNS):
+                self._body(**self._inputs)
+        cur.wait_stream(side)
+        mark = _counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(graph, pool=pool):
+            out = self._body(**self._inputs)
+        self._deltas = [a - m for a, m in zip(_counts(), mark)]
+        _set_counts(before)
+        self._graph, self._out = graph, out
+        self._out_host = torch.empty(out.shape, dtype=out.dtype,
+                                     pin_memory=True)
+
+    @property
+    def captured(self):
+        return self._graph is not None
+
+    def stage(self):
+        """The inputs' host views, zeroed (padding rows read the null
+        block and position 0)."""
+        self._flat.fill(0)
+        return self._views
+
+    def __call__(self):
+        self.calls += 1
+        self._dev.copy_(self._host, non_blocking=True)
+        if self._graph is None:
+            return self._body(**self._inputs).tolist()
+        self._graph.replay()
+        _set_counts([a + d for a, d in zip(_counts(), self._deltas)])
+        self._out_host.copy_(self._out, non_blocking=True)
+        torch.cuda.current_stream(self._device).synchronize()
+        return self._out_host.tolist()
 
 
 class Engine:
@@ -111,10 +240,21 @@ class Engine:
       max_prefills_per_step: prompt prefills per iteration (default 1).
       tenant_share: fair-share admission fraction
         (env ``MXTPU_SERVE_TENANT_SHARE``, default 1.0 = strict FIFO).
+      prefix_cache: content-addressed KV-block sharing across requests
+        (env ``MXTPU_SERVE_PREFIX_CACHE``, default on): a new prompt's
+        longest block-aligned cached prefix is reused and only the
+        suffix is prefilled, through the ``chunk`` program.
+      prefill_chunk: chunked-prefill threshold in tokens (env
+        ``MXTPU_SERVE_PREFILL_CHUNK``, default 512): a prompt whose
+        uncached remainder exceeds it prefills one chunk per iteration
+        interleaved with decode steps.  0 disables chunking.
       clock: injectable monotonic clock (tests drive deadlines).
       device: where weights, cache and programs live (default
         ``"cuda"``; raises when CUDA is absent — no CPU fallback).
       dtype: parameter/activation dtype (default: the checkpoint's).
+
+    ``MXTPU_WARMUP_MANIFEST=<path>`` records the (kind, bucket)
+    programs traffic ran, for a later ``warmup(path)``.
     """
 
     def __init__(self, params, num_heads=None, window=None, name="gpt",
@@ -128,12 +268,6 @@ class Engine:
                  host_kv_bytes=None, aot_dir=None, symbol=None):
         if symbol is not None:
             raise _unported("symbol= (decode config from a Symbol)", 15)
-        if (prefix_cache if prefix_cache is not None
-                else env_flag("MXTPU_SERVE_PREFIX_CACHE", False)):
-            raise _unported("the prefix cache", 6)
-        if (prefill_chunk if prefill_chunk is not None
-                else env_int("MXTPU_SERVE_PREFILL_CHUNK", 0)):
-            raise _unported("chunked prefill", 6)
         if (quantize or os.environ.get("MXTPU_SERVE_QUANT")
                 or kv_dtype or os.environ.get("MXTPU_SERVE_KV_DTYPE")):
             raise _unported("quantized serving (quantize/kv_dtype)", 7)
@@ -147,7 +281,10 @@ class Engine:
         if adapters or env_int("MXTPU_SERVE_ADAPTERS", 0):
             raise _unported("LoRA adapters", 11)
         if aot_dir is not None or os.environ.get("MXTPU_AOT_DIR"):
-            raise _unported("AOT program stores (aot_dir)", 12)
+            raise _unported(
+                "the AOT program store (aot_dir): a CUDA graph is bound to "
+                "its process's device addresses, so warm starts replay "
+                "warmup manifests instead", 12)
         if (tp if tp is not None else env_int("MXTPU_SERVE_TP", 1)) != 1:
             raise _unported("tensor-parallel serving (tp > 1)", 13)
         if num_heads is None:
@@ -187,11 +324,11 @@ class Engine:
         self.table_width = -(-self.max_model_len // self.block_size)
 
         self.blocks = BlockManager(self.num_blocks, self.block_size,
-                                   prefix_cache=False)
+                                   prefix_cache=prefix_cache)
         self.scheduler = Scheduler(self.blocks, self.max_batch, max_queue,
                                    max_prefills_per_step, clock=clock,
                                    tenant_share=tenant_share,
-                                   prefill_chunk=0)
+                                   prefill_chunk=prefill_chunk)
         self._stats = StatsRecorder(clock=clock)
         self.clock = clock
         self._step_id = 0
@@ -214,6 +351,15 @@ class Engine:
             paged_impl=resolve_paged_impl(self.block_size,
                                           self.spec["head_dim"],
                                           device=self.device))
+        # -- programs and their warm start (aot/) ----------------------------
+        self._programs = {}            # (kind, bucket) -> _Program
+        self.captures = 0              # CUDA graphs captured
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        self._spec_digest = aot.digest(self._fingerprint())[:16]
+        self._manifest = aot.ManifestRecorder(
+            self._spec_digest, os.environ.get(aot.ENV_MANIFEST))
+        self._warming = False
 
     @property
     def paged_impl(self):
@@ -241,8 +387,10 @@ class Engine:
                 "per-request sampling/logprobs require a sampling-mode "
                 "engine, which is not ported yet (ROADMAP §A item 9)")
         if int(n) != 1:
-            raise ValueError("n > 1 requires the prefix cache (ROADMAP §A "
-                             "item 6)")
+            raise ValueError(
+                "n > 1 samples share the prompt's prefix cache blocks "
+                "copy-on-write, which belongs to sampling, not ported yet "
+                "(ROADMAP §A item 9)")
         if adapter_id is not None:
             raise ValueError("adapter_id requires an adapters-mode engine "
                              "(ROADMAP §A item 11)")
@@ -276,7 +424,10 @@ class Engine:
             self._stats.on_utilization(self.blocks.utilization())
             emitted = 0
             for req in prefills:
-                emitted += self._run_prefill(req)
+                # the iteration's prefill token budget is shared with
+                # the decode slots (one token each)
+                emitted += self._run_prefill(req,
+                                             decode_slots=len(decodes))
             if decodes:
                 emitted += self._run_decode(decodes)
             if emitted == 0 and not prefills and not decodes:
@@ -316,8 +467,8 @@ class Engine:
         return self._stats.snapshot(self.scheduler, self.blocks)
 
     def shutdown(self):
-        """Cancel in-flight work and release the device cache and
-        weights."""
+        """Cancel in-flight work and release the programs (their graphs
+        first), then the device cache and weights."""
         if not self._alive:
             return
         for req in (list(self.scheduler.running)
@@ -326,43 +477,174 @@ class Engine:
         for req in self.scheduler.drain_waiting():
             req.status = CANCELLED
             req.finish_t = self.clock()
+        self._programs.clear()
+        self._pool = None
         self._cache_k = self._cache_v = None
         self.params = None
         self._alive = False
 
+    # -- warmup / manifests (aot/) -------------------------------------------
+    def manifest(self):
+        """The (kind, bucket) programs this engine has executed so far
+        — the traffic-replay warmup manifest (list of entry dicts)."""
+        return self._manifest.entries()
+
+    def save_manifest(self, path):
+        """Write the manifest as JSONL for a later ``warmup(path)``."""
+        with open(path, "w") as f:
+            for e in self._manifest.entries():
+                f.write(json.dumps(e) + "\n")
+        return path
+
+    def warmup(self, manifest=None):
+        """Build (on CUDA: warm and capture) every program ``manifest``
+        lists, before traffic arrives.
+
+        ``manifest`` is a JSONL path, an iterable of entry dicts
+        (another engine's :meth:`manifest`), or None, which replays
+        ``MXTPU_WARMUP_MANIFEST`` when set, else warms the full bucket
+        grid.  Entries recorded by an incompatibly-configured engine
+        (or another torch or card), outside this engine's bucket range,
+        or of a kind it does not run, are skipped.  Warmup never records
+        the manifest.  Returns the number of programs made ready.
+        """
+        if not self._alive:
+            raise RuntimeError("engine is shut down")
+        entries = aot.load_manifest(manifest, self._spec_digest)
+        if not entries and manifest is None:
+            entries = self._warmup_grid()
+        caps = self._caps()
+        ready = 0
+        self._warming = True
+        try:
+            with telemetry.span("serve.warmup", programs=len(entries)):
+                for e in entries:
+                    kind, bucket = e["kind"], int(e["bucket"])
+                    cap = caps.get(kind)
+                    if cap is None or not 1 <= bucket <= cap:
+                        continue
+                    self._program(kind, _next_bucket(bucket, cap))
+                    ready += 1
+        finally:
+            self._warming = False
+        return ready
+
+    def _warmup_grid(self):
+        """Every program this config can ever run: decode, prefill and
+        chunk (prefix-cache suffixes and chunked long prompts) over
+        their bucket ladders, each non-power-of-two cap included."""
+        return [{"kind": kind, "bucket": b}
+                for kind, cap in self._caps().items()
+                for b in _bucket_ladder(cap)]
+
+    def _caps(self):
+        """Each program family's largest bucket."""
+        return {"decode": self.max_batch, "prefill": self.max_model_len,
+                "chunk": self._chunk_cap()}
+
+    def _chunk_cap(self):
+        """Largest chunk-program bucket live traffic can hit.  With
+        chunking on, a non-chunked suffix is <= prefill_chunk by the
+        scheduler's lane test and a chunk is <= the budget; with
+        chunking off only prefix-hit suffixes use the chunk program,
+        and those can reach the full model length."""
+        chunk = self.scheduler.prefill_chunk
+        if chunk > 0:
+            return _next_bucket(chunk, self.max_model_len)
+        return self.max_model_len
+
+    # -- programs ------------------------------------------------------------
+    def _fingerprint(self):
+        """The program key (the reference's ``_spec_key``): what pins the
+        programs' math and lowering (``_ModelCfg``, ``paged_impl``
+        included), their shapes (``num_blocks``, ``table_width``) and the
+        cache dtype, plus the torch version and card."""
+        return aot.fingerprint(device=self.device, cfg=self._cfg._asdict(),
+                               num_blocks=self.num_blocks,
+                               table_width=self.table_width,
+                               cache_dtype=str(self._cache_k.dtype))
+
+    def _program(self, kind, bucket):
+        prog = self._programs.get((kind, bucket))
+        if prog is None:
+            prog = self._build_program(kind, bucket)
+            self._programs[(kind, bucket)] = prog
+            self.captures += prog.captured
+        if not self._warming:
+            self._manifest.record(kind, bucket)
+        return prog
+
+    def _build_program(self, kind, bucket):
+        W = self.table_width
+        if kind == "decode":
+            fields = (("toks", (bucket,)), ("pos", (bucket,)),
+                      ("tables", (bucket, W)))
+            body = functools.partial(_decode, self._cfg)
+        elif kind == "prefill":
+            fields = (("toks", (bucket,)), ("plen", (1,)),
+                      ("blk", (bucket,)), ("off", (bucket,)))
+            body = functools.partial(_prefill, self._cfg, bucket)
+        else:
+            fields = (("toks", (bucket,)), ("start", (1,)),
+                      ("n_valid", (1,)), ("table", (W,)),
+                      ("blk", (bucket,)), ("off", (bucket,)))
+            body = functools.partial(_chunk, self._cfg, bucket)
+        body = functools.partial(body, params=self.params,
+                                 ck=self._cache_k, cv=self._cache_v)
+        return _Program(fields, body, self.device, self._pool)
+
     # -- execution -----------------------------------------------------------
-    def _tensor(self, a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-    def _slots(self, table, n, pad_to):
-        """(block, offset) scatter targets for logical slots [0, n),
-        padded to ``pad_to`` with null-block writes."""
-        blk = np.zeros(pad_to, np.int32)
-        off = np.arange(pad_to, dtype=np.int32) % self.block_size
-        pos = np.arange(n)
-        blk[:n] = np.asarray(table, np.int32)[pos // self.block_size]
-        return blk, off
-
-    def _run_prefill(self, req):
-        """Cold whole-prompt prefill of ``req`` (prompt plus, after a
-        preemption, everything generated so far); emits its next
-        token."""
+    def _run_prefill(self, req, decode_slots=0):
+        """Run one prefill pass for ``req``: the whole prompt (cold
+        path; after a preemption, everything generated so far too), the
+        uncached suffix of a prefix-cache hit, or — when the scheduler
+        put it in the chunked-prefill lane — ONE budget-sized chunk.
+        Returns the tokens emitted (1 on the pass that produces the
+        next token, 0 for an intermediate chunk)."""
         ids = req.prefill_ids()
         n = int(ids.size)
-        if req.cache_len:
-            raise RuntimeError("suffix prefill needs the prefix cache "
-                               "(ROADMAP §A item 6)")
-        bucket = _next_bucket(n, self.max_model_len)
-        toks = np.zeros(bucket, np.int32)
-        toks[:n] = ids
-        blk, off = self._slots(self.blocks.table(req.rid), n, bucket)
-        tok = _prefill(self._cfg, bucket, self.params, self._cache_k,
-                       self._cache_v, self._tensor(toks), n,
-                       self._tensor(blk), self._tensor(off))
-        tok = int(tok)                 # the host needs the token: sync
-        req.cache_len = n
-        self._stats.on_prefill(n)
-        self.blocks.note_tokens(req.rid, ids)
+        start = int(req.cache_len)     # cached prefix + finished chunks
+        if self.scheduler.is_prefilling(req):
+            budget = max(1, self.scheduler.prefill_chunk - decode_slots)
+            end = min(n, start + budget)
+        else:
+            end = n
+        span = end - start
+        bs = self.block_size
+        table = self.blocks.table(req.rid)
+        if start == 0 and end == n:
+            # cold whole-prompt pass: the dense causal prefill program
+            bucket = _next_bucket(n, self.max_model_len)
+            prog = self._program("prefill", bucket)
+            h = prog.stage()
+            h["toks"][:n] = ids
+            h["plen"][0] = n
+            h["blk"][:n] = np.asarray(table, np.int32)[np.arange(n) // bs]
+            h["off"][:] = np.arange(bucket) % bs   # padded rows: null blk
+        else:
+            # suffix/chunk pass: positions [start, end) attend through
+            # the block table to the K/V already in the cache (cached
+            # prefix + earlier chunks); cached positions are never
+            # recomputed and shared blocks are never written
+            bucket = _next_bucket(span, self._chunk_cap())
+            prog = self._program("chunk", bucket)
+            h = prog.stage()
+            h["toks"][:span] = ids[start:end]
+            h["start"][0] = start
+            h["n_valid"][0] = span
+            h["table"][:len(table)] = table
+            h["blk"][:span] = h["table"][(start + np.arange(span)) // bs]
+            h["off"][:] = (start + np.arange(bucket)) % bs
+        tok = prog()[0]                # the host needs the token: sync
+        req.cache_len = end
+        self._stats.on_prefill(span)
+        # publish the newly-full blocks under their chain keys so later
+        # prompts (or this request's own resume) can reuse them
+        self.blocks.note_tokens(req.rid, ids[:end], salt=req.adapter_id)
+        if end < n:
+            # intermediate chunk: its token is mid-prompt and dropped;
+            # the request stays in the prefilling lane
+            return 0
         self.scheduler.prefill_done(req)
         self.scheduler.admit_running(req)
         now = self.clock()
@@ -379,19 +661,14 @@ class Engine:
 
     def _run_decode(self, reqs):
         B = len(reqs)
-        bucket = _next_bucket(B, self.max_batch)
-        toks = np.zeros(bucket, np.int32)
-        pos = np.zeros(bucket, np.int32)
-        tables = np.zeros((bucket, self.table_width), np.int32)
+        prog = self._program("decode", _next_bucket(B, self.max_batch))
+        h = prog.stage()
         for i, req in enumerate(reqs):
-            toks[i] = req.tokens[-1]
-            pos[i] = req.cache_len
+            h["toks"][i] = req.tokens[-1]
+            h["pos"][i] = req.cache_len
             t = self.blocks.table(req.rid)
-            tables[i, :len(t)] = t
-        out = _decode(self._cfg, self.params, self._cache_k, self._cache_v,
-                      self._tensor(toks), self._tensor(pos),
-                      self._tensor(tables))
-        out = out.cpu().numpy()        # the host needs the tokens: sync
+            h["tables"][i, :len(t)] = t
+        out = prog()                   # the host needs the tokens: sync
         self.decode_steps += 1
         now = self.clock()
         for i, req in enumerate(reqs):
@@ -407,7 +684,9 @@ class Engine:
             self._stats.on_complete(req)
 
 
-# -- program bodies (the reference's jit programs, run eagerly) --------------
+# -- program bodies (the reference's jit programs) ---------------------------
+# Each reads its inputs from device tensors only (no host read, which a
+# capture forbids) and writes the cache in place.
 def _mlp(cfg, params, p, x):
     h2 = _ln(x, params[f"{p}_ln2_gamma"],
              None if cfg.rmsnorm else params[f"{p}_ln2_beta"])
@@ -472,50 +751,113 @@ def _forward_token_batch(cfg, params, ck, cv, toks, pos, tables):
     return _logits(cfg, params, x)
 
 
-def _decode(cfg, params, ck, cv, toks, pos, tables):
+def _decode(cfg, toks, pos, tables, *, params, ck, cv):
     """One batched decode step (the reference's ``_build_decode``
     program, greedy): returns the (B,) int32 next tokens."""
     logits = _forward_token_batch(cfg, params, ck, cv, toks, pos, tables)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def _prefill(cfg, P, params, ck, cv, toks, plen, blk, off):
+def _prefill(cfg, P, toks, plen, blk, off, *, params, ck, cv):
     """Whole-prompt pass at padded length P for ONE request (the
     reference's ``_build_prefill`` program, greedy): writes K/V for
     positions [0, P) through (blk, off) — padded rows land in the null
-    block — and returns the token after position ``plen - 1``."""
+    block — and returns the (1,) int32 token after position
+    ``plen - 1``."""
     logits = _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off)
-    return torch.argmax(logits, dim=-1)[0]
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _last_row(x, n):
+    """Row ``n - 1`` of ``x`` as (1, D): ``n`` an int, or a (1,) device
+    tensor (read on the device; indexing with it could read it on the
+    host, which a capture forbids), clamped to row 0 for the all-zero
+    inputs of a program's warm-up runs."""
+    if torch.is_tensor(n):
+        return x.index_select(0, (n - 1).clamp(min=0))
+    return x[n - 1][None]
 
 
 def _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off):
     """:func:`_prefill`'s body up to the (1, V) logits of position
-    ``plen - 1``."""
-    name = cfg.name
-    Hq, Hkv, Dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-    group = Hq // Hkv
+    ``plen - 1`` (``plen`` an int or a (1,) device tensor): dense causal
+    attention within the prompt's own rows."""
     pos = torch.arange(P, device=toks.device)
-    blk, off = blk.long(), off.long()
-    x = params[f"{name}_tok_embed_weight"][toks.long()]     # (P, D)
-    if cfg.pos_table is not None:
-        x = x + params[f"{name}_pos_embed_weight"][0, :P]
     keep = pos[:, None] >= pos[None, :]                     # causal
     if cfg.window:
         keep = keep & (pos[:, None] - pos[None, :] < cfg.window)
+    return _dense_logits(cfg, params, ck, cv, toks, pos, blk, off, keep,
+                         plen)
+
+
+def _chunk(cfg, C, toks, start, n_valid, table, blk, off, *, params, ck,
+           cv):
+    """Suffix/chunk prefill (the reference's ``_build_chunk`` program,
+    greedy): the (1,) int32 token after position ``start + n_valid -
+    1``, meaningful on a prompt's final chunk only."""
+    logits = _chunk_logits(cfg, C, params, ck, cv, toks, start, n_valid,
+                           table, blk, off)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _chunk_logits(cfg, C, params, ck, cv, toks, start, n_valid, table,
+                  blk, off):
+    """C token rows of ONE request whose earlier positions' K/V already
+    sit in the cache (a prefix-cache hit, or earlier chunks).  Rows hold
+    positions [start, start + n_valid); rows past ``n_valid`` are
+    padding, written into the null block through (blk, off) and
+    discarded.  Each row's K/V is written through the block table
+    FIRST, then the request's whole table (``table``, (W,)) is gathered
+    once a layer and each row keeps the cache positions <= its own
+    (within ``window``): in-chunk causality is exact without a dense
+    (C, C) score matrix.  ``start`` and ``n_valid`` are (1,) device
+    tensors.  Returns the (1, V) logits of position ``start + n_valid -
+    1``."""
+    pos = start.long() + torch.arange(C, device=toks.device)
+    S = table.shape[0] * cfg.block_size
+    spos = torch.arange(S, device=toks.device)[None, :]  # cache positions
+    keep = spos <= pos[:, None]                   # causal, self included
+    if cfg.window:
+        keep = keep & (spos > pos[:, None] - cfg.window)
+    return _dense_logits(cfg, params, ck, cv, toks, pos, blk, off, keep,
+                         n_valid, table=table.long())
+
+
+def _dense_logits(cfg, params, ck, cv, toks, pos, blk, off, keep, last,
+                  table=None):
+    """The prefill and chunk programs' layers: the rows at positions
+    ``pos`` write their K/V through (blk, off), then attend densely
+    (float32 softmax) under ``keep`` (rows x keys) to this pass's own
+    K/V, or, given ``table`` (W,), to the request's whole block table
+    gathered from the cache after the write.  Returns the (1, V) logits
+    of row ``last - 1``."""
+    name = cfg.name
+    Hq, Hkv, Dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    n = toks.shape[0]
+    blk, off = blk.long(), off.long()
+    x = params[f"{name}_tok_embed_weight"][toks.long()]     # (n, D)
+    if cfg.pos_table is not None:
+        # clamp padded chunk rows: their position may exceed the table
+        pidx = pos.clamp(max=cfg.pos_table - 1)
+        x = x + params[f"{name}_pos_embed_weight"][0, pidx]
     for i in range(cfg.n_layers):
         p = f"{name}_l{i}"
-        qh, kh, vh = _qkv(cfg, params, p, x, P)
+        qh, kh, vh = _qkv(cfg, params, p, x, n)
         if cfg.pos_table is None:
             qh, kh = _rope(qh, pos), _rope(kh, pos)
+        # in-place writes: the reference's .at[].set on a donated cache
         ck[i].index_put_((blk, off), kh)
         cv[i].index_put_((blk, off), vh)
-        # grouped-query dense causal attention within the prompt
-        qg = qh.reshape(P, Hkv, group, Dh)
+        if table is not None:
+            kh = ck[i][table].reshape(-1, Hkv, Dh)
+            vh = cv[i][table].reshape(-1, Hkv, Dh)
+        # grouped-query attention: (kv head, group) x rows x keys
+        qg = qh.reshape(n, Hkv, Hq // Hkv, Dh)
         sc = torch.einsum("qkgd,skd->kgqs", qg, kh) / math.sqrt(Dh)
         sc = sc.masked_fill(~keep, float("-inf"))
         pr = torch.softmax(sc.float(), dim=-1).to(x.dtype)
         at = torch.einsum("kgqs,skd->qkgd", pr, vh)
-        x = x + _fc(at.reshape(P, Hq * Dh), params[f"{p}_proj_weight"],
+        x = x + _fc(at.reshape(n, Hq * Dh), params[f"{p}_proj_weight"],
                     params[f"{p}_proj_bias"])
         x = x + _mlp(cfg, params, p, x)
-    return _logits(cfg, params, x[plen - 1][None])
+    return _logits(cfg, params, _last_row(x, last))

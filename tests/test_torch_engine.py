@@ -1,8 +1,9 @@
 """The PyTorch port's serving engine against the JAX reference engine.
 
 ``mxnet_tpu_torch.serve.Engine(device="cpu")`` and the reference
-``mxnet_tpu.serve.Engine(..., prefix_cache=False, prefill_chunk=0)``
-serve the same numpy checkpoint (``torch_port_fixtures``); greedy token
+``mxnet_tpu.serve.Engine``, both with ``prefix_cache=False,
+prefill_chunk=0`` (``test_torch_prefix.py`` holds the two on), serve the
+same numpy checkpoint (``torch_port_fixtures``); greedy token
 streams must be identical, including under preemption-resume.  A
 mismatch is reported with the logit margin of the first flipped token
 after the shared prefix (a near-tie is a finding, never hidden by a
@@ -42,8 +43,10 @@ def _ref_engine(model, window=0, **kw):
 
 def _port_engine(model, window=0, **kw):
     _, params, heads = model
+    kw = {**ENGINE_KW, **kw}
     return mt.serve.Engine(params, num_heads=heads, window=window,
-                           device="cpu", **{**ENGINE_KW, **kw})
+                           device="cpu", prefix_cache=False, prefill_chunk=0,
+                           **kw)
 
 
 def _margin(model, window, seq):
@@ -212,7 +215,6 @@ def test_shutdown_cancels_in_flight(model):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefix_cache=True), "item 6"), (dict(prefill_chunk=512), "item 6"),
     (dict(quantize="int8"), "item 7"), (dict(kv_dtype="int8"), "item 7"),
     (dict(host_kv_bytes=1 << 20), "item 8"), (dict(temperature=0.7),
                                               "item 9"),
@@ -227,7 +229,6 @@ def test_unported_options_raise_with_their_roadmap_item(kw, item):
 
 
 @pytest.mark.parametrize("env", ["MXTPU_SERVE_QUANT=int8",
-                                 "MXTPU_SERVE_PREFIX_CACHE=1",
                                  "MXTPU_SERVE_TP=2"])
 def test_unported_env_knobs_raise(monkeypatch, env):
     name, value = env.split("=")
@@ -250,3 +251,4 @@ def test_greedy_engine_refuses_per_request_sampling():
     with pytest.raises(ValueError, match="adapters"):
         eng.submit(p, adapter_id="x")
     assert eng.paged_impl == "torch"
+

@@ -22,6 +22,7 @@ import sys
 import mxnet_tpu_torch
 import mxnet_tpu_torch.base, mxnet_tpu_torch.context, mxnet_tpu_torch.convert
 import mxnet_tpu_torch._build
+import mxnet_tpu_torch.aot, mxnet_tpu_torch.aot.warmup
 import mxnet_tpu_torch.models, mxnet_tpu_torch.models.generate
 import mxnet_tpu_torch.models.transformer
 import mxnet_tpu_torch.ops, mxnet_tpu_torch.ops.attention
