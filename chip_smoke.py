@@ -18,8 +18,10 @@ Phases (any failure exits non-zero; nothing is caught):
      2048, at a mixed long batch (ctx 0/1 padded/15/16/17/700/1999/2048)
      with and without a 300 window, and at ctx 2048 with the split count
      forced to 1 and to the table width, in bfloat16, float32 and
-     int8+scales, each call counted once and combined exactly where it
-     split; the paged bound shown to fail on the plain split and combine
+     int8+scales (float32 q), and with bfloat16 q over an int8 cache (the
+     bf16 engine's kv_dtype="int8" decode) at the decode, ctx 2048 and
+     mixed shapes and one forced split, each call counted once and
+     combined exactly where it split; the paged bound shown to fail on the plain split and combine
      with one split's positions (512-639) dropped; the flash-attention
      forward, dQ and dK/dV kernels (o, lse, dq, dk, dv, with a non-zero
      dlse) in bfloat16 and float32 at the training shape, at the same shape
@@ -51,7 +53,21 @@ Phases (any failure exits non-zero; nothing is caught):
      against a cache-off engine, token for token; one full-width float32
      decode step through the kernel and the plain path; a small model's
      captured engine (prefix cache, 8-token chunks) against the oracle
-     and the CPU engine;
+     and the CPU engine; speculative decoding (serve_spec) on
+     tools/serve_bench.py's spec A/B (the target damped above its first
+     layer, the draft that layer, k 4, 8 repeat-heavy prompts, 32 new
+     tokens), bf16 engines spec-off and spec-on warmed over their full
+     grids (verify, draft 1-8, draft_chunk 1-256 added), no capture in
+     traffic, the paged launches counted through the draft graphs'
+     replays against draft calls x (k+1) x draft layers and a profiler
+     trace, the draft, verify and decode graphs' device ms, and the
+     spec-on tokens against spec-off in float32 (bf16 flips reported
+     with their margins); int8 serving (serve_int8): the bf16 engine with
+     int8 K/V and with int8 weights and K/V, captured, no capture in
+     traffic, launches as in serve, beside the bf16 engine's numbers; a
+     float32 int8-K/V engine's decode-step logits through the kernel and
+     the plain path, shown to fail on one block's scales zeroed; and the
+     spec pairs again over int8 K/V;
   4. training: bench.py's on-chip GPT (vocab 32768, S 1024, d_model 512,
      8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier; its depth cut
      from 8 layers to 2) trained by parallel.ShardedTrainer for 2 warm-up
@@ -137,10 +153,13 @@ SERVE_CFG = dict(vocab=50304, num_layers=4, d_model=768, num_heads=12,
 #    same float32 math summed in another order over <= 2048 positions
 #    (plus expf vs torch.exp), ~1e-7 per op: 1e-5 is loose, yet a block
 #    dropped or mis-weighted moves outputs by ~1e-3 or more.
-#  bfloat16: the kernel reads the bf16 values, computes in float32 and
-#    rounds once, to nearest, at the end (|error| <= 2^-8 |x|).  So it is
-#    held element by element against the plain path run in float32 on
-#    the same values (the upcast is exact):
+#  bfloat16, and int8 caches with bfloat16 q: the kernel reads the bf16
+#    (or int8 and float32 scale) values, computes in float32 and rounds
+#    once, to nearest, at the end (|error| <= 2^-8 |x|).  So it is held
+#    element by element against the plain path run in float32 on the
+#    same values (the upcast is exact; the kernel folds an int8 cache's
+#    scales into scores and weights, the plain path into K and V, one
+#    float32 rounding apart):
 #        |kernel - plain32| <= 2^-8 |plain32| + 2 * F32_BOUND.
 #    The bound scales with each output, so it is as tight at ctx 2048
 #    (outputs ~0.03) as at ctx 1 (outputs ~1).  max |kernel - plain| with
@@ -188,13 +207,16 @@ def paged_case(ctx, dtype, nb=None, bs=16, Hq=12, Hkv=3, Dh=64, W=None,
     (0 = dead slot), rows in ``padded`` keep an all-null table (a padded
     decode row: pos 0, ctx 1), live blocks drawn without replacement
     from 1..nb-1, and a null block 0 full of large finite garbage (the
-    kernel must mask it by position, not by block id)."""
+    kernel must mask it by position, not by block id).  ``dtype`` is
+    "bfloat16", "float32", "int8" (float32 q, int8 cache with scales)
+    or "int8_bf16q" (bfloat16 q, int8 cache: the bf16 engine's
+    ``kv_dtype="int8"`` decode)."""
     g = torch.Generator().manual_seed(seed)
     B = len(ctx)
     need = [0 if b in padded else -(-c // bs) for b, c in enumerate(ctx)]
     W = W or max(max(need), 1)
     nb = nb or sum(need) + 1
-    quant = dtype == "int8"
+    quant = dtype in ("int8", "int8_bf16q")
     qdt = torch.float32 if dtype in ("float32", "int8") else torch.bfloat16
     q = torch.randn(B, Hq, Dh, generator=g).to(qdt)
     if quant:
@@ -257,7 +279,9 @@ def paged_bound_row(out, args, kw, dtype):
     ref = paged_attention_torch(*args, **kw)
     err = float((out.float() - ref.float()).abs().max())
     row = {"max_abs_err": err}
-    if dtype == "bfloat16":
+    if dtype in ("bfloat16", "int8_bf16q"):
+        # an int8 cache stays int8: the float32 plain path dequantizes
+        # the same values in float32
         ref32 = paged_attention_torch(*[a.float() if a.is_floating_point()
                                         else a for a in args], **kw)
         dev = (out.float() - ref32).abs()
@@ -750,12 +774,16 @@ def logit_margin(eng, seq):
              eng._cfg.head_dim)
     ck = torch.zeros(shape, dtype=eng._cache_k.dtype, device=DEVICE)
     cv = torch.zeros_like(ck)
+    scales = ()
+    if eng._cfg.kv_quant:
+        ks = torch.zeros(shape[:-1], dtype=torch.float32, device=DEVICE)
+        scales = (ks, torch.zeros_like(ks))
     pos = torch.arange(n, device=DEVICE)
     with torch.no_grad():
         logits = engine_mod._prefill_logits(
             eng._cfg, n, eng.params, ck, cv,
             torch.tensor(np.asarray(seq), device=DEVICE), n,
-            pos // bs + 1, pos % bs)[0]
+            pos // bs + 1, pos % bs, *scales)[0]
     top = torch.topk(logits.float(), 2).values
     return float(top[0] - top[1])
 
@@ -860,6 +888,322 @@ def logits_check(np_params):
     eng.shutdown()
     if not ok:
         raise SystemExit("engine decode step: kernel vs plain disagree")
+
+
+# -- serving: speculative decoding and int8 ---------------------------------
+# tools/serve_bench.py's spec A/B (--workload spec): --spec-k 4,
+# --draft-layers 1, --distill-scale 0.05
+SPEC_K = 4
+DRAFT_LAYERS = 1
+DISTILL_SCALE = 0.05
+
+
+def distill_family(params, layers, draft_layers=DRAFT_LAYERS,
+                   scale=DISTILL_SCALE):
+    """tools/serve_bench.py ``distill_family``: the target is ``params``
+    with every layer >= ``draft_layers`` damped (proj and ff_down scaled
+    by ``scale``), the draft is that target's first ``draft_layers``
+    layers."""
+    target = dict(params)
+    for k, v in params.items():
+        for i in range(draft_layers, layers):
+            if k.startswith(f"gpt_l{i}_") and (
+                    k.endswith("proj_weight")
+                    or k.endswith("ff_down_weight")):
+                target[k] = v * scale
+    cut = tuple(f"gpt_l{i}_" for i in range(draft_layers, layers))
+    return target, {k: v for k, v in target.items()
+                    if not k.startswith(cut)}
+
+
+def repeat_heavy_prompts(seed=3):
+    """tools/serve_bench.py ``build_repeat_heavy_workload``: 8 requests
+    cycling lengths 16/32/64/128, each a random motif of n/8 tokens tiled
+    to length n with its last n/8 tokens random."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(8):
+        n = (16, 32, 64, 128)[i % 4]
+        motif = rng.randint(0, SERVE_CFG["vocab"], (max(2, n // 8),))
+        prompt = np.tile(motif, -(-n // motif.size))[:n]
+        tail = max(1, n // 8)
+        prompt[-tail:] = rng.randint(0, SERVE_CFG["vocab"], (tail,))
+        out.append(prompt.astype(np.int32))
+    return out
+
+
+def drive(eng, prompts, new_tokens=32):
+    """Serve ``prompts`` once through the engine's entry points, the
+    paged counters set to 0 just before and read just after; the wall
+    ms of each decode-only step (nothing queued)."""
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    calls0 = {k: p.calls for k, p in eng._programs.items()}
+    caps0, steps0 = eng.captures, eng.decode_steps
+    torch.cuda.synchronize()
+    pac.launches = pac.combine_launches = 0
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    step_ms = []
+    while eng.has_work():
+        decode_only = (eng.scheduler.queue_depth == 0
+                       and bool(eng.scheduler.running))
+        ts = time.perf_counter()
+        eng.step()
+        if decode_only:
+            step_ms.append(1e3 * (time.perf_counter() - ts))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, combines = pac.launches, pac.combine_launches
+    calls = {}
+    for (kind, b), p in eng._programs.items():
+        n = p.calls - calls0.get((kind, b), 0)
+        if n:
+            calls[kind] = calls.get(kind, 0) + n
+    st = eng.stats()
+    return {"tokens": [r.tokens for r in reqs],
+            "finished": all(r.status == "finished"
+                            and len(r.tokens) == new_tokens for r in reqs),
+            "kernel_launches": launches, "combine_launches": combines,
+            "program_calls": calls,
+            "decode_steps": eng.decode_steps - steps0,
+            "traffic_captures": eng.captures - caps0,
+            "tokens_generated": st.tokens_generated, "wall_s": wall,
+            "tok_per_s": st.tokens_generated / wall,
+            "decode_only_steps": len(step_ms),
+            "decode_step_ms_mean": (statistics.mean(step_ms)
+                                    if step_ms else None),
+            "decode_step_ms_median": (statistics.median(step_ms)
+                                      if step_ms else None),
+            "spec_verifies": st.spec_verifies,
+            "spec_accept_rate": st.spec_accept_rate,
+            "accepted_per_verify": st.accepted_per_verify,
+            "tokens_per_verify": ((st.tokens_generated - len(reqs))
+                                  / st.spec_verifies
+                                  if st.spec_verifies else None)}
+
+
+def warm(eng):
+    """``eng.warmup()`` of the full grid: (programs, seconds, captures),
+    checked against the grid."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ready = eng.warmup()
+    torch.cuda.synchronize()
+    ok = (ready == len(eng._warmup_grid())
+          and eng.captures == captures_expected(eng, ready))
+    return {"warmup_programs": ready,
+            "warmup_s": time.perf_counter() - t0,
+            "warmup_captures": eng.captures, "warmup_ok": ok}
+
+
+def expected_launches(eng, row):
+    """The paged op's launches a drive must count: the draft's (k+1)
+    steps a draft layer per draft call, and the target's layers per
+    plain decode step."""
+    draft = row["program_calls"].get("draft", 0)
+    k1_layers = ((eng.spec_k + 1) * eng._spec.cfg.n_layers
+                 if eng._spec is not None else 0)
+    return draft * k1_layers + eng._cfg.n_layers * row["decode_steps"]
+
+
+def graph_ms(eng, kind, bucket):
+    """Device ms of one replay of ``eng``'s (kind, bucket) graph on its
+    last inputs (only after the engine's traffic: a replay rewrites the
+    cache slots that call wrote)."""
+    if eng.device.type != "cuda":
+        return None
+    return time_ms(eng._programs[(kind, bucket)]._graph.replay)
+
+
+def spec_engines(target, draft, dtype, **kw):
+    """The spec-off and spec-on (k = SPEC_K) engines on the damped
+    target."""
+    return (full_width_engine(target, dtype, **kw),
+            full_width_engine(target, dtype, spec_k=SPEC_K,
+                              draft_params=draft,
+                              draft_num_heads=SERVE_CFG["num_heads"],
+                              draft_window=0, **kw))
+
+
+def spec_identity(target, draft, prompts, **kw):
+    """Full width, float32 (TF32 off): the spec-on engine's tokens
+    against the spec-off engine's, each flip with its logit margin."""
+    off, on = spec_engines(target, draft, torch.float32, **kw)
+    rows = {tag: drive(eng, prompts) for tag, eng in (("off", off),
+                                                      ("on", on))}
+    bad = flips(off, prompts, rows["off"]["tokens"], rows["on"]["tokens"])
+    ok = (not bad and rows["on"]["spec_verifies"] > 0
+          and rows["off"]["finished"] and rows["on"]["finished"])
+    out = {"dtype": "float32", "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "tokens_equal_spec_off": not bad, "flips": bad,
+           "spec_accept_rate": rows["on"]["spec_accept_rate"], "ok": ok}
+    off.shutdown()
+    on.shutdown()
+    return out
+
+
+def serve_spec(np_params, kv_dtype=None, seed=3):
+    """Speculative decoding at full width on tools/serve_bench.py's spec
+    A/B: the damped target served spec-off and spec-on (draft = its first
+    layer, k = 4), bf16, each engine warmed over its full grid first,
+    then 8 repeat-heavy requests, 32 new tokens each.  Held: no capture
+    in traffic; the paged launches counted through the draft graphs'
+    replays equal draft calls x (k+1) x draft layers (plus the target's
+    layers a plain decode step: none); a profiler window traces as many
+    paged kernel instances as the counters add; the spec-on tokens
+    equal the spec-off tokens, in bf16 and again in float32 (TF32 off),
+    each flip printed with its logit margin (in bf16 the verify attends
+    densely and rounds scores and probabilities, the decode through the
+    kernel in float32: a flip there at a margin of a few bf16 ulps would
+    be a near-tie, the float32 pair says whether it is one).
+    ``kv_dtype="int8"`` runs the same pairs over int8 K/V (the draft's
+    cache stays bf16)."""
+    kw = {} if kv_dtype is None else {"kv_dtype": kv_dtype}
+    target, draft = distill_family(np_params, SERVE_CFG["num_layers"])
+    prompts = repeat_heavy_prompts(seed)
+    off, on = spec_engines(target, draft, torch.bfloat16, **kw)
+    rows = {}
+    for tag, eng in (("off", off), ("on", on)):
+        rows[tag] = {**warm(eng), **drive(eng, prompts)}
+    bad = flips(off, prompts, rows["off"]["tokens"], rows["on"]["tokens"])
+    prof = serve_profile(on, prompts)
+    traced = prof["traced_paged_kernels"]
+    timing = {"decode_graph_ms_b8": graph_ms(off, "decode", 8),
+              "draft_graph_ms_b8": graph_ms(on, "draft", 8),
+              "verify_graph_ms_b8": graph_ms(on, "verify", 8)}
+    r_on = rows["on"]
+    want = expected_launches(on, r_on)
+    ok = (all(r["finished"] and r["warmup_ok"]
+              and r["traffic_captures"] == 0 for r in rows.values())
+          and r_on["spec_verifies"] > 0 and on.decode_steps == 0
+          and r_on["kernel_launches"] == want > 0
+          and r_on["combine_launches"] == r_on["kernel_launches"]
+          and rows["off"]["kernel_launches"]
+          == expected_launches(off, rows["off"])
+          and traced["paged_attention_split"] > 0
+          and prof["counted_paged_launches"] == traced)
+    for eng in (off, on):
+        eng.shutdown()
+    identity = spec_identity(target, draft, prompts, **kw)
+    ok = ok and not bad and identity["ok"]
+    for r in rows.values():
+        del r["tokens"]
+    row = {"phase": "serve_spec" if kv_dtype is None else "serve_int8_spec",
+           "dtype": "bfloat16", "kv_dtype": kv_dtype or "bfloat16",
+           "spec_k": SPEC_K, "draft_layers": DRAFT_LAYERS,
+           "distill_scale": DISTILL_SCALE,
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": 32,
+           "spec_off": rows["off"], "spec_on": r_on,
+           "expected_launches": want,
+           "tok_per_s_on_over_off": r_on["tok_per_s"]
+           / rows["off"]["tok_per_s"],
+           "bf16_tokens_equal_spec_off": not bad, "bf16_flips": bad,
+           **timing, "float32_identity": identity, "profile_spec_on": prof,
+           "ok": ok}
+    emit(row)
+    if not ok:
+        raise SystemExit(f"speculative serving failed its checks "
+                         f"(kv_dtype={kv_dtype})")
+    return row
+
+
+def int8_logits_check(np_params):
+    """One full-width float32 (TF32 off) decode step on an int8-K/V
+    engine, kernel vs plain paged attention inside the engine's decode
+    body, on the same cache, scales and inputs: within LOGITS_BOUND.
+    Then the same with one block's K and V scales of layer 0 zeroed for
+    the kernel only (a planted fault): it must fail the bound."""
+    from mxnet_tpu_torch.serve import engine as engine_mod
+
+    eng = full_width_engine(np_params, torch.float32, kv_dtype="int8")
+    for p in serve_prompts(2):
+        eng.submit(p, max_new_tokens=32)
+    for _ in range(12):               # 8 prefills, then decode steps
+        eng.step()
+    reqs = list(eng.scheduler.running)
+    B = len(reqs)
+    toks = np.zeros(B, np.int32)
+    pos = np.zeros(B, np.int32)
+    tables = np.zeros((B, eng.table_width), np.int32)
+    for i, r in enumerate(reqs):
+        eng.blocks.ensure_capacity(r.rid, r.cache_len + 1)
+        toks[i], pos[i] = r.tokens[-1], r.cache_len
+        t = eng.blocks.table(r.rid)
+        tables[i, :len(t)] = t
+    inputs = [torch.from_numpy(a).to(DEVICE) for a in (toks, pos, tables)]
+
+    def logits(impl, fault=False):
+        cfg = eng._cfg._replace(paged_impl=impl)
+        ksc, vsc = eng._scale_k.clone(), eng._scale_v.clone()
+        if fault:
+            ksc[0, int(tables[0, 0])] = 0.0
+            vsc[0, int(tables[0, 0])] = 0.0
+        with torch.no_grad():
+            return engine_mod._forward_token_batch(
+                cfg, eng.params, eng._cache_k.clone(), eng._cache_v.clone(),
+                *inputs, ksc, vsc)
+
+    plain = logits("torch")
+    err = float((logits("cuda") - plain).abs().max())
+    planted = float((logits("cuda", fault=True) - plain).abs().max())
+    ok = (err <= LOGITS_BOUND < planted
+          and bool(torch.isfinite(plain).all()))
+    emit({"phase": "int8_logits_check", "dtype": "float32",
+          "kv_dtype": "int8", "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "batch": B, "max_abs_err": err, "bound": LOGITS_BOUND,
+          "planted_fault": "layer 0, one block's K and V scales zeroed "
+                           "(kernel input only)",
+          "planted_max_abs_err": planted, "planted_caught":
+              planted > LOGITS_BOUND, "ok": ok})
+    eng.shutdown()
+    if not ok:
+        raise SystemExit("int8 engine decode step: kernel vs plain "
+                         "disagree, or the planted fault passed")
+
+
+def serve_int8(np_params, serve_row, serve_toks):
+    """The bf16 serve engine with int8 K/V, and with int8 weights too,
+    each warmed over its full grid and then serving the serve phase's 8
+    prompts: no capture in traffic, the paged launches (bf16 q over the
+    int8 cache) equal layers x decode steps and split as the serve
+    phase's do.  Printed beside the bf16 engine's serve numbers: tok/s,
+    decode-step ms, cache and scale bytes, and the share of tokens equal
+    to the bf16 engine's (int8 rounding may move greedy picks)."""
+    rows = {}
+    for tag, kw in (("kv_int8", dict(kv_dtype="int8")),
+                    ("weights_and_kv_int8", dict(quantize="int8",
+                                                 kv_dtype="int8"))):
+        eng = full_width_engine(np_params, torch.bfloat16, **kw)
+        row = {**warm(eng), **drive(eng, serve_prompts(0))}
+        toks = row.pop("tokens")
+        pairs = [(a, b) for x, y in zip(serve_toks, toks)
+                 for a, b in zip(x, y)]
+        row.update({
+            "cache_bytes": 2 * eng._cache_k.nbytes,
+            "scale_bytes": 2 * eng._scale_k.nbytes,
+            "weight_bytes": sum(v.nbytes for v in eng.params.values()),
+            "token_agreement_with_bf16": sum(a == b for a, b in pairs)
+            / len(pairs),
+            "tok_per_s_over_bf16": row["tok_per_s"] / serve_row["tok_per_s"],
+            "ok": (row["finished"] and row["warmup_ok"]
+                   and row["traffic_captures"] == 0
+                   and row["kernel_launches"]
+                   == expected_launches(eng, row) > 0
+                   and row["combine_launches"] == row["kernel_launches"])})
+        rows[tag] = row
+        eng.shutdown()
+    head_dim = SERVE_CFG["d_model"] // SERVE_CFG["num_heads"]
+    bf16_bytes = 2 * (SERVE_CFG["num_layers"] * 512 * 16
+                      * SERVE_CFG["kv_heads"] * head_dim * 2)
+    ok = all(r["ok"] for r in rows.values())
+    emit({"phase": "serve_int8", "dtype": "bfloat16",
+          "bf16": {k: serve_row[k] for k in (
+              "tok_per_s", "decode_step_ms_mean", "decode_step_ms_median")},
+          "bf16_cache_bytes": bf16_bytes, **rows, "ok": ok})
+    if not ok:
+        raise SystemExit("int8 serving failed its checks")
+    return rows
 
 
 def small_model_check():
@@ -2278,6 +2622,13 @@ def main():
                      padded=(1,))
         for n in (1, 2048 // 16):     # one split; one block a split
             check_kernel("long2048", long_ctx, dtype, splits=n)
+    # the bf16 engine's int8 K/V decode: bfloat16 q over an int8 cache
+    errs[("decode", "int8_bf16q")] = check_kernel(
+        "decode", decode_ctx, "int8_bf16q", W=16, nb=512, padded=(6,))
+    errs[("long", "int8_bf16q")] = check_kernel("long2048", long_ctx,
+                                                "int8_bf16q")
+    check_kernel("mixed", mixed_ctx, "int8_bf16q", padded=(1,))
+    check_kernel("long2048", long_ctx, "int8_bf16q", splits=1)
     dropped_split_check(long_ctx)
     captured_kernel_check(decode_ctx, "decode", W=16, nb=512, padded=(6,))
     captured_kernel_check(long_ctx, "long2048")
@@ -2308,8 +2659,14 @@ def main():
     serve_prefix(np_params)
     lap("serve_prefix")
     logits_check(np_params)
-    del np_params
     lap("serve_logits_check")
+    spec = serve_spec(np_params)
+    lap("serve_spec")
+    int8 = serve_int8(np_params, serve, serve_toks)
+    int8_logits_check(np_params)
+    serve_spec(np_params, kv_dtype="int8")
+    del np_params
+    lap("serve_int8")
 
     train = train_main_path()
     train_grad_check()
@@ -2326,7 +2683,7 @@ def main():
     lap("rnn_small_check")
 
     timings = {}
-    for dtype in ("bfloat16", "float32", "int8"):
+    for dtype in ("bfloat16", "float32", "int8", "int8_bf16q"):
         timings[("decode", dtype)] = time_kernel(
             "decode", decode_ctx, dtype, W=16, nb=512,
             padded=(6,))
@@ -2343,13 +2700,24 @@ def main():
     rnn_t = {**time_rnn("lstm"), **time_rnn("gru")}
     lap("rnn_time")
     main_t = timings[("decode", "bfloat16")]
+    q8_t = timings[("decode", "int8_bf16q")]
+    # the paged op's launches on each main path's drive: the serve
+    # engine's decode, the spec engine's draft, the int8 engines' decode
+    paged_paths = {"serve": (serve["kernel_launches"],
+                             serve["combine_launches"]),
+                   "serve_spec_draft": (spec["spec_on"]["kernel_launches"],
+                                        spec["spec_on"]["combine_launches"]),
+                   **{f"serve_{k}": (r["kernel_launches"],
+                                     r["combine_launches"])
+                      for k, r in int8.items()}}
     kernels = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
         "cuda_kernels": ["paged_attention_split", "paged_attention_combine"],
         "source": "mxnet_tpu_torch/csrc/paged_attention.cu",
         "replaces": "mxnet_tpu/ops/pallas_paged_attention.py:143",
-        "launches": serve["kernel_launches"],
-        "combine_launches": serve["combine_launches"],
+        "launches": sum(n for n, _ in paged_paths.values()),
+        "combine_launches": sum(c for _, c in paged_paths.values()),
+        "launches_by_path": {k: n for k, (n, _) in paged_paths.items()},
         "splits": main_t["splits"],
         "blocks_per_split": main_t["blocks_per_split"],
         "max_abs_err": errs[("decode", "bfloat16")],
@@ -2359,6 +2727,11 @@ def main():
         "launch_floor_ms": floor["two_kernels_ms"
                                  if main_t["splits"] > 1
                                  else "one_kernel_ms"],
+        "int8_bf16q": {"max_abs_err": errs[("decode", "int8_bf16q")],
+                       "ms": q8_t["ms"], "plain_ms": q8_t["plain_ms"],
+                       "bound_ms": q8_t["bound_ms"],
+                       "bound_by": q8_t["bound_by"],
+                       "library_ms": q8_t["library_ms"]},
         "ptxas": paged_ptxas}]}
     train_err = flash_rows[("train", torch.bfloat16)]["max_abs_err_same_dtype"]
     # the plain and library backwards compute dq, dk and dv in one call:

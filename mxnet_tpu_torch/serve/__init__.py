@@ -1,17 +1,20 @@
 """Continuous-batching LLM serving over a paged KV-cache (greedy core).
 
 The port of ``mxnet_tpu.serve``: ``Engine`` (scheduler iterations of
-whole-prompt prefills plus one batched decode), ``Scheduler``
-(admission, back-pressure, preemption by recomputation),
-``BlockManager`` (paged block accounting) and ``ServeStats``.
+whole-prompt prefills plus one batched decode, or one speculative
+iteration with ``spec_k``; int8 weights and K/V on request),
+``Scheduler`` (admission, back-pressure, preemption by recomputation),
+``BlockManager`` (paged block accounting), ``ServeStats`` and ``spec``
+(the draft side of speculative decoding).
 """
 
+from . import spec
 from .engine import Engine
 from .kv_block_manager import BlockManager, NoFreeBlocks
 from .scheduler import (CANCELLED, FINISHED, REJECTED, RUNNING, WAITING,
                         QueueFull, Request, Scheduler)
 from .stats import ServeStats, StatsRecorder
 
-__all__ = ["Engine", "BlockManager", "NoFreeBlocks", "Request",
+__all__ = ["Engine", "spec", "BlockManager", "NoFreeBlocks", "Request",
            "Scheduler", "QueueFull", "ServeStats", "StatsRecorder",
            "WAITING", "RUNNING", "FINISHED", "REJECTED", "CANCELLED"]

@@ -12,7 +12,10 @@ The port of ``mxnet_tpu/serve/engine.py``'s greedy core:
 Each ``step()`` is one scheduler iteration: at most
 ``max_prefills_per_step`` prefills (a whole prompt, the uncached suffix
 of a prefix-cache hit, or one chunk of a long prompt), then ONE batched
-single-token decode over every running request.  Shapes are padded to
+single-token decode over every running request — or, with
+``spec_k > 0``, one speculative iteration (``serve/spec.py``: a draft
+program proposes k tokens a request, a verify program scores the k+1
+positions, greedy acceptance emits 1..k+1 tokens).  Shapes are padded to
 the reference's power-of-two buckets and the block-table width is fixed
 at ``max_model_len / block_size``.  Cache-pressure policy (preemption by
 recomputation, back-pressure), the prefix cache's radix index and the
@@ -22,8 +25,13 @@ is handed.
 
 The KV-cache is ONE device tensor pair per engine, (layers, num_blocks,
 block_size, kv_heads, head_dim), carved into blocks by the
-``BlockManager``.  The reference compiles one jit program per (kind,
-bucket) for three families, ``decode``, ``prefill`` and ``chunk``; here
+``BlockManager``; with ``kv_dtype="int8"`` it is int8 beside a float32
+scale pair (layers, num_blocks, block_size, kv_heads), one scale a slot
+and head.  ``quantize="int8"`` stores every projection's weight as int8
+with a per-output-channel scale, dequantized before its matmul
+(``_wfc``).  The reference compiles one jit program per (kind, bucket)
+for ``decode``, ``prefill`` and ``chunk``, plus ``verify``, ``draft``
+and ``draft_chunk`` with speculative decoding on; here
 each is a :class:`_Program` that owns static input buffers and runs one
 body, which writes the cache in place (``index_put_``) where the
 reference used ``.at[].set`` under buffer donation.  On CUDA the program
@@ -37,15 +45,16 @@ process: a graph closes over one engine's parameter and cache
 addresses.  All of an engine's graphs share one memory pool; each
 replay's output is copied to the host before another graph replays.
 ``warmup()`` builds every program a manifest (``aot/warmup.py``) or the
-full bucket grid lists, before traffic.  Decode attends through
-``ops.attention.paged_attention``, the Hopper kernel on CUDA; prefill
-and chunk attention are dense torch, as the reference's are dense jnp.
+full bucket grid lists, before traffic.  Decode and the draft's steps
+attend through ``ops.attention.paged_attention``, the Hopper kernel on
+CUDA (int8 K/V dequantized inside it); prefill, chunk and verify
+attention are dense torch, as the reference's are dense jnp.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP §A item: quantized weights/KV (7), the host KV tier (8),
-sampling, incl. ``n > 1`` copy-on-write samples (9), speculative
-decoding (10), LoRA adapters (11), AOT program stores (the rest of 12),
-tensor parallelism (13), and Symbol-driven config (15).
+ROADMAP §A item: the host KV tier (8), sampling, incl. ``n > 1``
+copy-on-write samples and sampling-mode speculation (9), LoRA adapters
+(11), AOT program stores (the rest of 12), tensor parallelism (13), and
+Symbol-driven config, the draft's included (15).
 """
 
 from __future__ import annotations
@@ -67,17 +76,20 @@ from ..convert import params_from_numpy
 from ..models.generate import _fc, _gelu, _ln, detect_gpt_variant
 from ..ops import paged_attention_cuda as _pac
 from ..ops.attention import paged_attention, resolve_paged_impl
+from . import spec as spec_mod
 from .kv_block_manager import BlockManager
 from .scheduler import CANCELLED, FINISHED, QueueFull, Request, Scheduler
 from .stats import StatsRecorder
 
 __all__ = ["Engine"]
 
-# the static model config the program bodies close over; ``paged_impl``
-# is the decode attention's implementation ("cuda" or "torch")
+# the static model config the program bodies close over; ``kv_quant``
+# says the cache is int8 with scales, ``paged_impl`` is the decode
+# attention's implementation ("cuda" or "torch")
 _ModelCfg = collections.namedtuple("_ModelCfg", [
     "name", "n_layers", "num_heads", "head_dim", "kv_heads", "pos_table",
-    "swiglu", "tied", "rmsnorm", "window", "block_size", "paged_impl"])
+    "swiglu", "tied", "rmsnorm", "window", "block_size", "kv_quant",
+    "paged_impl"])
 
 # eager runs of a body on a side stream before its capture: the first
 # builds the kernel libraries and sets their launch attributes, which a
@@ -248,10 +260,25 @@ class Engine:
         ``MXTPU_SERVE_PREFILL_CHUNK``, default 512): a prompt whose
         uncached remainder exceeds it prefills one chunk per iteration
         interleaved with decode steps.  0 disables chunking.
+      spec_k: draft tokens proposed per speculative iteration (env
+        ``MXTPU_SERVE_SPEC``, default 0 = plain decode, and 0 leaves
+        programs, warm-up grid and fingerprint as they were).  Needs
+        ``draft_params``: a small gpt() checkpoint with the target's
+        vocab, decoded with ``draft_num_heads`` / ``draft_window`` under
+        the name prefix ``draft_name`` (default ``name``).
+      quantize: ``"int8"`` (env ``MXTPU_SERVE_QUANT``) stores every
+        projection weight per-output-channel int8 plus a float32
+        ``*_wscale``, dequantized before each matmul; embeddings, norms,
+        biases and a tied head stay floating point.  Default off.
+      kv_dtype: ``"int8"`` (env ``MXTPU_SERVE_KV_DTYPE``) stores K/V
+        blocks as int8 with a float32 scale a slot and head; every
+        program quantizes on write and dequantizes to attend.  Default
+        off: the parameter dtype.
       clock: injectable monotonic clock (tests drive deadlines).
       device: where weights, cache and programs live (default
         ``"cuda"``; raises when CUDA is absent — no CPU fallback).
-      dtype: parameter/activation dtype (default: the checkpoint's).
+      dtype: parameter/activation dtype (default: the checkpoint's);
+        int8 weights stay int8 and their scales float32.
 
     ``MXTPU_WARMUP_MANIFEST=<path>`` records the (kind, bucket)
     programs traffic ran, for a later ``warmup(path)``.
@@ -264,20 +291,20 @@ class Engine:
                  device="cuda", dtype=None, tenant_share=None,
                  prefix_cache=None, prefill_chunk=None, temperature=0.0,
                  top_k=None, top_p=None, sampling=None, tp=None,
-                 quantize=None, kv_dtype=None, spec_k=None, adapters=None,
+                 quantize=None, kv_dtype=None, spec_k=None,
+                 draft_params=None, draft_num_heads=None, draft_window=None,
+                 draft_name=None, draft_symbol=None, adapters=None,
                  host_kv_bytes=None, aot_dir=None, symbol=None):
         if symbol is not None:
             raise _unported("symbol= (decode config from a Symbol)", 15)
-        if (quantize or os.environ.get("MXTPU_SERVE_QUANT")
-                or kv_dtype or os.environ.get("MXTPU_SERVE_KV_DTYPE")):
-            raise _unported("quantized serving (quantize/kv_dtype)", 7)
+        if draft_symbol is not None:
+            raise _unported("draft_symbol= (the draft's decode config "
+                            "from a Symbol)", 15)
         if host_kv_bytes or env_int("MXTPU_SERVE_HOST_KV_BYTES", 0):
             raise _unported("the host-DRAM KV tier (host_kv_bytes)", 8)
         if (temperature or top_k or (top_p is not None and top_p < 1.0)
                 or sampling or env_flag("MXTPU_SERVE_SAMPLING", False)):
-            raise _unported("sampling", 9)
-        if spec_k or env_int("MXTPU_SERVE_SPEC", 0):
-            raise _unported("speculative decoding (spec_k)", 10)
+            raise _unported("sampling (and sampling-mode speculation)", 9)
         if adapters or env_int("MXTPU_SERVE_ADAPTERS", 0):
             raise _unported("LoRA adapters", 11)
         if aot_dir is not None or os.environ.get("MXTPU_AOT_DIR"):
@@ -292,6 +319,28 @@ class Engine:
         window = 0 if window is None else int(window)
         if window < 0:
             raise ValueError(f"window must be >= 0 (got {window})")
+        # quantized serving: both default off, and off is inert (same
+        # programs, fingerprint and tokens as an engine without them)
+        if quantize is None:
+            quantize = os.environ.get("MXTPU_SERVE_QUANT") or None
+        if quantize not in (None, "int8"):
+            raise ValueError(
+                f"quantize must be None or 'int8' (got {quantize!r})")
+        self.quantize = quantize
+        if kv_dtype is None:
+            kv_dtype = os.environ.get("MXTPU_SERVE_KV_DTYPE") or None
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None or 'int8' (got {kv_dtype!r})")
+        self._kv_quant = kv_dtype == "int8"
+        self.spec_k = (int(spec_k) if spec_k is not None
+                       else env_int(spec_mod.ENV_SPEC, 0))
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0 (got {self.spec_k})")
+        if self.spec_k and draft_params is None:
+            raise ValueError(
+                "spec_k > 0 requires draft_params (a small gpt() "
+                "checkpoint whose vocab matches the target's)")
 
         self.device = resolve_device(device)
         self.block_size = (int(block_size) if block_size is not None
@@ -303,9 +352,18 @@ class Engine:
         max_queue = (int(max_queue) if max_queue is not None
                      else env_int("MXTPU_SERVE_MAX_QUEUE", 64))
 
-        self.params = params_from_numpy(params, self.device, dtype=dtype,
-                                        name=name)
+        # weight-only int8 quantizes the normalized checkpoint at its
+        # own precision, then casts what stays floating point
+        self.params = params_from_numpy(
+            params, self.device, dtype=None if self.quantize else dtype,
+            name=name)
         self.spec = detect_gpt_variant(self.params, num_heads, name)
+        if self.quantize:
+            self.params = {
+                k: (v if dtype is None or k.endswith("_wscale")
+                    or not v.is_floating_point() else v.to(dtype))
+                for k, v in _quantize_gpt_params(
+                    self.params, name, self.spec).items()}
         self.name = name
         self.num_heads = int(num_heads)
         self.window = window
@@ -328,7 +386,8 @@ class Engine:
         self.scheduler = Scheduler(self.blocks, self.max_batch, max_queue,
                                    max_prefills_per_step, clock=clock,
                                    tenant_share=tenant_share,
-                                   prefill_chunk=prefill_chunk)
+                                   prefill_chunk=prefill_chunk,
+                                   spec_slots=self.spec_k)
         self._stats = StatsRecorder(clock=clock)
         self.clock = clock
         self._step_id = 0
@@ -340,17 +399,35 @@ class Engine:
         dt = self.params[f"{name}_tok_embed_weight"].dtype
         shape = (L, self.num_blocks, self.block_size,
                  self.spec["kv_heads"], self.spec["head_dim"])
-        self._cache_k = torch.zeros(shape, dtype=dt, device=self.device)
-        self._cache_v = torch.zeros(shape, dtype=dt, device=self.device)
+        cache_dt = torch.int8 if self._kv_quant else dt
+        self._cache_k = torch.zeros(shape, dtype=cache_dt,
+                                    device=self.device)
+        self._cache_v = torch.zeros(shape, dtype=cache_dt,
+                                    device=self.device)
+        self._scale_k = self._scale_v = None
+        if self._kv_quant:
+            # one float32 scale a slot and head, indexed by the same
+            # block ids: block accounting never changes
+            self._scale_k = torch.zeros(shape[:-1], dtype=torch.float32,
+                                        device=self.device)
+            self._scale_v = torch.zeros_like(self._scale_k)
         self._cfg = _ModelCfg(
             name=name, n_layers=L, num_heads=self.num_heads,
             head_dim=self.spec["head_dim"], kv_heads=self.spec["kv_heads"],
             pos_table=self.spec["pos_table"], swiglu=self.spec["swiglu"],
             tied=self.spec["tied"], rmsnorm=self.spec["rmsnorm"],
             window=self.window, block_size=self.block_size,
+            kv_quant=self._kv_quant,
             paged_impl=resolve_paged_impl(self.block_size,
                                           self.spec["head_dim"],
                                           device=self.device))
+        # the draft side last: target params, target cache, then the
+        # (much smaller) draft
+        self._spec = None
+        if self.spec_k:
+            self._spec = spec_mod.DraftWorker(
+                self, draft_params, num_heads=draft_num_heads,
+                window=draft_window, name=draft_name or name, dtype=dtype)
         # -- programs and their warm start (aot/) ----------------------------
         self._programs = {}            # (kind, bucket) -> _Program
         self.captures = 0              # CUDA graphs captured
@@ -425,11 +502,14 @@ class Engine:
             emitted = 0
             for req in prefills:
                 # the iteration's prefill token budget is shared with
-                # the decode slots (one token each)
-                emitted += self._run_prefill(req,
-                                             decode_slots=len(decodes))
+                # the decode slots: up to 1 + spec_k tokens each
+                emitted += self._run_prefill(
+                    req, decode_slots=len(decodes) * (1 + self.spec_k))
             if decodes:
-                emitted += self._run_decode(decodes)
+                if self._spec is not None:
+                    emitted += self._run_spec_decode(decodes)
+                else:
+                    emitted += self._run_decode(decodes)
             if emitted == 0 and not prefills and not decodes:
                 self._noop_steps += 1
                 if self._noop_steps > 1000 and self.scheduler.has_work():
@@ -439,6 +519,10 @@ class Engine:
             else:
                 self._noop_steps = 0
             self._stats.on_step(emitted, decode_batch=len(decodes))
+            if self._spec is not None:
+                # bound the draft ledger by the running set: a request
+                # that left between decodes never reached forget()
+                self._spec.prune({r.rid for r in self.scheduler.running})
         return emitted
 
     def has_work(self):
@@ -479,7 +563,10 @@ class Engine:
             req.finish_t = self.clock()
         self._programs.clear()
         self._pool = None
+        if self._spec is not None:
+            self._spec.shutdown()
         self._cache_k = self._cache_v = None
+        self._scale_k = self._scale_v = None
         self.params = None
         self._alive = False
 
@@ -531,7 +618,8 @@ class Engine:
 
     def _warmup_grid(self):
         """Every program this config can ever run: decode, prefill and
-        chunk (prefix-cache suffixes and chunked long prompts) over
+        chunk (prefix-cache suffixes and chunked long prompts), plus
+        verify, draft and draft_chunk with speculative decoding on, over
         their bucket ladders, each non-power-of-two cap included."""
         return [{"kind": kind, "bucket": b}
                 for kind, cap in self._caps().items()
@@ -539,8 +627,18 @@ class Engine:
 
     def _caps(self):
         """Each program family's largest bucket."""
-        return {"decode": self.max_batch, "prefill": self.max_model_len,
+        caps = {"decode": self.max_batch, "prefill": self.max_model_len,
                 "chunk": self._chunk_cap()}
+        if self._spec is not None:
+            caps.update(verify=self.max_batch, draft=self.max_batch,
+                        draft_chunk=self.max_model_len)
+        return caps
+
+    def verify_buckets(self):
+        """The verify family's bucket grid (empty with spec off)."""
+        if self._spec is None:
+            return []
+        return _bucket_ladder(self.max_batch)
 
     def _chunk_cap(self):
         """Largest chunk-program bucket live traffic can hit.  With
@@ -558,11 +656,23 @@ class Engine:
         """The program key (the reference's ``_spec_key``): what pins the
         programs' math and lowering (``_ModelCfg``, ``paged_impl``
         included), their shapes (``num_blocks``, ``table_width``) and the
-        cache dtype, plus the torch version and card."""
-        return aot.fingerprint(device=self.device, cfg=self._cfg._asdict(),
+        cache dtype, plus the torch version and card.  Speculative
+        decoding (``spec_k`` and the draft's cfg and cache dtype),
+        ``kv_quant`` and ``quantize`` enter only when on, so an engine
+        without them keeps its digest and manifests."""
+        extra = {}
+        if self._spec is not None:
+            extra.update(spec_k=self.spec_k, draft=dict(
+                _cfg_fields(self._spec.cfg),
+                cache_dtype=str(self._spec.cache_k.dtype)))
+        if self.quantize:
+            extra["quantize"] = self.quantize
+        return aot.fingerprint(device=self.device,
+                               cfg=_cfg_fields(self._cfg),
                                num_blocks=self.num_blocks,
                                table_width=self.table_width,
-                               cache_dtype=str(self._cache_k.dtype))
+                               cache_dtype=str(self._cache_k.dtype),
+                               **extra)
 
     def _program(self, kind, bucket):
         prog = self._programs.get((kind, bucket))
@@ -576,21 +686,40 @@ class Engine:
 
     def _build_program(self, kind, bucket):
         W = self.table_width
+        k = self.spec_k
+        batch = (("toks", (bucket,)), ("pos", (bucket,)),
+                 ("tables", (bucket, W)))
+        chunk = (("toks", (bucket,)), ("start", (1,)), ("n_valid", (1,)),
+                 ("table", (W,)), ("blk", (bucket,)), ("off", (bucket,)))
         if kind == "decode":
-            fields = (("toks", (bucket,)), ("pos", (bucket,)),
-                      ("tables", (bucket, W)))
-            body = functools.partial(_decode, self._cfg)
+            fields, body = batch, functools.partial(_decode, self._cfg)
         elif kind == "prefill":
             fields = (("toks", (bucket,)), ("plen", (1,)),
                       ("blk", (bucket,)), ("off", (bucket,)))
             body = functools.partial(_prefill, self._cfg, bucket)
-        else:
-            fields = (("toks", (bucket,)), ("start", (1,)),
-                      ("n_valid", (1,)), ("table", (W,)),
-                      ("blk", (bucket,)), ("off", (bucket,)))
+        elif kind == "chunk":
+            fields = chunk
             body = functools.partial(_chunk, self._cfg, bucket)
+        elif kind == "verify":
+            fields = (("rows", (bucket, k + 1)), ("pos0", (bucket,)),
+                      ("tables", (bucket, W)))
+            body = functools.partial(spec_mod._verify, self._cfg, k)
+        else:
+            # the draft's programs: its cfg, params and (floating-point)
+            # caches
+            sw = self._spec
+            if kind == "draft":
+                fields = batch
+                body = functools.partial(spec_mod._draft, sw.cfg, k)
+            else:
+                fields = chunk
+                body = functools.partial(_chunk, sw.cfg, bucket)
+            body = functools.partial(body, params=sw.params, ck=sw.cache_k,
+                                     cv=sw.cache_v)
+            return _Program(fields, body, self.device, self._pool)
         body = functools.partial(body, params=self.params,
-                                 ck=self._cache_k, cv=self._cache_v)
+                                 ck=self._cache_k, cv=self._cache_v,
+                                 ksc=self._scale_k, vsc=self._scale_v)
         return _Program(fields, body, self.device, self._pool)
 
     # -- execution -----------------------------------------------------------
@@ -678,28 +807,202 @@ class Engine:
             self._maybe_finish(req)
         return B
 
+    def _spec_ingest(self, req):
+        """Bring the draft cache up to ``req``'s context: positions
+        ``[0, cache_len)`` through the draft's chunk program
+        (``draft_chunk``) in one call, at admission and after a resume.
+        A prefix-cache hit's shared blocks are rewritten with recomputed
+        draft values, which can move other sharers' acceptance, never a
+        token."""
+        sw = self._spec
+        span = sw.context_gap(req)
+        if span <= 0:
+            return
+        bs = self.block_size
+        bucket = _next_bucket(span, self.max_model_len)
+        with telemetry.span("serve.spec_ingest", rid=req.rid, tokens=span):
+            prog = self._program("draft_chunk", bucket)
+            h = prog.stage()
+            h["toks"][:span] = req.prefill_ids()[:span]
+            h["n_valid"][0] = span
+            table = self.blocks.table(req.rid)
+            h["table"][:len(table)] = table
+            h["blk"][:span] = h["table"][np.arange(span) // bs]
+            h["off"][:] = np.arange(bucket) % bs   # padded rows: null blk
+            prog()
+        sw.note_ingested(req, span)
+
+    def _run_spec_decode(self, reqs):
+        """One speculative iteration over the batch (the reference's
+        greedy branch): the draft program proposes ``spec_k`` tokens a
+        request, the drafts come to the host, the verify program scores
+        the ``k+1`` positions through the block tables, and greedy
+        acceptance emits 1..k+1 tokens a request, capped at its quota."""
+        B = len(reqs)
+        k = self.spec_k
+        sw = self._spec
+        for req in reqs:
+            self._spec_ingest(req)
+        bucket = _next_bucket(B, self.max_batch)
+        draft = self._program("draft", bucket)
+        h = draft.stage()
+        for i, req in enumerate(reqs):
+            h["toks"][i] = req.tokens[-1]
+            h["pos"][i] = req.cache_len
+            t = self.blocks.table(req.rid)
+            h["tables"][i, :len(t)] = t
+        with telemetry.span("serve.draft", batch=B, k=k):
+            drafted = draft()          # the verify rows need them: sync
+        verify = self._program("verify", bucket)
+        hv = verify.stage()
+        hv["rows"][:, 0] = h["toks"]
+        hv["rows"][:, 1:] = drafted
+        hv["pos0"][:] = h["pos"]
+        hv["tables"][:] = h["tables"]
+        with telemetry.span("serve.verify", batch=B, k=k):
+            out = verify()             # acceptance needs them: sync
+        emitted = 0
+        now = self.clock()
+        for i, req in enumerate(reqs):
+            accepted, emit = spec_mod.accept_greedy(drafted[i], out[i], k)
+            # the draft wrote every candidate position: no gap next time
+            sw.note_drafted(req, req.cache_len + k + 1)
+            # a run that would overshoot the quota stops where plain
+            # decode would, and only emitted drafts count as accepted
+            emit = emit[:req.max_new_tokens - len(req.tokens)]
+            accepted = min(accepted, len(emit))
+            sw.on_verify(k, accepted)
+            self._stats.on_verify(k, accepted)
+            req.tokens.extend(emit)
+            req.cache_len += len(emit)
+            emitted += len(emit)
+            self._stats.on_tokens(req, len(emit), now=now)
+            self._maybe_finish(req)
+            if req.done:
+                sw.forget(req.rid)
+            else:
+                # roll back the speculative tail (never a shared block)
+                self.blocks.truncate(req.rid, req.cache_len)
+        return emitted
+
     def _maybe_finish(self, req):
         if len(req.tokens) >= req.max_new_tokens:
             self.scheduler.finish(req, status=FINISHED)
             self._stats.on_complete(req)
 
 
+# -- quantized serving helpers -------------------------------------------------
+def quantize_weight(w):
+    """Per-output-channel symmetric int8 (the reference's
+    ``contrib.quantization.quantize_weight``, on a tensor): returns
+    (int8 tensor, float32 scales) with ``w ~= wq * scale[:, None, ...]``.
+    An all-zero channel keeps scale 1.0."""
+    flat = w.float().reshape(w.shape[0], -1)
+    amax = flat.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    wq = torch.round(flat / scale[:, None]).clamp(-127, 127)
+    return wq.to(torch.int8).reshape(w.shape), scale
+
+
+def _quantize_gpt_params(params, name, spec):
+    """Weight-only int8 at load: every projection of the normalized
+    gpt() checkpoint becomes int8 weights plus a ``*_wscale`` float32
+    vector that :func:`_wfc` dequantizes.  Embeddings, norms and biases
+    stay floating point, and so does a tied head (it is the embedding
+    matrix)."""
+    out = dict(params)
+    stems = []
+    for i in range(spec["n_layers"]):
+        p = f"{name}_l{i}"
+        stems += [f"{p}_q", f"{p}_k", f"{p}_v", f"{p}_proj",
+                  f"{p}_ff_up", f"{p}_ff_down"]
+        if spec["swiglu"]:
+            stems.append(f"{p}_ff_gate")
+    if not spec["tied"]:
+        stems.append(f"{name}_head")
+    for stem in stems:
+        w = out.get(f"{stem}_weight")
+        if w is not None:
+            out[f"{stem}_weight"], out[f"{stem}_wscale"] = \
+                quantize_weight(w)
+    return out
+
+
+def _wfc(params, stem, x):
+    """``_fc`` through a possibly int8 checkpoint entry: with a
+    ``<stem>_wscale`` the int8 weight is dequantized in the activation
+    dtype first (weight, then scale, cast to it, then multiplied, as the
+    reference does); without one this is ``_fc`` on the entry."""
+    w = params[f"{stem}_weight"]
+    sc = params.get(f"{stem}_wscale")
+    if sc is not None:
+        w = w.to(x.dtype) * sc.to(x.dtype)[:, None]
+    return _fc(x, w, params[f"{stem}_bias"])
+
+
+def _kv_quant_vals(vals):
+    """Per-slot-per-head symmetric int8 of K/V rows ``(..., Hkv, Dh)`` ->
+    (int8 rows, float32 scales ``(..., Hkv)``).  Each slot is quantized
+    over its own head vector, so the cache is a function of the values
+    written, not of the order of the writes (preemption and chunked
+    prefill stay token-stable).  ``torch.round`` rounds half to even, as
+    ``jnp.round`` does; a zero vector keeps scale 1.0."""
+    vf = vals.float()
+    amax = vf.abs().amax(dim=-1)
+    sc = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.round(vf / sc[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, sc
+
+
+def _kv_dequant(q, sc, dtype):
+    """Invert :func:`_kv_quant_vals`: int8 rows ``(..., Hkv, Dh)`` and
+    scales ``(..., Hkv)`` -> rows in ``dtype`` (product in float32, one
+    rounding)."""
+    return (q.float() * sc.float()[..., None]).to(dtype)
+
+
+def _cfg_fields(cfg):
+    """A ``_ModelCfg`` as its fingerprint dict: ``kv_quant`` only when
+    on."""
+    d = cfg._asdict()
+    if not d["kv_quant"]:
+        del d["kv_quant"]
+    return d
+
+
+def _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh):
+    """Write layer ``i``'s K/V rows at (blk, off) in place (the
+    reference's ``.at[].set`` on a donated cache), quantized with their
+    scales under ``cfg.kv_quant``.  Returns None, or under int8 what was
+    written: ``(kq, k_scales, vq, v_scales)``."""
+    if not cfg.kv_quant:
+        ck[i].index_put_((blk, off), kh)
+        cv[i].index_put_((blk, off), vh)
+        return None
+    kq, ks = _kv_quant_vals(kh)
+    vq, vs = _kv_quant_vals(vh)
+    ck[i].index_put_((blk, off), kq)
+    ksc[i].index_put_((blk, off), ks)
+    cv[i].index_put_((blk, off), vq)
+    vsc[i].index_put_((blk, off), vs)
+    return kq, ks, vq, vs
+
+
 # -- program bodies (the reference's jit programs) ---------------------------
 # Each reads its inputs from device tensors only (no host read, which a
-# capture forbids) and writes the cache in place.
+# capture forbids) and writes the cache in place.  ``ksc``/``vsc`` are
+# the int8 cache's scale tensors (None without ``cfg.kv_quant``).
 def _mlp(cfg, params, p, x):
     h2 = _ln(x, params[f"{p}_ln2_gamma"],
              None if cfg.rmsnorm else params[f"{p}_ln2_beta"])
     if cfg.swiglu:
-        g = _fc(h2, params[f"{p}_ff_gate_weight"], params[f"{p}_ff_gate_bias"])
+        g = _wfc(params, f"{p}_ff_gate", h2)
         gf = g.float()                           # f32 silu == sym.silu
         up = ((gf * torch.sigmoid(gf)).to(g.dtype)
-              * _fc(h2, params[f"{p}_ff_up_weight"],
-                    params[f"{p}_ff_up_bias"]))
+              * _wfc(params, f"{p}_ff_up", h2))
     else:
-        up = _gelu(_fc(h2, params[f"{p}_ff_up_weight"],
-                       params[f"{p}_ff_up_bias"]))
-    return _fc(up, params[f"{p}_ff_down_weight"], params[f"{p}_ff_down_bias"])
+        up = _gelu(_wfc(params, f"{p}_ff_up", h2))
+    return _wfc(params, f"{p}_ff_down", up)
 
 
 def _logits(cfg, params, x):
@@ -708,31 +1011,36 @@ def _logits(cfg, params, x):
                 None if cfg.rmsnorm else params[f"{name}_ln_f_beta"])
     if cfg.tied:
         return final @ params[f"{name}_tok_embed_weight"].t().to(final.dtype)
-    return _fc(final, params[f"{name}_head_weight"],
-               params[f"{name}_head_bias"])
+    return _wfc(params, f"{name}_head", final)
 
 
 def _qkv(cfg, params, p, x, n):
     h = _ln(x, params[f"{p}_ln1_gamma"],
             None if cfg.rmsnorm else params[f"{p}_ln1_beta"])
-    q = _fc(h, params[f"{p}_q_weight"], params[f"{p}_q_bias"])
-    k = _fc(h, params[f"{p}_k_weight"], params[f"{p}_k_bias"])
-    v = _fc(h, params[f"{p}_v_weight"], params[f"{p}_v_bias"])
+    q = _wfc(params, f"{p}_q", h)
+    k = _wfc(params, f"{p}_k", h)
+    v = _wfc(params, f"{p}_v", h)
     return (q.reshape(n, cfg.num_heads, cfg.head_dim),
             k.reshape(n, cfg.kv_heads, cfg.head_dim),
             v.reshape(n, cfg.kv_heads, cfg.head_dim))
 
 
-def _forward_token_batch(cfg, params, ck, cv, toks, pos, tables):
-    """Shared decode math: write each row's K/V at its position (in
-    place), attend through the block tables, return logits (B, V)."""
+def _token_layers(cfg, params, ck, cv, toks, pos, tables, ksc=None,
+                  vsc=None):
+    """The decode layers: write each row's K/V at its position (in
+    place), attend through the block tables, return the final hidden
+    rows (B, D).  The table column is clamped and the learned position
+    too, so a draft step past the table reads and writes in range (its
+    zeroed table row sends the write to the null block)."""
     name = cfg.name
     B = toks.shape[0]
     pos = pos.long()
     x = params[f"{name}_tok_embed_weight"][toks.long()]     # (B, D)
     if cfg.pos_table is not None:
-        x = x + params[f"{name}_pos_embed_weight"][0, pos]
-    blk = tables.long().gather(1, (pos // cfg.block_size)[:, None])[:, 0]
+        x = x + params[f"{name}_pos_embed_weight"][
+            0, pos.clamp(max=cfg.pos_table - 1)]
+    col = (pos // cfg.block_size).clamp(max=tables.shape[1] - 1)
+    blk = tables.long().gather(1, col[:, None])[:, 0]
     off = pos % cfg.block_size
     ctx = (pos + 1).to(torch.int32)
     for i in range(cfg.n_layers):
@@ -740,31 +1048,43 @@ def _forward_token_batch(cfg, params, ck, cv, toks, pos, tables):
         qh, kh, vh = _qkv(cfg, params, p, x, B)
         if cfg.pos_table is None:
             qh, kh = _rope(qh, pos), _rope(kh, pos)
-        # in-place writes: the reference's .at[].set on a donated cache
-        ck[i].index_put_((blk, off), kh)
-        cv[i].index_put_((blk, off), vh)
+        _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh)
+        scales = ({"k_scale": ksc[i], "v_scale": vsc[i]} if cfg.kv_quant
+                  else {})
         attn = paged_attention(qh, ck[i], cv[i], tables, ctx,
-                               window=cfg.window, impl=cfg.paged_impl)
-        x = x + _fc(attn.reshape(B, cfg.num_heads * cfg.head_dim),
-                    params[f"{p}_proj_weight"], params[f"{p}_proj_bias"])
+                               window=cfg.window, impl=cfg.paged_impl,
+                               **scales)
+        x = x + _wfc(params, f"{p}_proj",
+                     attn.reshape(B, cfg.num_heads * cfg.head_dim))
         x = x + _mlp(cfg, params, p, x)
-    return _logits(cfg, params, x)
+    return x
 
 
-def _decode(cfg, toks, pos, tables, *, params, ck, cv):
+def _forward_token_batch(cfg, params, ck, cv, toks, pos, tables, ksc=None,
+                         vsc=None):
+    """Shared decode math: :func:`_token_layers`, then the logits
+    (B, V)."""
+    return _logits(cfg, params, _token_layers(cfg, params, ck, cv, toks,
+                                              pos, tables, ksc, vsc))
+
+
+def _decode(cfg, toks, pos, tables, *, params, ck, cv, ksc=None, vsc=None):
     """One batched decode step (the reference's ``_build_decode``
     program, greedy): returns the (B,) int32 next tokens."""
-    logits = _forward_token_batch(cfg, params, ck, cv, toks, pos, tables)
+    logits = _forward_token_batch(cfg, params, ck, cv, toks, pos, tables,
+                                  ksc, vsc)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def _prefill(cfg, P, toks, plen, blk, off, *, params, ck, cv):
+def _prefill(cfg, P, toks, plen, blk, off, *, params, ck, cv, ksc=None,
+             vsc=None):
     """Whole-prompt pass at padded length P for ONE request (the
     reference's ``_build_prefill`` program, greedy): writes K/V for
     positions [0, P) through (blk, off) — padded rows land in the null
     block — and returns the (1,) int32 token after position
     ``plen - 1``."""
-    logits = _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off)
+    logits = _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off,
+                             ksc, vsc)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -778,7 +1098,8 @@ def _last_row(x, n):
     return x[n - 1][None]
 
 
-def _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off):
+def _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off, ksc=None,
+                    vsc=None):
     """:func:`_prefill`'s body up to the (1, V) logits of position
     ``plen - 1`` (``plen`` an int or a (1,) device tensor): dense causal
     attention within the prompt's own rows."""
@@ -786,22 +1107,22 @@ def _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off):
     keep = pos[:, None] >= pos[None, :]                     # causal
     if cfg.window:
         keep = keep & (pos[:, None] - pos[None, :] < cfg.window)
-    return _dense_logits(cfg, params, ck, cv, toks, pos, blk, off, keep,
-                         plen)
+    return _dense_logits(cfg, params, ck, cv, ksc, vsc, toks, pos, blk, off,
+                         keep, plen)
 
 
 def _chunk(cfg, C, toks, start, n_valid, table, blk, off, *, params, ck,
-           cv):
+           cv, ksc=None, vsc=None):
     """Suffix/chunk prefill (the reference's ``_build_chunk`` program,
     greedy): the (1,) int32 token after position ``start + n_valid -
     1``, meaningful on a prompt's final chunk only."""
     logits = _chunk_logits(cfg, C, params, ck, cv, toks, start, n_valid,
-                           table, blk, off)
+                           table, blk, off, ksc, vsc)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def _chunk_logits(cfg, C, params, ck, cv, toks, start, n_valid, table,
-                  blk, off):
+                  blk, off, ksc=None, vsc=None):
     """C token rows of ONE request whose earlier positions' K/V already
     sit in the cache (a prefix-cache hit, or earlier chunks).  Rows hold
     positions [start, start + n_valid); rows past ``n_valid`` are
@@ -819,18 +1140,20 @@ def _chunk_logits(cfg, C, params, ck, cv, toks, start, n_valid, table,
     keep = spos <= pos[:, None]                   # causal, self included
     if cfg.window:
         keep = keep & (spos > pos[:, None] - cfg.window)
-    return _dense_logits(cfg, params, ck, cv, toks, pos, blk, off, keep,
-                         n_valid, table=table.long())
+    return _dense_logits(cfg, params, ck, cv, ksc, vsc, toks, pos, blk, off,
+                         keep, n_valid, table=table.long())
 
 
-def _dense_logits(cfg, params, ck, cv, toks, pos, blk, off, keep, last,
-                  table=None):
+def _dense_logits(cfg, params, ck, cv, ksc, vsc, toks, pos, blk, off, keep,
+                  last, table=None):
     """The prefill and chunk programs' layers: the rows at positions
     ``pos`` write their K/V through (blk, off), then attend densely
     (float32 softmax) under ``keep`` (rows x keys) to this pass's own
     K/V, or, given ``table`` (W,), to the request's whole block table
-    gathered from the cache after the write.  Returns the (1, V) logits
-    of row ``last - 1``."""
+    gathered from the cache after the write.  Under ``cfg.kv_quant``
+    both see the cache's int8 round trip: prefill attends to its own
+    rows dequantized, chunk dequantizes the gathered table.  Returns the
+    (1, V) logits of row ``last - 1``."""
     name = cfg.name
     Hq, Hkv, Dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     n = toks.shape[0]
@@ -845,19 +1168,23 @@ def _dense_logits(cfg, params, ck, cv, toks, pos, blk, off, keep, last,
         qh, kh, vh = _qkv(cfg, params, p, x, n)
         if cfg.pos_table is None:
             qh, kh = _rope(qh, pos), _rope(kh, pos)
-        # in-place writes: the reference's .at[].set on a donated cache
-        ck[i].index_put_((blk, off), kh)
-        cv[i].index_put_((blk, off), vh)
+        written = _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh)
         if table is not None:
             kh = ck[i][table].reshape(-1, Hkv, Dh)
             vh = cv[i][table].reshape(-1, Hkv, Dh)
+            if cfg.kv_quant:
+                kh = _kv_dequant(kh, ksc[i][table].reshape(-1, Hkv), x.dtype)
+                vh = _kv_dequant(vh, vsc[i][table].reshape(-1, Hkv), x.dtype)
+        elif written is not None:
+            kq, ks, vq, vs = written
+            kh = _kv_dequant(kq, ks, x.dtype)
+            vh = _kv_dequant(vq, vs, x.dtype)
         # grouped-query attention: (kv head, group) x rows x keys
         qg = qh.reshape(n, Hkv, Hq // Hkv, Dh)
         sc = torch.einsum("qkgd,skd->kgqs", qg, kh) / math.sqrt(Dh)
         sc = sc.masked_fill(~keep, float("-inf"))
         pr = torch.softmax(sc.float(), dim=-1).to(x.dtype)
         at = torch.einsum("kgqs,skd->qkgd", pr, vh)
-        x = x + _fc(at.reshape(n, Hq * Dh), params[f"{p}_proj_weight"],
-                    params[f"{p}_proj_bias"])
+        x = x + _wfc(params, f"{p}_proj", at.reshape(n, Hq * Dh))
         x = x + _mlp(cfg, params, p, x)
     return _logits(cfg, params, _last_row(x, last))

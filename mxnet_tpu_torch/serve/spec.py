@@ -1,0 +1,310 @@
+"""Draft-model speculative decoding for the serving engine (greedy).
+
+The port of ``mxnet_tpu/serve/spec.py``'s greedy half.  Plain decode
+emits ONE token per running request per iteration.  With ``spec_k = k``
+an iteration instead runs
+
+  1 draft program   (``k+1`` single-token steps of a small draft model,
+                     unrolled in one program: one CUDA graph on CUDA)
+  1 verify program  (the target model over ``k+1`` rows per request,
+                     write-then-attend through the paged block table)
+
+and emits between 1 and ``k+1`` tokens per request.  Greedy acceptance
+keeps the longest prefix of drafted tokens the target's argmax agrees
+with, plus the target's own token at the first disagreement, so the
+emitted stream is token-identical to plain decode: the target's argmax
+decides every token, the draft only how many arrive per dispatch.  The
+drafted ids come back to the host between the two programs, as in the
+reference.  Sampling-mode speculation (on-device rejection sampling)
+belongs to sampling, not ported yet (ROADMAP §A item 9).
+
+:class:`DraftWorker` owns the draft side: its parameters on the engine's
+device, its own K/V cache pair (floating point even when the target's is
+int8) with the target's block geometry, and the per-request ingest
+ledger.  The draft shares the target's per-request block tables
+verbatim; the target's ``BlockManager`` keeps them disjoint.  Draft-cache
+contents move only the acceptance rate, never a token, so the draft may
+re-ingest context lazily (admission, resume after preemption, a
+prefix-cache hit's shared blocks).
+
+Rollback: verify writes target K/V for all ``k+1`` candidate positions;
+the engine then truncates the request's table to the accepted length
+(``BlockManager.truncate``).  Stale K/V inside kept blocks is rewritten
+before any later position reads it.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+
+import torch
+
+from .. import telemetry
+from ..base import env_float
+from ..convert import params_from_numpy
+from ..models.generate import detect_gpt_variant, normalize_gpt_params
+from ..ops.attention import resolve_paged_impl
+
+__all__ = ["DraftWorker", "accept_greedy", "ENV_SPEC", "ENV_MIN_ACCEPT"]
+
+ENV_SPEC = "MXTPU_SERVE_SPEC"
+ENV_MIN_ACCEPT = "MXTPU_SPEC_MIN_ACCEPT"
+
+# rolling acceptance-rate window length (verify events); the low-
+# acceptance dump waits for MIN_WINDOW events before judging
+WINDOW = 256
+MIN_WINDOW = 32
+
+
+class DraftWorker:
+    """The draft-model half of speculative decoding.
+
+    Owns the draft checkpoint's parameters (``params_from_numpy`` on the
+    engine's device, in the engine's ``dtype``) and its K/V cache pair
+    ``(draft_layers, num_blocks, block_size, draft_kv_heads,
+    draft_head_dim)``.  Its programs are the engine's ``_Program``\\ s of
+    kinds ``draft`` (the k-step proposal loop, over decode-batch buckets)
+    and ``draft_chunk`` (context ingest: the chunk body over the draft
+    config).  The ingest ledger and the acceptance window are guarded by
+    a lock, as in the reference (statusz scrapes read them from other
+    threads).
+    """
+
+    def __init__(self, engine, params, num_heads=None, window=None,
+                 name="gpt", dtype=None):
+        if num_heads is None:
+            raise ValueError("draft num_heads is required (pass "
+                             "draft_num_heads=)")
+        window = 0 if window is None else int(window)
+        if window < 0:
+            raise ValueError(f"draft window must be >= 0 (got {window})")
+        params = normalize_gpt_params(params, name)
+        spec = detect_gpt_variant(params, num_heads, name)
+        if spec["vocab"] != engine.spec["vocab"]:
+            raise ValueError(
+                f"draft vocab ({spec['vocab']}) must match the target's "
+                f"({engine.spec['vocab']}) — drafted token ids feed the "
+                "target verify program directly")
+        if (spec["pos_table"] is not None
+                and spec["pos_table"] < engine.max_model_len):
+            raise ValueError(
+                f"draft positional table ({spec['pos_table']}) is shorter "
+                f"than max_model_len ({engine.max_model_len}) — the draft "
+                "must be able to read every position the target serves")
+        from .engine import _ModelCfg
+
+        self.name = name
+        # the draft cache stays floating point under kv_dtype="int8": it
+        # is small by design, and its contents move only acceptance
+        self.cfg = _ModelCfg(
+            name=name, n_layers=spec["n_layers"], num_heads=int(num_heads),
+            head_dim=spec["head_dim"], kv_heads=spec["kv_heads"],
+            pos_table=spec["pos_table"], swiglu=spec["swiglu"],
+            tied=spec["tied"], rmsnorm=spec["rmsnorm"], window=window,
+            block_size=engine.block_size, kv_quant=False,
+            paged_impl=resolve_paged_impl(engine.block_size,
+                                          spec["head_dim"],
+                                          device=engine.device))
+        self.params = params_from_numpy(params, engine.device, dtype=dtype,
+                                        name=name)
+        dt = self.params[f"{name}_tok_embed_weight"].dtype
+        shape = (spec["n_layers"], engine.num_blocks, engine.block_size,
+                 spec["kv_heads"], spec["head_dim"])
+        self.cache_k = torch.zeros(shape, dtype=dt, device=engine.device)
+        self.cache_v = torch.zeros(shape, dtype=dt, device=engine.device)
+        self.min_accept = env_float(ENV_MIN_ACCEPT, 0.0)
+        self._lock = threading.Lock()
+        # rid -> (preemption epoch, draft-valid positions): which prefix
+        # of the request's context the draft cache holds.  A resume by
+        # recomputation bumps the epoch and forces a full re-ingest into
+        # the request's new block table.
+        self._valid = {}                          # guarded-by: _lock
+        # rolling (k, accepted) per verify
+        self._window = collections.deque(maxlen=WINDOW)  # guarded-by: _lock
+
+    # -- context ingest ------------------------------------------------------
+    def context_gap(self, req):
+        """Positions ``[0, req.cache_len)`` the draft cache does NOT yet
+        hold for ``req`` (0 when drafting can start right away)."""
+        with self._lock:
+            state = self._valid.get(req.rid)
+        if (state is not None and state[0] == req.n_preemptions
+                and state[1] >= req.cache_len):
+            return 0
+        return int(req.cache_len)
+
+    def note_ingested(self, req, n_positions):
+        with self._lock:
+            self._valid[req.rid] = (req.n_preemptions, int(n_positions))
+
+    def note_drafted(self, req, n_positions):
+        """The draft program just wrote K/V through ``n_positions`` (the
+        k-step loop writes every candidate position, so the next
+        iteration has no ingest gap whatever was accepted)."""
+        self.note_ingested(req, n_positions)
+
+    def forget(self, rid):
+        """The request left the engine: drop its ledger entry."""
+        with self._lock:
+            self._valid.pop(rid, None)
+
+    def prune(self, live_rids):
+        """Drop ledger entries of rids no longer running (requests that
+        left between decode iterations never pass :meth:`forget`)."""
+        with self._lock:
+            for rid in [r for r in self._valid if r not in live_rids]:
+                del self._valid[rid]
+
+    # -- acceptance accounting ----------------------------------------------
+    def on_verify(self, k, accepted):
+        """One verify pass proposed ``k`` tokens and the target accepted
+        ``accepted``.  Feeds the rolling window; when the windowed rate
+        sits below ``MXTPU_SPEC_MIN_ACCEPT`` (after ``MIN_WINDOW``
+        verifies) a ``spec_low_acceptance`` dump goes to the telemetry
+        stub (rate-limited per reason)."""
+        with self._lock:
+            self._window.append((int(k), int(accepted)))
+            rate = self._window_rate_locked()
+            n = len(self._window)
+        if (self.min_accept > 0.0 and n >= MIN_WINDOW
+                and rate is not None and rate < self.min_accept):
+            telemetry.dump("spec_low_acceptance",
+                           extra={"accept_rate": round(rate, 4),
+                                  "threshold": self.min_accept,
+                                  "window": n})
+
+    def _window_rate_locked(self):
+        drafted = sum(k for k, _ in self._window)
+        if not drafted:
+            return None
+        return sum(a for _, a in self._window) / drafted
+
+    def accept_rate_window(self):
+        """Acceptance rate over the rolling window (None before any
+        verify)."""
+        with self._lock:
+            rate = self._window_rate_locked()
+        return None if rate is None else round(rate, 4)
+
+    def shutdown(self):
+        """Release the draft's parameters and cache."""
+        self.cache_k = self.cache_v = None
+        self.params = None
+        with self._lock:
+            self._valid.clear()
+
+
+# -- acceptance rule (host side) ---------------------------------------------
+def accept_greedy(drafted_row, target_row, k):
+    """Greedy acceptance for one request: ``drafted_row`` holds the k
+    drafted tokens, ``target_row`` the target's k+1 argmax tokens (row j
+    scored after consuming row j's input).  Returns ``(accepted,
+    emit)``: the agreeing-prefix length and the tokens to emit — the
+    accepted drafts plus the target's own token at the first
+    disagreement (or its bonus token when everything agreed)."""
+    a = 0
+    while a < k and int(drafted_row[a]) == int(target_row[a]):
+        a += 1
+    return a, [int(x) for x in drafted_row[:a]] + [int(target_row[a])]
+
+
+# -- program bodies ------------------------------------------------------------
+# Device tensors in, one device tensor out, no host read (a capture
+# forbids one); caches written in place.
+def _rope_rows(u, pos):
+    """RoPE over arbitrary leading dims: flatten the rows, rotate each
+    by its own position, restore the shape."""
+    from .engine import _rope
+
+    flat = u.reshape((-1,) + tuple(u.shape[-2:]))
+    return _rope(flat, pos.reshape(-1)).reshape(u.shape)
+
+
+def _draft(cfg, k, toks, pos, tables, *, params, ck, cv, ksc=None,
+           vsc=None):
+    """The k-step draft proposal (the reference's ``_build_draft``,
+    greedy): ``k+1`` single-token steps of the draft model.  Step ``j``
+    writes the fed token's K/V at ``pos + j`` through the shared block
+    table and attends through ``paged_attention``; its argmax feeds step
+    ``j + 1``.  A step past the table's last slot gets a zeroed table
+    row (computed on the device), so it writes into the null block
+    instead of aliasing the request's last block.  Steps ``0..k-1``
+    give the (B, k) int32 drafts; step ``k`` only parks the last draft's
+    K/V (its head is skipped), so the next iteration has no ingest gap.
+    The draft cache is never quantized (``ksc``/``vsc`` unused)."""
+    from .engine import _logits, _token_layers
+
+    S = tables.shape[1] * cfg.block_size
+    zero = torch.zeros((), dtype=tables.dtype, device=tables.device)
+    cur, outs = toks, []
+    for j in range(k + 1):
+        tbl = torch.where((pos + j < S)[:, None], tables, zero)
+        x = _token_layers(cfg, params, ck, cv, cur, pos + j, tbl)
+        if j < k:
+            cur = torch.argmax(_logits(cfg, params, x),
+                               dim=-1).to(torch.int32)
+            outs.append(cur)
+    return torch.stack(outs, dim=1)
+
+
+def _verify(cfg, k, rows, pos0, tables, *, params, ck, cv, ksc=None,
+            vsc=None):
+    """The target's verify pass (the reference's ``_build_verify``,
+    greedy): ``rows`` (B, k+1) holds each request's last token and its k
+    drafts at positions ``pos0 .. pos0 + k``.  Every row's K/V is
+    written FIRST (int8 with scales under ``cfg.kv_quant``); a row past
+    the table (``pos >= S``) writes into the null block.  Then each
+    layer gathers each request's whole table once and masks it per row
+    by position (and window): in-window causality is exact without a
+    dense score matrix.  Returns the (B, k+1) int32 argmax, row j's
+    token decided after consuming rows 0..j."""
+    from .engine import _kv_dequant, _ln, _logits, _mlp, _wfc, _write_kv
+
+    name = cfg.name
+    Hq, Hkv, Dh, bs = (cfg.num_heads, cfg.kv_heads, cfg.head_dim,
+                       cfg.block_size)
+    B, K1 = rows.shape
+    dev = rows.device
+    pos = pos0.long()[:, None] + torch.arange(K1, device=dev)[None, :]
+    x = params[f"{name}_tok_embed_weight"][rows.long()]   # (B, K1, D)
+    if cfg.pos_table is not None:
+        # clamp rows past the table: their outputs are dropped
+        x = x + params[f"{name}_pos_embed_weight"][
+            0, pos.clamp(max=cfg.pos_table - 1)]
+    tables = tables.long()
+    W = tables.shape[1]
+    S = W * bs
+    bidx = (pos // bs).clamp(max=W - 1)
+    blk = torch.where(pos < S, tables.gather(1, bidx),
+                      torch.zeros((), dtype=torch.long, device=dev))
+    off = pos % bs
+    spos = torch.arange(S, device=dev)[None, None, :]
+    keep = spos <= pos[:, :, None]                        # (B, K1, S)
+    if cfg.window:
+        keep = keep & (spos > pos[:, :, None] - cfg.window)
+    keep = keep[:, None, None]                            # (B, 1, 1, K1, S)
+    scale = 1.0 / (Dh ** 0.5)
+    for i in range(cfg.n_layers):
+        p = f"{name}_l{i}"
+        h = _ln(x, params[f"{p}_ln1_gamma"],
+                None if cfg.rmsnorm else params[f"{p}_ln1_beta"])
+        qh = _wfc(params, f"{p}_q", h).reshape(B, K1, Hq, Dh)
+        kh = _wfc(params, f"{p}_k", h).reshape(B, K1, Hkv, Dh)
+        vh = _wfc(params, f"{p}_v", h).reshape(B, K1, Hkv, Dh)
+        if cfg.pos_table is None:
+            qh, kh = _rope_rows(qh, pos), _rope_rows(kh, pos)
+        _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh)
+        kb = ck[i][tables].reshape(B, S, Hkv, Dh)
+        vb = cv[i][tables].reshape(B, S, Hkv, Dh)
+        if cfg.kv_quant:
+            kb = _kv_dequant(kb, ksc[i][tables].reshape(B, S, Hkv), x.dtype)
+            vb = _kv_dequant(vb, vsc[i][tables].reshape(B, S, Hkv), x.dtype)
+        qg = qh.reshape(B, K1, Hkv, Hq // Hkv, Dh)
+        sc = torch.einsum("bckgd,bskd->bkgcs", qg, kb) * scale
+        sc = sc.masked_fill(~keep, float("-inf"))
+        pr = torch.softmax(sc.float(), dim=-1).to(x.dtype)
+        at = torch.einsum("bkgcs,bskd->bckgd", pr, vb)
+        x = x + _wfc(params, f"{p}_proj", at.reshape(B, K1, Hq * Dh))
+        x = x + _mlp(cfg, params, p, x)
+    return torch.argmax(_logits(cfg, params, x), dim=-1).to(torch.int32)

@@ -215,20 +215,21 @@ def test_shutdown_cancels_in_flight(model):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(quantize="int8"), "item 7"), (dict(kv_dtype="int8"), "item 7"),
     (dict(host_kv_bytes=1 << 20), "item 8"), (dict(temperature=0.7),
                                               "item 9"),
     (dict(top_p=0.9), "item 9"), (dict(sampling=True), "item 9"),
-    (dict(spec_k=2), "item 10"), (dict(adapters=4), "item 11"),
+    (dict(spec_k=2, temperature=0.7), "item 9"),
+    (dict(adapters=4), "item 11"),
     (dict(aot_dir="/nonexistent"), "item 12"), (dict(tp=2), "item 13"),
-    (dict(symbol=object()), "item 15")])
+    (dict(symbol=object()), "item 15"),
+    (dict(spec_k=2, draft_symbol=object()), "item 15")])
 def test_unported_options_raise_with_their_roadmap_item(kw, item):
     _, params, heads = fx.model("gpt2")
     with pytest.raises(NotImplementedError, match=item):
         mt.serve.Engine(params, num_heads=heads, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("env", ["MXTPU_SERVE_QUANT=int8",
+@pytest.mark.parametrize("env", ["MXTPU_SERVE_HOST_KV_BYTES=1048576",
                                  "MXTPU_SERVE_TP=2"])
 def test_unported_env_knobs_raise(monkeypatch, env):
     name, value = env.split("=")
