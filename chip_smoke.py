@@ -67,7 +67,24 @@ Phases (any failure exits non-zero; nothing is caught):
      traffic, launches as in serve, beside the bf16 engine's numbers; a
      float32 int8-K/V engine's decode-step logits through the kernel and
      the plain path, shown to fail on one block's scales zeroed; and the
-     spec pairs again over int8 K/V;
+     spec pairs again over int8 K/V; the host KV tier (serve_host_kv):
+     tools/serve_bench.py's offload A/B at its defaults (6 prefixes of
+     96 tokens x 6 rounds of 12-token suffixes, 32 new tokens, served
+     one at a time) in float32 on a 23-block cache with the tier off
+     and on (1 GiB), a 343-block cache and a cache-off engine, each
+     warmed: hit rate >= 0.8 of the unconstrained one, >= 2x less
+     prefill compute than tier-off, tokens equal in every arm, no
+     capture in traffic, every restored block read back bit for bit,
+     launches as in serve, a planted layer shift caught, the restore
+     program's staging fence held and shown to bind; the pair over
+     int8 K/V; a bf16 pair's tok/s, fetch ms, restore graph ms and time
+     to first token; per-request sampling (serve_sample): the mixed
+     sampling cycle beside a sampling-off engine (no capture in
+     traffic, greedy rows equal, logprobs shaped), the captured decode
+     graph's draws against the exact warped distribution (TV bound,
+     temperature-ignored fault outside it, seeds), spec-off against
+     spec-on at temperature 0.25 and their two-sample chi-square over
+     192 two-token generations, and one seed's stream repeated;
   4. training: bench.py's on-chip GPT (vocab 32768, S 1024, d_model 512,
      8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier; its depth cut
      from 8 layers to 2) trained by parallel.ShardedTrainer for 2 warm-up
@@ -123,6 +140,7 @@ missing.  The full report is also written to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import re
@@ -547,12 +565,14 @@ def serve_params(seed=0):
 
 def full_width_engine(np_params, dtype, **kw):
     """The serve config's engine at the engine's defaults (prefix cache
-    on, prefill_chunk 512), unless ``kw`` says otherwise."""
+    on, prefill_chunk 512), 512 blocks of 16, batch 8 and 256 tokens,
+    unless ``kw`` says otherwise."""
     from mxnet_tpu_torch import serve
 
+    kw = {"num_blocks": 512, "max_batch": 8, "max_model_len": 256, **kw}
     return serve.Engine(np_params, num_heads=SERVE_CFG["num_heads"],
                         window=0, device=DEVICE, dtype=dtype, block_size=16,
-                        num_blocks=512, max_batch=8, max_model_len=256, **kw)
+                        **kw)
 
 
 def captures_expected(eng, ready):
@@ -932,10 +952,14 @@ def repeat_heavy_prompts(seed=3):
     return out
 
 
-def drive(eng, prompts, new_tokens=32):
+def drive(eng, prompts, new_tokens=32, cfg_fn=None, sequential=False,
+          reqs_out=None):
     """Serve ``prompts`` once through the engine's entry points, the
     paged counters set to 0 just before and read just after; the wall
-    ms of each decode-only step (nothing queued)."""
+    ms of each decode-only step (nothing queued).  ``cfg_fn(i)`` gives
+    request i's sampling kwargs; ``sequential`` serves one request at a
+    time, each to its end (tools/serve_bench.py's concurrency 1);
+    ``reqs_out`` (a list) receives the request handles."""
     from mxnet_tpu_torch.ops import paged_attention_cuda as pac
 
     calls0 = {k: p.calls for k, p in eng._programs.items()}
@@ -943,8 +967,13 @@ def drive(eng, prompts, new_tokens=32):
     torch.cuda.synchronize()
     pac.launches = pac.combine_launches = 0
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    reqs = []
     step_ms = []
+    for i, p in enumerate(prompts):
+        reqs.append(eng.submit(p, max_new_tokens=new_tokens,
+                               **(cfg_fn(i) if cfg_fn else {})))
+        if sequential:
+            eng.run()
     while eng.has_work():
         decode_only = (eng.scheduler.queue_depth == 0
                        and bool(eng.scheduler.running))
@@ -961,6 +990,8 @@ def drive(eng, prompts, new_tokens=32):
         if n:
             calls[kind] = calls.get(kind, 0) + n
     st = eng.stats()
+    if reqs_out is not None:
+        reqs_out.extend(reqs)
     return {"tokens": [r.tokens for r in reqs],
             "finished": all(r.status == "finished"
                             and len(r.tokens) == new_tokens for r in reqs),
@@ -1204,6 +1235,527 @@ def serve_int8(np_params, serve_row, serve_toks):
     if not ok:
         raise SystemExit("int8 serving failed its checks")
     return rows
+
+
+# -- serving: the host KV tier (offload A/B) ---------------------------------
+# tools/serve_bench.py's offload workload at its defaults:
+# --offload-prefixes 6 --continuations 6 --prefix-len 96 --suffix-len 12
+# --max-new 32, block 16, concurrency 1 (sequential)
+OFFLOAD = dict(prefixes=6, continuations=6, prefix_len=96, suffix_len=12,
+               max_new=32)
+HOST_KV_BYTES = 1 << 30
+
+
+def offload_workload(seed=0):
+    """tools/serve_bench.py ``build_offload_workload``: 6 prompts of 96
+    tokens x 6 rounds of 12-token suffixes, prefix-major (each round
+    touches every prefix once)."""
+    rng = np.random.RandomState(seed)
+    V = SERVE_CFG["vocab"]
+    prefixes = [rng.randint(0, V, (OFFLOAD["prefix_len"],)).astype(np.int32)
+                for _ in range(OFFLOAD["prefixes"])]
+    return [np.concatenate([p, rng.randint(0, V, (OFFLOAD["suffix_len"],))
+                            .astype(np.int32)])
+            for _ in range(OFFLOAD["continuations"]) for p in prefixes]
+
+
+def offload_blocks():
+    """tools/serve_bench.py ``run_offload``'s cache sizes: a small cache
+    holding the live request plus about two prefix chains, and one no
+    request of the workload ever evicts from."""
+    from mxnet_tpu_torch.serve.kv_block_manager import blocks_for
+
+    sp_len = OFFLOAD["prefix_len"] + OFFLOAD["suffix_len"] + OFFLOAD["max_new"]
+    chain = blocks_for(OFFLOAD["prefix_len"], 16)
+    small = 1 + 2 * chain + blocks_for(sp_len + 1, 16) + 1
+    n = OFFLOAD["prefixes"] * OFFLOAD["continuations"]
+    big = 1 + (n + 2) * blocks_for(sp_len + 1, 16)
+    return sp_len, small, big
+
+
+def raw(t):
+    """A tensor's bytes, for bit-for-bit comparisons."""
+    return t.contiguous().view(torch.uint8)
+
+
+def restore_probe(eng, read_back=True):
+    """Time each eviction's device->host fetch on ``eng`` (a synchronous
+    copy: timing it adds no sync), each restore call and each prefill
+    call (host time); with ``read_back``, after each
+    ``_restore_pending`` the drained blocks are read back from the cache
+    and held against the host copies they were restored from, bit for
+    bit (extra syncs: not on a timed arm)."""
+    probe = {"blocks": 0, "mismatched": 0, "fetches": [], "restores": [],
+             "prefills": []}
+    drained = []
+    take, restore, fetch = (eng.blocks.take_pending_restores,
+                            eng._restore_pending, eng._host_kv_fetch)
+
+    def take_and_keep():
+        out = take()
+        drained[:] = out
+        return out
+
+    def restore_and_read_back():
+        restore()
+        if not read_back:
+            return
+        caches = (eng._cache_k, eng._cache_v, eng._scale_k, eng._scale_v)
+        for blk, arrays in drained:
+            probe["blocks"] += 1
+            if not all(torch.equal(raw(c[:, blk].cpu()), raw(a))
+                       for c, a in zip(caches, arrays)):
+                probe["mismatched"] += 1
+        drained.clear()
+
+    def timed(fn, log):
+        def run(*args, **kw):
+            t0 = time.monotonic()  # the engine's clock (time to first token)
+            out = fn(*args, **kw)
+            log.append((t0, time.monotonic()))
+            return out
+        return run
+
+    eng.blocks.take_pending_restores = take_and_keep
+    eng._restore_pending = timed(restore_and_read_back, probe["restores"])
+    eng.blocks.set_offload_source(timed(fetch, probe["fetches"]))
+    eng._run_prefill = timed(eng._run_prefill, probe["prefills"])
+    return probe
+
+
+def ttft_split(probe, reqs):
+    """Mean host ms, inside each request's time to first token, of the
+    eviction fetches, of the restore calls (staging and enqueue: the
+    restore does not wait for the device) and of the prefill call (its
+    program waits for the device, the restore's scatter included); the
+    rest is the scheduler's host work."""
+    def inside(log, r):
+        return sum(1e3 * max(0.0, min(b, r.first_token_t)
+                             - max(a, r.submit_t)) for a, b in log)
+    return {name: statistics.mean(inside(probe[name], r) for r in reqs)
+            for name in ("fetches", "restores", "prefills")}
+
+
+def staging_fence_check(eng):
+    """The restore program's pinned staging, twice back to back behind a
+    long kernel on the stream, each call writing its own value into its
+    own two blocks (zeroed first): with the program's event the second
+    ``stage()`` waits for the first copy and both land; with the event
+    removed (the planted fault) the first copy reads the refilled
+    buffer.  Returns (fenced right, unfenced caught)."""
+    prog = eng._programs[("restore", 2)]
+    event = prog._copied
+    caches = (eng._cache_k, eng._cache_v)
+
+    def trial(fenced, base):
+        for c in caches:
+            c[:, 1:5] = 0
+        prog._copied = event if fenced else None
+        for call, blks in enumerate(([1, 2], [3, 4])):
+            torch.cuda._sleep(50_000_000)
+            h = prog.stage()
+            h["blks"][:] = blks
+            for n in ("hk", "hv"):
+                torch.as_tensor(h[n]).fill_(float(base + call))
+            prog()
+        torch.cuda.synchronize()
+        prog._copied = event
+        return all(bool((c[:, blks] == base + call).all())
+                   for call, blks in enumerate(([1, 2], [3, 4]))
+                   for c in caches)
+
+    return trial(True, 1), not trial(False, 3)
+
+
+def offload_arm(np_params, dtype, num_blocks, work, probe=None, **kw):
+    """One warmed engine serving ``work`` sequentially; its drive row,
+    stats and host-tier view, and with ``probe`` the restore probe's
+    (``"timed"``: times only, no read-back)."""
+    sp_len = offload_blocks()[0]
+    eng = full_width_engine(np_params, dtype, num_blocks=num_blocks,
+                            max_batch=1, max_model_len=sp_len,
+                            max_queue=len(work) + 1, **kw)
+    row = warm(eng)
+    pr = (restore_probe(eng, read_back=probe != "timed") if probe
+          else None)
+    reqs = []
+    row.update(drive(eng, work, OFFLOAD["max_new"], sequential=True,
+                     reqs_out=reqs))
+    st = eng.stats()
+    row.update(prefix_hit_rate=st.prefix_hit_rate,
+               prefill_tokens_computed=st.prefill_tokens_computed,
+               prefix_discarded_tokens=st.prefix_discarded_tokens,
+               host_kv_hits=st.host_kv_hits,
+               host_kv_restored_tokens=st.host_kv_restored_tokens,
+               host_kv_offloads=st.host_kv_offloads,
+               host_kv=eng.host_kv_stats(),
+               ttft_ms_after_round_1=statistics.mean(
+                   1e3 * r.ttft() for r in reqs[OFFLOAD["prefixes"]:]),
+               launches_ok=(row["kernel_launches"]
+                            == expected_launches(eng, row) > 0
+                            and row["combine_launches"]
+                            == row["kernel_launches"]))
+    if pr is not None:
+        fetch_ms = [1e3 * (b - a) for a, b in pr["fetches"]]
+        row["restore_probe"] = {
+            "blocks": pr["blocks"], "mismatched": pr["mismatched"],
+            "fetch_ms_per_block": (statistics.median(fetch_ms)
+                                   if fetch_ms else None),
+            "ttft_ms_after_round_1_inside": ttft_split(
+                pr, reqs[OFFLOAD["prefixes"]:])}
+    return eng, row
+
+
+def serve_host_kv(np_params):
+    """tools/serve_bench.py's offload A/B at its defaults on the serve
+    model: the 36-request prefix-major workload served sequentially by
+    four warmed engines, in float32 (TF32 off), where identity is
+    judged: the small cache (23 blocks) with the host tier off and on
+    (1 GiB), an unconstrained cache (343 blocks) and a cache-off cold
+    engine.  Held: the tier recovers >= 0.8 of the unconstrained hit
+    rate, the tier-off engine computes >= 2x the prefill tokens of the
+    tier-on one, every arm's tokens equal the cold engine's, traffic
+    captures nothing, every restored block read back from the cache
+    equals its host copy bit for bit, and the paged launches equal
+    layers x decode steps.  The pair again over int8 K/V (tokens equal
+    within the pair).  A planted fault (host copies shifted by one
+    layer) must change tokens; the restore program's staging fence
+    must hold, and fail with its event removed.  A bf16 pair reports
+    tok/s, the fetch ms a block, each restore bucket's graph ms and
+    the time to first token on restored against recomputed prefixes."""
+    sp_len, small, big = offload_blocks()
+    work = offload_workload()
+    f32 = torch.float32
+    arms, engines = {}, {}
+    for tag, nb, kw in (("cold", big, dict(prefix_cache=False)),
+                        ("unconstrained", big, {}),
+                        ("off", small, {}),
+                        ("on", small, dict(host_kv_bytes=HOST_KV_BYTES))):
+        eng, row = offload_arm(np_params, f32, nb, work, probe=tag == "on",
+                               **kw)
+        arms[tag] = row
+        engines[tag] = eng
+    on = engines.pop("on")
+    fence_ok, fence_fault_caught = staging_fence_check(on)
+    on.shutdown()
+    for eng in engines.values():
+        eng.shutdown()
+    cold = arms["cold"]["tokens"]
+    ident = {tag: arms[tag]["tokens"] == cold
+             for tag in ("unconstrained", "off", "on")}
+    # the planted fault: host copies shifted by one layer on the way in
+    eng = full_width_engine(np_params, f32, num_blocks=small, max_batch=1,
+                            max_model_len=sp_len, max_queue=len(work) + 1,
+                            host_kv_bytes=HOST_KV_BYTES)
+    fetch = eng._host_kv_fetch
+    eng.blocks.set_offload_source(
+        lambda blk: tuple(torch.roll(a, 1, 0) for a in fetch(blk)))
+    n2 = 2 * OFFLOAD["prefixes"]
+    planted = drive(eng, work[:n2], OFFLOAD["max_new"], sequential=True)
+    planted_caught = (eng.stats().host_kv_hits > 0
+                      and planted["tokens"] != cold[:n2])
+    eng.shutdown()
+    # the pair over int8 K/V: identity within the pair
+    int8 = {}
+    for tag, kw in (("off", {}), ("on", dict(host_kv_bytes=HOST_KV_BYTES))):
+        eng, int8[tag] = offload_arm(np_params, f32, small, work,
+                                     kv_dtype="int8", **kw)
+        eng.shutdown()
+    int8_ident = int8["on"]["tokens"] == int8["off"]["tokens"]
+    # the bf16 pair: what the tier costs and saves
+    bf16 = {}
+    for tag, kw in (("off", {}), ("on", dict(host_kv_bytes=HOST_KV_BYTES))):
+        eng, bf16[tag] = offload_arm(np_params, torch.bfloat16, small, work,
+                                     probe="timed" if tag == "on" else None,
+                                     **kw)
+        if tag == "on":
+            bf16[tag]["restore_graph_ms"] = {
+                b: graph_ms(eng, "restore", b)
+                for b in sorted(b for k, b in eng._programs
+                                if k == "restore")}
+        eng.shutdown()
+    for rows in (arms, int8, bf16):
+        for r in rows.values():
+            r.pop("tokens")
+    on, off, ref = arms["on"], arms["off"], arms["unconstrained"]
+    recovery = on["prefix_hit_rate"] / ref["prefix_hit_rate"]
+    ratio = off["prefill_tokens_computed"] / on["prefill_tokens_computed"]
+    every = [*arms.values(), *int8.values(), *bf16.values()]
+    ok = (recovery >= 0.8 and ratio >= 2.0 and all(ident.values())
+          and int8_ident and int8["on"]["host_kv_hits"] > 0
+          and on["host_kv_hits"] > 0
+          and on["restore_probe"]["blocks"] > 0
+          and on["restore_probe"]["mismatched"] == 0
+          and bf16["on"]["restore_probe"]["fetch_ms_per_block"] is not None
+          and all(r["finished"] and r["warmup_ok"] and r["launches_ok"]
+                  and r["traffic_captures"] == 0 for r in every)
+          and planted_caught and fence_ok and fence_fault_caught)
+    emit({"phase": "serve_host_kv", "dtype": "float32",
+          "tf32": torch.backends.cuda.matmul.allow_tf32,
+          "workload": {**OFFLOAD, "requests": len(work)},
+          "num_blocks_small": small, "num_blocks_unconstrained": big,
+          "host_kv_bytes": HOST_KV_BYTES, "max_model_len": sp_len,
+          "hit_rate_recovery": recovery, "bar_hit_rate_recovery": 0.8,
+          "prefill_compute_ratio": ratio, "bar_prefill_compute_ratio": 2.0,
+          "tokens_identical": ident, "float32": arms,
+          "int8_kv": int8, "int8_tokens_identical": int8_ident,
+          "bf16": bf16,
+          "bf16_ttft_ms_restored_over_recomputed": (
+              bf16["on"]["ttft_ms_after_round_1"]
+              / bf16["off"]["ttft_ms_after_round_1"]),
+          "planted_fault": "host copies shifted by one layer",
+          "planted_caught": planted_caught,
+          "staging_fence_ok": fence_ok,
+          "staging_fence_fault_caught": fence_fault_caught, "ok": ok})
+    if not ok:
+        raise SystemExit("host KV tier failed its checks")
+    return {"float32_on": on, "bf16_on": bf16["on"], "int8_on": int8["on"]}
+
+
+# -- serving: per-request sampling -------------------------------------------
+# tools/serve_bench.py's sampling workload: SAMPLING_CYCLE (:341-347),
+# --sampling-temp 0.25, --agreement-samples 192
+SAMPLING_CYCLE = (
+    {},
+    {"temperature": 0.7},
+    {"temperature": 1.0, "top_k": 8},
+    {"temperature": 0.9, "top_p": 0.8},
+    {"temperature": 0.25, "top_k": 16, "logprobs": 2},
+)
+SAMPLING_TEMP = 0.25
+AGREEMENT_SAMPLES = 192
+# the pooled two-sample chi-square of two samples of one distribution
+# sits near z = 0 (its df away from the statistic, over sqrt(2 df));
+# tests/test_sampling.py's bound
+AGREEMENT_Z = 5.0
+# draws of the captured decode graph against the exact warped
+# distribution p: N draws sit E = 0.5 * sum_i sqrt(2 p_i (1 - p_i) / (pi N))
+# away in TV on average (each empirical share's mean absolute error);
+# held at SAMPLER_TV_FACTOR x E, computed from this run's p
+SAMPLER_TV_FACTOR = 2.0
+
+
+def sampling_config(i):
+    return dict(SAMPLING_CYCLE[i % len(SAMPLING_CYCLE)])
+
+
+def two_sample_chisq(a, b, min_count=10):
+    """tools/serve_bench.py ``_two_sample_chisq``: (z, TV, categories)
+    of two samples, rare categories folded together."""
+    ca, cb = collections.Counter(a), collections.Counter(b)
+    cats = [c for c in set(ca) | set(cb)
+            if ca.get(c, 0) + cb.get(c, 0) >= min_count]
+    other = [c for c in set(ca) | set(cb) if c not in cats]
+    na, nb = len(a), len(b)
+    rows = [(ca.get(c, 0), cb.get(c, 0)) for c in cats]
+    if other:
+        rows.append((sum(ca.get(c, 0) for c in other),
+                     sum(cb.get(c, 0) for c in other)))
+    stat = 0.0
+    for xa, xb in rows:
+        tot = xa + xb
+        ea, eb = tot * na / (na + nb), tot * nb / (na + nb)
+        stat += (xa - ea) ** 2 / ea if ea > 0 else 0.0
+        stat += (xb - eb) ** 2 / eb if eb > 0 else 0.0
+    df = max(1, len(rows) - 1)
+    return ((stat - df) / (2 * df) ** 0.5,
+            0.5 * sum(abs(xa / na - xb / nb) for xa, xb in rows), len(rows))
+
+
+def sampler_check(eng, calls=500):
+    """The captured sampling-mode decode graph at bucket 8 on fixed
+    inputs (8 rows of one token, position and table), replayed
+    ``calls`` times with fresh seeds: the pooled draws against the mean
+    of the 8 rows' ``_filtered_probs_full`` of the eager decode's logits
+    on the same cache (the rows agree but for the order of tied bf16
+    logits at a filter's edge), within SAMPLER_TV_FACTOR times the TV
+    the draws' own noise gives on average, for two
+    configurations at temperature 0.25; the draws against the
+    distribution with temperature ignored (the planted fault) must fall
+    outside it.  Also: one seed twice draws the same rows, two seeds
+    different ones."""
+    from mxnet_tpu_torch.serve import engine as engine_mod
+
+    prog = eng._programs[("decode", 8)]
+    cfg = eng._cfg
+    rows = {}
+    for tag, (t, p, k) in (("temp0.25_topk8", (0.25, 1.0, 8)),
+                           ("temp0.25_topp0.8", (0.25, 0.8, 0))):
+        def call(seed):
+            h = prog.stage()
+            h["toks"][:] = 11
+            h["pos"][:] = 20
+            h["tables"][:, :2] = [1, 2]
+            h["temp"][:], h["topp"][:], h["topk"][:] = t, p, k
+            h["seed"][0] = seed
+            return prog()[0]
+        draws = np.concatenate([call(s) for s in range(calls)])
+        same = call(7).tolist() == call(7).tolist()
+        differ = call(7).tolist() != call(8).tolist()
+        dev = eng._cache_k.device
+        inputs = (torch.full((8,), 11, dtype=torch.int32, device=dev),
+                  torch.full((8,), 20, dtype=torch.int32, device=dev),
+                  torch.zeros((8, eng.table_width), dtype=torch.int32,
+                              device=dev))
+        inputs[2][:, :2] = torch.tensor([1, 2], device=dev)
+        with torch.no_grad():
+            logits = engine_mod._forward_token_batch(
+                cfg, eng.params, eng._cache_k.clone(),
+                eng._cache_v.clone(), *inputs)
+
+        def exact(temp):
+            one = torch.ones(8, device=dev)
+            return engine_mod._filtered_probs_full(
+                cfg, logits, one * temp, one * p,
+                torch.full((8,), k, dtype=torch.int32,
+                           device=dev)).mean(dim=0)
+
+        def tv(probs):
+            got = np.bincount(draws, minlength=probs.numel()) / draws.size
+            return 0.5 * float(np.abs(got - probs.cpu().numpy()).sum())
+
+        want = exact(t)
+        pw = want.double().cpu().numpy()
+        noise = 0.5 * float(np.sqrt(2 * pw * (1 - pw)
+                                    / (np.pi * draws.size)).sum())
+        rows[tag] = {"draws": int(draws.size),
+                     "candidates": int((want > 0).sum()),
+                     "tv": tv(want), "expected_tv_noise": noise,
+                     "bound": SAMPLER_TV_FACTOR * noise,
+                     "tv_temperature_ignored": tv(exact(1.0)),
+                     "outside_support": int((want.cpu().numpy()[draws]
+                                             == 0).sum()),
+                     "same_seed_same_draws": same,
+                     "two_seeds_differ": differ}
+    ok = all(r["tv"] <= r["bound"] < r["tv_temperature_ignored"]
+             and r["outside_support"] == 0 and r["same_seed_same_draws"]
+             and r["two_seeds_differ"] for r in rows.values())
+    return rows, ok
+
+
+def seeded_streams(np_params):
+    """Two engines with one seed serve the same stream; another seed
+    another stream (4 prompts, 8 tokens at temperature 1, no warm-up)."""
+    out = []
+    for seed in (5, 5, 6):
+        eng = full_width_engine(np_params, torch.bfloat16, sampling=True,
+                                seed=seed)
+        reqs = [eng.submit(p, max_new_tokens=8, temperature=1.0)
+                for p in serve_prompts(4)[:4]]
+        eng.run()
+        out.append([r.tokens for r in reqs])
+        eng.shutdown()
+    return out[0] == out[1], out[0] != out[2]
+
+
+def serve_sample(np_params):
+    """tools/serve_bench.py's sampling workload on the serve model,
+    bf16, every engine warmed over its full grid first: (1) the mixed
+    SAMPLING_CYCLE on the serve phase's 8 prompts (32 new tokens) beside
+    a sampling-off engine: no capture in traffic, the greedy rows equal
+    the sampling-off engine's, the logprob outputs shaped as asked,
+    the launches as in serve; the sampled decode graph's ms against the
+    greedy one's; the sampler check on the card; (2) serve_spec's
+    damped target spec-off against spec-on at temperature 0.25
+    (rejection sampling), tok/s and the stochastic acceptance rate;
+    (3) 192 two-token generations an arm, spec-off against spec-on,
+    by the pooled two-sample chi-square (|z| < AGREEMENT_Z); (4) two
+    engines with one seed emit one stream."""
+    prompts = serve_prompts(0)
+    greedy = full_width_engine(np_params, torch.bfloat16)
+    samp = full_width_engine(np_params, torch.bfloat16, sampling=True)
+    rows, reqs = {}, []
+    for tag, eng, cfg in (("greedy", greedy, None),
+                          ("sampling", samp, sampling_config)):
+        rows[tag] = {**warm(eng), **drive(eng, prompts, cfg_fn=cfg,
+                                          reqs_out=reqs if cfg else None)}
+        rows[tag]["decode_graph_ms_b8"] = graph_ms(eng, "decode", 8)
+        rows[tag]["launches_ok"] = (rows[tag]["kernel_launches"]
+                                    == expected_launches(eng, rows[tag]) > 0)
+    gt, st = rows["greedy"]["tokens"], rows["sampling"]["tokens"]
+    greedy_rows = [i for i in range(len(prompts)) if not sampling_config(i)]
+    greedy_equal = all(gt[i] == st[i] for i in greedy_rows)
+    logprobs_ok = all(
+        len(r.token_logprobs) == len(r.tokens)
+        and len(r.top_logprobs) == (len(r.tokens)
+                                    if sampling_config(i).get("logprobs")
+                                    else 0)
+        and all(len(x) == sampling_config(i).get("logprobs", 0)
+                for x in r.top_logprobs)
+        for i, r in enumerate(reqs))
+    sampler, sampler_ok = sampler_check(samp)
+    # where a sampled decode step's time goes, beside the greedy one's
+    profiles = {tag: serve_profile(eng, prompts)
+                for tag, eng in (("greedy", greedy), ("sampling", samp))}
+    prof_ok = all(p["counted_paged_launches"] == p["traced_paged_kernels"]
+                  for p in profiles.values())
+    greedy.shutdown()
+    samp.shutdown()
+    # spec-off against spec-on at temperature 0.25
+    target, draft = distill_family(np_params, SERVE_CFG["num_layers"])
+    off, on = spec_engines(target, draft, torch.bfloat16, sampling=True,
+                           max_queue=AGREEMENT_SAMPLES + 1)
+    stoch = lambda i: {"temperature": SAMPLING_TEMP}   # noqa: E731
+    spec = {}
+    pairs = {}
+    pair_prompt = [repeat_heavy_prompts()[0]] * AGREEMENT_SAMPLES
+    for tag, eng in (("off", off), ("on", on)):
+        spec[tag] = {**warm(eng), **drive(eng, repeat_heavy_prompts(),
+                                          cfg_fn=stoch)}
+        st_ = eng.stats()
+        spec[tag].update(
+            spec_accept_rate_stochastic=st_.spec_accept_rate_stochastic,
+            launches_ok=(spec[tag]["kernel_launches"]
+                         == expected_launches(eng, spec[tag]) > 0))
+        row = drive(eng, pair_prompt, 2, cfg_fn=stoch)
+        pairs[tag] = [tuple(t) for t in row["tokens"] if len(t) == 2]
+        spec[tag]["agreement_traffic_captures"] = row["traffic_captures"]
+    spec["on"]["verify_graph_ms_b8"] = graph_ms(on, "verify", 8)
+    spec["on"]["draft_graph_ms_b8"] = graph_ms(on, "draft", 8)
+    off.shutdown()
+    on.shutdown()
+    z, tv, ncat = two_sample_chisq(pairs["off"], pairs["on"])
+    same_seed, other_seed = seeded_streams(np_params)
+    for r in (*rows.values(), *spec.values()):
+        r.pop("tokens")
+    r_on = spec["on"]
+    ok = (all(r["finished"] and r["warmup_ok"] and r["traffic_captures"] == 0
+              and r["launches_ok"]
+              for r in (*rows.values(), *spec.values()))
+          and all(r["agreement_traffic_captures"] == 0
+                  for r in spec.values())
+          and greedy_equal and logprobs_ok and sampler_ok and prof_ok
+          and r_on["spec_verifies"] > 0
+          and min(len(p) for p in pairs.values()) == AGREEMENT_SAMPLES
+          and abs(z) < AGREEMENT_Z and same_seed and other_seed)
+    emit({"phase": "serve_sample", "dtype": "bfloat16",
+          "cycle": [dict(c) for c in SAMPLING_CYCLE],
+          "prompt_lens": [len(p) for p in prompts], "new_tokens": 32,
+          "greedy": rows["greedy"], "sampling": rows["sampling"],
+          "sampled_over_greedy_decode_graph": (
+              rows["sampling"]["decode_graph_ms_b8"]
+              / rows["greedy"]["decode_graph_ms_b8"]
+              if rows["greedy"]["decode_graph_ms_b8"] else None),
+          "sampled_over_greedy_decode_step": (
+              rows["sampling"]["decode_step_ms_mean"]
+              / rows["greedy"]["decode_step_ms_mean"]),
+          "profiles": {tag: {k: p[k] for k in (
+              "decode_steps", "kernel_ms_per_step", "wall_ms_per_step",
+              "ms_per_step_by_kind", "top_kernels_ms_per_step")}
+              for tag, p in profiles.items()},
+          "greedy_rows": greedy_rows, "greedy_rows_equal": greedy_equal,
+          "logprobs_ok": logprobs_ok, "sampler": sampler,
+          "spec_temperature": SAMPLING_TEMP, "spec_off": spec["off"],
+          "spec_on": r_on,
+          "tok_per_s_on_over_off": r_on["tok_per_s"]
+          / spec["off"]["tok_per_s"],
+          "agreement": {"samples": AGREEMENT_SAMPLES, "z": z, "tv": tv,
+                        "categories": ncat, "bound_abs_z": AGREEMENT_Z},
+          "same_seed_same_stream": same_seed,
+          "other_seed_other_stream": other_seed, "ok": ok})
+    if not ok:
+        raise SystemExit("sampled serving failed its checks")
+    return {"sampling": rows["sampling"], "spec_on": r_on}
 
 
 def small_model_check():
@@ -1756,7 +2308,9 @@ def _kernel_kind(name):
                       ("nvjet", "matmul"),
                       ("softmax", "softmax"), ("embedding", "embedding"),
                       ("reduce", "reduction"), ("elementwise", "elementwise"),
-                      ("vectorized", "elementwise"), ("copy", "copy")):
+                      ("vectorized", "elementwise"), ("copy", "copy"),
+                      ("topk", "topk_sort"), ("sort", "topk_sort"),
+                      ("radix", "topk_sort"), ("scan", "scan")):
         if key in low:
             return kind
     return "other"
@@ -2665,8 +3219,12 @@ def main():
     int8 = serve_int8(np_params, serve, serve_toks)
     int8_logits_check(np_params)
     serve_spec(np_params, kv_dtype="int8")
-    del np_params
     lap("serve_int8")
+    host_kv = serve_host_kv(np_params)
+    lap("serve_host_kv")
+    sample = serve_sample(np_params)
+    del np_params
+    lap("serve_sample")
 
     train = train_main_path()
     train_grad_check()
@@ -2702,14 +3260,25 @@ def main():
     main_t = timings[("decode", "bfloat16")]
     q8_t = timings[("decode", "int8_bf16q")]
     # the paged op's launches on each main path's drive: the serve
-    # engine's decode, the spec engine's draft, the int8 engines' decode
+    # engine's decode, the spec engine's draft, the int8 engines' decode,
+    # the host-tier engines' decode over restored blocks (float32, bf16,
+    # int8 K/V), the sampling engine's decode and the sampling spec
+    # engine's draft
     paged_paths = {"serve": (serve["kernel_launches"],
                              serve["combine_launches"]),
                    "serve_spec_draft": (spec["spec_on"]["kernel_launches"],
                                         spec["spec_on"]["combine_launches"]),
                    **{f"serve_{k}": (r["kernel_launches"],
                                      r["combine_launches"])
-                      for k, r in int8.items()}}
+                      for k, r in int8.items()},
+                   **{f"serve_host_kv_{k}": (r["kernel_launches"],
+                                             r["combine_launches"])
+                      for k, r in host_kv.items()},
+                   "serve_sample": (sample["sampling"]["kernel_launches"],
+                                    sample["sampling"]["combine_launches"]),
+                   "serve_sample_spec_draft": (
+                       sample["spec_on"]["kernel_launches"],
+                       sample["spec_on"]["combine_launches"])}
     kernels = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
         "cuda_kernels": ["paged_attention_split", "paged_attention_combine"],

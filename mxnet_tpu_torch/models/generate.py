@@ -1,4 +1,4 @@
-"""Incremental (KV-cache) greedy decoding for the GPT model family.
+"""Incremental (KV-cache) decoding for the GPT model family.
 
 The port of ``mxnet_tpu/models/generate.py``.  The reference runs the
 whole generation loop as one ``lax.scan`` inside one jit; PyTorch runs
@@ -7,6 +7,12 @@ cache updated in place.  The numerics keep the reference's cast points:
 norms, softmax, GELU and SiLU in float32, matmuls in the activation
 dtype.  :func:`gpt_generate` is the single-request oracle the serving
 engine is held against.
+
+Random draws (:func:`_uniform`, :func:`_gumbel`) come from a
+counter-based hash of (seed, purpose, element index) in int64 torch ops,
+every intermediate product under 2^63, so the CPU and CUDA give the
+same bits, and a CUDA graph that takes the seed as an input draws afresh
+at every replay.
 """
 
 from __future__ import annotations
@@ -19,6 +25,41 @@ import torch
 from ..context import resolve_device
 
 __all__ = ["gpt_generate", "normalize_gpt_params", "detect_gpt_variant"]
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A bijection of 32-bit values held in int64 (two xorshift-multiply
+    rounds; each product < 2^59)."""
+    x = x ^ (x >> 16)
+    x = (x * 0x45D9F3B) & _M32
+    x = x ^ (x >> 16)
+    x = (x * 0x45D9F3B) & _M32
+    return x ^ (x >> 16)
+
+
+def _uniform(seed, purpose, shape, device):
+    """float32 uniforms in (0, 1), one per element of ``shape``: 23 bits
+    of the hash of (seed, purpose, the element's index along each dim),
+    centred in their cell, so the largest is 1 - 2^-24, exact in float32
+    (24 bits would round it to 1.0, and its Gumbel noise to infinity).
+    ``seed`` is an int or an integer tensor of one element (on the
+    device: a program input)."""
+    seed = torch.as_tensor(seed, device=device).reshape(-1)[:1].long()
+    h = _mix32((seed & _M32) ^ ((purpose * 0x9E3779B1) & _M32))
+    nd = len(shape)
+    for d, n in enumerate(shape):
+        at = [1] * nd
+        at[d] = n
+        h = _mix32(h ^ torch.arange(n, device=device).view(at))
+    return ((h >> 9).float() + 0.5) * (1.0 / (1 << 23))
+
+
+def _gumbel(seed, purpose, shape, device):
+    """Standard Gumbel noise of :func:`_uniform`: ``argmax(logits +
+    noise)`` draws from ``softmax(logits)``."""
+    return -torch.log(-torch.log(_uniform(seed, purpose, shape, device)))
 
 
 def _ln(x, gamma, beta, eps=1e-5):
@@ -139,24 +180,26 @@ def _rot(u, t):
 @torch.no_grad()
 def gpt_generate(params, prompt, max_new_tokens, num_heads=None,
                  temperature=0.0, top_k=None, window=None, name="gpt",
-                 device="cuda", dtype=None):
-    """Greedy continuation of ``prompt`` (batch, prompt_len) with a KV
-    cache; returns ``(batch, prompt_len + max_new_tokens)`` numpy int32
-    ids, prompt included.
+                 device="cuda", dtype=None, seed=0):
+    """Continuation of ``prompt`` (batch, prompt_len) with a KV cache;
+    returns ``(batch, prompt_len + max_new_tokens)`` numpy int32 ids,
+    prompt included.
 
     ``params`` is a gpt() parameter dict (numpy arrays, or torch
     tensors); it is carried to ``device`` (default ``"cuda"``, which
     raises when CUDA is absent) in ``dtype`` (default: the checkpoint's
     own).  ``num_heads`` and ``window`` (the radius the model was
     trained with, 0 = full attention) are not recoverable from weight
-    shapes and must be passed.  Sampling (``temperature > 0``) is not
-    ported yet (ROADMAP §A item 9)."""
+    shapes and must be passed.  ``temperature`` 0.0 is greedy argmax;
+    otherwise each token is drawn from ``softmax(logits / temperature)``,
+    restricted to the ``top_k`` largest logits when given (ties at the
+    k-th kept, as the reference's sort threshold keeps them), by
+    Gumbel-max over :func:`_gumbel` noise of (``seed``, position, row,
+    token): the reference's categorical, from another generator (its
+    ``key`` becomes ``seed``)."""
     from ..convert import params_from_numpy
 
-    if temperature or top_k:
-        raise NotImplementedError(
-            "gpt_generate: only greedy decoding (temperature=0) is ported;"
-            " sampling waits for ROADMAP §A item 9")
+    temperature = float(temperature)
     prompt = np.asarray(prompt)
     if prompt.ndim != 2:
         raise ValueError("prompt must be (batch, prompt_len)")
@@ -245,10 +288,20 @@ def gpt_generate(params, prompt, max_new_tokens, num_heads=None,
         return _fc(final, params[f"{name}_head_weight"],
                    params[f"{name}_head_bias"])
 
+    def sample(logits, t):
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1)
+        logits = logits.float() / temperature
+        if top_k is not None:
+            kth = torch.sort(logits, dim=-1).values[:, -int(top_k)][:, None]
+            logits = logits.masked_fill(logits < kth, float("-inf"))
+        return torch.argmax(logits + _gumbel(seed, t, logits.shape, dev),
+                            dim=-1)
+
     ids = [prompt_t[:, t] for t in range(P)]
     for t in range(T - 1):
         tok = prompt_t[:, t] if t < P else ids[t]
-        sampled = torch.argmax(step_token(tok, t), dim=-1)
+        logits = step_token(tok, t)
         if t >= P - 1:
-            ids.append(sampled)
+            ids.append(sample(logits, t))
     return torch.stack(ids, dim=1).to(torch.int32).cpu().numpy()

@@ -50,11 +50,24 @@ attend through ``ops.attention.paged_attention``, the Hopper kernel on
 CUDA (int8 K/V dequantized inside it); prefill, chunk and verify
 attention are dense torch, as the reference's are dense jnp.
 
+With ``host_kv_bytes`` a host-DRAM tier sits under the prefix cache
+(``kv_block_manager.HostKVPool``): an evicted prefix block's K/V is
+copied to the host, and a later radix hit on it runs the ``restore``
+program (the parked bytes staged by one pinned copy and scattered into
+the cache) before anything reads the block.  ``sampling=True`` (or
+stochastic defaults) makes per-request temperature, top-p and top-k
+per-row program inputs: one graph per (kind, bucket) serves any mix,
+each emitted token comes with its logprob and the top ``TOP_LOGPROBS``
+candidates, ``n > 1`` samples share the prompt's blocks copy-on-write,
+and speculative decoding accepts by rejection sampling.  Randomness is
+a counter-based hash of (a per-call seed input, a purpose, the element's
+index), drawn as Gumbel noise in the program: a replay draws afresh
+because the seed is an input, and no generator state lives in a graph.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP §A item: the host KV tier (8), sampling, incl. ``n > 1``
-copy-on-write samples and sampling-mode speculation (9), LoRA adapters
-(11), AOT program stores (the rest of 12), tensor parallelism (13), and
-Symbol-driven config, the draft's included (15).
+ROADMAP §A item: LoRA adapters (11), AOT program stores (the rest of
+12), tensor parallelism (13), and Symbol-driven config, the draft's
+included (15).
 """
 
 from __future__ import annotations
@@ -64,6 +77,7 @@ import functools
 import json
 import math
 import os
+import threading
 import time
 
 import numpy as np
@@ -73,23 +87,38 @@ from .. import aot, telemetry
 from ..base import env_flag, env_int
 from ..context import resolve_device
 from ..convert import params_from_numpy
-from ..models.generate import _fc, _gelu, _ln, detect_gpt_variant
+from ..models.generate import (_fc, _gelu, _gumbel, _ln,
+                               detect_gpt_variant)
 from ..ops import paged_attention_cuda as _pac
 from ..ops.attention import paged_attention, resolve_paged_impl
 from . import spec as spec_mod
-from .kv_block_manager import BlockManager
-from .scheduler import CANCELLED, FINISHED, QueueFull, Request, Scheduler
+from .kv_block_manager import BlockManager, HostKVPool, dtype_name
+from .scheduler import (CANCELLED, FINISHED, REJECTED, QueueFull, Request,
+                        Scheduler)
 from .stats import StatsRecorder
 
-__all__ = ["Engine"]
+__all__ = ["Engine", "TOP_LOGPROBS"]
 
 # the static model config the program bodies close over; ``kv_quant``
 # says the cache is int8 with scales, ``paged_impl`` is the decode
-# attention's implementation ("cuda" or "torch")
+# attention's implementation ("cuda" or "torch"); ``sampling`` and
+# ``sample_cap`` (the candidate width) are on in sampling mode only
 _ModelCfg = collections.namedtuple("_ModelCfg", [
     "name", "n_layers", "num_heads", "head_dim", "kv_heads", "pos_table",
     "swiglu", "tied", "rmsnorm", "window", "block_size", "kv_quant",
-    "paged_impl"])
+    "paged_impl", "sampling", "sample_cap"], defaults=(False, 0))
+
+# top-logprob candidates every sampling-mode program returns for each
+# sampled position (the request's ``logprobs`` picks how many surface)
+TOP_LOGPROBS = 5
+
+# the Gumbel draws' purposes: each kind of draw hashes its own stream
+# (a draft step j uses _DRAFT + j)
+_SAMPLE, _ACCEPT, _RESIDUAL, _BONUS, _DRAFT = 1, 2, 3, 4, 16
+
+# the staging dtypes a program's host views expose as numpy arrays (the
+# others, bfloat16 among them, as CPU tensors)
+_NUMPY_DTYPES = (torch.int32, torch.float32, torch.int8)
 
 # eager runs of a body on a side stream before its capture: the first
 # builds the kernel libraries and sets their launch attributes, which a
@@ -151,40 +180,79 @@ def _unported(what, item):
         f"serve.Engine: {what} is not ported yet (ROADMAP §A item {item})")
 
 
+# -- per-request sampling-parameter validation (submit + Engine defaults) ----
+def _valid_temperature(t):
+    t = float(t)
+    if not math.isfinite(t) or t < 0.0:
+        raise ValueError(f"temperature must be finite and >= 0 (got {t})")
+    return t
+
+
+def _valid_top_p(p):
+    p = float(p)
+    if not math.isfinite(p) or not 0.0 < p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1] (got {p})")
+    return p
+
+
+def _valid_top_k(k):
+    """None/0 = off; else a positive int (values past ``sample_cap``
+    behave as the cap)."""
+    if k is None or k == 0:
+        return None
+    k = int(k)
+    if k < 1:
+        raise ValueError(f"top_k must be None/0 or >= 1 (got {k})")
+    return k
+
+
 class _Program:
     """One (kind, bucket) program of one engine.
 
-    ``fields`` names the int32 inputs and their shapes.  They are views
-    of ONE device buffer, staged from one host buffer (pinned on CUDA)
-    by one ``non_blocking`` copy a call: fill :meth:`stage`'s numpy
-    views, then call the program for its output as a list.  ``body``
-    takes the inputs by name and returns one device tensor.
+    ``fields`` names the inputs: ``(name, shape)`` for int32, or
+    ``(name, shape, dtype)``.  The fields of one dtype are views of ONE
+    device buffer, staged from one host buffer (pinned on CUDA) by one
+    ``non_blocking`` copy a call: fill :meth:`stage`'s views (numpy
+    arrays for int32, float32 and int8; CPU tensors for the others,
+    bfloat16 among them), then call the program.  ``body`` takes the
+    inputs by name and returns one device tensor (a call returns it as
+    a list), a tuple of them (a call returns a tuple of numpy arrays),
+    or None (a call returns None without waiting for the device).
 
     On CUDA the body runs ``_WARM_RUNS`` times on a side stream on
     all-zero inputs (so every K/V write lands in the null block 0),
-    then is captured once into ``pool``; calls replay the graph.  The
-    launch counters are restored around warm-up and capture, and each
-    replay adds what the capture counted.  On the CPU a call runs the
-    body on the same buffers.  ``calls`` counts the calls.
+    then is captured once into ``pool``; calls replay the graph.  Each
+    call records an event after its staging copy, and :meth:`stage`
+    waits on it: a program whose output is never read (``restore``)
+    cannot have its pinned buffer refilled under a copy still in flight.
+    The launch counters are restored around warm-up and capture, and
+    each replay adds what the capture counted.  On the CPU a call runs
+    the body on the same buffers.  ``calls`` counts the calls.
     """
 
     def __init__(self, fields, body, device, pool=None):
         cuda = device.type == "cuda"
-        sizes = [math.prod(shape) for _, shape in fields]
-        self._host = torch.zeros(sum(sizes), dtype=torch.int32,
-                                 pin_memory=cuda)
-        self._dev = torch.zeros(sum(sizes), dtype=torch.int32,
-                                device=device)
-        flat = self._host.numpy()
-        self._views, self._inputs, o = {}, {}, 0
-        for (name, shape), n in zip(fields, sizes):
-            self._views[name] = flat[o:o + n].reshape(shape)
-            self._inputs[name] = self._dev[o:o + n].view(shape)
-            o += n
-        self._flat = flat
+        specs = [(f[0], tuple(f[1]), f[2] if len(f) > 2 else torch.int32)
+                 for f in fields]
+        sizes = {}
+        for _, shape, dt in specs:
+            sizes[dt] = sizes.get(dt, 0) + math.prod(shape)
+        self._host, self._dev = {}, {}
+        for dt, n in sizes.items():
+            self._host[dt] = torch.zeros(n, dtype=dt, pin_memory=cuda)
+            self._dev[dt] = torch.zeros(n, dtype=dt, device=device)
+        self._views, self._inputs, off = {}, {}, dict.fromkeys(sizes, 0)
+        for name, shape, dt in specs:
+            o, n = off[dt], math.prod(shape)
+            host = self._host[dt][o:o + n].view(shape)
+            self._views[name] = (host.numpy() if dt in _NUMPY_DTYPES
+                                 else host)
+            self._inputs[name] = self._dev[dt][o:o + n].view(shape)
+            off[dt] = o + n
         self._body = body
         self._device = device
         self._graph = None
+        self._copied = None            # the last staging copy's event
         self.calls = 0
         if cuda:
             self._capture(pool)
@@ -205,8 +273,11 @@ class _Program:
         self._deltas = [a - m for a, m in zip(_counts(), mark)]
         _set_counts(before)
         self._graph, self._out = graph, out
-        self._out_host = torch.empty(out.shape, dtype=out.dtype,
-                                     pin_memory=True)
+        outs = () if out is None else (out,) if torch.is_tensor(out) \
+            else out
+        self._out_host = [torch.empty(o.shape, dtype=o.dtype,
+                                      pin_memory=True) for o in outs]
+        self._copied = torch.cuda.Event()
 
     @property
     def captured(self):
@@ -214,24 +285,47 @@ class _Program:
 
     def stage(self):
         """The inputs' host views, zeroed (padding rows read the null
-        block and position 0)."""
-        self._flat.fill(0)
+        block and position 0), once the previous call's staging copy has
+        left them."""
+        if self._copied is not None:
+            self._copied.synchronize()
+        for h in self._host.values():
+            h.zero_()
         return self._views
 
     def __call__(self):
         self.calls += 1
-        self._dev.copy_(self._host, non_blocking=True)
+        for dt, host in self._host.items():
+            self._dev[dt].copy_(host, non_blocking=True)
         if self._graph is None:
-            return self._body(**self._inputs).tolist()
+            return _host_outputs(self._body(**self._inputs))
+        if self._copied is not None:
+            self._copied.record()
         self._graph.replay()
         _set_counts([a + d for a, d in zip(_counts(), self._deltas)])
-        self._out_host.copy_(self._out, non_blocking=True)
+        if self._out is None:
+            return None
+        outs = (self._out,) if torch.is_tensor(self._out) else self._out
+        for h, o in zip(self._out_host, outs):
+            h.copy_(o, non_blocking=True)
         torch.cuda.current_stream(self._device).synchronize()
-        return self._out_host.tolist()
+        if torch.is_tensor(self._out):
+            return self._out_host[0].tolist()
+        return _host_outputs(tuple(self._out_host))
+
+
+def _host_outputs(out):
+    """A body's output as a call returns it: None, one tensor as a list,
+    a tuple of tensors as a tuple of numpy arrays (copies)."""
+    if out is None:
+        return None
+    if torch.is_tensor(out):
+        return out.tolist()
+    return tuple(o.detach().cpu().numpy().copy() for o in out)
 
 
 class Engine:
-    """Continuous-batching greedy inference engine over a paged KV-cache.
+    """Continuous-batching inference engine over a paged KV-cache.
 
     Args:
       params: gpt() parameter dict (numpy arrays or torch tensors;
@@ -274,6 +368,30 @@ class Engine:
         blocks as int8 with a float32 scale a slot and head; every
         program quantizes on write and dequantizes to attend.  Default
         off: the parameter dtype.
+      host_kv_bytes: host-DRAM tier under the prefix cache (env
+        ``MXTPU_SERVE_HOST_KV_BYTES``, default 0 = off, and off leaves
+        programs, warm-up grid, fingerprint and tokens as they were).
+        With a byte budget, an evicted prefix block's K/V (and int8
+        scales) is copied to a host pool instead of discarded, and a
+        later radix hit restores it through the ``restore`` program
+        instead of recomputing it.  The tier never enters the
+        fingerprint; with it on the grid adds the restore ladder.
+      temperature / top_p / top_k / seed: the per-request sampling
+        defaults (``submit`` overrides them).  0.0 / 1.0 / None is
+        greedy argmax.  Stochastic defaults turn sampling mode on.
+        ``seed`` seeds the engine's host generator, which draws one
+        seed input per sampling program call.
+      sampling: per-request sampling mode (env ``MXTPU_SERVE_SAMPLING``;
+        on by itself with stochastic defaults).  Temperature, top-p and
+        top-k become per-row program inputs, never a capture key, so
+        one graph per (kind, bucket) serves any mix, greedy rows
+        included; each emitted token records its logprob and the top
+        ``TOP_LOGPROBS`` candidates.  Off (the default) leaves the
+        greedy programs, fingerprint and tokens as they were.
+      sample_cap: candidate width of the sampling programs (env
+        ``MXTPU_SERVE_SAMPLE_CAP``, default 64): one ``topk`` of the
+        scaled logits, sampled within; ``top_k`` past it behaves as the
+        cap, and a nucleus needing more candidates is cut there.
       clock: injectable monotonic clock (tests drive deadlines).
       device: where weights, cache and programs live (default
         ``"cuda"``; raises when CUDA is absent — no CPU fallback).
@@ -290,7 +408,8 @@ class Engine:
                  max_prefills_per_step=1, clock=time.monotonic,
                  device="cuda", dtype=None, tenant_share=None,
                  prefix_cache=None, prefill_chunk=None, temperature=0.0,
-                 top_k=None, top_p=None, sampling=None, tp=None,
+                 top_k=None, top_p=None, sampling=None, sample_cap=None,
+                 seed=0, tp=None,
                  quantize=None, kv_dtype=None, spec_k=None,
                  draft_params=None, draft_num_heads=None, draft_window=None,
                  draft_name=None, draft_symbol=None, adapters=None,
@@ -300,11 +419,6 @@ class Engine:
         if draft_symbol is not None:
             raise _unported("draft_symbol= (the draft's decode config "
                             "from a Symbol)", 15)
-        if host_kv_bytes or env_int("MXTPU_SERVE_HOST_KV_BYTES", 0):
-            raise _unported("the host-DRAM KV tier (host_kv_bytes)", 8)
-        if (temperature or top_k or (top_p is not None and top_p < 1.0)
-                or sampling or env_flag("MXTPU_SERVE_SAMPLING", False)):
-            raise _unported("sampling (and sampling-mode speculation)", 9)
         if adapters or env_int("MXTPU_SERVE_ADAPTERS", 0):
             raise _unported("LoRA adapters", 11)
         if aot_dir is not None or os.environ.get("MXTPU_AOT_DIR"):
@@ -319,6 +433,37 @@ class Engine:
         window = 0 if window is None else int(window)
         if window < 0:
             raise ValueError(f"window must be >= 0 (got {window})")
+        # sampling mode: the engine defaults are per-request defaults;
+        # stochastic ones (or sampling=True / MXTPU_SERVE_SAMPLING=1)
+        # turn it on, and off is inert
+        self.temperature = _valid_temperature(temperature)
+        self.top_p = _valid_top_p(1.0 if top_p is None else top_p)
+        self.top_k = _valid_top_k(top_k)
+        stochastic = (self.temperature > 0.0 or self.top_p < 1.0
+                      or self.top_k is not None)
+        if sampling is None:
+            sampling = (env_flag("MXTPU_SERVE_SAMPLING", False)
+                        or stochastic)
+        self._sampling = bool(sampling)
+        if not self._sampling and stochastic:
+            raise ValueError(
+                "sampling=False forces the greedy-only programs, which "
+                "cannot serve temperature/top_p/top_k defaults — drop "
+                "sampling=False or the stochastic defaults")
+        self.sample_cap = (int(sample_cap) if sample_cap is not None
+                           else env_int("MXTPU_SERVE_SAMPLE_CAP", 64))
+        if self.sample_cap < 1:
+            raise ValueError(
+                f"sample_cap must be >= 1 (got {self.sample_cap})")
+        # one int32 seed input per sampling program call, drawn on the
+        # host (a graph replays with whatever seed it is staged)
+        self._gen = torch.Generator().manual_seed(int(seed))
+        self.host_kv_bytes = (int(host_kv_bytes)
+                              if host_kv_bytes is not None
+                              else env_int("MXTPU_SERVE_HOST_KV_BYTES", 0))
+        if self.host_kv_bytes < 0:
+            raise ValueError(
+                f"host_kv_bytes must be >= 0 (got {self.host_kv_bytes})")
         # quantized serving: both default off, and off is inert (same
         # programs, fingerprint and tokens as an engine without them)
         if quantize is None:
@@ -381,8 +526,16 @@ class Engine:
         # fixed block-table width: one decode shape per batch bucket
         self.table_width = -(-self.max_model_len // self.block_size)
 
+        # the host tier (None = off: every prefix eviction discards)
+        self._host_pool = (HostKVPool(self.host_kv_bytes,
+                                      block_tokens=self.block_size)
+                           if self.host_kv_bytes else None)
         self.blocks = BlockManager(self.num_blocks, self.block_size,
-                                   prefix_cache=prefix_cache)
+                                   prefix_cache=prefix_cache,
+                                   host_pool=self._host_pool)
+        # always registered: eviction offloads only with a pool, but
+        # export_blocks copies device blocks through it on any engine
+        self.blocks.set_offload_source(self._host_kv_fetch)
         self.scheduler = Scheduler(self.blocks, self.max_batch, max_queue,
                                    max_prefills_per_step, clock=clock,
                                    tenant_share=tenant_share,
@@ -394,6 +547,11 @@ class Engine:
         self.decode_steps = 0          # batched decode passes run
         self._noop_steps = 0
         self._alive = True
+        # n > 1 sample groups whose siblings wait for the primary's
+        # prefill to publish the prompt's blocks (submit appends from
+        # any thread, the step thread drains)
+        self._fanout_lock = threading.Lock()
+        self._pending_fanout = []      # guarded-by: _fanout_lock
 
         L = self.spec["n_layers"]
         dt = self.params[f"{name}_tok_embed_weight"].dtype
@@ -420,7 +578,9 @@ class Engine:
             kv_quant=self._kv_quant,
             paged_impl=resolve_paged_impl(self.block_size,
                                           self.spec["head_dim"],
-                                          device=self.device))
+                                          device=self.device),
+            sampling=self._sampling,
+            sample_cap=self.sample_cap if self._sampling else 0)
         # the draft side last: target params, target cache, then the
         # (much smaller) draft
         self._spec = None
@@ -452,37 +612,124 @@ class Engine:
         Raises ``QueueFull`` when the admission queue is at capacity
         (back-pressure — retry later).  A request that could never fit
         (longer than ``max_model_len`` or the whole cache) is returned
-        already REJECTED rather than queued to deadlock.  This engine is
-        greedy-only: stochastic sampling params, ``logprobs``, ``n > 1``
-        and ``adapter_id`` raise ``ValueError``, as on the reference's
-        greedy engines."""
+        already REJECTED rather than queued to deadlock.
+
+        ``temperature``/``top_p``/``top_k`` are per-request (None takes
+        the engine defaults); a greedy-only engine refuses stochastic
+        values and ``logprobs`` with ``ValueError``.  ``n > 1`` serves
+        that many samples of the prompt, its blocks shared copy-on-write
+        (one prefill pays for all; the handles are on ``req.samples``).
+        ``logprobs`` (0..5) records that many top candidates a token
+        beside each token's own logprob.  ``adapter_id`` raises
+        (ROADMAP §A item 11)."""
         if not self._alive:
             raise RuntimeError("engine is shut down")
-        if ((temperature or 0.0) > 0.0 or (top_p is not None and top_p < 1.0)
-                or top_k or logprobs):
+        temperature = (self.temperature if temperature is None
+                       else _valid_temperature(temperature))
+        top_p = self.top_p if top_p is None else _valid_top_p(top_p)
+        top_k = self.top_k if top_k is None else _valid_top_k(top_k)
+        logprobs = int(logprobs)
+        if not 0 <= logprobs <= TOP_LOGPROBS:
+            raise ValueError(
+                f"logprobs must be in [0, {TOP_LOGPROBS}] "
+                f"(got {logprobs})")
+        n = int(n)
+        if not 1 <= n <= 64:
+            raise ValueError(f"n must be in [1, 64] (got {n})")
+        if not self._sampling and (temperature > 0.0 or top_p < 1.0
+                                   or top_k is not None or logprobs):
             raise ValueError(
                 "per-request sampling/logprobs require a sampling-mode "
-                "engine, which is not ported yet (ROADMAP §A item 9)")
-        if int(n) != 1:
+                "engine (Engine(sampling=True) / MXTPU_SERVE_SAMPLING=1 "
+                "or stochastic engine defaults) — greedy-only engines "
+                "keep the historical programs byte-for-byte")
+        if n > 1 and not self.blocks.prefix_cache:
             raise ValueError(
-                "n > 1 samples share the prompt's prefix cache blocks "
-                "copy-on-write, which belongs to sampling, not ported yet "
-                "(ROADMAP §A item 9)")
+                "n > 1 requires the prefix cache (siblings share the "
+                "prompt's radix-cached blocks copy-on-write — one "
+                "prefill, n samples)")
         if adapter_id is not None:
             raise ValueError("adapter_id requires an adapters-mode engine "
                              "(ROADMAP §A item 11)")
-        req = Request(prompt, max_new_tokens, deadline_s=deadline_s,
-                      tenant=tenant, handoff=handoff)
+        kw = dict(deadline_s=deadline_s, tenant=tenant, handoff=handoff,
+                  temperature=temperature, top_p=top_p, top_k=top_k,
+                  logprobs=logprobs)
+        req = Request(prompt, max_new_tokens, **kw)
         if trace_id:
             req.trace_id = str(trace_id)
+        if n > 1:
+            sibs = []
+            for i in range(1, n):
+                sib = Request(prompt, max_new_tokens, **kw)
+                sib.group, sib.sample_index = req.rid, i
+                if trace_id:
+                    sib.trace_id = str(trace_id)
+                sibs.append(sib)
+            req.group, req.sample_index = req.rid, 0
+            req.samples = [req] + sibs
         if req.target_len() > self.max_model_len:
-            self.scheduler._reject(req, "exceeds_max_len")
+            for r in (req.samples or [req]):
+                self.scheduler._reject(r, "exceeds_max_len")
             return req
         try:
-            return self.scheduler.submit(req)
+            out = self.scheduler.submit(req)
         except QueueFull:
             self._stats.on_reject()      # back-pressure event counter
+            for sib in (req.samples or [req])[1:]:
+                # each sibling is one more back-pressure event
+                self.scheduler._reject(sib, "queue_full")
+                self._stats.on_reject()
             raise
+        if req.samples:
+            if req.status == REJECTED:
+                for sib in req.samples[1:]:
+                    self.scheduler._reject(sib, req.reject_reason
+                                           or "rejected")
+            else:
+                # siblings wait engine-side until the primary's prefill
+                # publishes the prompt's blocks: only then does their
+                # radix walk share the whole block-aligned prefix
+                with self._fanout_lock:
+                    self._pending_fanout.append((req,
+                                                 list(req.samples[1:])))
+        return out
+
+    def _has_pending_fanout(self):
+        with self._fanout_lock:
+            return bool(self._pending_fanout)
+
+    def _release_fanout(self):
+        """Move n > 1 siblings into the scheduler once their primary's
+        prefill has published the prompt's blocks: each sibling's radix
+        walk then shares the block-aligned prefix copy-on-write (its
+        final span recomputes into a private block)."""
+        with self._fanout_lock:
+            if not self._pending_fanout:
+                return
+            pending, self._pending_fanout = self._pending_fanout, []
+        keep = []
+        for primary, sibs in pending:
+            if not primary.tokens and not primary.done:
+                keep.append((primary, sibs))
+                continue
+            rest = []
+            for i, sib in enumerate(sibs):
+                if self.scheduler.queue_depth >= self.scheduler.max_queue:
+                    rest = sibs[i:]      # queue full: retry next step
+                    break
+                try:
+                    self.scheduler.submit(sib)
+                except QueueFull:
+                    # raced another thread into the last queue slot
+                    sib.status = REJECTED
+                    sib.reject_reason = "queue_full"
+                    sib.finish_t = self.clock()
+                    self._stats.on_reject()
+            if rest:
+                keep.append((primary, rest))
+        if keep:
+            with self._fanout_lock:
+                self._pending_fanout = keep + self._pending_fanout
 
     def step(self):
         """One scheduler iteration: admit + prefill, then one batched
@@ -495,7 +742,12 @@ class Engine:
     def _step_inner(self):
         self._step_id += 1
         with telemetry.span("serve.step"):
+            self._release_fanout()
             prefills, decodes = self.scheduler.schedule()
+            if self._host_pool is not None:
+                # host-tier hits this schedule() allocated queued their
+                # restores: run them before any program reads the blocks
+                self._restore_pending()
             # blocks for this iteration are all held right now — the
             # honest high-water sample
             self._stats.on_utilization(self.blocks.utilization())
@@ -526,8 +778,9 @@ class Engine:
         return emitted
 
     def has_work(self):
-        """Whether ``step()`` still has anything to do."""
-        return self.scheduler.has_work()
+        """Whether ``step()`` still has anything to do: the scheduler's
+        queues and batches, or n > 1 siblings awaiting release."""
+        return self.scheduler.has_work() or self._has_pending_fanout()
 
     def run(self):
         """Pump ``step()`` until every queued request resolves."""
@@ -561,14 +814,67 @@ class Engine:
         for req in self.scheduler.drain_waiting():
             req.status = CANCELLED
             req.finish_t = self.clock()
+        with self._fanout_lock:
+            pending, self._pending_fanout = self._pending_fanout, []
+        for _, sibs in pending:
+            for sib in sibs:
+                sib.status = CANCELLED
+                sib.finish_t = self.clock()
         self._programs.clear()
         self._pool = None
         if self._spec is not None:
             self._spec.shutdown()
         self._cache_k = self._cache_v = None
         self._scale_k = self._scale_v = None
+        if self._host_pool is not None:
+            # the host tier goes with the device buffers
+            self._host_pool.clear()
+            self._host_pool = None
         self.params = None
         self._alive = False
+
+    def sampling_info(self):
+        """The sampling section of the reference's ``/statusz``: cap,
+        engine defaults (None on greedy-only engines)."""
+        if not self._sampling:
+            return None
+        return {"enabled": True, "sample_cap": self.sample_cap,
+                "top_logprobs": TOP_LOGPROBS,
+                "defaults": {"temperature": self.temperature,
+                             "top_p": self.top_p, "top_k": self.top_k}}
+
+    def host_block_spec(self):
+        """Shapes and dtype names of ONE block's host copies, the layout
+        ``_host_kv_fetch`` produces and the restore program takes: K and
+        V ``(layers, block_size, kv_heads, head_dim)`` in the cache
+        dtype, plus the two float32 scale arrays under int8 K/V (the
+        reference's names: ``"bfloat16"``, ``"float32"``, ``"int8"``)."""
+        L, bs = self._cfg.n_layers, self.block_size
+        Hkv, Dh = self._cfg.kv_heads, self._cfg.head_dim
+        dt = dtype_name(self._cache_k)
+        specs = [((L, bs, Hkv, Dh), dt), ((L, bs, Hkv, Dh), dt)]
+        if self._kv_quant:
+            specs += [((L, bs, Hkv), "float32"), ((L, bs, Hkv), "float32")]
+        return specs
+
+    def host_kv_stats(self):
+        """The host tier's budget, occupancy and counters, plus the host
+        bytes one parked block costs (None with the tier off)."""
+        if self._host_pool is None:
+            return None
+        out = self._host_pool.stats()
+        per_block = 2 * (self._cache_k.nbytes // self.num_blocks
+                         if self._cache_k is not None else 0)
+        if self._kv_quant and self._scale_k is not None:
+            per_block += 2 * (self._scale_k.nbytes // self.num_blocks)
+        out["block_bytes"] = int(per_block)
+        return out
+
+    def ingest_pulled_blocks(self, records, salt=None):
+        """Park a peer's handoff records in the host tier (the
+        chain-hash-verified ``import_blocks``): the next radix hit
+        restores them.  Returns ``(imported, deduped, rejected)``."""
+        return self.blocks.import_blocks(records, salt=salt)
 
     # -- warmup / manifests (aot/) -------------------------------------------
     def manifest(self):
@@ -600,6 +906,14 @@ class Engine:
         entries = aot.load_manifest(manifest, self._spec_digest)
         if not entries and manifest is None:
             entries = self._warmup_grid()
+        elif self._host_pool is not None:
+            # the tier changes no program and no fingerprint, so a
+            # tier-off engine's manifest replays here, but it lists no
+            # restore program: add the ladder, or the first host hit
+            # would capture in traffic
+            entries = list(entries) + [
+                {"kind": "restore", "bucket": b}
+                for b in _bucket_ladder(self.table_width)]
         caps = self._caps()
         ready = 0
         self._warming = True
@@ -619,8 +933,9 @@ class Engine:
     def _warmup_grid(self):
         """Every program this config can ever run: decode, prefill and
         chunk (prefix-cache suffixes and chunked long prompts), plus
-        verify, draft and draft_chunk with speculative decoding on, over
-        their bucket ladders, each non-power-of-two cap included."""
+        verify, draft and draft_chunk with speculative decoding on, and
+        restore with the host tier on, over their bucket ladders, each
+        non-power-of-two cap included."""
         return [{"kind": kind, "bucket": b}
                 for kind, cap in self._caps().items()
                 for b in _bucket_ladder(cap)]
@@ -632,6 +947,8 @@ class Engine:
         if self._spec is not None:
             caps.update(verify=self.max_batch, draft=self.max_batch,
                         draft_chunk=self.max_model_len)
+        if self._host_pool is not None:
+            caps["restore"] = self.table_width
         return caps
 
     def verify_buckets(self):
@@ -658,8 +975,10 @@ class Engine:
         included), their shapes (``num_blocks``, ``table_width``) and the
         cache dtype, plus the torch version and card.  Speculative
         decoding (``spec_k`` and the draft's cfg and cache dtype),
-        ``kv_quant`` and ``quantize`` enter only when on, so an engine
-        without them keeps its digest and manifests."""
+        ``kv_quant``, ``quantize``, ``sampling`` and ``sample_cap`` enter
+        only when on, so an engine without them keeps its digest and
+        manifests.  The host tier never enters: it changes no program
+        (its restore programs are a kind of their own)."""
         extra = {}
         if self._spec is not None:
             extra.update(spec_k=self.spec_k, draft=dict(
@@ -687,30 +1006,58 @@ class Engine:
     def _build_program(self, kind, bucket):
         W = self.table_width
         k = self.spec_k
+        f32 = torch.float32
         batch = (("toks", (bucket,)), ("pos", (bucket,)),
                  ("tables", (bucket, W)))
         chunk = (("toks", (bucket,)), ("start", (1,)), ("n_valid", (1,)),
                  ("table", (W,)), ("blk", (bucket,)), ("off", (bucket,)))
+        # sampling mode: per-row temperature, top-p, top-k and the
+        # call's seed, inputs like any other (never a capture key)
+        rows = 1 if kind in ("prefill", "chunk") else bucket
+        samp = ((("temp", (rows,), f32), ("topp", (rows,), f32),
+                 ("topk", (rows,)), ("seed", (1,)))
+                if self._sampling else ())
         if kind == "decode":
-            fields, body = batch, functools.partial(_decode, self._cfg)
+            fields, body = batch + samp, functools.partial(_decode,
+                                                           self._cfg)
         elif kind == "prefill":
             fields = (("toks", (bucket,)), ("plen", (1,)),
-                      ("blk", (bucket,)), ("off", (bucket,)))
+                      ("blk", (bucket,)), ("off", (bucket,))) + samp
             body = functools.partial(_prefill, self._cfg, bucket)
         elif kind == "chunk":
-            fields = chunk
+            fields = chunk + samp
             body = functools.partial(_chunk, self._cfg, bucket)
+        elif kind == "restore":
+            return self._restore_program(bucket)
         elif kind == "verify":
-            fields = (("rows", (bucket, k + 1)), ("pos0", (bucket,)),
-                      ("tables", (bucket, W)))
-            body = functools.partial(spec_mod._verify, self._cfg, k)
+            if self._sampling:
+                # the draft's candidate-space q, staged like every input
+                cap = _cap(self._cfg, self.spec["vocab"])
+                fields = (("toks", (bucket,)), ("drafted", (bucket, k)),
+                          ("q_at", (bucket, k), f32),
+                          ("q_vals", (bucket, k, cap), f32),
+                          ("q_idx", (bucket, k, cap)),
+                          ("pos0", (bucket,)), ("tables", (bucket, W))) \
+                    + samp
+                body = functools.partial(spec_mod._verify_rs, self._cfg, k)
+            else:
+                fields = (("rows", (bucket, k + 1)), ("pos0", (bucket,)),
+                          ("tables", (bucket, W)))
+                body = functools.partial(spec_mod._verify, self._cfg, k)
         else:
             # the draft's programs: its cfg, params and (floating-point)
             # caches
             sw = self._spec
             if kind == "draft":
-                fields = batch
-                body = functools.partial(spec_mod._draft, sw.cfg, k)
+                fields = batch + samp
+                if self._sampling:
+                    # proposals sampled from the draft's warped q, with
+                    # the target's candidate width
+                    body = functools.partial(
+                        spec_mod._draft_rs, sw.cfg, k,
+                        _cap(self._cfg, self.spec["vocab"]))
+                else:
+                    body = functools.partial(spec_mod._draft, sw.cfg, k)
             else:
                 fields = chunk
                 body = functools.partial(_chunk, sw.cfg, bucket)
@@ -722,7 +1069,93 @@ class Engine:
                                  ksc=self._scale_k, vsc=self._scale_v)
         return _Program(fields, body, self.device, self._pool)
 
+    def _restore_program(self, bucket):
+        """The ``restore`` program at ``bucket`` blocks: the block ids
+        (int32) and the parked K/V ``(L, R, bs, Hkv, Dh)`` in the cache
+        dtype, plus ``(L, R, bs, Hkv)`` float32 scales under int8 K/V,
+        each dtype staged by one pinned copy; the body scatters them into
+        the cache."""
+        L, bs = self._cfg.n_layers, self.block_size
+        Hkv, Dh = self._cfg.kv_heads, self._cfg.head_dim
+        dt = self._cache_k.dtype
+        fields = [("blks", (bucket,)), ("hk", (L, bucket, bs, Hkv, Dh), dt),
+                  ("hv", (L, bucket, bs, Hkv, Dh), dt)]
+        if self._kv_quant:
+            fields += [("hks", (L, bucket, bs, Hkv), torch.float32),
+                       ("hvs", (L, bucket, bs, Hkv), torch.float32)]
+        body = functools.partial(_restore, ck=self._cache_k,
+                                 cv=self._cache_v, ksc=self._scale_k,
+                                 vsc=self._scale_v)
+        return _Program(fields, body, self.device, self._pool)
+
     # -- execution -----------------------------------------------------------
+    def _next_seed(self):
+        """One int32 seed input for a sampling program call."""
+        return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self._gen))
+
+    def _stage_sampling(self, h, reqs):
+        """Stage the per-row sampling inputs of ``reqs`` (rows past them
+        are padding: greedy, their outputs dropped) and a fresh seed.
+        No-op on greedy-only engines."""
+        if not self._sampling:
+            return
+        h["topp"][:] = 1.0
+        for i, req in enumerate(reqs):
+            h["temp"][i] = req.temperature
+            h["topp"][i] = req.top_p
+            h["topk"][i] = req.top_k or 0
+        h["seed"][0] = self._next_seed()
+
+    def _note_logprobs(self, req, chosen, tv, ti):
+        """Record emitted tokens' logprobs on the request: the chosen
+        token's always (sampling mode), the top view trimmed to the
+        request's ``logprobs``."""
+        for j in range(len(chosen)):
+            req.token_logprobs.append(float(chosen[j]))
+            if req.logprobs:
+                req.top_logprobs.append(
+                    [[int(t), float(v)]
+                     for t, v in zip(ti[j][:req.logprobs],
+                                     tv[j][:req.logprobs])])
+
+    def _host_kv_fetch(self, blk):
+        """Device->host copy of ONE block's K/V (and int8 scales) for
+        the host tier, as CPU tensors (pageable).  The BlockManager calls
+        it under its lock, from ``allocate`` inside ``schedule()``, just
+        before the device block is reused; ``.cpu()`` returns only once
+        the bytes are on the host, and it is ordered on the stream after
+        every program already launched.  No graph is in flight there:
+        every program call but ``restore`` waits for its output, and a
+        restore's scatter precedes this copy on the stream."""
+        if self._cache_k is None:
+            return None
+        parts = [self._cache_k[:, blk], self._cache_v[:, blk]]
+        if self._kv_quant:
+            parts += [self._scale_k[:, blk], self._scale_v[:, blk]]
+        # a copy on the CPU too, where .cpu() would alias the cache
+        return tuple(a.to("cpu", copy=True) for a in parts)
+
+    def _restore_pending(self):
+        """Run the queued host->device restores, ``table_width`` blocks
+        a ``restore`` call at most (bucketed), before this step's first
+        program reads the blocks.  The call does not wait for the
+        device: the stream orders the scatter before the next program,
+        and the program's staging event keeps its pinned buffer until
+        the copy has read it."""
+        pending = self.blocks.take_pending_restores()
+        cap = self.table_width
+        while pending:
+            batch, pending = pending[:cap], pending[cap:]
+            prog = self._program("restore", _next_bucket(len(batch), cap))
+            h = prog.stage()
+            for i, (blk, arrays) in enumerate(batch):
+                h["blks"][i] = blk
+                for name, a in zip(("hk", "hv", "hks", "hvs"), arrays):
+                    # a numpy view becomes a tensor on the same memory
+                    torch.as_tensor(h[name][:, i]).copy_(a)
+            with telemetry.span("serve.host_kv_restore", blocks=len(batch)):
+                prog()
+
     def _run_prefill(self, req, decode_slots=0):
         """Run one prefill pass for ``req``: the whole prompt (cold
         path; after a preemption, everything generated so far too), the
@@ -750,6 +1183,7 @@ class Engine:
             h["plen"][0] = n
             h["blk"][:n] = np.asarray(table, np.int32)[np.arange(n) // bs]
             h["off"][:] = np.arange(bucket) % bs   # padded rows: null blk
+            self._stage_sampling(h, [req])
         else:
             # suffix/chunk pass: positions [start, end) attend through
             # the block table to the K/V already in the cache (cached
@@ -764,7 +1198,9 @@ class Engine:
             h["table"][:len(table)] = table
             h["blk"][:span] = h["table"][(start + np.arange(span)) // bs]
             h["off"][:] = (start + np.arange(bucket)) % bs
-        tok = prog()[0]                # the host needs the token: sync
+            self._stage_sampling(h, [req])
+        out = prog()                   # the host needs the token: sync
+        tok = int(out[0][0] if self._sampling else out[0])
         req.cache_len = end
         self._stats.on_prefill(span)
         # publish the newly-full blocks under their chain keys so later
@@ -785,6 +1221,8 @@ class Engine:
             # gap IS the client-visible inter-token latency
             self._stats.on_tokens(req, 1, now=now)
         req.tokens.append(tok)
+        if self._sampling:
+            self._note_logprobs(req, out[1], out[2], out[3])
         self._maybe_finish(req)
         return 1
 
@@ -797,12 +1235,17 @@ class Engine:
             h["pos"][i] = req.cache_len
             t = self.blocks.table(req.rid)
             h["tables"][i, :len(t)] = t
+        self._stage_sampling(h, reqs)
         out = prog()                   # the host needs the tokens: sync
         self.decode_steps += 1
         now = self.clock()
+        toks = out[0] if self._sampling else out
         for i, req in enumerate(reqs):
             req.cache_len += 1
-            req.tokens.append(int(out[i]))
+            req.tokens.append(int(toks[i]))
+            if self._sampling:
+                self._note_logprobs(req, out[1][i:i + 1], out[2][i:i + 1],
+                                    out[3][i:i + 1])
             self._stats.on_tokens(req, 1, now=now)
             self._maybe_finish(req)
         return B
@@ -833,11 +1276,14 @@ class Engine:
         sw.note_ingested(req, span)
 
     def _run_spec_decode(self, reqs):
-        """One speculative iteration over the batch (the reference's
-        greedy branch): the draft program proposes ``spec_k`` tokens a
-        request, the drafts come to the host, the verify program scores
-        the ``k+1`` positions through the block tables, and greedy
-        acceptance emits 1..k+1 tokens a request, capped at its quota."""
+        """One speculative iteration over the batch: the draft program
+        proposes ``spec_k`` tokens a request, its outputs come to the
+        host, and the verify program scores the ``k+1`` positions through
+        the block tables.  Greedy engines accept the agreeing prefix on
+        the host (``accept_greedy``); sampling engines stage the draft's
+        candidate-space q into the verify program, which accepts by
+        rejection sampling and resamples the first rejection from the
+        residual.  1..k+1 tokens a request, capped at its quota."""
         B = len(reqs)
         k = self.spec_k
         sw = self._spec
@@ -851,12 +1297,20 @@ class Engine:
             h["pos"][i] = req.cache_len
             t = self.blocks.table(req.rid)
             h["tables"][i, :len(t)] = t
+        self._stage_sampling(h, reqs)
         with telemetry.span("serve.draft", batch=B, k=k):
             drafted = draft()          # the verify rows need them: sync
         verify = self._program("verify", bucket)
         hv = verify.stage()
-        hv["rows"][:, 0] = h["toks"]
-        hv["rows"][:, 1:] = drafted
+        if self._sampling:
+            hv["toks"][:] = h["toks"]
+            hv["drafted"][:], hv["q_at"][:], hv["q_vals"][:], \
+                hv["q_idx"][:] = drafted
+            drafted = drafted[0]
+            self._stage_sampling(hv, reqs)
+        else:
+            hv["rows"][:, 0] = h["toks"]
+            hv["rows"][:, 1:] = drafted
         hv["pos0"][:] = h["pos"]
         hv["tables"][:] = h["tables"]
         with telemetry.span("serve.verify", batch=B, k=k):
@@ -864,7 +1318,12 @@ class Engine:
         emitted = 0
         now = self.clock()
         for i, req in enumerate(reqs):
-            accepted, emit = spec_mod.accept_greedy(drafted[i], out[i], k)
+            if self._sampling:
+                accepted = int(out[1][i])
+                emit = [int(x) for x in out[0][i][:accepted + 1]]
+            else:
+                accepted, emit = spec_mod.accept_greedy(drafted[i], out[i],
+                                                        k)
             # the draft wrote every candidate position: no gap next time
             sw.note_drafted(req, req.cache_len + k + 1)
             # a run that would overshoot the quota stops where plain
@@ -872,8 +1331,13 @@ class Engine:
             emit = emit[:req.max_new_tokens - len(req.tokens)]
             accepted = min(accepted, len(emit))
             sw.on_verify(k, accepted)
-            self._stats.on_verify(k, accepted)
+            self._stats.on_verify(k, accepted,
+                                  stochastic=req.temperature > 0.0)
             req.tokens.extend(emit)
+            if self._sampling:
+                self._note_logprobs(req, out[2][i][:len(emit)],
+                                    out[3][i][:len(emit)],
+                                    out[4][i][:len(emit)])
             req.cache_len += len(emit)
             emitted += len(emit)
             self._stats.on_tokens(req, len(emit), now=now)
@@ -961,12 +1425,111 @@ def _kv_dequant(q, sc, dtype):
     return (q.float() * sc.float()[..., None]).to(dtype)
 
 
+# -- sampling (the sampling-mode programs' warp and draw) --------------------
+def _cap(cfg, V):
+    """The candidate width: ``sample_cap`` clamped to the vocabulary."""
+    return min(cfg.sample_cap, V) if cfg.sample_cap else V
+
+
+def _filter_logits(cfg, logits, temp, top_p, top_k):
+    """Temperature, top-k and top-p warping with per-row inputs (the
+    reference's ``_filter_logits``).
+
+    ``logits`` (..., V); ``temp``/``top_p`` float32 and ``top_k`` int32
+    broadcastable over the leading dims (top_k 0 = off).  Returns
+    ``(masked, idx)``: the top ``sample_cap`` candidates' warped logits
+    in descending order, filtered ones at -inf, and their vocab ids.  A
+    nucleus keeps a candidate while the mass before it is under top_p.
+    A greedy row (temp <= 0) comes out one-hot on candidate 0, whose id
+    is ``argmax`` of its logits (the first maximal one, as the greedy
+    programs pick: ``topk`` promises no order among ties).  Constants
+    are fills and scalar arguments: a host-made tensor would be a copy,
+    which a CUDA graph capture refuses."""
+    V = logits.shape[-1]
+    cap = _cap(cfg, V)
+    greedy = temp <= 0.0
+    lg = logits.float()
+    scaled = lg / torch.where(greedy, torch.ones_like(temp), temp)[..., None]
+    vals, idx = torch.topk(scaled, cap, dim=-1)        # descending
+    j = torch.arange(cap, device=logits.device)
+    k_eff = torch.where(top_k > 0, top_k.clamp(max=cap),
+                        torch.full_like(top_k, cap))
+    keep = j < k_eff[..., None]
+    ninf = float("-inf")
+    probs = torch.softmax(vals.masked_fill(~keep, ninf), dim=-1)
+    csum = torch.cumsum(probs, dim=-1)
+    keep = keep & ((csum - probs) < top_p[..., None])
+    masked = vals.masked_fill(~keep, ninf)
+    onehot = torch.zeros(cap, device=logits.device).masked_fill(j != 0, ninf)
+    masked = torch.where(greedy[..., None], onehot, masked)
+    first = greedy[..., None] & (j == 0)
+    idx = torch.where(first, lg.argmax(dim=-1, keepdim=True), idx)
+    return masked, idx
+
+
+def _draw(masked, seed, purpose):
+    """One categorical draw a row over ``masked`` (..., cap) logits:
+    Gumbel-max with the counter-based noise of (seed, purpose, element
+    index).  Returns the candidate positions (...,)."""
+    return torch.argmax(masked + _gumbel(seed, purpose, masked.shape,
+                                         masked.device), dim=-1)
+
+
+def _sample_ops(cfg, logits, temp, top_p, top_k, seed, purpose=_SAMPLE):
+    """One token a row from the warped distribution (greedy rows: their
+    argmax); int32 ids of the leading shape."""
+    masked, idx = _filter_logits(cfg, logits, temp, top_p, top_k)
+    choice = _draw(masked, seed, purpose)
+    return idx.gather(-1, choice[..., None])[..., 0].to(torch.int32)
+
+
+def _scatter_probs(probs, idx, V):
+    """Candidate probabilities ``(..., cap)`` scattered onto their vocab
+    ids: a full ``(..., V)`` vector, zero off the candidates."""
+    full = torch.zeros(probs.shape[:-1] + (V,), dtype=torch.float32,
+                       device=probs.device)
+    return full.scatter(-1, idx.long(), probs.float())
+
+
+def _filtered_probs_full(cfg, logits, temp, top_p, top_k):
+    """The warped sampling distribution as a full-vocab vector (the
+    reference view the tests and chip_smoke hold the draws against; the
+    programs sample from the candidates)."""
+    masked, idx = _filter_logits(cfg, logits, temp, top_p, top_k)
+    return _scatter_probs(torch.softmax(masked, dim=-1), idx,
+                          logits.shape[-1])
+
+
+def _safe_log(p):
+    """log(p) with exact -inf at p == 0."""
+    return torch.log(p.clamp(min=1e-38)).masked_fill(p <= 0, float("-inf"))
+
+
+def _logprob_outs(logits, toks):
+    """The logprob outputs of a sampled position: the chosen token's
+    log-softmax and the ``TOP_LOGPROBS`` best (values, ids), raw model
+    logprobs (before temperature and filtering)."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    chosen = lp.gather(-1, toks.long()[..., None])[..., 0]
+    tv, ti = torch.topk(lp, min(TOP_LOGPROBS, lp.shape[-1]), dim=-1)
+    return chosen, tv, ti.to(torch.int32)
+
+
+def _sampled(cfg, logits, temp, topp, topk, seed):
+    """The sampling-mode programs' tail: (tokens, chosen logprobs, top
+    values, top ids)."""
+    tok = _sample_ops(cfg, logits, temp, topp, topk, seed)
+    return (tok,) + _logprob_outs(logits, tok)
+
+
 def _cfg_fields(cfg):
-    """A ``_ModelCfg`` as its fingerprint dict: ``kv_quant`` only when
-    on."""
+    """A ``_ModelCfg`` as its fingerprint dict: ``kv_quant``,
+    ``sampling`` and ``sample_cap`` only when on."""
     d = cfg._asdict()
     if not d["kv_quant"]:
         del d["kv_quant"]
+    if not d["sampling"]:
+        del d["sampling"], d["sample_cap"]
     return d
 
 
@@ -1068,24 +1631,45 @@ def _forward_token_batch(cfg, params, ck, cv, toks, pos, tables, ksc=None,
                                               pos, tables, ksc, vsc))
 
 
-def _decode(cfg, toks, pos, tables, *, params, ck, cv, ksc=None, vsc=None):
+def _decode(cfg, toks, pos, tables, *, params, ck, cv, ksc=None, vsc=None,
+            temp=None, topp=None, topk=None, seed=None):
     """One batched decode step (the reference's ``_build_decode``
-    program, greedy): returns the (B,) int32 next tokens."""
+    program): the (B,) int32 next tokens, argmax; in sampling mode
+    drawn per row, with their logprob outputs."""
     logits = _forward_token_batch(cfg, params, ck, cv, toks, pos, tables,
                                   ksc, vsc)
+    if cfg.sampling:
+        return _sampled(cfg, logits, temp, topp, topk, seed)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def _prefill(cfg, P, toks, plen, blk, off, *, params, ck, cv, ksc=None,
-             vsc=None):
+             vsc=None, temp=None, topp=None, topk=None, seed=None):
     """Whole-prompt pass at padded length P for ONE request (the
-    reference's ``_build_prefill`` program, greedy): writes K/V for
-    positions [0, P) through (blk, off) — padded rows land in the null
-    block — and returns the (1,) int32 token after position
-    ``plen - 1``."""
+    reference's ``_build_prefill`` program): writes K/V for positions
+    [0, P) through (blk, off) — padded rows land in the null block —
+    and returns the (1,) int32 token after position ``plen - 1`` (in
+    sampling mode drawn, with its logprob outputs)."""
     logits = _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off,
                              ksc, vsc)
+    if cfg.sampling:
+        return _sampled(cfg, logits, temp, topp, topk, seed)
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _restore(blks, hk, hv, hks=None, hvs=None, *, ck, cv, ksc=None,
+             vsc=None):
+    """The host tier's restore program (the reference's
+    ``_build_restore``): scatter R parked blocks' K/V (and int8 scales)
+    into the cache at ``blks`` along the block axis.  Padding rows carry
+    block 0, the null block, whose contents are garbage by design (their
+    duplicate writes land in any order).  No output: nothing waits."""
+    b = blks.long()
+    ck.index_copy_(1, b, hk)
+    cv.index_copy_(1, b, hv)
+    if hks is not None:
+        ksc.index_copy_(1, b, hks)
+        vsc.index_copy_(1, b, hvs)
 
 
 def _last_row(x, n):
@@ -1112,12 +1696,16 @@ def _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off, ksc=None,
 
 
 def _chunk(cfg, C, toks, start, n_valid, table, blk, off, *, params, ck,
-           cv, ksc=None, vsc=None):
-    """Suffix/chunk prefill (the reference's ``_build_chunk`` program,
-    greedy): the (1,) int32 token after position ``start + n_valid -
-    1``, meaningful on a prompt's final chunk only."""
+           cv, ksc=None, vsc=None, temp=None, topp=None, topk=None,
+           seed=None):
+    """Suffix/chunk prefill (the reference's ``_build_chunk`` program):
+    the (1,) int32 token after position ``start + n_valid - 1`` (in
+    sampling mode drawn, with its logprob outputs), meaningful on a
+    prompt's final chunk only."""
     logits = _chunk_logits(cfg, C, params, ck, cv, toks, start, n_valid,
                            table, blk, off, ksc, vsc)
+    if cfg.sampling:
+        return _sampled(cfg, logits, temp, topp, topk, seed)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 

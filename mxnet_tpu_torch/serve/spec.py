@@ -1,6 +1,6 @@
-"""Draft-model speculative decoding for the serving engine (greedy).
+"""Draft-model speculative decoding for the serving engine.
 
-The port of ``mxnet_tpu/serve/spec.py``'s greedy half.  Plain decode
+The port of ``mxnet_tpu/serve/spec.py``.  Plain decode
 emits ONE token per running request per iteration.  With ``spec_k = k``
 an iteration instead runs
 
@@ -15,8 +15,18 @@ with, plus the target's own token at the first disagreement, so the
 emitted stream is token-identical to plain decode: the target's argmax
 decides every token, the draft only how many arrive per dispatch.  The
 drafted ids come back to the host between the two programs, as in the
-reference.  Sampling-mode speculation (on-device rejection sampling)
-belongs to sampling, not ported yet (ROADMAP §A item 9).
+reference.
+
+On a sampling engine the draft samples each proposal from its warped
+distribution q and returns q in candidate space (the drawn token's
+q(x) and the ``sample_cap`` candidates' probabilities and ids); the host
+stages them into the verify program, which accepts draft j with
+probability ``min(1, p(x_j)/q(x_j))``, resamples the first rejection
+from the normalized residual ``max(p - q, 0)`` and draws a bonus token
+from the last row's p when all are accepted (rejection sampling,
+Leviathan et al. 2023): the emitted stream is distributed as plain
+sampling from p.  Greedy rows (one-hot p and q) accept the agreeing
+prefix exactly.
 
 :class:`DraftWorker` owns the draft side: its parameters on the engine's
 device, its own K/V cache pair (floating point even when the target's is
@@ -248,17 +258,112 @@ def _draft(cfg, k, toks, pos, tables, *, params, ck, cv, ksc=None,
     return torch.stack(outs, dim=1)
 
 
+def _draft_rs(cfg, k, cap, toks, pos, tables, temp, topp, topk, seed, *,
+              params, ck, cv, ksc=None, vsc=None):
+    """The sampling engine's draft (the reference's ``draft_rs``): as
+    :func:`_draft`, but step ``j`` samples its proposal from the draft's
+    warped distribution q (the target's per-row temperature, top-p and
+    top-k, candidate width ``cap``) and keeps that q.  Returns the
+    drafts (B, k) int32, q of each draft (B, k), and the candidates'
+    probabilities (B, k, cap) and vocab ids (B, k, cap) int32."""
+    from .engine import _DRAFT, _draw, _filter_logits, _logits, _token_layers
+
+    scfg = cfg._replace(sample_cap=cap)
+    S = tables.shape[1] * cfg.block_size
+    zero = torch.zeros((), dtype=tables.dtype, device=tables.device)
+    cur, outs, q_at, q_vals, q_idx = toks, [], [], [], []
+    for j in range(k + 1):
+        tbl = torch.where((pos + j < S)[:, None], tables, zero)
+        x = _token_layers(cfg, params, ck, cv, cur, pos + j, tbl)
+        if j < k:
+            masked, idx = _filter_logits(scfg, _logits(cfg, params, x),
+                                         temp, topp, topk)
+            probs = torch.softmax(masked, dim=-1)
+            choice = _draw(masked, seed, _DRAFT + j)[:, None]
+            cur = idx.gather(1, choice)[:, 0].to(torch.int32)
+            outs.append(cur)
+            q_at.append(probs.gather(1, choice)[:, 0])
+            q_vals.append(probs)
+            q_idx.append(idx.to(torch.int32))
+    return (torch.stack(outs, dim=1), torch.stack(q_at, dim=1),
+            torch.stack(q_vals, dim=1), torch.stack(q_idx, dim=1))
+
+
 def _verify(cfg, k, rows, pos0, tables, *, params, ck, cv, ksc=None,
             vsc=None):
     """The target's verify pass (the reference's ``_build_verify``,
     greedy): ``rows`` (B, k+1) holds each request's last token and its k
-    drafts at positions ``pos0 .. pos0 + k``.  Every row's K/V is
-    written FIRST (int8 with scales under ``cfg.kv_quant``); a row past
-    the table (``pos >= S``) writes into the null block.  Then each
-    layer gathers each request's whole table once and masks it per row
-    by position (and window): in-window causality is exact without a
-    dense score matrix.  Returns the (B, k+1) int32 argmax, row j's
-    token decided after consuming rows 0..j."""
+    drafts.  Returns the (B, k+1) int32 argmax, row j's token decided
+    after consuming rows 0..j."""
+    return torch.argmax(
+        _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc,
+                       vsc), dim=-1).to(torch.int32)
+
+
+def _verify_rs(cfg, k, toks, drafted, q_at, q_vals, q_idx, pos0, tables,
+               temp, topp, topk, seed, *, params, ck, cv, ksc=None,
+               vsc=None):
+    """The sampling engine's verify (the reference's ``_build_verify``
+    in sampling mode): the target scores ``toks`` and the drafts, then
+    accepts by rejection sampling in candidate space (never vocab-wide).
+    Draft j is accepted when ``u * q(x_j) < p(x_j)``; the first
+    rejection is resampled from the normalized residual ``max(p - q,
+    0)`` over the target's candidates (q read at them by id); a run with
+    every draft accepted adds a bonus token from the last row's p.
+    Returns the emit rows (B, k+1), accepted counts (B,), and the
+    emitted rows' logprob outputs (chosen (B, k+1), top values and ids
+    (B, k+1, TOP_LOGPROBS))."""
+    from .engine import (_ACCEPT, _BONUS, _RESIDUAL, _draw, _filter_logits,
+                         _logprob_outs, _safe_log)
+    from ..models.generate import _uniform
+
+    K1 = k + 1
+    rows = torch.cat([toks[:, None], drafted], dim=1)
+    logits = _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc,
+                            vsc)                             # (B, K1, V)
+    masked_p, idx_p = _filter_logits(cfg, logits, temp[:, None],
+                                     topp[:, None], topk[:, None])
+    p_cand = torch.softmax(masked_p, dim=-1)                 # (B, K1, cap)
+    idx_k = idx_p[:, :k]                                     # (B, k, cap)
+    dr = drafted.long()
+    # p(x_j): the draft's token under the target's filtered p (0 outside
+    # the target's candidates); q(x_j) came from the draft
+    p_at = torch.where(idx_k == dr[..., None], p_cand[:, :k],
+                       torch.zeros((), device=logits.device)).sum(-1)
+    u = _uniform(seed, _ACCEPT, dr.shape, logits.device)
+    accept = u * q_at < p_at
+    acc = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1)   # (B,)
+    # q at the target's candidate ids, by id (ids unique a row)
+    q_cand = torch.where(idx_k[..., :, None] == q_idx.long()[..., None, :],
+                         q_vals[..., None, :],
+                         torch.zeros((), device=logits.device)).sum(-1)
+    res = (p_cand[:, :k] - q_cand).clamp(min=0.0)
+    rsum = res.sum(dim=-1, keepdim=True)
+    # an all-zero residual means p == q there: acceptance was certain,
+    # the row is never read; p keeps the draw well defined
+    res = torch.where(rsum > 0, res / rsum.clamp(min=1e-38), p_cand[:, :k])
+    corr_c = _draw(_safe_log(res), seed, _RESIDUAL)          # (B, k)
+    corr = idx_k.gather(-1, corr_c[..., None])[..., 0]
+    bonus_c = _draw(masked_p[:, K1 - 1], seed, _BONUS)       # (B,)
+    bonus = idx_p[:, K1 - 1].gather(-1, bonus_c[:, None])[:, 0]
+    first_rej = acc.clamp(max=K1 - 2)
+    corr_at = corr.gather(1, first_rej[:, None].long())[:, 0]
+    fixed = torch.where(acc < K1 - 1, corr_at, bonus)
+    jj = torch.arange(K1, device=logits.device)[None, :]
+    pad = torch.cat([dr, torch.zeros_like(dr[:, :1])], dim=1)
+    emit = torch.where(jj < acc[:, None], pad,
+                       fixed[:, None]).to(torch.int32)
+    return (emit, acc.to(torch.int32)) + _logprob_outs(logits, emit)
+
+
+def _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc, vsc):
+    """The verify pass's body up to its (B, k+1, V) logits: ``rows``
+    holds each request's last token and its k drafts at positions
+    ``pos0 .. pos0 + k``.  Every row's K/V is written FIRST (int8 with
+    scales under ``cfg.kv_quant``); a row past the table (``pos >= S``)
+    writes into the null block.  Then each layer gathers each request's
+    whole table once and masks it per row by position (and window):
+    in-window causality is exact without a dense score matrix."""
     from .engine import _kv_dequant, _ln, _logits, _mlp, _wfc, _write_kv
 
     name = cfg.name
@@ -307,4 +412,4 @@ def _verify(cfg, k, rows, pos0, tables, *, params, ck, cv, ksc=None,
         at = torch.einsum("bkgcs,bskd->bckgd", pr, vb)
         x = x + _wfc(params, f"{p}_proj", at.reshape(B, K1, Hq * Dh))
         x = x + _mlp(cfg, params, p, x)
-    return torch.argmax(_logits(cfg, params, x), dim=-1).to(torch.int32)
+    return _logits(cfg, params, x)

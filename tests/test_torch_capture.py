@@ -1,13 +1,18 @@
 """The serving engine's program layer (``serve/engine.py`` ``_Program``).
 
-A program owns one int32 device buffer whose views are its inputs,
-staged from one host buffer, and runs one body: on the CPU it calls the
-body on those buffers, on CUDA it replays the graph it captured once.
-The CPU tests hold the staging, padding and output path that both
-devices share; the ``cuda`` test shows that a body reading a device value
-on the host cannot be captured, and that the program then raises
-instead of running the body eagerly.  This file imports no JAX, so the
-``cuda`` test runs on the card as it stands.
+A program owns one device buffer per input dtype whose views are its
+inputs, each staged from one host buffer, and runs one body: on the CPU
+it calls the body on those buffers, on CUDA it replays the graph it
+captured once.  The CPU tests hold the staging (typed fields included:
+the host tier's restore payload in the cache dtype, float32 scales and
+probabilities), padding and output paths that both devices share.  The
+``cuda`` tests show that a body reading a device value on the host
+cannot be captured, and that the program then raises instead of running
+the body eagerly; that a restore program restaged while its copy is
+still queued waits for the copy (the staging fence); and that two
+replays of a sampled decode graph with different seeds draw
+differently.  This file imports no JAX, so the ``cuda`` tests run on
+the card as they stand.
 """
 
 import numpy as np
@@ -57,6 +62,92 @@ def test_program_stages_one_buffer_and_runs_its_body():
     assert not any(v.any() for v in h.values())
     h["a"][0] = 5
     assert prog() == [5, 5] and prog.calls == 2
+
+
+def test_typed_fields_stage_one_buffer_per_dtype():
+    """Fields of one dtype share one buffer in field order; int32,
+    float32 and int8 stage through numpy views, bfloat16 through CPU
+    tensors; a tuple output comes back as numpy arrays, a None output
+    as None."""
+    seen = {}
+
+    def body(i, f, b, j, q):
+        seen.update(i=i.clone(), f=f.clone(), b=b.clone(), j=j.clone(),
+                    q=q.clone())
+        return (i * 2, f.sum(dim=1), b.float())
+
+    fields = (("i", (2,)), ("f", (2, 3), torch.float32),
+              ("b", (4,), torch.bfloat16), ("j", (3,)),
+              ("q", (2, 2), torch.int8))
+    prog = port_engine._Program(fields, body, torch.device("cpu"))
+    h = prog.stage()
+    assert isinstance(h["i"], np.ndarray) and isinstance(h["q"], np.ndarray)
+    assert isinstance(h["f"], np.ndarray) and h["f"].dtype == np.float32
+    assert isinstance(h["b"], torch.Tensor) and h["b"].dtype == torch.bfloat16
+    h["i"][:] = [3, 4]
+    h["f"][1] = [0.5, 1.5, 2.0]
+    h["b"][:] = torch.tensor([1.0, -2.5, 0.0, 3.0])
+    h["j"][2] = 9
+    h["q"][0] = [-7, 100]
+    out = prog()
+    assert [o.dtype for o in out] == [np.int32, np.float32, np.float32]
+    assert out[0].tolist() == [6, 8] and out[1].tolist() == [0.0, 4.0]
+    assert out[2].tolist() == [1.0, -2.5, 0.0, 3.0]
+    assert seen["q"].tolist() == [[-7, 100], [0, 0]]
+    ins = prog._inputs
+    assert ins["j"].data_ptr() == ins["i"].data_ptr() + 2 * 4
+    assert ins["f"].dtype == torch.float32 and ins["b"].dtype == torch.bfloat16
+    assert sorted(str(d) for d in prog._host) == [
+        "torch.bfloat16", "torch.float32", "torch.int32", "torch.int8"]
+    # stage() zeroes every buffer of every dtype
+    h = prog.stage()
+    assert not any(bool((torch.as_tensor(v) != 0).any()) for v in h.values())
+    none = port_engine._Program((("x", (1,)),), lambda x: None,
+                                torch.device("cpu"))
+    none.stage()
+    assert none() is None and none.calls == 1
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_restore_program_pads_to_the_null_block(kv_dtype):
+    """The engine's restore program at bucket 4 with 3 blocks staged:
+    the parked bytes land at their blocks, the padding row writes only
+    the null block, and the payload fields carry the cache dtype (int8
+    beside float32 scales under int8 K/V)."""
+    eng = _engine(host_kv_bytes=1 << 20, kv_dtype=kv_dtype)
+    prog = eng._program("restore", 4)
+    h = prog.stage()
+    L, bs, H, D = 2, 4, 4, 8
+    want = {"hk": eng._cache_k.dtype, "hv": eng._cache_v.dtype}
+    if kv_dtype:
+        want.update(hks=torch.float32, hvs=torch.float32)
+    assert {n: prog._inputs[n].dtype for n in want} == want
+    assert prog._inputs["hk"].shape == (L, 4, bs, H, D)
+    before = [t.clone() for t in (eng._cache_k, eng._cache_v)]
+    rng = np.random.RandomState(2)
+    blocks = [9, 3, 30]
+    parts = []
+    for i, blk in enumerate(blocks):
+        arrays = tuple(torch.from_numpy(
+            (rng.randn(*x.shape[:1] + x.shape[2:]) * 40).astype(
+                np.float32)).to(x.dtype)
+            for x in (prog._inputs[n] for n in want))
+        parts.append(arrays)
+        h["blks"][i] = blk
+        for n, a in zip(want, arrays):
+            dst = h[n][:, i]
+            (torch.from_numpy(dst) if isinstance(dst, np.ndarray)
+             else dst).copy_(a)
+    assert prog() is None
+    caches = [eng._cache_k, eng._cache_v] + (
+        [eng._scale_k, eng._scale_v] if kv_dtype else [])
+    for blk, arrays in zip(blocks, parts):
+        for c, a in zip(caches, arrays):
+            assert torch.equal(c[:, blk], a)
+    untouched = [b for b in range(1, eng.num_blocks) if b not in blocks]
+    for c, b0 in zip(caches, before):
+        assert torch.equal(c[:, untouched], b0[:, untouched])
+    eng.shutdown()
 
 
 def test_decode_program_pads_rows_to_the_null_block():
@@ -141,3 +232,62 @@ def test_cuda_capture_of_a_host_read_raises_without_eager_retreat(
     assert len(req.tokens) == 1           # the prefill's token only
     assert ("decode", 1) not in eng._programs
     assert eng.captures == 1              # the prefill program's graph
+
+
+@pytest.mark.cuda
+def test_cuda_restore_restaged_while_its_copy_is_queued():
+    """A restore program called twice back to back, its first staging
+    copy held behind a long kernel on the stream: the second ``stage()``
+    waits for that copy (the program's event), so each call's blocks
+    get its own bytes.  Without the fence the first copy would read the
+    refilled buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: pinned staging and graph replays "
+                    "exist only on the card")
+    eng = _engine("cuda", host_kv_bytes=1 << 20)
+    prog = eng._program("restore", 2)
+    shape = prog._inputs["hk"].shape
+    vals = []
+    for call, blks in enumerate(([5, 6], [7, 8])):
+        torch.cuda._sleep(50_000_000)         # ~tens of ms on the stream
+        h = prog.stage()
+        h["blks"][:] = blks
+        v = torch.full(shape, float(call + 1))
+        for n in ("hk", "hv"):
+            torch.from_numpy(h[n]).copy_(v)
+        vals.append(v)
+        prog()
+    torch.cuda.synchronize()
+    for blks, v in zip(([5, 6], [7, 8]), vals):
+        for c in (eng._cache_k, eng._cache_v):
+            assert torch.equal(c[:, blks].cpu(), v)
+    eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_sampled_decode_replays_draw_afresh():
+    """The captured sampling-mode decode graph at fixed inputs: two
+    replays with different seeds draw differently, the same seed draws
+    the same, and greedy rows stay argmax."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA-graph capture exists only on the "
+                    "card")
+    eng = _engine("cuda", sampling=True)
+    prog = eng._program("decode", 4)
+    assert prog.captured
+
+    def call(seed):
+        h = prog.stage()
+        h["toks"][:] = [5, 6, 7, 8]
+        h["pos"][:] = [3, 3, 3, 3]
+        h["tables"][:, 0] = [1, 2, 3, 4]
+        h["temp"][:] = [0.0, 2.0, 2.0, 2.0]
+        h["topp"][:] = 1.0
+        h["seed"][0] = seed
+        return prog()[0].tolist()
+
+    draws = [call(s) for s in range(8)]
+    assert len({tuple(d[1:]) for d in draws}) > 1
+    assert len({d[0] for d in draws}) == 1
+    assert call(3) == draws[3]
+    eng.shutdown()

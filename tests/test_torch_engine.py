@@ -215,10 +215,6 @@ def test_shutdown_cancels_in_flight(model):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(host_kv_bytes=1 << 20), "item 8"), (dict(temperature=0.7),
-                                              "item 9"),
-    (dict(top_p=0.9), "item 9"), (dict(sampling=True), "item 9"),
-    (dict(spec_k=2, temperature=0.7), "item 9"),
     (dict(adapters=4), "item 11"),
     (dict(aot_dir="/nonexistent"), "item 12"), (dict(tp=2), "item 13"),
     (dict(symbol=object()), "item 15"),
@@ -229,8 +225,7 @@ def test_unported_options_raise_with_their_roadmap_item(kw, item):
         mt.serve.Engine(params, num_heads=heads, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("env", ["MXTPU_SERVE_HOST_KV_BYTES=1048576",
-                                 "MXTPU_SERVE_TP=2"])
+@pytest.mark.parametrize("env", ["MXTPU_SERVE_TP=2"])
 def test_unported_env_knobs_raise(monkeypatch, env):
     name, value = env.split("=")
     monkeypatch.setenv(name, value)
@@ -245,11 +240,13 @@ def test_greedy_engine_refuses_per_request_sampling():
                           **ENGINE_KW)
     p = fx.prompts(1)[0]
     for kw in (dict(temperature=0.5), dict(top_k=3), dict(logprobs=2)):
-        with pytest.raises(ValueError, match="item 9"):
+        with pytest.raises(ValueError, match="sampling-mode engine"):
             eng.submit(p, **kw)
-    with pytest.raises(ValueError, match="prefix cache"):
-        eng.submit(p, n=2)
     with pytest.raises(ValueError, match="adapters"):
         eng.submit(p, adapter_id="x")
     assert eng.paged_impl == "torch"
+    cold = mt.serve.Engine(params, num_heads=heads, device="cpu",
+                           prefix_cache=False, **ENGINE_KW)
+    with pytest.raises(ValueError, match="prefix cache"):
+        cold.submit(p, n=2)
 

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: importing ``mxnet_tpu_torch`` loads
-neither JAX nor anything of the reference package, and its entry points
+neither JAX, nor anything of the reference package, nor ml_dtypes (the
+card's machine has none: bfloat16 host copies are torch tensors), and
+its entry points
 default to CUDA and refuse to run without it (no silent CPU fallback).
 """
 
@@ -43,8 +45,9 @@ import mxnet_tpu_torch.telemetry.timeseries
 # the port's own name starts with "mxnet_tpu": match the reference by
 # exact key or by the "mxnet_tpu." prefix, never by bare prefix
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "jaxlib", "mxnet_tpu")
-             or k.startswith(("jax.", "jaxlib.", "mxnet_tpu.")))
+             if k in ("jax", "jaxlib", "mxnet_tpu", "ml_dtypes")
+             or k.startswith(("jax.", "jaxlib.", "mxnet_tpu.",
+                              "ml_dtypes.")))
 print("BAD=" + ",".join(bad))
 print("BUILT=" + ",".join(sorted(mxnet_tpu_torch._build.BUILD_SECONDS)))
 """

@@ -129,13 +129,6 @@ def test_block_alloc_free_invariants(pkg):
     assert m2.blocks_in_use == 4 and m2.free_blocks == 0
 
 
-def test_port_block_manager_refuses_a_host_pool():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_kv.BlockManager(9, 4, host_pool=object())
-    m = port_kv.BlockManager(9, 4)
-    assert m.host_stats() is None and m.host_tokens("x") == 0
-
-
 # -- scheduler ----------------------------------------------------------------
 def _req(sched, n_prompt, max_new=4, deadline_s=None):
     return sched.Request(np.arange(1, n_prompt + 1), max_new,
