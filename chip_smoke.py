@@ -84,7 +84,19 @@ Phases (any failure exits non-zero; nothing is caught):
      graph's draws against the exact warped distribution (TV bound,
      temperature-ignored fault outside it, seeds), spec-off against
      spec-on at temperature 0.25 and their two-sample chi-square over
-     192 two-token generations, and one seed's stream repeated;
+     192 two-token generations, and one seed's stream repeated; LoRA
+     adapters (serve_lora): tools/serve_bench.py's lora A/B (3 adapters
+     of rank 4, alpha 8, over every projection; rows cycling base and
+     the three; 32 new tokens) in bf16, an adapters-off engine and the
+     adapters engine warmed, the mix served twice with every row's
+     adapter rotated (no capture), base rows equal to the off engine's,
+     launches as in serve, agreement with each adapter's merged-weight
+     engine, tok/s, the bucket-8 decode graphs and the decode step's
+     kernels beside the off engine's; in float32 the same with exact
+     agreement, one adapter row's first-step logits against its merged
+     engine's, a fourth adapter registered after capture (its load
+     evicting a cold one) serving its merged engine's tokens, and a
+     planted load that rebinds the stacks caught;
   4. training: bench.py's on-chip GPT (vocab 32768, S 1024, d_model 512,
      8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier; its depth cut
      from 8 layers to 2) trained by parallel.ShardedTrainer for 2 warm-up
@@ -639,6 +651,7 @@ def serve_profile(eng, prompts, steps=16):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     return {"decode_steps": n, "wall_ms_per_step": wall_ms / n,
             "kernel_ms_per_step": device_ms,
+            "kernels_per_step": sum(counts.values()) / n,
             "busy_share": device_ms * n / wall_ms,
             "host_ms_per_step": wall_ms / n - device_ms,
             "traced_paged_kernels": traced,
@@ -784,9 +797,10 @@ def serve_restart(np_params, toks_a, manifest_path):
         raise SystemExit("warm restart captured again or changed tokens")
 
 
-def logit_margin(eng, seq):
-    """Top-1 minus top-2 logit after ``seq``: ``eng``'s prefill body,
-    eager, on a scratch cache."""
+def first_logits(eng, seq, slot=None):
+    """The logits after ``seq`` through ``eng``'s prefill body, eager, on
+    a scratch cache, float32; with ``slot`` through that adapter slot's
+    stacks."""
     from mxnet_tpu_torch.serve import engine as engine_mod
 
     n, bs = len(seq), eng.block_size
@@ -798,13 +812,21 @@ def logit_margin(eng, seq):
     if eng._cfg.kv_quant:
         ks = torch.zeros(shape[:-1], dtype=torch.float32, device=DEVICE)
         scales = (ks, torch.zeros_like(ks))
+    adp = {}
+    if slot is not None:
+        adp = {"adp": eng.adapter_store.device,
+               "slot": torch.tensor(slot, dtype=torch.int32, device=DEVICE)}
     pos = torch.arange(n, device=DEVICE)
     with torch.no_grad():
-        logits = engine_mod._prefill_logits(
+        return engine_mod._prefill_logits(
             eng._cfg, n, eng.params, ck, cv,
             torch.tensor(np.asarray(seq), device=DEVICE), n,
-            pos // bs + 1, pos % bs, *scales)[0]
-    top = torch.topk(logits.float(), 2).values
+            pos // bs + 1, pos % bs, *scales, **adp)[0].float()
+
+
+def logit_margin(eng, seq):
+    """Top-1 minus top-2 logit after ``seq`` (:func:`first_logits`)."""
+    top = torch.topk(first_logits(eng, seq), 2).values
     return float(top[0] - top[1])
 
 
@@ -964,6 +986,7 @@ def drive(eng, prompts, new_tokens=32, cfg_fn=None, sequential=False,
 
     calls0 = {k: p.calls for k, p in eng._programs.items()}
     caps0, steps0 = eng.captures, eng.decode_steps
+    gen0 = eng.stats().tokens_generated
     torch.cuda.synchronize()
     pac.launches = pac.combine_launches = 0
     t0 = time.perf_counter()
@@ -999,8 +1022,8 @@ def drive(eng, prompts, new_tokens=32, cfg_fn=None, sequential=False,
             "program_calls": calls,
             "decode_steps": eng.decode_steps - steps0,
             "traffic_captures": eng.captures - caps0,
-            "tokens_generated": st.tokens_generated, "wall_s": wall,
-            "tok_per_s": st.tokens_generated / wall,
+            "tokens_generated": st.tokens_generated - gen0, "wall_s": wall,
+            "tok_per_s": (st.tokens_generated - gen0) / wall,
             "decode_only_steps": len(step_ms),
             "decode_step_ms_mean": (statistics.mean(step_ms)
                                     if step_ms else None),
@@ -1758,6 +1781,281 @@ def serve_sample(np_params):
     return {"sampling": rows["sampling"], "spec_on": r_on}
 
 
+# -- serving: multi-tenant LoRA adapters ------------------------------------
+# tools/serve_bench.py --workload lora (run_lora :649-760): --lora-adapters
+# 3 of --lora-rank 4, alpha 8.0, drawn by build_lora_family (:621-646)
+# from seed + 7 over every projection stem; one more drawn after them is
+# the adapter registered after capture
+LORA_ADAPTERS = 3
+LORA_RANK = 4
+LORA_ALPHA = 8.0
+LORA_SEED = 0 + 7
+# one adapter row's first-step float32 logits (TF32 off), the adapters
+# engine (x W^T + s (x A^T) B^T) against its merged engine
+# (x (W + s B A)^T): a few float32 roundings a projection (~1e-7
+# relative) carried through 4 layers and the tied head, as LOGITS_BOUND
+# is for the kernel; the adapter itself moves these logits by ~0.1-1,
+# which the base engine's logits show beside the bound
+LORA_LOGITS_BOUND = 5e-4
+
+
+def lora_family(params, k=LORA_ADAPTERS + 1):
+    """tools/serve_bench.py ``build_lora_family`` on the serve model:
+    ``k`` adapters ``{stem: (A, B)}`` (numpy, float32, N(0, 0.1^2)) in
+    stem order from one RandomState, and a function giving an adapter's
+    merged checkpoint ``W + (alpha/r) B A`` (on the card; the base
+    checkpoint for None)."""
+    from mxnet_tpu_torch.serve.adapters import gpt_stems
+
+    stems = gpt_stems("gpt", SERVE_CFG["num_layers"], True, True, params)
+    rng = np.random.RandomState(LORA_SEED)
+    family = {}
+    for j in range(k):
+        family[f"tenant-{j}"] = {
+            stem: ((rng.randn(LORA_RANK, din) * 0.1).astype(np.float32),
+                   (rng.randn(dout, LORA_RANK) * 0.1).astype(np.float32))
+            for stem, (dout, din) in stems.items()}
+
+    def merged(aid):
+        if aid is None:
+            return params
+        mp = dict(params)
+        for stem, (a, b) in family[aid].items():
+            w = params[f"{stem}_weight"]
+            mp[f"{stem}_weight"] = w + (LORA_ALPHA / LORA_RANK) * (
+                torch.from_numpy(b).to(w.device)
+                @ torch.from_numpy(a).to(w.device))
+        return mp
+
+    return family, merged
+
+
+def lora_ids():
+    """run_lora's assignment: row i serves ``ids[i % 4]`` (base, then
+    the three tenants); the rotated pass serves ``ids[(i + 1) % 4]``."""
+    return [None] + [f"tenant-{j}" for j in range(LORA_ADAPTERS)]
+
+
+def lora_cfg(shift):
+    ids = lora_ids()
+    return lambda i: ({"adapter_id": ids[(i + shift) % len(ids)]}
+                      if ids[(i + shift) % len(ids)] else {})
+
+
+def lora_engine(np_params, family, dtype, load=LORA_ADAPTERS):
+    """The adapters engine (3 tenants + the base slot), its first
+    ``load`` adapters registered before ``warmup()``."""
+    eng = full_width_engine(np_params, dtype, adapters=LORA_ADAPTERS + 1,
+                            adapter_rank=LORA_RANK)
+    for aid in sorted(family)[:load]:
+        eng.adapter_store.register(aid, family[aid], alpha=LORA_ALPHA)
+    return eng
+
+
+def lora_merged(merged, dtype, aid, prompts, reqs_out=None):
+    """Serve ``prompts`` on ``aid``'s merged checkpoint (an adapters-off
+    engine; the base checkpoint for None); its tokens and the engine."""
+    eng = full_width_engine(merged(aid), dtype)
+    return drive(eng, prompts, reqs_out=reqs_out)["tokens"], eng
+
+
+def lora_agreement(merged, dtype, prompts, got, shift):
+    """run_lora's agreement: each row of a pass (assignment ``shift``)
+    against its adapter's merged engine, token by token; the flips with
+    their margins on the merged engine."""
+    ids, total, agree, bad = lora_ids(), 0, 0, []
+    for aid in ids:
+        rows = [i for i in range(len(prompts))
+                if ids[(i + shift) % len(ids)] == aid]
+        want, eng = lora_merged(merged, dtype, aid,
+                                [prompts[i] for i in rows])
+        for i, w in zip(rows, want):
+            total += len(w)
+            agree += sum(int(x == y) for x, y in zip(w, got[i]))
+        for f in flips(eng, [prompts[i] for i in rows], want,
+                       [got[i] for i in rows]):
+            bad.append({**f, "request": rows[f["request"]], "adapter": aid})
+        eng.shutdown()
+    return agree / total, bad
+
+
+def rebinding_load(store):
+    """The planted fault: a load that rebinds every stack to a copy
+    before writing the slot, as the reference's ``.at[slot].set`` does,
+    leaving the programs on the old stacks."""
+    load = store._load_slot
+
+    def rebind(slot, digest):
+        store._device = {k: v.clone() for k, v in store._device.items()}
+        load(slot, digest)
+
+    store._load_slot = rebind
+
+
+def lora_float32(np_params, family, merged, prompts):
+    """The float32 (TF32 off) arms: the adapters engine warmed, the mix
+    and its rotation served, base rows against an adapters-off engine's,
+    agreement with the merged engines (flips with margins), one adapter
+    row's first-step logits against its merged engine's; then the
+    fourth adapter registered after capture, loaded by evicting a cold
+    one, against its merged engine; then the planted rebinding load,
+    which must change that adapter's tokens."""
+    off_toks, off = lora_merged(merged, torch.float32, None, prompts)
+    off.shutdown()
+    eng = lora_engine(np_params, family, torch.float32)
+    row = warm(eng)
+    caps = eng.captures
+    passes = [drive(eng, prompts, cfg_fn=lora_cfg(k)) for k in (0, 1)]
+    ids = lora_ids()
+    base_equal = all(passes[k]["tokens"][i] == off_toks[i]
+                     for k in (0, 1) for i in range(len(prompts))
+                     if ids[(i + k) % len(ids)] is None)
+    agree, bad = lora_agreement(merged, torch.float32, prompts,
+                                passes[1]["tokens"], 1)
+    # row 1 of the first pass is tenant-0's: its slot (pinned and
+    # released: the most recently used), its first logits
+    slot = eng.adapter_store.acquire("tenant-0")
+    eng.adapter_store.release(slot)
+    got = first_logits(eng, prompts[1], slot)
+    meng = full_width_engine(merged("tenant-0"), torch.float32)
+    want = first_logits(meng, prompts[1])
+    meng.shutdown()
+    base = first_logits(eng, prompts[1], 0)
+    logits = {"max_abs_err_vs_merged": float((got - want).abs().max()),
+              "bound": LORA_LOGITS_BOUND,
+              "max_abs_diff_base_vs_merged": float(
+                  (base - want).abs().max())}
+    # the fourth adapter, registered after every capture: its load
+    # evicts a cold slot and writes the stacks the graphs read
+    late_id = f"tenant-{LORA_ADAPTERS}"
+    late_rows = [prompts[1], prompts[5]]
+    eng.adapter_store.register(late_id, family[late_id], alpha=LORA_ALPHA)
+    evictions = eng.adapter_store.device_evictions
+    late = drive(eng, late_rows, cfg_fn=lambda i: {"adapter_id": late_id})
+    evictions = eng.adapter_store.device_evictions - evictions
+    want_late, meng = lora_merged(merged, torch.float32, late_id, late_rows)
+    late_bad = flips(meng, late_rows, want_late, late["tokens"])
+    meng.shutdown()
+    # planted: the adapter the late load evicted, loaded again by a
+    # rebinding load (into the slot of another, colder one)
+    gone = [a for a in ids[1:] if a not in eng.adapter_store.loaded()]
+    rebinding_load(eng.adapter_store)
+    planted = drive(eng, late_rows, cfg_fn=lambda i: {"adapter_id":
+                                                      gone[0]})
+    want_0, meng = lora_merged(merged, torch.float32, gone[0], late_rows)
+    meng.shutdown()
+    out = {"dtype": "float32", "tf32": torch.backends.cuda.matmul.allow_tf32,
+           **row, "traffic_captures": [p["traffic_captures"]
+                                       for p in passes],
+           "base_rows_equal_off": base_equal,
+           "agreement_vs_merged": agree, "flips": bad,
+           "first_step_logits": logits,
+           "late_adapter": {"id": late_id, "device_evictions": evictions,
+                            "traffic_captures": late["traffic_captures"],
+                            "tokens_equal_merged": not late_bad,
+                            "flips": late_bad},
+           "planted_rebinding_load": {
+               "adapter": gone[0] if gone else None,
+               "tokens_equal_merged": planted["tokens"] == want_0,
+               "caught": planted["tokens"] != want_0}}
+    out["ok"] = (row["warmup_ok"] and eng.captures == caps
+                 and all(p["finished"] and p["traffic_captures"] == 0
+                         for p in (*passes, late))
+                 and base_equal and agree == 1.0 and not bad
+                 and logits["max_abs_err_vs_merged"] <= LORA_LOGITS_BOUND
+                 and logits["max_abs_diff_base_vs_merged"]
+                 > LORA_LOGITS_BOUND
+                 and out["late_adapter"]["device_evictions"] == 1
+                 and not late_bad and len(gone) == 1
+                 and out["planted_rebinding_load"]["caught"])
+    eng.shutdown()
+    return out
+
+
+def serve_lora(np_params):
+    """tools/serve_bench.py's LoRA A/B (``run_lora``) on the serve model:
+    3 adapters of rank 4 over every projection, the serve prompts (32
+    new tokens), rows cycling base and the three tenants.  bf16: an
+    adapters-off engine and the adapters engine (4 slots), each warmed
+    over its full grid, the mix served and then served again with every
+    row's adapter rotated, which must capture nothing; base rows equal
+    the off engine's; the paged launches equal layers x decode steps;
+    agreement with one merged-checkpoint engine a tenant (flips with
+    their margins); off and adapters tok/s, the bucket-8 decode graphs
+    and the decode step's kernels from the profiler.  Then the float32
+    arms (``lora_float32``), where agreement must be exact."""
+    family, merged = lora_family(np_params)
+    prompts = serve_prompts(0)
+    off = full_width_engine(np_params, torch.bfloat16)
+    rows = {"off": {**warm(off), **drive(off, prompts)}}
+    mux = lora_engine(np_params, family, torch.bfloat16)
+    if mux.paged_impl != "cuda" and DEVICE == "cuda":
+        raise SystemExit(f"engine resolved paged_impl={mux.paged_impl}")
+    rows["mux"] = warm(mux)
+    caps = mux.captures
+    passes = [drive(mux, prompts, cfg_fn=lora_cfg(k)) for k in (0, 1)]
+    rows["mux"].update(passes[1])
+    rows["mux"]["first_pass_launches"] = passes[0]["kernel_launches"]
+    rows["mux"]["first_pass_combine_launches"] = passes[0][
+        "combine_launches"]
+    ids = lora_ids()
+    base_equal = all(passes[k]["tokens"][i] == rows["off"]["tokens"][i]
+                     for k in (0, 1) for i in range(len(prompts))
+                     if ids[(i + k) % len(ids)] is None)
+    launches_ok = all(
+        r["kernel_launches"] == expected_launches(eng, r) > 0
+        and r["combine_launches"] == r["kernel_launches"]
+        for eng, r in ((off, rows["off"]), (mux, passes[0]),
+                       (mux, passes[1])))
+    timing = {"decode_graph_ms_b8_off": graph_ms(off, "decode", 8),
+              "decode_graph_ms_b8_adapters": graph_ms(mux, "decode", 8)}
+    profiles = {tag: serve_profile(eng, prompts)
+                for tag, eng in (("off", off), ("adapters", mux))}
+    prof_ok = all(p["counted_paged_launches"] == p["traced_paged_kernels"]
+                  for p in profiles.values())
+    info = mux.adapter_info()
+    off.shutdown()
+    mux.shutdown()
+    agree, bad = lora_agreement(merged, torch.bfloat16, prompts,
+                                passes[1]["tokens"], 1)
+    f32 = lora_float32(np_params, family, merged, prompts)
+    for r in (rows["off"], rows["mux"]):
+        r.pop("tokens")
+    ok = (all(r["finished"] and r["warmup_ok"] for r in rows.values())
+          and all(p["finished"] and p["traffic_captures"] == 0
+                  for p in passes)
+          and mux.captures == caps and base_equal and launches_ok
+          and prof_ok and info["slots_used"] == LORA_ADAPTERS
+          and info["slots_pinned"] == 0 and f32["ok"])
+    kp = {tag: p["kernels_per_step"] for tag, p in profiles.items()}
+    row = {"phase": "serve_lora", "dtype": "bfloat16",
+           "adapters": LORA_ADAPTERS, "adapter_rank": LORA_RANK,
+           "alpha": LORA_ALPHA, "prompt_lens": [len(p) for p in prompts],
+           "new_tokens": 32, "off": rows["off"], "adapters_on": rows["mux"],
+           "traffic_captures_by_pass": [p["traffic_captures"]
+                                        for p in passes],
+           "tok_per_s_adapters_over_off": rows["mux"]["tok_per_s"]
+           / rows["off"]["tok_per_s"],
+           **timing,
+           "decode_graph_adapters_over_off": (
+               timing["decode_graph_ms_b8_adapters"]
+               / timing["decode_graph_ms_b8_off"]
+               if timing["decode_graph_ms_b8_off"] else None),
+           "decode_step_kernels": kp,
+           "extra_kernels_per_decode_step": kp["adapters"] - kp["off"],
+           "profiles": {tag: {k: p[k] for k in (
+               "decode_steps", "kernel_ms_per_step", "wall_ms_per_step",
+               "kernels_per_step", "ms_per_step_by_kind",
+               "top_kernels_ms_per_step")} for tag, p in profiles.items()},
+           "base_rows_equal_off": base_equal, "launches_ok": launches_ok,
+           "bf16_agreement_vs_merged": agree, "bf16_flips": bad,
+           "adapter_info": info, "float32": f32, "ok": ok}
+    emit(row)
+    if not ok:
+        raise SystemExit("LoRA adapter serving failed its checks")
+    return rows["mux"]
+
+
 def small_model_check():
     """A small seeded model (the reference's serve-test shapes, rope +
     GQA + SwiGLU + RMSNorm + tied): the captured CUDA engine's greedy
@@ -2303,6 +2601,7 @@ def _kernel_kind(name):
                       ("rnn_bwd_kernel", "fused_rnn_bwd"),
                       ("rnn_bwd_tc_kernel", "fused_rnn_bwd"),
                       ("paged_attention", "paged_attention"),
+                      ("indexselect", "gather"),
                       ("gemm", "matmul"),
                       ("xmma", "matmul"), ("cutlass", "matmul"),
                       ("nvjet", "matmul"),
@@ -3223,8 +3522,10 @@ def main():
     host_kv = serve_host_kv(np_params)
     lap("serve_host_kv")
     sample = serve_sample(np_params)
-    del np_params
     lap("serve_sample")
+    lora = serve_lora(np_params)
+    del np_params
+    lap("serve_lora")
 
     train = train_main_path()
     train_grad_check()
@@ -3262,8 +3563,8 @@ def main():
     # the paged op's launches on each main path's drive: the serve
     # engine's decode, the spec engine's draft, the int8 engines' decode,
     # the host-tier engines' decode over restored blocks (float32, bf16,
-    # int8 K/V), the sampling engine's decode and the sampling spec
-    # engine's draft
+    # int8 K/V), the sampling engine's decode, the sampling spec
+    # engine's draft and the adapters engine's decode (both passes)
     paged_paths = {"serve": (serve["kernel_launches"],
                              serve["combine_launches"]),
                    "serve_spec_draft": (spec["spec_on"]["kernel_launches"],
@@ -3278,7 +3579,12 @@ def main():
                                     sample["sampling"]["combine_launches"]),
                    "serve_sample_spec_draft": (
                        sample["spec_on"]["kernel_launches"],
-                       sample["spec_on"]["combine_launches"])}
+                       sample["spec_on"]["combine_launches"]),
+                   "serve_lora_first_pass": (
+                       lora["first_pass_launches"],
+                       lora["first_pass_combine_launches"]),
+                   "serve_lora": (lora["kernel_launches"],
+                                  lora["combine_launches"])}
     kernels = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
         "cuda_kernels": ["paged_attention_split", "paged_attention_combine"],

@@ -64,10 +64,17 @@ a counter-based hash of (a per-call seed input, a purpose, the element's
 index), drawn as Gumbel noise in the program: a replay draws afresh
 because the seed is an input, and no generator state lives in a graph.
 
+With ``adapters=S`` the engine multiplexes LoRA adapters
+(``serve/adapters.py``): every target projection adds its low-rank delta
+``scale * x @ A.T @ B.T``, gathered from device stacks by each row's
+slot, a program input like the sampling parameters.  One graph per
+(kind, bucket) serves any mix of base rows (slot 0, an exact zero
+delta) and adapter rows; a request pins its slot from ``submit`` to its
+terminal event.  The draft of speculative decoding stays the base model.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP §A item: LoRA adapters (11), AOT program stores (the rest of
-12), tensor parallelism (13), and Symbol-driven config, the draft's
-included (15).
+ROADMAP §A item: AOT program stores (the rest of 12), tensor
+parallelism (13), and Symbol-driven config, the draft's included (15).
 """
 
 from __future__ import annotations
@@ -91,6 +98,8 @@ from ..models.generate import (_fc, _gelu, _gumbel, _ln,
                                detect_gpt_variant)
 from ..ops import paged_attention_cuda as _pac
 from ..ops.attention import paged_attention, resolve_paged_impl
+from ..telemetry.request_trace import HookTracer
+from . import adapters as adapters_mod
 from . import spec as spec_mod
 from .kv_block_manager import BlockManager, HostKVPool, dtype_name
 from .scheduler import (CANCELLED, FINISHED, REJECTED, QueueFull, Request,
@@ -392,6 +401,16 @@ class Engine:
         ``MXTPU_SERVE_SAMPLE_CAP``, default 64): one ``topk`` of the
         scaled logits, sampled within; ``top_k`` past it behaves as the
         cap, and a nucleus needing more candidates is cut there.
+      adapters: LoRA adapter device slots, slot 0 (the base model)
+        included (env ``MXTPU_SERVE_ADAPTERS``, default 0 = off, and off
+        leaves programs, fingerprint and tokens as they were; 1 raises).
+        On, ``adapter_store`` registers adapters and ``submit(adapter_id=)``
+        serves a request through one; prefill and chunk take a ``slot``
+        input and decode and verify per-row ``slots``.
+      adapter_rank: the slots' padded rank ceiling (env
+        ``MXTPU_SERVE_ADAPTER_RANK``, default 8).
+      adapter_host_bytes: the adapter host tier's byte budget (env
+        ``MXTPU_SERVE_ADAPTER_HOST_BYTES``, default 0 = unbounded).
       clock: injectable monotonic clock (tests drive deadlines).
       device: where weights, cache and programs live (default
         ``"cuda"``; raises when CUDA is absent — no CPU fallback).
@@ -413,14 +432,13 @@ class Engine:
                  quantize=None, kv_dtype=None, spec_k=None,
                  draft_params=None, draft_num_heads=None, draft_window=None,
                  draft_name=None, draft_symbol=None, adapters=None,
+                 adapter_rank=None, adapter_host_bytes=None,
                  host_kv_bytes=None, aot_dir=None, symbol=None):
         if symbol is not None:
             raise _unported("symbol= (decode config from a Symbol)", 15)
         if draft_symbol is not None:
             raise _unported("draft_symbol= (the draft's decode config "
                             "from a Symbol)", 15)
-        if adapters or env_int("MXTPU_SERVE_ADAPTERS", 0):
-            raise _unported("LoRA adapters", 11)
         if aot_dir is not None or os.environ.get("MXTPU_AOT_DIR"):
             raise _unported(
                 "the AOT program store (aot_dir): a CUDA graph is bound to "
@@ -478,6 +496,22 @@ class Engine:
             raise ValueError(
                 f"kv_dtype must be None or 'int8' (got {kv_dtype!r})")
         self._kv_quant = kv_dtype == "int8"
+        # LoRA multiplexing: off by default, and off is inert.  The slot
+        # count includes the reserved all-zero base slot 0
+        self._adapters = (int(adapters) if adapters is not None
+                          else env_int("MXTPU_SERVE_ADAPTERS", 0))
+        if self._adapters < 0 or self._adapters == 1:
+            raise ValueError(
+                f"adapters must be 0 (off) or >= 2 slots including the "
+                f"reserved base slot 0 (got {self._adapters})")
+        self.adapter_rank = (int(adapter_rank) if adapter_rank is not None
+                             else env_int("MXTPU_SERVE_ADAPTER_RANK", 8))
+        if self._adapters and self.adapter_rank < 1:
+            raise ValueError(
+                f"adapter_rank must be >= 1 (got {self.adapter_rank})")
+        self.adapter_host_bytes = (
+            int(adapter_host_bytes) if adapter_host_bytes is not None
+            else env_int("MXTPU_SERVE_ADAPTER_HOST_BYTES", 0)) or None
         self.spec_k = (int(spec_k) if spec_k is not None
                        else env_int(spec_mod.ENV_SPEC, 0))
         if self.spec_k < 0:
@@ -536,8 +570,12 @@ class Engine:
         # always registered: eviction offloads only with a pool, but
         # export_blocks copies device blocks through it on any engine
         self.blocks.set_offload_source(self._host_kv_fetch)
+        # an adapters engine drops a request's slot pin at its terminal
+        # event, whichever path ends it
         self.scheduler = Scheduler(self.blocks, self.max_batch, max_queue,
                                    max_prefills_per_step, clock=clock,
+                                   trace=(HookTracer(self._on_request_terminal)
+                                          if self._adapters else None),
                                    tenant_share=tenant_share,
                                    prefill_chunk=prefill_chunk,
                                    spec_slots=self.spec_k)
@@ -569,6 +607,15 @@ class Engine:
             self._scale_k = torch.zeros(shape[:-1], dtype=torch.float32,
                                         device=self.device)
             self._scale_v = torch.zeros_like(self._scale_k)
+        # the adapter stacks in the activation dtype (int8 weights never
+        # make the deltas int8); slot 0 stays all zero
+        self.adapter_store = None
+        if self._adapters:
+            self.adapter_store = adapters_mod.AdapterStore(
+                adapters_mod.gpt_stems(name, L, self.spec["swiglu"],
+                                       self.spec["tied"], self.params),
+                self.adapter_rank, self._adapters, dtype=dt,
+                device=self.device, host_bytes=self.adapter_host_bytes)
         self._cfg = _ModelCfg(
             name=name, n_layers=L, num_heads=self.num_heads,
             head_dim=self.spec["head_dim"], kv_heads=self.spec["kv_heads"],
@@ -620,8 +667,14 @@ class Engine:
         that many samples of the prompt, its blocks shared copy-on-write
         (one prefill pays for all; the handles are on ``req.samples``).
         ``logprobs`` (0..5) records that many top candidates a token
-        beside each token's own logprob.  ``adapter_id`` raises
-        (ROADMAP §A item 11)."""
+        beside each token's own logprob.
+
+        ``adapter_id`` serves the request through a registered LoRA
+        adapter (adapters mode only): each of its rows pins the
+        adapter's device slot until its terminal event, and adds the
+        adapter's delta in every target projection.  An unknown id
+        raises ``ValueError``; every slot pinned rejects the request
+        with the retriable ``adapter_slots`` reason."""
         if not self._alive:
             raise RuntimeError("engine is shut down")
         temperature = (self.temperature if temperature is None
@@ -649,11 +702,18 @@ class Engine:
                 "prompt's radix-cached blocks copy-on-write — one "
                 "prefill, n samples)")
         if adapter_id is not None:
-            raise ValueError("adapter_id requires an adapters-mode engine "
-                             "(ROADMAP §A item 11)")
+            if not self._adapters:
+                raise ValueError(
+                    "adapter_id requires an adapters-mode engine "
+                    "(Engine(adapters=S) / MXTPU_SERVE_ADAPTERS) — "
+                    "adapters-off engines keep the historical programs "
+                    "byte-for-byte")
+            if (not isinstance(adapter_id, str)
+                    or not self.adapter_store.known(adapter_id)):
+                raise ValueError(f"unknown adapter: {adapter_id!r}")
         kw = dict(deadline_s=deadline_s, tenant=tenant, handoff=handoff,
                   temperature=temperature, top_p=top_p, top_k=top_k,
-                  logprobs=logprobs)
+                  logprobs=logprobs, adapter_id=adapter_id)
         req = Request(prompt, max_new_tokens, **kw)
         if trace_id:
             req.trace_id = str(trace_id)
@@ -671,6 +731,17 @@ class Engine:
             for r in (req.samples or [req]):
                 self.scheduler._reject(r, "exceeds_max_len")
             return req
+        if adapter_id is not None:
+            # every row pins the slot once; the pin survives preemption
+            # and drops in _on_request_terminal.  All slots pinned is
+            # transient capacity pressure: a retriable rejection
+            try:
+                for r in (req.samples or [req]):
+                    r.adapter_slot = self.adapter_store.acquire(adapter_id)
+            except adapters_mod.NoAdapterSlots:
+                for r in (req.samples or [req]):
+                    self.scheduler._reject(r, "adapter_slots")
+                return req
         try:
             out = self.scheduler.submit(req)
         except QueueFull:
@@ -814,12 +885,16 @@ class Engine:
         for req in self.scheduler.drain_waiting():
             req.status = CANCELLED
             req.finish_t = self.clock()
+            self.scheduler.trace.terminal(req, CANCELLED)
         with self._fanout_lock:
             pending, self._pending_fanout = self._pending_fanout, []
         for _, sibs in pending:
+            # n > 1 siblings still engine-side resolve like drained
+            # waiters
             for sib in sibs:
                 sib.status = CANCELLED
                 sib.finish_t = self.clock()
+                self.scheduler.trace.terminal(sib, CANCELLED)
         self._programs.clear()
         self._pool = None
         if self._spec is not None:
@@ -832,6 +907,20 @@ class Engine:
             self._host_pool = None
         self.params = None
         self._alive = False
+
+    def _on_request_terminal(self, req, name, args):
+        """The scheduler tracer's terminal hook on an adapters engine:
+        drop the request's slot pin, once (its slot is zeroed)."""
+        if req.adapter_slot:
+            self.adapter_store.release(req.adapter_slot)
+            req.adapter_slot = 0
+
+    def adapter_info(self):
+        """The adapters section of the reference's ``/statusz``: slot
+        occupancy, refcounts and loaded ids (None when off)."""
+        if not self._adapters:
+            return None
+        return self.adapter_store.stats()
 
     def sampling_info(self):
         """The sampling section of the reference's ``/statusz``: cap,
@@ -975,10 +1064,11 @@ class Engine:
         included), their shapes (``num_blocks``, ``table_width``) and the
         cache dtype, plus the torch version and card.  Speculative
         decoding (``spec_k`` and the draft's cfg and cache dtype),
-        ``kv_quant``, ``quantize``, ``sampling`` and ``sample_cap`` enter
-        only when on, so an engine without them keeps its digest and
-        manifests.  The host tier never enters: it changes no program
-        (its restore programs are a kind of their own)."""
+        ``kv_quant``, ``quantize``, ``sampling``, ``sample_cap``,
+        ``adapters`` and ``adapter_rank`` enter only when on, so an
+        engine without them keeps its digest and manifests.  The host
+        tier never enters: it changes no program (its restore programs
+        are a kind of their own)."""
         extra = {}
         if self._spec is not None:
             extra.update(spec_k=self.spec_k, draft=dict(
@@ -986,6 +1076,9 @@ class Engine:
                 cache_dtype=str(self._spec.cache_k.dtype)))
         if self.quantize:
             extra["quantize"] = self.quantize
+        if self._adapters:
+            extra.update(adapters=self._adapters,
+                         adapter_rank=self.adapter_rank)
         return aot.fingerprint(device=self.device,
                                cfg=_cfg_fields(self._cfg),
                                num_blocks=self.num_blocks,
@@ -1064,9 +1157,18 @@ class Engine:
             body = functools.partial(body, params=sw.params, ck=sw.cache_k,
                                      cv=sw.cache_v)
             return _Program(fields, body, self.device, self._pool)
+        adp = {}
+        if self._adapters:
+            # the target programs' slot inputs and the store's stacks
+            # (the draft's programs above stay base-model)
+            adp = {"adp": self.adapter_store.device}
+            fields = tuple(fields) + (
+                (("slot", (1,)),) if kind in ("prefill", "chunk")
+                else (("slots", (bucket,)),))
         body = functools.partial(body, params=self.params,
                                  ck=self._cache_k, cv=self._cache_v,
-                                 ksc=self._scale_k, vsc=self._scale_v)
+                                 ksc=self._scale_k, vsc=self._scale_v,
+                                 **adp)
         return _Program(fields, body, self.device, self._pool)
 
     def _restore_program(self, bucket):
@@ -1105,6 +1207,14 @@ class Engine:
             h["topp"][i] = req.top_p
             h["topk"][i] = req.top_k or 0
         h["seed"][0] = self._next_seed()
+
+    def _stage_slots(self, h, reqs):
+        """Stage each row's adapter slot into a decode or verify
+        program (padding rows stay 0, the base model's zero delta).
+        No-op with adapters off."""
+        if self._adapters:
+            for i, req in enumerate(reqs):
+                h["slots"][i] = req.adapter_slot
 
     def _note_logprobs(self, req, chosen, tv, ti):
         """Record emitted tokens' logprobs on the request: the chosen
@@ -1199,6 +1309,8 @@ class Engine:
             h["blk"][:span] = h["table"][(start + np.arange(span)) // bs]
             h["off"][:] = (start + np.arange(bucket)) % bs
             self._stage_sampling(h, [req])
+        if self._adapters:
+            h["slot"][0] = req.adapter_slot
         out = prog()                   # the host needs the token: sync
         tok = int(out[0][0] if self._sampling else out[0])
         req.cache_len = end
@@ -1236,6 +1348,7 @@ class Engine:
             t = self.blocks.table(req.rid)
             h["tables"][i, :len(t)] = t
         self._stage_sampling(h, reqs)
+        self._stage_slots(h, reqs)
         out = prog()                   # the host needs the tokens: sync
         self.decode_steps += 1
         now = self.clock()
@@ -1313,6 +1426,7 @@ class Engine:
             hv["rows"][:, 1:] = drafted
         hv["pos0"][:] = h["pos"]
         hv["tables"][:] = h["tables"]
+        self._stage_slots(hv, reqs)
         with telemetry.span("serve.verify", batch=B, k=k):
             out = verify()             # acceptance needs them: sync
         emitted = 0
@@ -1402,6 +1516,43 @@ def _wfc(params, stem, x):
     if sc is not None:
         w = w.to(x.dtype) * sc.to(x.dtype)[:, None]
     return _fc(x, w, params[f"{stem}_bias"])
+
+
+def _lora_delta(adp, stem, x, slots):
+    """One projection's LoRA delta (the reference's ``_lora_delta``):
+    gather each row's (A, B) slices and scale from the device stacks by
+    its slot and compute ``scale * x @ A.T @ B.T``, in that order and in
+    ``x.dtype``, never materializing a merged weight.  Slot 0's rows and
+    scale are zeros, so a base row adds exactly ``+0.0``.
+
+    ``slots`` is a 0-dim tensor for the one-request prefill and chunk
+    programs, ``(B,)`` for decode (2-D ``x``) and verify (3-D ``x``
+    ``(B, K+1, D)``: the slot broadcasts over the candidate positions).
+    Gathers are ``index_select`` on the device: indexing by a 0-dim
+    tensor would read it on the host, which a capture forbids."""
+    a, b, sc = adp[f"{stem}_A"], adp[f"{stem}_B"], adp["scale"]
+    if slots.ndim == 0:
+        i = slots.reshape(1)
+        u = x @ a.index_select(0, i)[0].to(x.dtype).t()        # (..., r)
+        return ((u @ b.index_select(0, i)[0].to(x.dtype).t())
+                * sc.index_select(0, i).to(x.dtype))
+    ga = a.index_select(0, slots).to(x.dtype)                  # (B, r, i)
+    gb = b.index_select(0, slots).to(x.dtype)                  # (B, o, r)
+    s = sc.index_select(0, slots).to(x.dtype)
+    if x.ndim == 2:
+        u = torch.einsum("bi,bri->br", x, ga)
+        return torch.einsum("br,bor->bo", u, gb) * s[:, None]
+    u = torch.einsum("bki,bri->bkr", x, ga)
+    return torch.einsum("bkr,bor->bko", u, gb) * s[:, None, None]
+
+
+def _awfc(params, adp, stem, x, slots):
+    """:func:`_wfc` plus the rows' LoRA delta when the program binds the
+    adapter stacks (``adp`` None: adapters off, the plain projection)."""
+    base = _wfc(params, stem, x)
+    if adp is None:
+        return base
+    return base + _lora_delta(adp, stem, x, slots)
 
 
 def _kv_quant_vals(vals):
@@ -1554,18 +1705,20 @@ def _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh):
 # -- program bodies (the reference's jit programs) ---------------------------
 # Each reads its inputs from device tensors only (no host read, which a
 # capture forbids) and writes the cache in place.  ``ksc``/``vsc`` are
-# the int8 cache's scale tensors (None without ``cfg.kv_quant``).
-def _mlp(cfg, params, p, x):
+# the int8 cache's scale tensors (None without ``cfg.kv_quant``);
+# ``adp`` the adapter stacks and ``slots`` the rows' slots (None with
+# adapters off, and in the draft's bodies).
+def _mlp(cfg, params, p, x, adp=None, slots=None):
     h2 = _ln(x, params[f"{p}_ln2_gamma"],
              None if cfg.rmsnorm else params[f"{p}_ln2_beta"])
     if cfg.swiglu:
-        g = _wfc(params, f"{p}_ff_gate", h2)
+        g = _awfc(params, adp, f"{p}_ff_gate", h2, slots)
         gf = g.float()                           # f32 silu == sym.silu
         up = ((gf * torch.sigmoid(gf)).to(g.dtype)
-              * _wfc(params, f"{p}_ff_up", h2))
+              * _awfc(params, adp, f"{p}_ff_up", h2, slots))
     else:
-        up = _gelu(_wfc(params, f"{p}_ff_up", h2))
-    return _wfc(params, f"{p}_ff_down", up)
+        up = _gelu(_awfc(params, adp, f"{p}_ff_up", h2, slots))
+    return _awfc(params, adp, f"{p}_ff_down", up, slots)
 
 
 def _logits(cfg, params, x):
@@ -1577,19 +1730,19 @@ def _logits(cfg, params, x):
     return _wfc(params, f"{name}_head", final)
 
 
-def _qkv(cfg, params, p, x, n):
+def _qkv(cfg, params, p, x, n, adp=None, slots=None):
     h = _ln(x, params[f"{p}_ln1_gamma"],
             None if cfg.rmsnorm else params[f"{p}_ln1_beta"])
-    q = _wfc(params, f"{p}_q", h)
-    k = _wfc(params, f"{p}_k", h)
-    v = _wfc(params, f"{p}_v", h)
+    q = _awfc(params, adp, f"{p}_q", h, slots)
+    k = _awfc(params, adp, f"{p}_k", h, slots)
+    v = _awfc(params, adp, f"{p}_v", h, slots)
     return (q.reshape(n, cfg.num_heads, cfg.head_dim),
             k.reshape(n, cfg.kv_heads, cfg.head_dim),
             v.reshape(n, cfg.kv_heads, cfg.head_dim))
 
 
 def _token_layers(cfg, params, ck, cv, toks, pos, tables, ksc=None,
-                  vsc=None):
+                  vsc=None, adp=None, slots=None):
     """The decode layers: write each row's K/V at its position (in
     place), attend through the block tables, return the final hidden
     rows (B, D).  The table column is clamped and the learned position
@@ -1608,7 +1761,7 @@ def _token_layers(cfg, params, ck, cv, toks, pos, tables, ksc=None,
     ctx = (pos + 1).to(torch.int32)
     for i in range(cfg.n_layers):
         p = f"{name}_l{i}"
-        qh, kh, vh = _qkv(cfg, params, p, x, B)
+        qh, kh, vh = _qkv(cfg, params, p, x, B, adp, slots)
         if cfg.pos_table is None:
             qh, kh = _rope(qh, pos), _rope(kh, pos)
         _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh)
@@ -1617,41 +1770,44 @@ def _token_layers(cfg, params, ck, cv, toks, pos, tables, ksc=None,
         attn = paged_attention(qh, ck[i], cv[i], tables, ctx,
                                window=cfg.window, impl=cfg.paged_impl,
                                **scales)
-        x = x + _wfc(params, f"{p}_proj",
-                     attn.reshape(B, cfg.num_heads * cfg.head_dim))
-        x = x + _mlp(cfg, params, p, x)
+        x = x + _awfc(params, adp, f"{p}_proj",
+                      attn.reshape(B, cfg.num_heads * cfg.head_dim), slots)
+        x = x + _mlp(cfg, params, p, x, adp, slots)
     return x
 
 
 def _forward_token_batch(cfg, params, ck, cv, toks, pos, tables, ksc=None,
-                         vsc=None):
+                         vsc=None, adp=None, slots=None):
     """Shared decode math: :func:`_token_layers`, then the logits
     (B, V)."""
     return _logits(cfg, params, _token_layers(cfg, params, ck, cv, toks,
-                                              pos, tables, ksc, vsc))
+                                              pos, tables, ksc, vsc, adp,
+                                              slots))
 
 
 def _decode(cfg, toks, pos, tables, *, params, ck, cv, ksc=None, vsc=None,
-            temp=None, topp=None, topk=None, seed=None):
+            temp=None, topp=None, topk=None, seed=None, adp=None,
+            slots=None):
     """One batched decode step (the reference's ``_build_decode``
     program): the (B,) int32 next tokens, argmax; in sampling mode
     drawn per row, with their logprob outputs."""
     logits = _forward_token_batch(cfg, params, ck, cv, toks, pos, tables,
-                                  ksc, vsc)
+                                  ksc, vsc, adp, slots)
     if cfg.sampling:
         return _sampled(cfg, logits, temp, topp, topk, seed)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def _prefill(cfg, P, toks, plen, blk, off, *, params, ck, cv, ksc=None,
-             vsc=None, temp=None, topp=None, topk=None, seed=None):
+             vsc=None, temp=None, topp=None, topk=None, seed=None, adp=None,
+             slot=None):
     """Whole-prompt pass at padded length P for ONE request (the
     reference's ``_build_prefill`` program): writes K/V for positions
     [0, P) through (blk, off) — padded rows land in the null block —
     and returns the (1,) int32 token after position ``plen - 1`` (in
     sampling mode drawn, with its logprob outputs)."""
     logits = _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off,
-                             ksc, vsc)
+                             ksc, vsc, adp, _scalar(slot))
     if cfg.sampling:
         return _sampled(cfg, logits, temp, topp, topk, seed)
     return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -1672,6 +1828,11 @@ def _restore(blks, hk, hv, hks=None, hvs=None, *, ck, cv, ksc=None,
         vsc.index_copy_(1, b, hvs)
 
 
+def _scalar(slot):
+    """A (1,) slot input as the 0-dim slot of one request's rows."""
+    return None if slot is None else slot[0]
+
+
 def _last_row(x, n):
     """Row ``n - 1`` of ``x`` as (1, D): ``n`` an int, or a (1,) device
     tensor (read on the device; indexing with it could read it on the
@@ -1683,7 +1844,7 @@ def _last_row(x, n):
 
 
 def _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off, ksc=None,
-                    vsc=None):
+                    vsc=None, adp=None, slot=None):
     """:func:`_prefill`'s body up to the (1, V) logits of position
     ``plen - 1`` (``plen`` an int or a (1,) device tensor): dense causal
     attention within the prompt's own rows."""
@@ -1692,25 +1853,25 @@ def _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off, ksc=None,
     if cfg.window:
         keep = keep & (pos[:, None] - pos[None, :] < cfg.window)
     return _dense_logits(cfg, params, ck, cv, ksc, vsc, toks, pos, blk, off,
-                         keep, plen)
+                         keep, plen, adp=adp, slots=slot)
 
 
 def _chunk(cfg, C, toks, start, n_valid, table, blk, off, *, params, ck,
            cv, ksc=None, vsc=None, temp=None, topp=None, topk=None,
-           seed=None):
+           seed=None, adp=None, slot=None):
     """Suffix/chunk prefill (the reference's ``_build_chunk`` program):
     the (1,) int32 token after position ``start + n_valid - 1`` (in
     sampling mode drawn, with its logprob outputs), meaningful on a
     prompt's final chunk only."""
     logits = _chunk_logits(cfg, C, params, ck, cv, toks, start, n_valid,
-                           table, blk, off, ksc, vsc)
+                           table, blk, off, ksc, vsc, adp, _scalar(slot))
     if cfg.sampling:
         return _sampled(cfg, logits, temp, topp, topk, seed)
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def _chunk_logits(cfg, C, params, ck, cv, toks, start, n_valid, table,
-                  blk, off, ksc=None, vsc=None):
+                  blk, off, ksc=None, vsc=None, adp=None, slot=None):
     """C token rows of ONE request whose earlier positions' K/V already
     sit in the cache (a prefix-cache hit, or earlier chunks).  Rows hold
     positions [start, start + n_valid); rows past ``n_valid`` are
@@ -1729,11 +1890,12 @@ def _chunk_logits(cfg, C, params, ck, cv, toks, start, n_valid, table,
     if cfg.window:
         keep = keep & (spos > pos[:, None] - cfg.window)
     return _dense_logits(cfg, params, ck, cv, ksc, vsc, toks, pos, blk, off,
-                         keep, n_valid, table=table.long())
+                         keep, n_valid, table=table.long(), adp=adp,
+                         slots=slot)
 
 
 def _dense_logits(cfg, params, ck, cv, ksc, vsc, toks, pos, blk, off, keep,
-                  last, table=None):
+                  last, table=None, adp=None, slots=None):
     """The prefill and chunk programs' layers: the rows at positions
     ``pos`` write their K/V through (blk, off), then attend densely
     (float32 softmax) under ``keep`` (rows x keys) to this pass's own
@@ -1753,7 +1915,7 @@ def _dense_logits(cfg, params, ck, cv, ksc, vsc, toks, pos, blk, off, keep,
         x = x + params[f"{name}_pos_embed_weight"][0, pidx]
     for i in range(cfg.n_layers):
         p = f"{name}_l{i}"
-        qh, kh, vh = _qkv(cfg, params, p, x, n)
+        qh, kh, vh = _qkv(cfg, params, p, x, n, adp, slots)
         if cfg.pos_table is None:
             qh, kh = _rope(qh, pos), _rope(kh, pos)
         written = _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh)
@@ -1773,6 +1935,7 @@ def _dense_logits(cfg, params, ck, cv, ksc, vsc, toks, pos, blk, off, keep,
         sc = sc.masked_fill(~keep, float("-inf"))
         pr = torch.softmax(sc.float(), dim=-1).to(x.dtype)
         at = torch.einsum("kgqs,skd->qkgd", pr, vh)
-        x = x + _wfc(params, f"{p}_proj", at.reshape(n, Hq * Dh))
-        x = x + _mlp(cfg, params, p, x)
+        x = x + _awfc(params, adp, f"{p}_proj", at.reshape(n, Hq * Dh),
+                      slots)
+        x = x + _mlp(cfg, params, p, x, adp, slots)
     return _logits(cfg, params, _last_row(x, last))

@@ -290,19 +290,20 @@ def _draft_rs(cfg, k, cap, toks, pos, tables, temp, topp, topk, seed, *,
 
 
 def _verify(cfg, k, rows, pos0, tables, *, params, ck, cv, ksc=None,
-            vsc=None):
+            vsc=None, adp=None, slots=None):
     """The target's verify pass (the reference's ``_build_verify``,
     greedy): ``rows`` (B, k+1) holds each request's last token and its k
     drafts.  Returns the (B, k+1) int32 argmax, row j's token decided
-    after consuming rows 0..j."""
+    after consuming rows 0..j.  ``adp``/``slots``: the adapter stacks
+    and each request's slot (adapters mode)."""
     return torch.argmax(
         _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc,
-                       vsc), dim=-1).to(torch.int32)
+                       vsc, adp, slots), dim=-1).to(torch.int32)
 
 
 def _verify_rs(cfg, k, toks, drafted, q_at, q_vals, q_idx, pos0, tables,
                temp, topp, topk, seed, *, params, ck, cv, ksc=None,
-               vsc=None):
+               vsc=None, adp=None, slots=None):
     """The sampling engine's verify (the reference's ``_build_verify``
     in sampling mode): the target scores ``toks`` and the drafts, then
     accepts by rejection sampling in candidate space (never vocab-wide).
@@ -320,7 +321,7 @@ def _verify_rs(cfg, k, toks, drafted, q_at, q_vals, q_idx, pos0, tables,
     K1 = k + 1
     rows = torch.cat([toks[:, None], drafted], dim=1)
     logits = _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc,
-                            vsc)                             # (B, K1, V)
+                            vsc, adp, slots)                 # (B, K1, V)
     masked_p, idx_p = _filter_logits(cfg, logits, temp[:, None],
                                      topp[:, None], topk[:, None])
     p_cand = torch.softmax(masked_p, dim=-1)                 # (B, K1, cap)
@@ -356,7 +357,8 @@ def _verify_rs(cfg, k, toks, drafted, q_at, q_vals, q_idx, pos0, tables,
     return (emit, acc.to(torch.int32)) + _logprob_outs(logits, emit)
 
 
-def _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc, vsc):
+def _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc, vsc,
+                   adp=None, slots=None):
     """The verify pass's body up to its (B, k+1, V) logits: ``rows``
     holds each request's last token and its k drafts at positions
     ``pos0 .. pos0 + k``.  Every row's K/V is written FIRST (int8 with
@@ -364,7 +366,7 @@ def _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc, vsc):
     writes into the null block.  Then each layer gathers each request's
     whole table once and masks it per row by position (and window):
     in-window causality is exact without a dense score matrix."""
-    from .engine import _kv_dequant, _ln, _logits, _mlp, _wfc, _write_kv
+    from .engine import _awfc, _kv_dequant, _ln, _logits, _mlp, _write_kv
 
     name = cfg.name
     Hq, Hkv, Dh, bs = (cfg.num_heads, cfg.kv_heads, cfg.head_dim,
@@ -394,9 +396,9 @@ def _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc, vsc):
         p = f"{name}_l{i}"
         h = _ln(x, params[f"{p}_ln1_gamma"],
                 None if cfg.rmsnorm else params[f"{p}_ln1_beta"])
-        qh = _wfc(params, f"{p}_q", h).reshape(B, K1, Hq, Dh)
-        kh = _wfc(params, f"{p}_k", h).reshape(B, K1, Hkv, Dh)
-        vh = _wfc(params, f"{p}_v", h).reshape(B, K1, Hkv, Dh)
+        qh = _awfc(params, adp, f"{p}_q", h, slots).reshape(B, K1, Hq, Dh)
+        kh = _awfc(params, adp, f"{p}_k", h, slots).reshape(B, K1, Hkv, Dh)
+        vh = _awfc(params, adp, f"{p}_v", h, slots).reshape(B, K1, Hkv, Dh)
         if cfg.pos_table is None:
             qh, kh = _rope_rows(qh, pos), _rope_rows(kh, pos)
         _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh)
@@ -410,6 +412,7 @@ def _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc, vsc):
         sc = sc.masked_fill(~keep, float("-inf"))
         pr = torch.softmax(sc.float(), dim=-1).to(x.dtype)
         at = torch.einsum("bkgcs,bskd->bckgd", pr, vb)
-        x = x + _wfc(params, f"{p}_proj", at.reshape(B, K1, Hq * Dh))
-        x = x + _mlp(cfg, params, p, x)
+        x = x + _awfc(params, adp, f"{p}_proj", at.reshape(B, K1, Hq * Dh),
+                      slots)
+        x = x + _mlp(cfg, params, p, x, adp, slots)
     return _logits(cfg, params, x)

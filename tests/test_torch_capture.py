@@ -11,8 +11,9 @@ cannot be captured, and that the program then raises instead of running
 the body eagerly; that a restore program restaged while its copy is
 still queued waits for the copy (the staging fence); and that two
 replays of a sampled decode graph with different seeds draw
-differently.  This file imports no JAX, so the ``cuda`` tests run on
-the card as they stand.
+differently; and that an adapters engine's rotated adapter mix replays
+its warmed graphs.  This file imports no JAX, so the ``cuda`` tests run
+on the card as they stand.
 """
 
 import numpy as np
@@ -291,3 +292,53 @@ def test_cuda_sampled_decode_replays_draw_afresh():
     assert len({d[0] for d in draws}) == 1
     assert call(3) == draws[3]
     eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_rotated_adapter_mix_captures_nothing():
+    """An adapters engine on the card: after ``warmup()``, a mixed batch
+    of base and adapter rows and its rotation replay the warmed graphs
+    (no capture), adapters loaded after the captures reach them, and an
+    adapter row equals its merged-checkpoint engine's tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA-graph capture exists only on the "
+                    "card")
+    from mxnet_tpu_torch.serve.adapters import gpt_stems
+
+    params = _params()
+    stems = gpt_stems("gpt", 2, False, False, params)
+    rng = np.random.RandomState(11)
+    family = {f"tenant-{j}": {s: ((rng.randn(4, din) * 0.1)
+                                  .astype(np.float32),
+                                  (rng.randn(dout, 4) * 0.1)
+                                  .astype(np.float32))
+                              for s, (dout, din) in stems.items()}
+              for j in range(3)}
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, 53, (n,)).astype(np.int32)
+               for n in (7, 12, 5, 9)]
+    ids = [None, "tenant-0", "tenant-1", "tenant-2"]
+
+    def serve(eng, adapter_ids):
+        reqs = [eng.submit(p, max_new_tokens=8, adapter_id=a)
+                for p, a in zip(prompts, adapter_ids)]
+        eng.run()
+        return [r.tokens for r in reqs]
+
+    eng = mt.serve.Engine(params, num_heads=4, device="cuda", adapters=4,
+                          adapter_rank=4, **ENGINE_KW)
+    eng.warmup()
+    captures = eng.captures
+    assert captures == len(eng._programs) > 0
+    for aid, arrays in family.items():
+        eng.adapter_store.register(aid, arrays, alpha=8.0)
+    mux = serve(eng, ids)
+    mux2 = serve(eng, ids[1:] + ids[:1])
+    assert eng.captures == captures and mux != mux2
+    eng.shutdown()
+    merged = dict(params)
+    for s, (a, b) in family["tenant-0"].items():
+        merged[f"{s}_weight"] = params[f"{s}_weight"] + 2.0 * (b @ a)
+    ref = mt.serve.Engine(merged, num_heads=4, device="cuda", **ENGINE_KW)
+    assert serve(ref, [None] * 4)[1] == mux[1]
+    ref.shutdown()

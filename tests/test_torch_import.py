@@ -39,7 +39,7 @@ import mxnet_tpu_torch.initializer
 import mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.trainer
 import mxnet_tpu_torch.serve, mxnet_tpu_torch.serve.engine
 import mxnet_tpu_torch.serve.kv_block_manager, mxnet_tpu_torch.serve.scheduler
-import mxnet_tpu_torch.serve.stats
+import mxnet_tpu_torch.serve.stats, mxnet_tpu_torch.serve.adapters
 import mxnet_tpu_torch.telemetry, mxnet_tpu_torch.telemetry.request_trace
 import mxnet_tpu_torch.telemetry.timeseries
 # the port's own name starts with "mxnet_tpu": match the reference by
