@@ -96,7 +96,26 @@ Phases (any failure exits non-zero; nothing is caught):
      agreement, one adapter row's first-step logits against its merged
      engine's, a fourth adapter registered after capture (its load
      evicting a cold one) serving its merged engine's tokens, and a
-     planted load that rebinds the stacks caught;
+     planted load that rebinds the stacks caught; the engine's telemetry
+     (serve_telemetry): the bf16 engine with the registry, the HTTP
+     endpoint, request traces, flight dumps, every step's program calls
+     timed by CUDA events and the NaN watchdog on; warmup() captures the
+     grid while a thread polls /statusz.json, /metrics and /healthz
+     (every response parses), the 8 prompts give the serve phase's
+     tokens with no capture and its launch counts, the perf section's
+     call counts equal the programs', the bucket-8 decode's event time
+     agrees with its graph ms (TIMING_REL, TIMING_ABS_MS), MFU in (0, 1]
+     and the /statusz, /metrics and perf_summary() views agree, each
+     step's profile within STEP_WRAP_ABS_MS of this script's clock
+     around the step and its dispatch and wait phases holding the
+     step's event-timed device time, the artifacts parse and
+     tools/metrics_report.py and trace_report.py render them, a
+     profiler.trace() of 4 decode steps holds both paged kernels layers
+     x 4 times, a float32 engine with a NaN weight row dumps
+     numeric_anomaly with the watch on and nothing with it off; then
+     tok/s and decode-step ms with telemetry off, on, and on with every
+     step sampled, and the host microseconds a decode step spends in
+     each part of the telemetry, off and on (recorded, not judged);
   4. training: bench.py's on-chip GPT (vocab 32768, S 1024, d_model 512,
      8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier; its depth cut
      from 8 layers to 2) trained by parallel.ShardedTrainer for 2 warm-up
@@ -147,6 +166,15 @@ Prints JSON lines, then the card's name and power limit, then the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero without a result when CUDA is unavailable or the package is
 missing.  The full report is also written to chiprun_out/chip_smoke.json.
+
+    python3 chip_smoke.py --overhead [--package DIR]
+
+runs only serve_telemetry's overhead arms (the paged library built, the
+serve config's bf16 engine on the serve prompts) with the package
+imported from DIR, the checkout of another commit: an older package
+without the telemetry runs the telemetry-off arm alone.  Runs of two
+commits in one call, alternated, compare the telemetry-off engine
+across them.  Prints the card line and one JSON line.
 """
 
 from __future__ import annotations
@@ -2056,6 +2084,614 @@ def serve_lora(np_params):
     return rows["mux"]
 
 
+# -- serve_telemetry: the engine's telemetry on the card ---------------------
+# |PerfAttrib's CUDA-event ms of the bucket-8 decode - graph_ms| must stay
+# within TIMING_REL x graph_ms + TIMING_ABS_MS.  The engine's events
+# bracket the graph replay alone, in traffic (L2 holding what the last
+# call left), where graph_ms times the replay after an L2 flush; the
+# launch's own latency (the device may idle while the host submits ~350
+# nodes) is in both, tens of microseconds against a ~0.8 ms graph.
+TIMING_REL = 0.25
+TIMING_ABS_MS = 0.05
+# the step profile against clocks it does not keep.  chip_smoke's own
+# host clock around each eng.step() may exceed the profile's wall by at
+# most STEP_WRAP_ABS_MS (step()'s guard, no_grad and the call, ~10 us).
+# On a step whose calls were event-timed, the profile's dispatch and
+# device_wait phases must hold the step's event-timed device time: each
+# event pair lies inside a dispatch lap, whose end waits for the end
+# event; EVENT_SLACK_MS covers the two clocks' resolution
+STEP_WRAP_ABS_MS = 0.25
+EVENT_SLACK_MS = 0.005
+TELEMETRY_ENV = ("MXTPU_TELEMETRY_DIR", "MXTPU_REQUEST_TRACE",
+                 "MXTPU_REQUEST_TRACE_FILE", "MXTPU_FLIGHT_DIR",
+                 "MXTPU_PERF_ATTRIB_SAMPLE", "MXTPU_NUMERIC_WATCH")
+
+
+class _Poller:
+    """A thread polling /statusz.json, /metrics and /healthz of ``url``
+    until stopped: every response must come back 200 and parse."""
+
+    PATHS = ("/statusz.json", "/metrics", "/healthz")
+
+    def __init__(self, url):
+        self.url, self.polls, self.errors = url, 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        import urllib.request
+
+        from mxnet_tpu_torch.telemetry.timeseries import \
+            parse_prometheus_text
+        while not self._stop.is_set():
+            for path in self.PATHS:
+                try:
+                    with urllib.request.urlopen(self.url + path,
+                                                timeout=30) as r:
+                        body = r.read().decode()
+                    if path == "/metrics":
+                        if not parse_prometheus_text(body):
+                            raise ValueError("empty /metrics")
+                    else:
+                        json.loads(body)
+                except Exception as e:       # counted, then fails the phase
+                    self.errors.append(f"{path}: {e!r}")
+            self.polls += 1
+
+    def __enter__(self):
+        self._thread.start()
+        while not self.polls and not self.errors:
+            self._stop.wait(0.005)       # the first round is in
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+def _set_env(values):
+    """Set (value) or unset (None) each variable; returns the old ones."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return old
+
+
+def _tool(name, *args):
+    """Run ``tools/<name>`` (stdlib only) in a subprocess: (rc, stdout)."""
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "tools", name),
+                          *args], capture_output=True, text=True,
+                         timeout=120)
+    return out.returncode, out.stdout + out.stderr
+
+
+def _prom_series(text, name):
+    """[(labels, value)] of the series ``name`` in a Prometheus text
+    body (labelled series only)."""
+    return [(dict(re.findall(r'([a-z_]+)="([^"]*)"', line)),
+             float(line.split()[-1])) for line in text.splitlines()
+            if line.startswith(name + "{")]
+
+
+def nan_watch_check(np_params, tmp):
+    """The NaN watchdog binds: a float32 engine with one weight row set
+    to NaN writes a numeric_anomaly flight dump with the watch on, and
+    none with it off (the flag rides the tokens' copy)."""
+    from mxnet_tpu_torch.telemetry import flight
+
+    bad = dict(np_params)
+    w = np_params["gpt_l0_q_weight"].clone()
+    w[0] = float("nan")
+    bad["gpt_l0_q_weight"] = w
+    got = {}
+    for watch in ("1", None):
+        d = os.path.join(tmp, f"nan_{'on' if watch else 'off'}")
+        old = _set_env({"MXTPU_NUMERIC_WATCH": watch,
+                        "MXTPU_FLIGHT_DIR": d})
+        flight.recorder().clear()
+        try:
+            eng = full_width_engine(bad, torch.float32, num_blocks=64,
+                                    max_batch=2)
+            for p in serve_prompts(0)[:2]:
+                eng.submit(p, max_new_tokens=4)
+            eng.run()
+            eng.shutdown()
+        finally:
+            _set_env(old)
+        files = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        got["on" if watch else "off"] = [
+            f for f in files if f.endswith("numeric_anomaly.json")]
+    flight.recorder().clear()
+    return {"dumps_watch_on": len(got["on"]),
+            "dumps_watch_off": len(got["off"]),
+            "ok": len(got["on"]) == 1 and not got["off"]}
+
+
+def timed_steps(eng, until=None):
+    """Step ``eng`` while it has work and ``until()`` is false: {step id:
+    (host-clock seconds around ``eng.step()``, the step's event-timed
+    device seconds)}; every step's calls must be timed
+    (MXTPU_PERF_ATTRIB_SAMPLE=1)."""
+    out = {}
+    while eng.has_work() and not (until is not None and until()):
+        t0 = time.perf_counter()
+        eng.step()
+        out[eng._step_id] = (time.perf_counter() - t0, eng._perf._step_s)
+    return out
+
+
+def step_profile_check(eng, walls):
+    """Each timed step's profile entry against ``walls``
+    (timed_steps): (ok, {max_wrap_ms, min_held_minus_device_ms, steps,
+    device_timed_steps})."""
+    entries = {e["step"]: e for e in eng._sprof.recent(len(walls) + 64)}
+    wrap, held = [], []
+    for sid, (ext_s, dev_s) in walls.items():
+        e = entries[sid]
+        wrap.append(1e3 * (ext_s - e["wall_s"]))
+        if dev_s > 0:
+            held.append(1e3 * (sum(v for k, v in e["phases"].items()
+                                   if k.endswith("_dispatch")
+                                   or k == "device_wait") - dev_s))
+    ok = (bool(held) and all(0.0 <= w <= STEP_WRAP_ABS_MS for w in wrap)
+          and min(held) >= -EVENT_SLACK_MS)
+    return ok, {"steps": len(wrap), "device_timed_steps": len(held),
+                "max_wrap_ms": max(wrap), "min_wrap_ms": min(wrap),
+                "min_held_minus_device_ms": min(held) if held else None}
+
+
+def _hot_path_sites():
+    """(part, owner, attribute) of every telemetry call on the engine's
+    per-step host path: spans (made, entered, left), metric updates,
+    request-trace events, flight records, the step profile and
+    PerfAttrib's per-call bracket.  Each is wrapped on the class or
+    module that defines it, so every caller goes through the wrapper."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.telemetry import (flight, metrics, perf_attrib,
+                                           profiling, request_trace,
+                                           tracing)
+
+    sites = [("spans", telemetry, "span")]
+    sites += [("spans", cls, m) for cls in (tracing._Span, tracing._NoopSpan)
+              for m in ("__enter__", "__exit__")]
+    for cls in (metrics._Noop, metrics._Family, metrics._CounterChild,
+                metrics._GaugeChild, metrics._HistogramChild):
+        sites += [("metrics", cls, m)
+                  for m in ("labels", "inc", "set", "observe")
+                  if m in vars(cls)]
+    sites += [("request_trace", request_trace.RequestTracer, m)
+              for m in ("event", "terminal")]
+    sites.append(("flight", flight.FlightRecorder, "record"))
+    sites += [("step_profile", cls, m)
+              for cls in (profiling.StepProfiler,
+                          profiling._NoopStepProfiler)
+              for m in ("begin", "lap", "commit")]
+    sites += [("perf_attrib", perf_attrib.PerfAttrib, m)
+              for m in ("arm", "t0", "done", "on_step")]
+    return sites
+
+
+class _GcClock:
+    """Seconds and count of the garbage collector's passes while
+    entered (gc.callbacks)."""
+
+    def __init__(self):
+        self.seconds, self.passes, self._t0 = 0.0, 0, None
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds += time.perf_counter() - self._t0
+            self.passes += 1
+            self._t0 = None
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+        return False
+
+
+class _TelemetryCalls:
+    """Counts and times, on the host clock, the outermost telemetry
+    calls while ``on`` (a call made inside another wrapped one, such as
+    the flight record of a request-trace event, belongs to its caller
+    and only costs it the wrapper's pass-through)."""
+
+    def __init__(self):
+        self.on, self.depth = False, 0
+        self.calls, self.seconds = collections.Counter(), collections.Counter()
+        self._saved = []
+
+    def _wrap(self, fn, key):
+        clock = time.perf_counter
+
+        def wrapper(*a, **k):
+            if not self.on or self.depth:
+                return fn(*a, **k)
+            self.depth += 1
+            t0 = clock()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds[key] += clock() - t0
+                self.calls[key] += 1
+                self.depth -= 1
+        return wrapper
+
+    def __enter__(self):
+        for part, owner, attr in _hot_path_sites():
+            fn = vars(owner)[attr]
+            self._saved.append((owner, attr, fn))
+            setattr(owner, attr,
+                    self._wrap(fn, (part, f"{owner.__name__}.{attr}")))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved = []
+        return False
+
+    def costs(self, steps):
+        """{part: {calls_per_step, us_per_step, sites}}."""
+        parts = {}
+        for (part, site), count in sorted(self.calls.items()):
+            secs = self.seconds[(part, site)]
+            row = parts.setdefault(part, {"calls_per_step": 0.0,
+                                          "us_per_step": 0.0, "sites": {}})
+            row["calls_per_step"] += count / steps
+            row["us_per_step"] += 1e6 * secs / steps
+            row["sites"][site] = {"calls_per_step": count / steps,
+                                  "us_per_call": 1e6 * secs / count}
+        return parts
+
+
+def telemetry_attribution(eng, prompts):
+    """Serve ``prompts`` once more (untimed as a whole), counting and
+    timing the telemetry calls of its decode-only steps and the garbage
+    collector's passes in them: the host microseconds a decode step
+    spends in each part of the telemetry."""
+    decode_steps = 0
+    with _TelemetryCalls() as tc, _GcClock() as gcc:
+        for p in prompts:
+            eng.submit(p, max_new_tokens=32)
+        while eng.has_work():
+            tc.on = (eng.scheduler.queue_depth == 0
+                     and bool(eng.scheduler.running))
+            decode_steps += tc.on
+            gc0 = gcc.seconds, gcc.passes
+            eng.step()
+            if not tc.on:
+                gcc.seconds, gcc.passes = gc0
+            tc.on = False
+    parts = tc.costs(decode_steps)
+    return {"decode_steps": decode_steps, "parts": parts,
+            "us_per_step": sum(r["us_per_step"] for r in parts.values()),
+            "gc_us_per_step": 1e6 * gcc.seconds / decode_steps,
+            "gc_passes_per_step": gcc.passes / decode_steps}
+
+
+def step_phase_ms(eng):
+    """Mean ms of each step-profile phase over the decode-only steps in
+    the profile's ring (None without a step profile)."""
+    sprof = getattr(eng, "_sprof", None)
+    if sprof is None or not sprof.enabled:
+        return None
+    rows = [e for e in sprof.recent(256)
+            if e["decodes"] and not e["prefills"]]
+    phases = sorted({k for e in rows for k in e["phases"]})
+    return {k: 1e3 * sum(e["phases"].get(k, 0.0) for e in rows) / len(rows)
+            for k in phases} if rows else None
+
+
+def telemetry_overhead(np_params, card, arms=("off", "on", "sampled")):
+    """tok/s and decode-only step ms of the serve prompts with telemetry
+    off, on with sampling off, and on with every step sampled (request
+    traces and flight dumps on in both on-arms; the watchdog off in
+    all three), each engine warmed, the median of 3 timed passes, the
+    garbage collector's ms a step in them and the step profile's phases;
+    for the off and on arms also the host microseconds a decode step
+    spends in each part of the telemetry (telemetry_attribution).  A
+    package
+    without the telemetry (``--package`` of an older checkout) runs the
+    off arm alone."""
+    from mxnet_tpu_torch import telemetry
+
+    ported = hasattr(telemetry, "enable")
+    arms = arms if ported else ("off",)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arm in arms:
+            on = arm != "off"
+            old = _set_env({
+                "MXTPU_REQUEST_TRACE": "1" if on else None,
+                "MXTPU_REQUEST_TRACE_FILE": (os.path.join(tmp, f"{arm}.jsonl")
+                                             if on else None),
+                "MXTPU_FLIGHT_DIR": os.path.join(tmp, arm) if on else None,
+                "MXTPU_PERF_ATTRIB_SAMPLE": "1" if arm == "sampled" else None})
+            if on:
+                telemetry.enable()
+            elif ported:
+                telemetry.disable()
+            try:
+                eng = full_width_engine(np_params, torch.bfloat16)
+                eng.warmup()
+                drive(eng, serve_prompts(0))
+                steps0 = eng._step_id
+                with _GcClock() as gcc:
+                    runs = [drive(eng, serve_prompts(0)) for _ in range(3)]
+                steps = eng._step_id - steps0
+                phases = step_phase_ms(eng)
+                attrib = (telemetry_attribution(eng, serve_prompts(0))
+                          if ported and arm != "sampled" else None)
+                eng.shutdown()
+            finally:
+                _set_env(old)
+                if ported:
+                    telemetry.disable()
+                    telemetry.reset()
+            out[arm] = {
+                "tok_per_s": statistics.median(r["tok_per_s"] for r in runs),
+                "decode_step_ms": statistics.median(
+                    r["decode_step_ms_mean"] for r in runs),
+                "tok_per_s_runs": [r["tok_per_s"] for r in runs],
+                "decode_step_ms_runs": [r["decode_step_ms_mean"]
+                                        for r in runs],
+                "gc_ms_per_step": 1e3 * gcc.seconds / steps,
+                "gc_passes": gcc.passes, "steps": steps,
+                "decode_step_phase_ms": phases,
+                "attribution": attrib}
+    res = {"card": card, "arms": out}
+    if "on" in out and "off" in out:
+        res["on_over_off_tok_per_s"] = (out["on"]["tok_per_s"]
+                                        / out["off"]["tok_per_s"])
+        res["on_minus_off_step_ms"] = (out["on"]["decode_step_ms"]
+                                       - out["off"]["decode_step_ms"])
+        res["attributed_on_minus_off_ms"] = 1e-3 * (
+            out["on"]["attribution"]["us_per_step"]
+            - out["off"]["attribution"]["us_per_step"])
+    if "sampled" in out and "off" in out:
+        res["sampled_over_off_tok_per_s"] = (out["sampled"]["tok_per_s"]
+                                             / out["off"]["tok_per_s"])
+    return res
+
+
+def serve_telemetry(np_params, serve_row, serve_toks, card):
+    """The serve config's bf16 engine with the reference's telemetry on:
+    the registry and the HTTP endpoint (ephemeral port), request traces
+    to a file, MXTPU_FLIGHT_DIR, every step's program calls timed with
+    CUDA events (MXTPU_PERF_ATTRIB_SAMPLE=1) and the NaN watchdog
+    (MXTPU_NUMERIC_WATCH=1).  Checks: warmup() captures the whole grid
+    while a thread polls the endpoints (every response parses); the 8
+    serve prompts give the serve phase's tokens with no capture, the
+    paged launches as in serve; perf call counts equal the programs';
+    the bucket-8 decode's event time agrees with graph_ms; MFU in
+    (0, 1], and the /statusz perf section, the /metrics text and
+    perf_summary() agree; each step's profile against this script's
+    clock and the step's event-timed device time; the artifacts parse and tools/metrics_report.py and
+    tools/trace_report.py render them; a profiler.trace() of decode
+    steps holds both paged kernels; the NaN watchdog binds.  Then the
+    overhead arms (recorded, not judged)."""
+    from mxnet_tpu_torch import _build, profiler, telemetry
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+    from mxnet_tpu_torch.telemetry import flight
+
+    n_layers = SERVE_CFG["num_layers"]
+    checks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_file = os.path.join(tmp, "requests.jsonl")
+        old = _set_env({"MXTPU_TELEMETRY_DIR": os.path.join(tmp, "tel"),
+                        "MXTPU_REQUEST_TRACE": "1",
+                        "MXTPU_REQUEST_TRACE_FILE": trace_file,
+                        "MXTPU_FLIGHT_DIR": os.path.join(tmp, "flight"),
+                        "MXTPU_PERF_ATTRIB_SAMPLE": "1",
+                        "MXTPU_NUMERIC_WATCH": "1"})
+        telemetry.reset()
+        flight.recorder().clear()
+        telemetry.enable()
+        server = telemetry.serve_http(telemetry.registry(), 0)
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            # a library found built counts as a compile-cache hit
+            _build.build_library(pac.LIB_NAME, pac.SOURCES)
+            eng = full_width_engine(np_params, torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _Poller(url) as poller:
+                ready = eng.warmup()
+                torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            checks["capture_under_poller"] = (
+                not poller.errors and poller.polls > 1
+                and ready == len(eng._warmup_grid())
+                and eng.captures == captures_expected(eng, ready))
+            # traffic unpolled: a poller holding the GIL between a
+            # call's start event and its graph launch would stretch the
+            # event-timed interval
+            row = drive(eng, serve_prompts(0))
+            for k in ("spec_verifies", "spec_accept_rate",
+                      "accepted_per_verify", "tokens_per_verify"):
+                row.pop(k)
+            toks = row.pop("tokens")
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            plans = {b: pac._split_plan(b, SERVE_CFG["kv_heads"],
+                                        eng.table_width, eng.block_size, sms)
+                     for b in (1, 2, 4, 8)}
+            checks["tokens_and_launches"] = (
+                row["finished"] and toks == serve_toks
+                and row["traffic_captures"] == 0
+                and row["kernel_launches"] == n_layers * row["decode_steps"]
+                and row["decode_steps"] > 0
+                and all(n > 1 for n, _ in plans.values())
+                and row["combine_launches"] == row["kernel_launches"])
+            perf = eng.statusz()["perf"]
+            rows = {(r["kind"], r["bucket"]): r for r in perf["programs"]}
+            checks["counts_agree"] = all(
+                rows[k]["dispatches"] == p.calls
+                and rows[k]["sampled"] == p.calls
+                for k, p in eng._programs.items())
+            # the three views, read before anything else runs
+            import urllib.request
+
+            with urllib.request.urlopen(url + "/statusz.json",
+                                        timeout=30) as r:
+                page = json.loads(r.read())
+            with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+                prom = r.read().decode()
+            served = [v for k, v in page.items()
+                      if k.startswith("serve.engine")]
+            summary = eng.perf_summary()
+            http_perf = served[0]["perf"] if len(served) == 1 else None
+            prom_counts = {
+                (lb["kind"], int(lb["bucket"])): v for lb, v in _prom_series(
+                    prom, "mxtpu_serve_program_seconds_count")}
+            prom_mfu = {lb["kind"]: v for lb, v in _prom_series(
+                prom, "mxtpu_serve_mfu")}
+            kind_mfu = {}
+            for kind in {k for k, _ in rows}:
+                rs = [r for (k, _), r in rows.items()
+                      if k == kind and r["sampled"] and r["flops"]]
+                if rs:
+                    kind_mfu[kind] = (
+                        sum(r["flops"] * r["sampled"] for r in rs)
+                        / sum(r["mean_s"] * r["sampled"] for r in rs)
+                        / perf["peak_flops_per_chip"])
+            mfu = perf["mfu"]
+            checks["views_agree"] = (
+                http_perf is not None
+                and http_perf["mfu"] == summary["mfu"] == mfu
+                and mfu is not None and 0.0 < mfu <= 1.0
+                and summary["sampled"] == sum(prom_counts.values())
+                and prom_counts == {k: float(r["sampled"])
+                                    for k, r in rows.items() if r["sampled"]}
+                and set(prom_mfu) == set(kind_mfu)
+                and all(abs(prom_mfu[k] - v) <= 1e-9 * v
+                        for k, v in kind_mfu.items())
+                and http_perf["sampled_steps"] == perf["sampled_steps"])
+            perf_ms = 1e3 * rows[("decode", 8)]["mean_s"]
+            g_ms = graph_ms(eng, "decode", 8)
+            checks["timing_agrees"] = (
+                abs(perf_ms - g_ms) <= TIMING_REL * g_ms + TIMING_ABS_MS)
+            sp = eng.statusz()["step_profile"]
+            # a device trace of decode steps through the port's profiler;
+            # the steps around it timed by this script's clock for the
+            # step profile's checks
+            for p in serve_prompts(0):
+                eng.submit(p, max_new_tokens=8)
+            walls = timed_steps(eng, until=lambda: not (
+                eng.scheduler.queue_depth or eng.scheduler.prefilling
+                or not eng.scheduler.running))
+            logdir = os.path.join(tmp, "prof")
+            sid0 = eng._step_id
+            counted0 = (pac.launches, pac.combine_launches)
+            torch.cuda.synchronize()
+            with profiler.trace(logdir):
+                # idle margins: no kernel sits at the window's edges
+                time.sleep(0.01)
+                for _ in range(4):
+                    eng.step()
+                torch.cuda.synchronize()
+                time.sleep(0.01)
+            counted = {"paged_attention_split": pac.launches - counted0[0],
+                       "paged_attention_combine": (pac.combine_launches
+                                                   - counted0[1])}
+            window_decodes = sum(
+                1 for e in eng._sprof.recent(64)
+                if sid0 < e["step"] <= sid0 + 4 and e["decodes"])
+            walls.update(timed_steps(eng))
+            sp_ok, sp_row = step_profile_check(eng, walls)
+            checks["step_profile_holds"] = sp["enabled"] and sp_ok
+            kernels = profiler.summarize(logdir, top=1000)
+            traced = {k: sum(c for n, _, c in kernels if k in n)
+                      for k in counted}
+            checks["profiler_trace"] = (
+                window_decodes == 4 and traced == counted
+                and all(c == 4 * n_layers for c in traced.values()))
+            captures_by_kind = {
+                s["labels"]["kind"]: s["value"]
+                for s in telemetry.registry().snapshot().get(
+                    "mxtpu_cuda_graph_captures_total",
+                    {"samples": []})["samples"]}
+            hits = telemetry.registry().snapshot().get(
+                "mxtpu_compile_cache_hits", {"samples": [{"value": 0}]})
+            checks["cudamon"] = (
+                sum(captures_by_kind.values()) == eng.captures
+                and hits["samples"][0]["value"] >= 1)
+            eng.shutdown()
+            paths = telemetry.dump()
+            with open(paths["trace"]) as f:
+                host_names = {e["name"] for e in json.load(f)["traceEvents"]}
+            with open(paths["jsonl"]) as f:
+                jl = [json.loads(line) for line in f]
+            with open(trace_file) as f:
+                req_lines = [json.loads(line) for line in f]
+            rc_m, out_m = _tool("metrics_report.py", paths["prometheus"],
+                                "--filter", "mxtpu_serve_program")
+            rc_t, out_t = _tool("trace_report.py", trace_file, "--check")
+            checks["artifacts"] = (
+                {"serve.step", "serve.prefill", "serve.decode",
+                 "serve.warmup"} <= host_names
+                and jl and "mxtpu_serve_steps_total" in jl[-1]["metrics"]
+                and len(req_lines) == 2 * len(serve_prompts(0))
+                and all(ln["status"] == "finished" for ln in req_lines)
+                and rc_m == 0 and "kind=decode" in out_m
+                and rc_t == 0)
+            dumps = sorted(os.listdir(os.path.join(tmp, "flight"))) \
+                if os.path.isdir(os.path.join(tmp, "flight")) else []
+            checks["no_dump_without_fault"] = dumps == []
+        finally:
+            server.shutdown()
+            telemetry.disable()
+            telemetry.reset()
+            _set_env(old)
+        nan = nan_watch_check(np_params, tmp)
+    checks["nan_watch_binds"] = nan["ok"]
+    overhead = telemetry_overhead(np_params, card)
+    ok = all(checks.values())
+    out = {"phase": "serve_telemetry", "dtype": "bfloat16", "card": card,
+           **row, "warmup_programs": ready, "warmup_s": warm_s,
+           "warmup_captures": eng.captures,
+           "statusz_polls_during_warmup": poller.polls,
+           "poll_errors": poller.errors,
+           "split_plans": {str(b): list(p) for b, p in plans.items()},
+           "perf_decode8_ms": perf_ms, "graph_ms_decode8": g_ms,
+           "timing_bound_ms": TIMING_REL * g_ms + TIMING_ABS_MS,
+           "mfu": mfu, "mfu_by_kind": kind_mfu,
+           "achieved_tflops": perf["achieved_tflops"],
+           "cost_per_1k_tokens_s": perf["cost_per_1k_tokens_s"],
+           "perf_programs": {f"{k}/{b}": {
+               "calls": r["dispatches"], "mean_ms": 1e3 * r["mean_s"]
+               if r["mean_s"] else None, "share": r["share"]}
+               for (k, b), r in sorted(rows.items()) if r["dispatches"]},
+           "step_profile_fractions": sp["fractions"],
+           "step_profile": sp_row,
+           "step_profile_bounds_ms": {"wrap": STEP_WRAP_ABS_MS,
+                                      "event_slack": EVENT_SLACK_MS},
+           "profiler_traced_paged_kernels": traced,
+           "profiler_counted_paged_launches": counted,
+           "profiler_window_decode_steps": window_decodes,
+           "cuda_graph_captures_by_kind": captures_by_kind,
+           "nan_watch": nan, "overhead": overhead,
+           "serve_phase_tok_per_s": serve_row["tok_per_s"],
+           "checks": checks, "ok": ok}
+    emit(out)
+    if not ok:
+        raise SystemExit(f"serve_telemetry failed its checks: {checks}")
+    return out
+
+
 def small_model_check():
     """A small seeded model (the reference's serve-test shapes, rope +
     GQA + SwiGLU + RMSNorm + tied): the captured CUDA engine's greedy
@@ -3401,15 +4037,40 @@ def rnn_small_train_check():
         raise SystemExit("small LSTM LM: CUDA vs CPU trainers disagree")
 
 
+def overhead_main(args):
+    """``--overhead``: the telemetry overhead arms alone, on the
+    package ``args.package`` (default: this checkout's)."""
+    import mxnet_tpu_torch
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    pac._fns()
+    card = card_line()
+    res = telemetry_overhead(serve_params(), card)
+    res["package"] = os.path.dirname(os.path.abspath(
+        mxnet_tpu_torch.__file__))
+    print(card)
+    print(json.dumps({"phase": "telemetry_overhead", **res}), flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "chip_smoke.json"))
+    ap.add_argument("--overhead", action="store_true",
+                    help="run only the telemetry overhead arms")
+    ap.add_argument("--package", default=None,
+                    help="with --overhead: import mxnet_tpu_torch from "
+                         "this checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if args.package:
+        sys.path.insert(0, os.path.abspath(args.package))
     import mxnet_tpu_torch  # noqa: F401  (fails alone: no package)
+    if args.overhead:
+        return overhead_main(args)
     from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops import flash_attention_cuda as fac
     from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
@@ -3524,8 +4185,10 @@ def main():
     sample = serve_sample(np_params)
     lap("serve_sample")
     lora = serve_lora(np_params)
-    del np_params
     lap("serve_lora")
+    tel = serve_telemetry(np_params, serve, serve_toks, card)
+    del np_params
+    lap("serve_telemetry")
 
     train = train_main_path()
     train_grad_check()
@@ -3564,7 +4227,8 @@ def main():
     # engine's decode, the spec engine's draft, the int8 engines' decode,
     # the host-tier engines' decode over restored blocks (float32, bf16,
     # int8 K/V), the sampling engine's decode, the sampling spec
-    # engine's draft and the adapters engine's decode (both passes)
+    # engine's draft, the adapters engine's decode (both passes) and the
+    # telemetry-on engine's decode
     paged_paths = {"serve": (serve["kernel_launches"],
                              serve["combine_launches"]),
                    "serve_spec_draft": (spec["spec_on"]["kernel_launches"],
@@ -3584,7 +4248,9 @@ def main():
                        lora["first_pass_launches"],
                        lora["first_pass_combine_launches"]),
                    "serve_lora": (lora["kernel_launches"],
-                                  lora["combine_launches"])}
+                                  lora["combine_launches"]),
+                   "serve_telemetry": (tel["kernel_launches"],
+                                       tel["combine_launches"])}
     kernels = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
         "cuda_kernels": ["paged_attention_split", "paged_attention_combine"],

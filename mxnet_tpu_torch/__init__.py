@@ -15,13 +15,13 @@ package imports
 when CUDA is absent.
 """
 
-from . import (aot, base, context, convert, initializer, models, ops,
-               parallel, serve, telemetry)
+from . import (aot, base, context, convert, flops, initializer, models,
+               ops, parallel, profiler, serve, telemetry)
 from .context import resolve_device
 from .convert import params_from_numpy
 
 __version__ = "0.1.0"
 
-__all__ = ["aot", "base", "context", "convert", "initializer", "models", "ops",
-           "parallel", "serve", "telemetry", "resolve_device",
-           "params_from_numpy"]
+__all__ = ["aot", "base", "context", "convert", "flops", "initializer",
+           "models", "ops", "parallel", "profiler", "serve", "telemetry",
+           "resolve_device", "params_from_numpy"]

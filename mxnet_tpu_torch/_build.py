@@ -68,7 +68,10 @@ def build_library(name, sources):
             h.update(f.read())
     out_dir = build_dir()
     lib = os.path.join(out_dir, f"lib{name}-{h.hexdigest()[:12]}.so")
+    from .telemetry import cudamon
+
     if os.path.isfile(lib):
+        cudamon.note_build(name, hit=True)
         return lib
     nvcc = _nvcc()
     os.makedirs(out_dir, exist_ok=True)
@@ -103,6 +106,7 @@ def build_library(name, sources):
     os.replace(tmp, lib)
     BUILD_SECONDS[name] = time.perf_counter() - t0
     BUILD_LOGS[name] = "".join(r.stdout + r.stderr for r in results)
+    cudamon.note_build(name, hit=False, seconds=BUILD_SECONDS[name])
     return lib
 
 

@@ -11,16 +11,23 @@ ZeRO and gradient accumulation are not ported yet and raise.
 The reference donates the parameter and optimizer-state buffers to its
 jitted step, so the update reuses them; the port updates the same
 tensors in place under ``torch.no_grad()`` for the same memory saving.
+
+With telemetry on, each step counts on ``mxtpu_trainer_steps_total``,
+observes its host seconds on ``mxtpu_trainer_step_seconds`` and records
+a ``trainer.step`` span, as the reference's does: host time around the
+dispatch, with no sync added (on CUDA the launches are asynchronous).
 """
 
 from __future__ import annotations
 
 import inspect
 import math
+import time
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..base import MXNetError
 from ..context import resolve_device
 from ..convert import to_tensor
@@ -264,6 +271,15 @@ class ShardedTrainer:
         if rescale_grad is None:
             rescale_grad = 1.0 / next(iter(input_shapes.values()))[0]
         self._rescale_grad = rescale_grad
+        # telemetry handles (no-op objects when disabled): step time is
+        # host time around the step's launches.  The reference's
+        # mxtpu_trainer_data_wait_seconds belongs to fit() (ROADMAP
+        # §A18), not ported yet
+        self._tel_steps = telemetry.counter(
+            "mxtpu_trainer_steps_total", "ShardedTrainer optimizer steps")
+        self._tel_step_secs = telemetry.histogram(
+            "mxtpu_trainer_step_seconds",
+            "host wall time per train_step dispatch")
 
     def _place_batch(self, batch):
         placed = {}
@@ -301,16 +317,20 @@ class ShardedTrainer:
 
     def step(self, batch):
         """One optimizer step on a batch; returns the head outputs."""
-        grads, outs = self._grads_of(self._place_batch(batch))
-        scale = self._rescale_grad
-        grads = {k: g * scale for k, g in grads.items()}
-        with torch.no_grad():
-            params, self.opt_state = self._update_fn(
-                grads, self.opt_state, self.params,
-                lr_scale=self._lr_scale())
-            for k, p in params.items():     # the built-ins return these
-                if p is not self.params[k]:
-                    self.params[k].copy_(p)
+        t0 = time.perf_counter()
+        with telemetry.span("trainer.step"):
+            grads, outs = self._grads_of(self._place_batch(batch))
+            scale = self._rescale_grad
+            grads = {k: g * scale for k, g in grads.items()}
+            with torch.no_grad():
+                params, self.opt_state = self._update_fn(
+                    grads, self.opt_state, self.params,
+                    lr_scale=self._lr_scale())
+                for k, p in params.items():  # the built-ins return these
+                    if p is not self.params[k]:
+                        self.params[k].copy_(p)
+        self._tel_step_secs.observe(time.perf_counter() - t0)
+        self._tel_steps.inc()
         return outs
 
     def eval(self, batch):

@@ -72,9 +72,27 @@ slot, a program input like the sampling parameters.  One graph per
 delta) and adapter rows; a request pins its slot from ``submit`` to its
 terminal event.  The draft of speculative decoding stays the base model.
 
+Telemetry is the reference's, call site for call site
+(``telemetry/``): the request tracer threads every lifecycle event into
+the always-on flight ring (and, with ``MXTPU_REQUEST_TRACE``, a JSONL
+timeline a request); an engine exception, a deadline miss or a
+rejection rate over ``MXTPU_FLIGHT_REJECT_RATE`` dumps the ring to
+``MXTPU_FLIGHT_DIR``; each step records a ``step`` flight event, its
+spans and live-state gauges, and its phase laps (``StepProfiler``);
+``statusz()`` is registered on ``/statusz``; ``PerfAttrib`` keeps the
+analytic cost of every (kind, bucket) and, on sampled steps, times each
+program call with CUDA events around the graph replay.  Every instrument
+sits on the host dispatch path, never inside a program body (a body's
+Python runs once, at capture), and reads host state only, so an HTTP
+thread may render ``/statusz`` while ``warmup()`` captures.  With
+``MXTPU_NUMERIC_WATCH=1`` the decode, prefill, chunk and verify bodies
+also return ``isfinite(logits).all()``, read in the same copy as the
+tokens; a false flag records an anomaly and dumps.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP §A item: AOT program stores (the rest of 12), tensor
-parallelism (13), and Symbol-driven config, the draft's included (15).
+parallelism (13), and Symbol-driven config, the draft's included, and
+the ``MXTPU_TIMESERIES`` ring, whose sampler is ``ServeMonitor`` (15).
 """
 
 from __future__ import annotations
@@ -86,6 +104,7 @@ import math
 import os
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -98,12 +117,16 @@ from ..models.generate import (_fc, _gelu, _gumbel, _ln,
                                detect_gpt_variant)
 from ..ops import paged_attention_cuda as _pac
 from ..ops.attention import paged_attention, resolve_paged_impl
-from ..telemetry.request_trace import HookTracer
+from ..telemetry import cudamon, profiling, timeseries
+from ..telemetry import flight as flight_mod
+from ..telemetry import statusz as statusz_mod
+from ..telemetry.perf_attrib import PerfAttrib
+from ..telemetry.request_trace import RequestTracer
 from . import adapters as adapters_mod
 from . import spec as spec_mod
 from .kv_block_manager import BlockManager, HostKVPool, dtype_name
-from .scheduler import (CANCELLED, FINISHED, REJECTED, QueueFull, Request,
-                        Scheduler)
+from .scheduler import (CANCELLED, FINISHED, REJECTED, WAITING, QueueFull,
+                        Request, Scheduler)
 from .stats import StatsRecorder
 
 __all__ = ["Engine", "TOP_LOGPROBS"]
@@ -111,11 +134,14 @@ __all__ = ["Engine", "TOP_LOGPROBS"]
 # the static model config the program bodies close over; ``kv_quant``
 # says the cache is int8 with scales, ``paged_impl`` is the decode
 # attention's implementation ("cuda" or "torch"); ``sampling`` and
-# ``sample_cap`` (the candidate width) are on in sampling mode only
+# ``sample_cap`` (the candidate width) are on in sampling mode only;
+# ``numeric_watch`` adds the logits-finite flag to the decode, prefill,
+# chunk and verify outputs
 _ModelCfg = collections.namedtuple("_ModelCfg", [
     "name", "n_layers", "num_heads", "head_dim", "kv_heads", "pos_table",
     "swiglu", "tied", "rmsnorm", "window", "block_size", "kv_quant",
-    "paged_impl", "sampling", "sample_cap"], defaults=(False, 0))
+    "paged_impl", "sampling", "sample_cap", "numeric_watch"],
+    defaults=(False, 0, False))
 
 # top-logprob candidates every sampling-mode program returns for each
 # sampled position (the request's ``logprobs`` picks how many surface)
@@ -237,6 +263,10 @@ class _Program:
     The launch counters are restored around warm-up and capture, and
     each replay adds what the capture counted.  On the CPU a call runs
     the body on the same buffers.  ``calls`` counts the calls.
+
+    A call is :meth:`launch` (stage, replay, queue the outputs' copy to
+    the host) then :meth:`result` (wait for them), so the engine can
+    time the launch and attribute the wait apart.
     """
 
     def __init__(self, fields, body, device, pool=None):
@@ -262,6 +292,7 @@ class _Program:
         self._device = device
         self._graph = None
         self._copied = None            # the last staging copy's event
+        self._pending = None           # the CPU body's last output
         self.calls = 0
         if cuda:
             self._capture(pool)
@@ -302,25 +333,50 @@ class _Program:
             h.zero_()
         return self._views
 
-    def __call__(self):
+    def launch(self, timing=None):
+        """Stage the inputs and run the program: on CUDA, replay the
+        graph and queue its outputs' copy to the host, without waiting;
+        on the CPU, run the body.  ``timing`` is what ``PerfAttrib.t0()``
+        gave: on CUDA its event pair is recorded just around the replay
+        (so a sampled time is the graph's, not the staging's); None and
+        the CPU's clock read are not used here."""
         self.calls += 1
         for dt, host in self._host.items():
             self._dev[dt].copy_(host, non_blocking=True)
         if self._graph is None:
-            return _host_outputs(self._body(**self._inputs))
+            self._pending = self._body(**self._inputs)
+            return
         if self._copied is not None:
             self._copied.record()
+        if timing is not None:
+            timing[0].record()
         self._graph.replay()
+        if timing is not None:
+            timing[1].record()
         _set_counts([a + d for a, d in zip(_counts(), self._deltas)])
         if self._out is None:
-            return None
+            return
         outs = (self._out,) if torch.is_tensor(self._out) else self._out
         for h, o in zip(self._out_host, outs):
             h.copy_(o, non_blocking=True)
+
+    def result(self):
+        """The last launch's outputs on the host (None, a list, or a
+        tuple of numpy arrays), waiting for them on CUDA; a program
+        without outputs returns None without waiting."""
+        if self._graph is None:
+            out, self._pending = self._pending, None
+            return _host_outputs(out)
+        if self._out is None:
+            return None
         torch.cuda.current_stream(self._device).synchronize()
         if torch.is_tensor(self._out):
             return self._out_host[0].tolist()
         return _host_outputs(tuple(self._out_host))
+
+    def __call__(self, timing=None):
+        self.launch(timing)
+        return self.result()
 
 
 def _host_outputs(out):
@@ -446,6 +502,7 @@ class Engine:
                 "warmup manifests instead", 12)
         if (tp if tp is not None else env_int("MXTPU_SERVE_TP", 1)) != 1:
             raise _unported("tensor-parallel serving (tp > 1)", 13)
+        timeseries.refuse_env()
         if num_heads is None:
             raise ValueError("num_heads is required")
         window = 0 if window is None else int(window)
@@ -570,18 +627,32 @@ class Engine:
         # always registered: eviction offloads only with a pool, but
         # export_blocks copies device blocks through it on any engine
         self.blocks.set_offload_source(self._host_kv_fetch)
-        # an adapters engine drops a request's slot pin at its terminal
-        # event, whichever path ends it
+        # request-scoped observability: the tracer threads every
+        # lifecycle event (scheduler decisions included) into the flight
+        # ring, the optional JSONL export (MXTPU_REQUEST_TRACE) and the
+        # Chrome-trace request tracks; its terminal hook drops an adapter
+        # pin and judges the SLO triggers
+        self._rtrace = RequestTracer()
+        self._rtrace.on_terminal = self._on_request_terminal
         self.scheduler = Scheduler(self.blocks, self.max_batch, max_queue,
                                    max_prefills_per_step, clock=clock,
-                                   trace=(HookTracer(self._on_request_terminal)
-                                          if self._adapters else None),
+                                   trace=self._rtrace,
                                    tenant_share=tenant_share,
                                    prefill_chunk=prefill_chunk,
                                    spec_slots=self.spec_k)
         self._stats = StatsRecorder(clock=clock)
         self.clock = clock
         self._step_id = 0
+        # SLO breach -> flight dump: deadline misses always (rate-limited
+        # by the recorder), the rejection rate when the env threshold is
+        # set (fraction of the last 100 terminal requests)
+        self._slo_window = collections.deque(maxlen=100)
+        try:
+            self._reject_rate_thr = float(
+                os.environ.get(flight_mod.ENV_REJECT_RATE, "") or 0.0)
+        except ValueError:
+            self._reject_rate_thr = 0.0
+        self._numeric_watch = env_flag("MXTPU_NUMERIC_WATCH", False)
         self.decode_steps = 0          # batched decode passes run
         self._noop_steps = 0
         self._alive = True
@@ -627,7 +698,8 @@ class Engine:
                                           self.spec["head_dim"],
                                           device=self.device),
             sampling=self._sampling,
-            sample_cap=self.sample_cap if self._sampling else 0)
+            sample_cap=self.sample_cap if self._sampling else 0,
+            numeric_watch=self._numeric_watch)
         # the draft side last: target params, target cache, then the
         # (much smaller) draft
         self._spec = None
@@ -644,6 +716,37 @@ class Engine:
         self._manifest = aot.ManifestRecorder(
             self._spec_digest, os.environ.get(aot.ENV_MANIFEST))
         self._warming = False
+        # per-program attribution (analytic cost table, default on;
+        # CUDA-event timing of sampled steps behind
+        # MXTPU_PERF_ATTRIB_SAMPLE) and the per-step phase decomposition
+        # (default on).  Built here, after telemetry.enable() in the
+        # usual ordering, because both cache their metric handles; never
+        # in the fingerprint: tokens, programs and captures stay as they
+        # are in any combination of their knobs
+        self._perf = PerfAttrib(device=self.device)
+        self._sprof = profiling.make_step_profiler()
+        # live-state gauges stamped once per step (no-op objects when
+        # telemetry is off); cumulative counters live in StatsRecorder
+        self._tel_queue = telemetry.gauge(
+            "mxtpu_serve_queue_depth", "requests waiting for admission")
+        self._tel_running = telemetry.gauge(
+            "mxtpu_serve_running", "requests in the decode batch")
+        self._tel_blocks = telemetry.gauge(
+            "mxtpu_serve_blocks_in_use", "KV-cache blocks allocated")
+        self._tel_block_util = telemetry.gauge(
+            "mxtpu_serve_block_utilization", "KV-cache block fraction used")
+        self._tel_preempt = telemetry.gauge(
+            "mxtpu_serve_preemptions", "scheduler preemptions (lifetime)")
+        self._tel_evict = telemetry.gauge(
+            "mxtpu_serve_evictions", "retained-block evictions (lifetime)")
+        self._tel_rejected = telemetry.gauge(
+            "mxtpu_serve_rejected", "rejected requests (lifetime)")
+        telemetry.gauge("mxtpu_serve_blocks_total",
+                        "allocatable KV-cache blocks").set(
+            self.blocks.total_blocks)
+        # /statusz shows this engine while it is alive (a weakref: a
+        # retired engine drops off the page)
+        self._statusz_name = statusz_mod.register_weak(self, "serve.engine")
 
     @property
     def paged_impl(self):
@@ -804,14 +907,38 @@ class Engine:
 
     def step(self):
         """One scheduler iteration: admit + prefill, then one batched
-        decode.  Returns the number of tokens emitted."""
+        decode.  Returns the number of tokens emitted.
+
+        An unhandled exception dumps the flight-recorder ring to
+        ``MXTPU_FLIGHT_DIR`` before propagating."""
         if not self._alive:
+            # a caller error, not an engine failure: no post-mortem
             raise RuntimeError("engine is shut down")
-        with torch.no_grad():
-            return self._step_inner()
+        try:
+            with torch.no_grad():
+                return self._step_inner()
+        except Exception:
+            rec = flight_mod.recorder()
+            rec.record("error", site="engine.step",
+                       error=traceback.format_exc(limit=4))
+            # the digest identifies which programs were live (tp 1:
+            # no sharding rules)
+            rec.dump("engine_exception", force=True,
+                     extra={"traceback": traceback.format_exc(limit=30),
+                            "spec_digest": self._spec_digest,
+                            "tp": 1, "sharding_rules_digest": None})
+            raise
 
     def _step_inner(self):
         self._step_id += 1
+        # arm (or not) this step's call timing: with sampling off (the
+        # default) every t0() below is None and no call gains a sync
+        self._perf.arm(self._step_id)
+        # begin/lap/commit bracket the whole iteration; the laps inside
+        # _run_prefill/_run_decode/_run_spec_decode split staging and
+        # launch, the wait for the outputs and host bookkeeping
+        sprof = self._sprof
+        sprof.begin(self._step_id)
         with telemetry.span("serve.step"):
             self._release_fanout()
             prefills, decodes = self.scheduler.schedule()
@@ -822,17 +949,33 @@ class Engine:
             # blocks for this iteration are all held right now — the
             # honest high-water sample
             self._stats.on_utilization(self.blocks.utilization())
+            sprof.lap("schedule")
             emitted = 0
             for req in prefills:
-                # the iteration's prefill token budget is shared with
-                # the decode slots: up to 1 + spec_k tokens each
-                emitted += self._run_prefill(
-                    req, decode_slots=len(decodes) * (1 + self.spec_k))
+                with telemetry.span("serve.prefill", rid=req.rid):
+                    # the iteration's prefill token budget is shared
+                    # with the decode slots: up to 1 + spec_k tokens each
+                    emitted += self._run_prefill(
+                        req, decode_slots=len(decodes) * (1 + self.spec_k))
             if decodes:
-                if self._spec is not None:
-                    emitted += self._run_spec_decode(decodes)
-                else:
-                    emitted += self._run_decode(decodes)
+                with telemetry.span("serve.decode", batch=len(decodes)):
+                    if self._spec is not None:
+                        emitted += self._run_spec_decode(decodes)
+                    else:
+                        emitted += self._run_decode(decodes)
+            if prefills or decodes:
+                # scheduler decisions ride the flight ring (bounded,
+                # always on); with the host tier on, its occupancy too
+                step_fields = dict(
+                    id=self._step_id, prefills=len(prefills),
+                    decodes=len(decodes),
+                    queue=self.scheduler.queue_depth,
+                    blocks_in_use=self.blocks.blocks_in_use)
+                if self._host_pool is not None:
+                    step_fields["host_kv_entries"] = len(self._host_pool)
+                    step_fields["host_kv_bytes"] = \
+                        self._host_pool.bytes_used
+                flight_mod.recorder().record("step", **step_fields)
             if emitted == 0 and not prefills and not decodes:
                 self._noop_steps += 1
                 if self._noop_steps > 1000 and self.scheduler.has_work():
@@ -842,10 +985,19 @@ class Engine:
             else:
                 self._noop_steps = 0
             self._stats.on_step(emitted, decode_batch=len(decodes))
+            self._perf.on_step(emitted)
             if self._spec is not None:
                 # bound the draft ledger by the running set: a request
                 # that left between decodes never reached forget()
                 self._spec.prune({r.rid for r in self.scheduler.running})
+            self._tel_queue.set(self.scheduler.queue_depth)
+            self._tel_running.set(len(self.scheduler.running))
+            self._tel_blocks.set(self.blocks.blocks_in_use)
+            self._tel_block_util.set(self.blocks.utilization())
+            self._tel_preempt.set(self.scheduler.preemptions)
+            self._tel_evict.set(self.blocks.evictions)
+            self._tel_rejected.set(self.scheduler.rejections)
+        sprof.commit(emitted, prefills=len(prefills), decodes=len(decodes))
         return emitted
 
     def has_work(self):
@@ -885,7 +1037,7 @@ class Engine:
         for req in self.scheduler.drain_waiting():
             req.status = CANCELLED
             req.finish_t = self.clock()
-            self.scheduler.trace.terminal(req, CANCELLED)
+            self._rtrace.terminal(req, CANCELLED)
         with self._fanout_lock:
             pending, self._pending_fanout = self._pending_fanout, []
         for _, sibs in pending:
@@ -894,7 +1046,9 @@ class Engine:
             for sib in sibs:
                 sib.status = CANCELLED
                 sib.finish_t = self.clock()
-                self.scheduler.trace.terminal(sib, CANCELLED)
+                self._rtrace.terminal(sib, CANCELLED)
+        self._rtrace.close()
+        statusz_mod.unregister(self._statusz_name)
         self._programs.clear()
         self._pool = None
         if self._spec is not None:
@@ -908,19 +1062,160 @@ class Engine:
         self.params = None
         self._alive = False
 
+    # -- SLO breach detection (flight-recorder triggers) ---------------------
     def _on_request_terminal(self, req, name, args):
-        """The scheduler tracer's terminal hook on an adapters engine:
-        drop the request's slot pin, once (its slot is zeroed)."""
-        if req.adapter_slot:
+        """Runs on every request's terminal trace event: drops the
+        request's adapter pin (once: its slot is zeroed), dumps the
+        flight ring on a deadline miss (rate-limited), and dumps when the
+        rejection rate over the recent-terminal window reaches
+        ``MXTPU_FLIGHT_REJECT_RATE``."""
+        if req.adapter_slot and self.adapter_store is not None:
             self.adapter_store.release(req.adapter_slot)
             req.adapter_slot = 0
+        rejected = name == "rejected"
+        self._slo_window.append(1 if rejected else 0)
+        if rejected and args.get("reason") == "deadline":
+            flight_mod.recorder().dump(
+                "deadline_miss", extra={"rid": req.rid,
+                                        "deadline_s": req.deadline_s})
+        thr = self._reject_rate_thr
+        if thr and len(self._slo_window) >= 20:
+            rate = sum(self._slo_window) / len(self._slo_window)
+            if rate >= thr:
+                flight_mod.recorder().dump(
+                    "rejection_rate",
+                    extra={"rate": round(rate, 4), "threshold": thr,
+                           "window": len(self._slo_window)})
+
+    # -- live introspection (/statusz provider) ------------------------------
+    def statusz(self):
+        """Live engine state for ``/statusz``: in-flight requests with
+        ages and phases, queue and cache occupancy, program, perf and
+        step-profile state — the reference's sections.  Host reads only
+        (tensor metadata, host counters): it runs on the HTTP thread,
+        possibly while the step thread captures a CUDA graph."""
+        now = self.clock()
+        reqs = []
+        mid_prefill = {id(r) for r in self.scheduler.prefilling}
+        for req in (list(self.scheduler.running)
+                    + list(self.scheduler.prefilling)
+                    + list(self.scheduler.waiting)):
+            if req.status == WAITING:
+                phase = "queued" if req.n_preemptions == 0 else "preempted"
+            elif id(req) in mid_prefill or not req.tokens:
+                phase = "prefill"
+            else:
+                phase = "decode"
+            reqs.append({
+                "rid": req.rid, "trace_id": req.trace_id,
+                "tenant": req.tenant, "status": req.status, "phase": phase,
+                "age_s": (round(now - req.submit_t, 3)
+                          if req.submit_t is not None else None),
+                "prompt_tokens": int(req.prompt.size),
+                "generated": len(req.tokens),
+                "target": req.target_len(),
+                "cached_tokens": req.cached_prefix_len,
+                "host_tokens": req.host_restored_len,
+                "prefill_done": int(req.cache_len),
+                "prefill_target": req.prefill_target,
+                "n_preemptions": req.n_preemptions})
+        return {
+            "alive": self._alive,
+            "steps": self._step_id,
+            "queue_depth": self.scheduler.queue_depth,
+            "running": len(self.scheduler.running),
+            "in_flight": reqs,
+            "completed": self._stats.completed,
+            "preemptions": self.scheduler.preemptions,
+            "reject_reasons": dict(self.scheduler.reject_reasons),
+            "tenants": self.scheduler.tenant_stats(),
+            "kv_blocks": self.blocks.occupancy(),
+            "prefix_cache": self.blocks.prefix_stats(),
+            "kv_cache": self.kv_cache_stats(),
+            "host_kv": self.host_kv_stats(),
+            "quant": self.quant_info(),
+            "sampling": self.sampling_info(),
+            "adapters": self.adapter_info(),
+            "sharding": self.sharding_info(),
+            # a shut-down engine's draft is released (the reference
+            # drops it, and reads None here)
+            "spec": (None if self._spec is None or not self._alive
+                     else self._spec.statusz(self)),
+            "perf": self._perf.statusz(),
+            "step_profile": self._sprof.statusz(),
+            "max_batch": self.max_batch,
+            "max_model_len": self.max_model_len,
+            "programs_recorded": len(self._manifest.entries()),
+            "request_trace": {"enabled": self._rtrace.enabled,
+                              "sample": self._rtrace.sample,
+                              "traced": self._rtrace.traced,
+                              "written": self._rtrace.written,
+                              "path": self._rtrace.path},
+            "numeric_watch": self._numeric_watch,
+            # the reference's export store is not ported (ROADMAP §A12):
+            # its section reads as the reference's with no store
+            "aot": {"dir": None},
+        }
+
+    def perf_summary(self):
+        """Compact performance-attribution summary — sampled call count,
+        MFU/achieved-TFLOP/s, flops a token and device cost per 1k
+        tokens (None with ``MXTPU_PERF_ATTRIB=0``)."""
+        return self._perf.summary()
 
     def adapter_info(self):
-        """The adapters section of the reference's ``/statusz``: slot
-        occupancy, refcounts and loaded ids (None when off)."""
+        """The ``/statusz`` ``adapters`` section: slot occupancy,
+        refcounts and loaded ids (None when off)."""
         if not self._adapters:
             return None
         return self.adapter_store.stats()
+
+    def quant_info(self):
+        """The ``/statusz`` ``quant`` section: weight-only mode, K/V
+        dtype and their bytes (None when both are off)."""
+        if not self.quantize and not self._kv_quant:
+            return None
+        info = {"weights": self.quantize,
+                "kv_dtype": (dtype_name(self._cache_k)
+                             if self._cache_k is not None else None)}
+        if self.quantize and self.params:
+            info["quantized_weights"] = sum(
+                1 for k in self.params if k.endswith("_wscale"))
+            info["weight_bytes"] = sum(
+                int(v.nbytes) for k, v in self.params.items()
+                if k.endswith("_weight") or k.endswith("_wscale"))
+        if self._kv_quant and self._scale_k is not None:
+            info["kv_scale_bytes"] = 2 * int(self._scale_k.nbytes)
+        return info
+
+    def sharding_info(self):
+        """The ``/statusz`` ``sharding`` section at tp 1 (tensor
+        parallelism waits for ROADMAP §A13): the digest and the
+        parameters' bytes by device."""
+        info = {"tp": 1, "rules_digest": None,
+                "spec_digest": self._spec_digest}
+        if self.params:
+            info["params_bytes_per_device"] = statusz_mod.bytes_by_device(
+                self.params.values())
+        return info
+
+    def kv_cache_stats(self):
+        """K/V cache bytes, in total and in use (one device: tp 1)."""
+        if self._cache_k is None:
+            return None
+        total = 2 * int(self._cache_k.nbytes)          # K and V
+        per_block = total // self.num_blocks
+        out = {"bytes_total": total,
+               "bytes_per_device": total,
+               "bytes_per_block_per_device": per_block,
+               "bytes_in_use_per_device":
+                   per_block * self.blocks.blocks_in_use,
+               "dtype": dtype_name(self._cache_k)}
+        if self._kv_quant:
+            sb = 2 * int(self._scale_k.nbytes)
+            out["scale_bytes_total"] = sb
+            out["scale_bytes_per_device"] = sb
+        return out
 
     def sampling_info(self):
         """The sampling section of the reference's ``/statusz``: cap,
@@ -1089,12 +1384,68 @@ class Engine:
     def _program(self, kind, bucket):
         prog = self._programs.get((kind, bucket))
         if prog is None:
+            # the reference's resolution counter: every port program is
+            # built fresh (a CUDA graph cannot be stored), its "trace"
+            telemetry.counter(
+                "mxtpu_aot_programs_total", "bucket-program resolutions",
+                ("kind", "source")).labels(kind=kind, source="trace").inc()
             prog = self._build_program(kind, bucket)
             self._programs[(kind, bucket)] = prog
             self.captures += prog.captured
+            if prog.captured:
+                cudamon.note_capture(kind)
         if not self._warming:
             self._manifest.record(kind, bucket)
+        if self._perf.enabled and self._perf.cost(kind, bucket) is None:
+            # the cost table fills HERE, the one point every program
+            # passes (built now, warmed earlier, or replayed): a warmed
+            # engine never reports an empty perf section.  After the
+            # first note, one dict probe a call
+            af, ab = self._analytic_cost(kind, bucket)
+            self._perf.note_cost(kind, bucket, flops=af, bytes_accessed=ab)
         return prog
+
+    def _analytic_cost(self, kind, bucket):
+        """Analytic (flops, bytes) of one (kind, bucket) call, from the
+        GQA-aware closed forms in ``flops.py`` over the PADDED program
+        shapes (bucket rows, table-capacity context): the reference's
+        ``_analytic_cost``, the same numbers for the same config."""
+        from .. import flops as flops_mod
+
+        if kind in ("draft", "draft_chunk") and self._spec is not None:
+            cfg, params = self._spec.cfg, self._spec.params
+        else:
+            cfg, params = self._cfg, self.params
+        try:
+            tok_w = params[f"{cfg.name}_tok_embed_weight"]
+            ffw = params.get(f"{cfg.name}_l0_ff_up_weight")
+            kw = dict(n_layers=cfg.n_layers,
+                      d_model=int(tok_w.shape[1]),
+                      num_heads=cfg.num_heads, head_dim=cfg.head_dim,
+                      kv_heads=cfg.kv_heads, vocab=int(tok_w.shape[0]),
+                      d_ff=int(ffw.shape[0]) if ffw is not None else None,
+                      swiglu=cfg.swiglu)
+        except (KeyError, TypeError):
+            return None, None          # params already freed (shutdown)
+        ctx = self.table_width * self.block_size
+        per_tok = flops_mod.gpt_token_flops(context=ctx, **kw)
+        if kind == "prefill":
+            return flops_mod.gpt_prefill_flops(seq_len=bucket, **kw), None
+        if kind in ("chunk", "draft_chunk"):
+            return bucket * per_tok, None
+        if kind == "verify":
+            return bucket * (self.spec_k + 1) * per_tok, None
+        if kind == "draft":
+            return bucket * self.spec_k * per_tok, None
+        if kind == "restore":
+            # a pure copy: no matmuls; bytes are the K+V block payload
+            # in and out (the MBU numerator)
+            L, bs = self._cfg.n_layers, self.block_size
+            Hkv, Dh = self._cfg.kv_heads, self._cfg.head_dim
+            payload = (2 * L * bucket * bs * Hkv * Dh
+                       * self._cache_k.element_size())
+            return None, 2 * payload
+        return bucket * per_tok, None      # decode
 
     def _build_program(self, kind, bucket):
         W = self.table_width
@@ -1256,7 +1607,8 @@ class Engine:
         cap = self.table_width
         while pending:
             batch, pending = pending[:cap], pending[cap:]
-            prog = self._program("restore", _next_bucket(len(batch), cap))
+            bucket = _next_bucket(len(batch), cap)
+            prog = self._program("restore", bucket)
             h = prog.stage()
             for i, (blk, arrays) in enumerate(batch):
                 h["blks"][i] = blk
@@ -1264,7 +1616,9 @@ class Engine:
                     # a numpy view becomes a tensor on the same memory
                     torch.as_tensor(h[name][:, i]).copy_(a)
             with telemetry.span("serve.host_kv_restore", blocks=len(batch)):
-                prog()
+                t0 = self._perf.t0()
+                prog(t0)               # no output: nothing waits
+                self._perf.done(t0, "restore", bucket)
 
     def _run_prefill(self, req, decode_slots=0):
         """Run one prefill pass for ``req``: the whole prompt (cold
@@ -1276,11 +1630,18 @@ class Engine:
         ids = req.prefill_ids()
         n = int(ids.size)
         start = int(req.cache_len)     # cached prefix + finished chunks
-        if self.scheduler.is_prefilling(req):
+        resume = req.n_preemptions > 0
+        chunked = self.scheduler.is_prefilling(req)
+        if chunked:
             budget = max(1, self.scheduler.prefill_chunk - decode_slots)
             end = min(n, start + budget)
         else:
             end = n
+        if not req._prefill_started:
+            req._prefill_started = True
+            self._rtrace.event(req, "prefill_start", tokens=int(n - start),
+                               cached=start, chunked=chunked,
+                               resume=resume)
         span = end - start
         bs = self.block_size
         table = self.blocks.table(req.rid)
@@ -1311,7 +1672,13 @@ class Engine:
             self._stage_sampling(h, [req])
         if self._adapters:
             h["slot"][0] = req.adapter_slot
-        out = prog()                   # the host needs the token: sync
+        pkind = "prefill" if start == 0 and end == n else "chunk"
+        t0 = self._perf.t0()
+        prog.launch(t0)
+        self._perf.done(t0, pkind, bucket)
+        self._sprof.lap("prefill_dispatch")
+        out = self._watched(prog.result(), "prefill_logits", rid=req.rid)
+        self._sprof.lap("device_wait")
         tok = int(out[0][0] if self._sampling else out[0])
         req.cache_len = end
         self._stats.on_prefill(span)
@@ -1321,7 +1688,12 @@ class Engine:
         if end < n:
             # intermediate chunk: its token is mid-prompt and dropped;
             # the request stays in the prefilling lane
+            self._rtrace.event(req, "prefill_chunk", done=int(end),
+                               target=int(n), tokens=int(span))
+            self._sprof.lap("host_sync")
             return 0
+        self._rtrace.event(req, "prefill_end", tokens=int(n - start),
+                           resume=resume)
         self.scheduler.prefill_done(req)
         self.scheduler.admit_running(req)
         now = self.clock()
@@ -1336,6 +1708,7 @@ class Engine:
         if self._sampling:
             self._note_logprobs(req, out[1], out[2], out[3])
         self._maybe_finish(req)
+        self._sprof.lap("host_sync")
         return 1
 
     def _run_decode(self, reqs):
@@ -1349,7 +1722,15 @@ class Engine:
             h["tables"][i, :len(t)] = t
         self._stage_sampling(h, reqs)
         self._stage_slots(h, reqs)
-        out = prog()                   # the host needs the tokens: sync
+        bucket = _next_bucket(B, self.max_batch)
+        t0 = self._perf.t0()
+        prog.launch(t0)
+        self._perf.done(t0, "decode", bucket)
+        self._sprof.lap("decode_dispatch")
+        # the host needs the tokens: the designed sync
+        out = self._watched(prog.result(), "decode_logits", batch_size=B,
+                            rids=[r.rid for r in reqs])
+        self._sprof.lap("device_wait")
         self.decode_steps += 1
         now = self.clock()
         toks = out[0] if self._sampling else out
@@ -1360,7 +1741,11 @@ class Engine:
                 self._note_logprobs(req, out[1][i:i + 1], out[2][i:i + 1],
                                     out[3][i:i + 1])
             self._stats.on_tokens(req, 1, now=now)
+            self._rtrace.event(req, "decode", batch=self._step_id,
+                               batch_size=B, tokens=len(req.tokens),
+                               emitted=1)
             self._maybe_finish(req)
+        self._sprof.lap("host_sync")
         return B
 
     def _spec_ingest(self, req):
@@ -1385,7 +1770,9 @@ class Engine:
             h["table"][:len(table)] = table
             h["blk"][:span] = h["table"][np.arange(span) // bs]
             h["off"][:] = np.arange(bucket) % bs   # padded rows: null blk
-            prog()
+            t0 = self._perf.t0()
+            prog(t0)
+            self._perf.done(t0, "draft_chunk", bucket)
         sw.note_ingested(req, span)
 
     def _run_spec_decode(self, reqs):
@@ -1412,7 +1799,12 @@ class Engine:
             h["tables"][i, :len(t)] = t
         self._stage_sampling(h, reqs)
         with telemetry.span("serve.draft", batch=B, k=k):
-            drafted = draft()          # the verify rows need them: sync
+            t0 = self._perf.t0()
+            draft.launch(t0)
+            self._perf.done(t0, "draft", bucket)
+            self._sprof.lap("decode_dispatch")
+            drafted = draft.result()   # the verify rows need them: sync
+            self._sprof.lap("device_wait")
         verify = self._program("verify", bucket)
         hv = verify.stage()
         if self._sampling:
@@ -1428,7 +1820,14 @@ class Engine:
         hv["tables"][:] = h["tables"]
         self._stage_slots(hv, reqs)
         with telemetry.span("serve.verify", batch=B, k=k):
-            out = verify()             # acceptance needs them: sync
+            t0 = self._perf.t0()
+            verify.launch(t0)
+            self._perf.done(t0, "verify", bucket)
+            self._sprof.lap("decode_dispatch")
+            # acceptance needs them: sync
+            out = self._watched(verify.result(), "verify_logits",
+                                batch_size=B, rids=[r.rid for r in reqs])
+            self._sprof.lap("device_wait")
         emitted = 0
         now = self.clock()
         for i, req in enumerate(reqs):
@@ -1455,13 +1854,30 @@ class Engine:
             req.cache_len += len(emit)
             emitted += len(emit)
             self._stats.on_tokens(req, len(emit), now=now)
+            self._rtrace.event(req, "decode", batch=self._step_id,
+                               batch_size=B, tokens=len(req.tokens),
+                               emitted=len(emit), accepted=accepted)
             self._maybe_finish(req)
             if req.done:
                 sw.forget(req.rid)
             else:
                 # roll back the speculative tail (never a shared block)
                 self.blocks.truncate(req.rid, req.cache_len)
+        self._sprof.lap("host_sync")
         return emitted
+
+    def _watched(self, out, anomaly, **fields):
+        """A program call's outputs as the unwatched program returns
+        them.  Under ``MXTPU_NUMERIC_WATCH`` the body returned one more
+        output, ``isfinite(logits).all()``, copied to the host with the
+        tokens: a false flag counts an anomaly, marks the flight ring
+        and dumps it (rate-limited)."""
+        if not self._cfg.numeric_watch:
+            return out
+        out, ok = out[:-1], out[-1]
+        if not bool(ok):
+            flight_mod.record_anomaly(anomaly, step=self._step_id, **fields)
+        return out[0] if len(out) == 1 else out
 
     def _maybe_finish(self, req):
         if len(req.tokens) >= req.max_new_tokens:
@@ -1675,13 +2091,27 @@ def _sampled(cfg, logits, temp, topp, topk, seed):
 
 def _cfg_fields(cfg):
     """A ``_ModelCfg`` as its fingerprint dict: ``kv_quant``,
-    ``sampling`` and ``sample_cap`` only when on."""
+    ``sampling`` and ``sample_cap``, and ``numeric_watch``, only when
+    on."""
     d = cfg._asdict()
     if not d["kv_quant"]:
         del d["kv_quant"]
     if not d["sampling"]:
         del d["sampling"], d["sample_cap"]
+    if not d["numeric_watch"]:
+        del d["numeric_watch"]
     return d
+
+
+def _watch(cfg, out, logits):
+    """A body's outputs ``out`` (a tensor or a tuple), plus under
+    ``cfg.numeric_watch`` the flag ``isfinite(logits).all()``, copied to
+    the host with the tokens (one more all-reduce; no sync of its
+    own)."""
+    if not cfg.numeric_watch:
+        return out
+    outs = (out,) if torch.is_tensor(out) else tuple(out)
+    return outs + (torch.isfinite(logits).all(),)
 
 
 def _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh):
@@ -1794,8 +2224,9 @@ def _decode(cfg, toks, pos, tables, *, params, ck, cv, ksc=None, vsc=None,
     logits = _forward_token_batch(cfg, params, ck, cv, toks, pos, tables,
                                   ksc, vsc, adp, slots)
     if cfg.sampling:
-        return _sampled(cfg, logits, temp, topp, topk, seed)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+        return _watch(cfg, _sampled(cfg, logits, temp, topp, topk, seed),
+                      logits)
+    return _watch(cfg, torch.argmax(logits, dim=-1).to(torch.int32), logits)
 
 
 def _prefill(cfg, P, toks, plen, blk, off, *, params, ck, cv, ksc=None,
@@ -1809,8 +2240,9 @@ def _prefill(cfg, P, toks, plen, blk, off, *, params, ck, cv, ksc=None,
     logits = _prefill_logits(cfg, P, params, ck, cv, toks, plen, blk, off,
                              ksc, vsc, adp, _scalar(slot))
     if cfg.sampling:
-        return _sampled(cfg, logits, temp, topp, topk, seed)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+        return _watch(cfg, _sampled(cfg, logits, temp, topp, topk, seed),
+                      logits)
+    return _watch(cfg, torch.argmax(logits, dim=-1).to(torch.int32), logits)
 
 
 def _restore(blks, hk, hv, hks=None, hvs=None, *, ck, cv, ksc=None,
@@ -1866,8 +2298,9 @@ def _chunk(cfg, C, toks, start, n_valid, table, blk, off, *, params, ck,
     logits = _chunk_logits(cfg, C, params, ck, cv, toks, start, n_valid,
                            table, blk, off, ksc, vsc, adp, _scalar(slot))
     if cfg.sampling:
-        return _sampled(cfg, logits, temp, topp, topk, seed)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+        return _watch(cfg, _sampled(cfg, logits, temp, topp, topk, seed),
+                      logits)
+    return _watch(cfg, torch.argmax(logits, dim=-1).to(torch.int32), logits)
 
 
 def _chunk_logits(cfg, C, params, ck, cv, toks, start, n_valid, table,

@@ -425,6 +425,19 @@ class BlockManager:
     def utilization(self):
         return self.blocks_in_use / max(1, self.total_blocks)
 
+    def occupancy(self):
+        """One JSON-ready snapshot of the block accounting (the
+        ``/statusz`` and flight-dump ``kv_blocks`` section), taken under
+        the lock so a scrape sees one consistent view."""
+        with self._lock:
+            return {"in_use": self.blocks_in_use,
+                    "retained": self.retained_blocks,
+                    "free": len(self._free),
+                    "total": self.total_blocks,
+                    "utilization": round(self.utilization(), 4),
+                    "evictions": self.evictions,
+                    "prefix_cache": self.prefix_stats()}
+
     def prefix_stats(self):
         """Prefix-cache population and hit/miss/evict counters;
         ``discarded_tokens`` adds the host tier's own final discards."""

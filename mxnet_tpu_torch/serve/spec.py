@@ -50,11 +50,11 @@ import threading
 
 import torch
 
-from .. import telemetry
 from ..base import env_float
 from ..convert import params_from_numpy
 from ..models.generate import detect_gpt_variant, normalize_gpt_params
 from ..ops.attention import resolve_paged_impl
+from ..telemetry import flight as flight_mod
 
 __all__ = ["DraftWorker", "accept_greedy", "ENV_SPEC", "ENV_MIN_ACCEPT"]
 
@@ -171,18 +171,18 @@ class DraftWorker:
         """One verify pass proposed ``k`` tokens and the target accepted
         ``accepted``.  Feeds the rolling window; when the windowed rate
         sits below ``MXTPU_SPEC_MIN_ACCEPT`` (after ``MIN_WINDOW``
-        verifies) a ``spec_low_acceptance`` dump goes to the telemetry
-        stub (rate-limited per reason)."""
+        verifies) the flight recorder dumps ``spec_low_acceptance``
+        (rate-limited per reason, to ``MXTPU_FLIGHT_DIR``)."""
         with self._lock:
             self._window.append((int(k), int(accepted)))
             rate = self._window_rate_locked()
             n = len(self._window)
         if (self.min_accept > 0.0 and n >= MIN_WINDOW
                 and rate is not None and rate < self.min_accept):
-            telemetry.dump("spec_low_acceptance",
-                           extra={"accept_rate": round(rate, 4),
-                                  "threshold": self.min_accept,
-                                  "window": n})
+            flight_mod.recorder().dump(
+                "spec_low_acceptance",
+                extra={"accept_rate": round(rate, 4),
+                       "threshold": self.min_accept, "window": n})
 
     def _window_rate_locked(self):
         drafted = sum(k for k, _ in self._window)
@@ -196,6 +196,37 @@ class DraftWorker:
         with self._lock:
             rate = self._window_rate_locked()
         return None if rate is None else round(rate, 4)
+
+    # -- introspection -------------------------------------------------------
+    def statusz(self, engine):
+        """The engine's ``/statusz`` ``spec`` section (host reads only:
+        byte counts are tensor metadata)."""
+        cfg = self.cfg
+        with self._lock:
+            window_n = len(self._window)
+            rate = self._window_rate_locked()
+            tracked = len(self._valid)
+        rate_greedy, rate_stochastic = engine._stats.spec_mode_rates()
+        return {
+            "k": engine.spec_k,
+            "accept_rate_greedy": rate_greedy,
+            "accept_rate_stochastic": rate_stochastic,
+            "draft": {
+                "name": self.name,
+                "n_layers": cfg.n_layers,
+                "d_model": cfg.num_heads * cfg.head_dim,
+                "kv_heads": cfg.kv_heads,
+                "params_bytes": sum(int(v.nbytes)
+                                    for v in self.params.values()),
+                "kv_cache_bytes": 2 * int(self.cache_k.nbytes),
+            },
+            "accept_rate_window": (None if rate is None
+                                   else round(rate, 4)),
+            "window_verifies": window_n,
+            "min_accept": self.min_accept,
+            "tracked_requests": tracked,
+            "verify_buckets": engine.verify_buckets(),
+        }
 
     def shutdown(self):
         """Release the draft's parameters and cache."""
@@ -295,10 +326,14 @@ def _verify(cfg, k, rows, pos0, tables, *, params, ck, cv, ksc=None,
     greedy): ``rows`` (B, k+1) holds each request's last token and its k
     drafts.  Returns the (B, k+1) int32 argmax, row j's token decided
     after consuming rows 0..j.  ``adp``/``slots``: the adapter stacks
-    and each request's slot (adapters mode)."""
-    return torch.argmax(
-        _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc,
-                       vsc, adp, slots), dim=-1).to(torch.int32)
+    and each request's slot (adapters mode).  Under
+    ``cfg.numeric_watch``, also the logits-finite flag."""
+    from .engine import _watch
+
+    logits = _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv,
+                            ksc, vsc, adp, slots)
+    return _watch(cfg, torch.argmax(logits, dim=-1).to(torch.int32),
+                  logits)
 
 
 def _verify_rs(cfg, k, toks, drafted, q_at, q_vals, q_idx, pos0, tables,
@@ -313,9 +348,10 @@ def _verify_rs(cfg, k, toks, drafted, q_at, q_vals, q_idx, pos0, tables,
     every draft accepted adds a bonus token from the last row's p.
     Returns the emit rows (B, k+1), accepted counts (B,), and the
     emitted rows' logprob outputs (chosen (B, k+1), top values and ids
-    (B, k+1, TOP_LOGPROBS))."""
+    (B, k+1, TOP_LOGPROBS)); under ``cfg.numeric_watch`` also the
+    logits-finite flag."""
     from .engine import (_ACCEPT, _BONUS, _RESIDUAL, _draw, _filter_logits,
-                         _logprob_outs, _safe_log)
+                         _logprob_outs, _safe_log, _watch)
     from ..models.generate import _uniform
 
     K1 = k + 1
@@ -354,7 +390,8 @@ def _verify_rs(cfg, k, toks, drafted, q_at, q_vals, q_idx, pos0, tables,
     pad = torch.cat([dr, torch.zeros_like(dr[:, :1])], dim=1)
     emit = torch.where(jj < acc[:, None], pad,
                        fixed[:, None]).to(torch.int32)
-    return (emit, acc.to(torch.int32)) + _logprob_outs(logits, emit)
+    return _watch(cfg, (emit, acc.to(torch.int32))
+                  + _logprob_outs(logits, emit), logits)
 
 
 def _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc, vsc,

@@ -1,7 +1,7 @@
 """Serving observability: counters + the ``ServeStats`` snapshot.
 
 The port's copy of ``mxnet_tpu/serve/stats.py``; its telemetry bridge
-lands on the port's no-op metrics until telemetry is ported.
+feeds the port's registry (no-op objects while telemetry is off).
 
 The engine owns one ``StatsRecorder`` and stamps it from the serving
 loop; ``snapshot()`` freezes the current view into an immutable

@@ -20,7 +20,8 @@ load that rebinds the stacks would miss; a sampling-mode engine's
 greedy adapter rows; an adapter row restored from the host KV tier.
 
 Left out: ``test_adapter_tp2_parity`` (tensor parallelism, ROADMAP §A
-item 13) and the ``/statusz`` view (item 14).  The ``cuda`` case (a
+item 13).  The ``/statusz`` adapters section is held against the
+reference's in ``tests/test_torch_observability.py``.  The ``cuda`` case (a
 rotated mix after ``warmup()`` captures nothing) lives in
 ``tests/test_torch_capture.py``, which imports no JAX and so runs on the
 card.
@@ -31,6 +32,8 @@ import pytest
 import torch
 
 import torch_port_fixtures as fx
+from torch_port_fixtures import \
+    collect_engines_after_module  # noqa: F401  (autouse)
 
 import jax.numpy as jnp
 import mxnet_tpu as mx

@@ -17,6 +17,8 @@ import pytest
 import torch
 
 import torch_port_fixtures as fx
+from torch_port_fixtures import \
+    collect_engines_after_module  # noqa: F401  (autouse)
 from test_torch_engine import ENGINE_KW, _assert_same_streams
 
 import mxnet_tpu as mx

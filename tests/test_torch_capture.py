@@ -12,9 +12,15 @@ the body eagerly; that a restore program restaged while its copy is
 still queued waits for the copy (the staging fence); and that two
 replays of a sampled decode graph with different seeds draw
 differently; and that an adapters engine's rotated adapter mix replays
-its warmed graphs.  This file imports no JAX, so the ``cuda`` tests run
-on the card as they stand.
+its warmed graphs; and that ``warmup()`` captures while a thread polls
+the telemetry endpoints, after which ``PerfAttrib`` times each sampled
+graph replay with CUDA events.  This file imports no JAX, so the
+``cuda`` tests run on the card as they stand.
 """
+
+import json
+import threading
+import urllib.request
 
 import numpy as np
 import pytest
@@ -342,3 +348,86 @@ def test_cuda_rotated_adapter_mix_captures_nothing():
     ref = mt.serve.Engine(merged, num_heads=4, device="cuda", **ENGINE_KW)
     assert serve(ref, [None] * 4)[1] == mux[1]
     ref.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_capture_under_live_statusz_and_event_timed_replays(
+        monkeypatch):
+    """``warmup()`` captures every program while a thread polls
+    ``/statusz.json``, ``/metrics`` and ``/healthz`` (every provider reads
+    host state only, so no capture is invalidated, and every response
+    parses); then, sampling every step, PerfAttrib's CUDA-event time of
+    the bucket-4 decode agrees with timed replays of the same graph, and
+    its call counts equal the programs' own."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA-graph capture and CUDA-event "
+                    "timing exist only on the card")
+    from mxnet_tpu_torch import telemetry
+
+    monkeypatch.setenv("MXTPU_PERF_ATTRIB_SAMPLE", "1")
+    telemetry.reset()
+    telemetry.enable()
+    server = telemetry.serve_http(telemetry.registry(), 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    stop, errors, polls = threading.Event(), [], [0]
+
+    def poll():
+        while not stop.is_set():
+            for path in ("/statusz.json", "/metrics", "/healthz"):
+                try:
+                    body = urllib.request.urlopen(url + path,
+                                                  timeout=10).read()
+                    if path != "/metrics":
+                        json.loads(body)
+                except Exception as e:       # a failed poll fails the test
+                    errors.append(repr(e))
+            polls[0] += 1
+
+    try:
+        eng = _engine("cuda")
+        th = threading.Thread(target=poll)
+        th.start()
+        while not polls[0] and not errors:     # the poller is running
+            stop.wait(0.01)
+        try:
+            ready = eng.warmup()
+        finally:
+            stop.set()
+            th.join()
+        assert not errors and polls[0] > 0
+        assert ready == eng.captures == len(eng._programs) > 0
+        rng = np.random.RandomState(5)
+        for _ in range(2):
+            for n in (7, 12, 5, 9):
+                eng.submit(rng.randint(0, 53, (n,)).astype(np.int32),
+                           max_new_tokens=16)
+            eng.run()
+        assert eng.captures == ready
+        perf = eng.statusz()["perf"]
+        rows = {(r["kind"], r["bucket"]): r for r in perf["programs"]}
+        for key, prog in eng._programs.items():
+            assert rows[key]["dispatches"] == prog.calls, key
+            assert rows[key]["sampled"] == prog.calls, key
+        row = rows[("decode", 4)]
+        assert row["sampled"] > 0
+        graph = eng._programs[("decode", 4)]._graph
+        times = []
+        for _ in range(20):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        replay_ms = sorted(times)[len(times) // 2]
+        got_ms = 1e3 * row["mean_s"]
+        # both bracket the replay alone; the engine's ran in traffic,
+        # between other programs and with the host's launch latency
+        assert abs(got_ms - replay_ms) <= 0.5 * replay_ms + 0.05, (
+            got_ms, replay_ms)
+        eng.shutdown()
+    finally:
+        server.shutdown()
+        telemetry.disable()
+        telemetry.reset()

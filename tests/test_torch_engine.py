@@ -15,6 +15,8 @@ import pytest
 import torch
 
 import torch_port_fixtures as fx
+from torch_port_fixtures import \
+    collect_engines_after_module  # noqa: F401  (autouse)
 
 import mxnet_tpu as mx
 from mxnet_tpu.serve import QueueFull as RefQueueFull
@@ -227,12 +229,14 @@ def test_unported_options_raise_with_their_roadmap_item(kw, item):
         mt.serve.Engine(params, num_heads=heads, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("env", ["MXTPU_SERVE_TP=2"])
-def test_unported_env_knobs_raise(monkeypatch, env):
+@pytest.mark.parametrize("env,item", [
+    pytest.param("MXTPU_SERVE_TP=2", "item 13", id="MXTPU_SERVE_TP=2"),
+    pytest.param("MXTPU_TIMESERIES=64", "item 15", id="MXTPU_TIMESERIES=64")])
+def test_unported_env_knobs_raise(monkeypatch, env, item):
     name, value = env.split("=")
     monkeypatch.setenv(name, value)
     _, params, heads = fx.model("gpt2")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=item):
         mt.serve.Engine(params, num_heads=heads, device="cpu")
 
 

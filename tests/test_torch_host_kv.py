@@ -16,8 +16,9 @@ reference's dtype names), with ``import_blocks`` taking either
 package's records.
 
 Left out, with their ROADMAP items: the tp=2 case (A13), and the
-metrics-registry, ``/statusz`` and fleet-replica views (A14: the port's
-telemetry is the disabled path).
+fleet-replica view (A14b).  The metrics-registry and ``/statusz`` views
+of the tier are held against the reference's in
+``tests/test_torch_observability.py``.
 """
 
 import numpy as np
@@ -25,6 +26,8 @@ import pytest
 import torch
 
 import torch_port_fixtures as fx
+from torch_port_fixtures import \
+    collect_engines_after_module  # noqa: F401  (autouse)
 
 import mxnet_tpu as mx
 from mxnet_tpu.serve import engine as ref_engine

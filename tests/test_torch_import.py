@@ -42,6 +42,13 @@ import mxnet_tpu_torch.serve.kv_block_manager, mxnet_tpu_torch.serve.scheduler
 import mxnet_tpu_torch.serve.stats, mxnet_tpu_torch.serve.adapters
 import mxnet_tpu_torch.telemetry, mxnet_tpu_torch.telemetry.request_trace
 import mxnet_tpu_torch.telemetry.timeseries
+import mxnet_tpu_torch.telemetry.metrics, mxnet_tpu_torch.telemetry.exporters
+import mxnet_tpu_torch.telemetry.tracing, mxnet_tpu_torch.telemetry.flight
+import mxnet_tpu_torch.telemetry.statusz, mxnet_tpu_torch.telemetry.profiling
+import mxnet_tpu_torch.telemetry.perf_attrib
+import mxnet_tpu_torch.telemetry.cudamon
+import mxnet_tpu_torch.profiler, mxnet_tpu_torch.flops
+import torch
 # the port's own name starts with "mxnet_tpu": match the reference by
 # exact key or by the "mxnet_tpu." prefix, never by bare prefix
 bad = sorted(k for k in sys.modules
@@ -50,6 +57,8 @@ bad = sorted(k for k in sys.modules
                               "ml_dtypes.")))
 print("BAD=" + ",".join(bad))
 print("BUILT=" + ",".join(sorted(mxnet_tpu_torch._build.BUILD_SECONDS)))
+print("TELEMETRY=" + str(mxnet_tpu_torch.telemetry.enabled()))
+print("CUDA_INIT=" + str(torch.cuda.is_initialized()))
 """
 
 
@@ -60,8 +69,28 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("BAD=")]
     assert line == ["BAD="], out.stdout
-    # importing every module builds no CUDA source
+    # importing every module builds no CUDA source, and initialises no
+    # CUDA context
     assert "BUILT=" in out.stdout.splitlines(), out.stdout
+    assert "CUDA_INIT=False" in out.stdout.splitlines(), out.stdout
+
+
+def test_port_with_telemetry_on_imports_neither_jax_nor_cuda(tmp_path):
+    """With ``MXTPU_TELEMETRY=1`` the import enables telemetry (the
+    reference's gate), and still loads no ``jax`` or reference module and
+    initialises no CUDA context."""
+    env = dict(os.environ, PYTHONPATH=REPO, MXTPU_TELEMETRY="1",
+               MXTPU_TELEMETRY_DIR=str(tmp_path / "tel"))
+    env.pop("MXTPU_TELEMETRY_HTTP_PORT", None)
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                         text=True, cwd=str(tmp_path), env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert "BAD=" in lines and "TELEMETRY=True" in lines, out.stdout
+    assert "CUDA_INIT=False" in lines, out.stdout
+    # the gate's atexit dump wrote the artifact set
+    assert sorted(os.listdir(tmp_path / "tel")) == [
+        "host_trace.json", "metrics.jsonl", "metrics.prom"]
 
 
 def test_probe_would_see_a_reference_import():

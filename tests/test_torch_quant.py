@@ -18,6 +18,8 @@ import pytest
 import torch
 
 import torch_port_fixtures as fx
+from torch_port_fixtures import \
+    collect_engines_after_module  # noqa: F401  (autouse)
 
 import mxnet_tpu as mx
 from mxnet_tpu.contrib.quantization import quantize_weight as ref_qw

@@ -15,8 +15,11 @@ only-when-on fingerprint, zero new programs for mixed configs, ``n >
 1`` copy-on-write samples, logprobs, the admit trace fields and
 preemption.
 
-Left out, with their ROADMAP items: the metrics-registry view of the
-spec acceptance split and replica/router sampling (A14).
+Left out, with their ROADMAP items: replica/router sampling (A14b).
+The ``/statusz`` sampling section is held against the reference's in
+``tests/test_torch_observability.py``; the registry's stochastic half
+of the spec acceptance split is not compared (the two packages draw
+from different generators, so their sampled counts differ).
 """
 
 import collections
@@ -26,6 +29,8 @@ import pytest
 import torch
 
 import torch_port_fixtures as fx
+from torch_port_fixtures import \
+    collect_engines_after_module  # noqa: F401  (autouse)
 
 import jax
 import jax.numpy as jnp

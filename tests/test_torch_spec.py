@@ -16,16 +16,21 @@ engine cases (inertness at spec_k=0, validation, stats, the ledger, the
 warm-up grid, warm restarts, the fingerprint) and the acceptance rule.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import torch_port_fixtures as fx
+from torch_port_fixtures import \
+    collect_engines_after_module  # noqa: F401  (autouse)
 
 import mxnet_tpu as mx
 from mxnet_tpu.serve import spec as ref_spec
 import mxnet_tpu_torch as mt
-from mxnet_tpu_torch import telemetry
+from mxnet_tpu_torch.telemetry import flight
 from mxnet_tpu_torch.serve import spec as port_spec
 
 VOCAB = fx.VOCAB
@@ -334,22 +339,30 @@ def test_draft_ledger_pruned_for_departed_requests():
     assert len(eng._spec._valid) == 0
 
 
-def test_low_acceptance_dump(monkeypatch):
+def test_low_acceptance_dump(monkeypatch, tmp_path):
+    """The low-acceptance dump goes to the flight recorder, as the
+    reference's does: one file under MXTPU_FLIGHT_DIR once the window is
+    full, rate-limited per reason."""
     monkeypatch.setenv("MXTPU_SPEC_MIN_ACCEPT", "0.9")
-    telemetry.dumps(clear=True)
+    monkeypatch.setenv("MXTPU_FLIGHT_DIR", str(tmp_path))
+    flight.recorder().clear()
     _, params, heads = fx.model("gpt2")
     _, draft = _draft_of(params)
     sw = _port(params, heads, **_spec_kw(draft))._spec
     assert sw.min_accept == 0.9
     for _ in range(port_spec.MIN_WINDOW - 1):
         sw.on_verify(3, 0)
-    assert telemetry.dumps() == []                   # window not full
+    assert os.listdir(tmp_path) == []                # window not full
     sw.on_verify(3, 0)
     sw.on_verify(3, 0)                               # rate-limited
-    got = telemetry.dumps(clear=True)
-    assert [d["reason"] for d in got] == ["spec_low_acceptance"]
-    assert got[0]["extra"] == {"accept_rate": 0.0, "threshold": 0.9,
-                               "window": port_spec.MIN_WINDOW}
+    got = sorted(os.listdir(tmp_path))
+    assert len(got) == 1 and got[0].endswith("spec_low_acceptance.json")
+    with open(tmp_path / got[0]) as f:
+        payload = json.load(f)
+    assert payload["reason"] == "spec_low_acceptance"
+    assert payload["extra"] == {"accept_rate": 0.0, "threshold": 0.9,
+                                "window": port_spec.MIN_WINDOW}
+    flight.recorder().clear()
 
 
 def test_verify_buckets_join_the_warmup_grid():

@@ -11,10 +11,12 @@ logit margins.  For RNN training, the RNN-op language model of
 """
 
 import contextlib
+import gc
 import os
 import sys
 
 import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -22,6 +24,16 @@ if REPO not in sys.path:
 
 VOCAB = 53
 SEQ = 96
+
+
+@pytest.fixture(autouse=True, scope="module")
+def collect_engines_after_module():
+    """After a file's tests, collect the engines they left in reference
+    cycles.  The reference's ``/statusz`` lists every engine still
+    alive (a weak registration), and a later file's test that reads the
+    first engine section it finds must see its own engine there."""
+    yield
+    gc.collect()
 VARIANTS = {
     "gpt2": dict(num_layers=2, d_model=32, num_heads=4),
     "llama": dict(num_layers=2, d_model=32, num_heads=4, kv_heads=2,
