@@ -115,7 +115,28 @@ Phases (any failure exits non-zero; nothing is caught):
      numeric_anomaly with the watch on and nothing with it off; then
      tok/s and decode-step ms with telemetry off, on, and on with every
      step sampled, and the host microseconds a decode step spends in
-     each part of the telemetry, off and on (recorded, not judged);
+     each part of the telemetry, off and on (recorded, not judged); the
+     fleet (serve_fleet): every bf16 engine warmed from the serve
+     manifest before traffic, a thread polling each replica's
+     /statusz.json and /healthz throughout; one engine driven directly,
+     cold and over its own cache; two ReplicaServers behind a Router
+     under a Supervisor serving the 8 prompts at once with the serve
+     phase's tokens, no capture, and the paged launches counted through
+     both engines' replays equal to layers x decode steps and to a
+     profiler trace's instances; both slots replaced by fresh engines,
+     kill@2 on one mid-stream (every request once, the same tokens), a
+     warm crash restart, the dead engine collected, the sibling drained
+     and replaced under traffic with no client-visible failure; a
+     prefill and a decode replica (host tier on) handing off K/V (bytes =
+     blocks x the host block's bytes, restore programs run, the cached
+     pass's tokens); an affinity router's pull hint landing a
+     shared-prefix chain on the cold replica (prefill tokens computed
+     falling by the pulled span, the warm replica's tokens) and a
+     corrupted pull degrading to recompute; the process front at the
+     serve config's widths spawned, killed by kill@2 and restarted by a
+     Supervisor, its tokens an in-process engine's from the same numpy
+     draw; tok/s routed and direct, router-added, handoff and pull ms,
+     restart seconds;
   4. training: bench.py's on-chip GPT (vocab 32768, S 1024, d_model 512,
      8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier; its depth cut
      from 8 layers to 2) trained by parallel.ShardedTrainer for 2 warm-up
@@ -175,6 +196,11 @@ imported from DIR, the checkout of another commit: an older package
 without the telemetry runs the telemetry-off arm alone.  Runs of two
 commits in one call, alternated, compare the telemetry-off engine
 across them.  Prints the card line and one JSON line.
+
+    python3 chip_smoke.py --fleet
+
+runs only the serve phase and serve_fleet (their lines, then the card
+line).
 """
 
 from __future__ import annotations
@@ -2692,6 +2718,752 @@ def serve_telemetry(np_params, serve_row, serve_toks, card):
     return out
 
 
+# -- phase 3b: the fleet (router, replicas, supervisor, process front) -------
+# the process front's flags at the serve config's widths
+FLEET_FRONT_FLAGS = ["--layers", "4", "--d-model", "768", "--heads", "12",
+                     "--kv-heads", "3", "--vocab", "50304",
+                     "--max-model-len", "256", "--block-size", "16",
+                     "--num-blocks", "512", "--max-batch", "8",
+                     "--dtype", "bfloat16"]
+FLEET_HOP_S = 120.0            # the routers' per-hop timeout here
+FLEET_HOST_KV = 1 << 30        # the decode and pulling replicas' host tier
+
+
+class _FleetPoller:
+    """A thread polling ``/statusz.json`` and ``/healthz`` of every
+    in-process replica it is given, throughout the fleet phase: each
+    answer from a replica that stays ready must parse and name the
+    replica."""
+
+    def __init__(self):
+        self.replicas = []             # guarded-by: _lock
+        self.polls = 0
+        self.errors = []
+        self._lock = threading.Lock()  # held through each pass
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def add(self, rep):
+        with self._lock:
+            self.replicas.append(rep)
+
+    def remove(self, rep):
+        """Stop polling ``rep``; on return no pass holds it."""
+        with self._lock:
+            self.replicas.remove(rep)
+
+    def _run(self):
+        import urllib.request
+
+        while not self._stop.wait(0.1):
+            with self._lock:
+                self._pass(urllib.request)
+
+    def _pass(self, request):
+        for rep in self.replicas:
+            for path in ("/statusz.json", "/healthz"):
+                if rep.state != "ready":
+                    continue
+                try:
+                    with request.urlopen(rep.url + path,
+                                         timeout=30) as resp:
+                        body = json.loads(resp.read())
+                    named = (body["replica"]["replica"]
+                             if path == "/statusz.json" else body["state"])
+                    if named is None:
+                        raise ValueError(f"{path} without its section")
+                    self.polls += 1
+                except Exception as e:       # counted, judged by the phase
+                    if rep.state == "ready":
+                        self.errors.append(f"{rep.replica_id}{path}: "
+                                           f"{e!r}"[:200])
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def fleet_warm_engine(np_params, manifest, grid=False, **kw):
+    """The serve config's bf16 engine warmed from ``manifest`` (and the
+    full bucket grid with ``grid``), before any traffic: a capture here
+    can never meet a sibling engine's replays."""
+    eng = full_width_engine(np_params, torch.bfloat16, **kw)
+    ready = eng.warmup(manifest)
+    if grid:
+        ready += eng.warmup()
+    torch.cuda.synchronize()
+    if eng.paged_impl != "cuda":
+        raise SystemExit(f"engine resolved paged_impl={eng.paged_impl}")
+    return eng, ready
+
+
+def _route_all(router, prompts, tag, max_new=32, **kw):
+    """Every prompt through ``router.generate`` at once, one thread
+    each: ``(results by index, failures by index, wall seconds)``."""
+    results, failures = {}, {}
+
+    def one(i, p):
+        try:
+            results[i] = router.generate(p.tolist(), max_new_tokens=max_new,
+                                         request_id=f"{tag}-{i}", **kw)
+        except Exception as e:       # a client-visible failure: judged
+            failures[i] = repr(e)[:300]
+
+    threads = [threading.Thread(target=one, args=(i, p))
+               for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results, failures, time.perf_counter() - t0
+
+
+def _decode_steps(replicas):
+    return {r.replica_id: r.engine.decode_steps for r in replicas}
+
+
+def _launch_window(pac, replicas, before_steps, before_counts):
+    """The paged counts of a window against what the replicas' engines
+    launched in it: layers x decode steps each, every call split."""
+    n_layers = SERVE_CFG["num_layers"]
+    steps = {r.replica_id: r.engine.decode_steps
+             - before_steps.get(r.replica_id, 0) for r in replicas}
+    counted = (pac.launches - before_counts[0],
+               pac.combine_launches - before_counts[1])
+    expected = n_layers * sum(steps.values())
+    return {"decode_steps": steps, "expected": expected,
+            "launches": counted[0], "combine_launches": counted[1],
+            "ok": (expected > 0 and counted[0] == expected
+                   and counted[1] == expected)}
+
+
+def _chain_proxy(target, corrupt):
+    """A peer that answers ``/chain_export`` with ``target``'s records,
+    the last record's K bytes flipped when ``corrupt``: a corrupted wire
+    for a pulling replica."""
+    import base64
+    import http.server
+    import urllib.request
+
+    class Proxy(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers.get("Content-Length",
+                                                        0)))
+            req = urllib.request.Request(
+                target + self.path, data=body, method="POST",
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                out = json.loads(resp.read())
+            if corrupt and out.get("records"):
+                raw = bytearray(base64.b64decode(out["records"][-1]["k"]))
+                raw[len(raw) // 2] ^= 0x40
+                out["records"][-1]["k"] = base64.b64encode(
+                    bytes(raw)).decode("ascii")
+            data = json.dumps(out).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Proxy)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def _http(url, path, payload=None, timeout=FLEET_HOP_S):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def serve_fleet(np_params, serve_row, serve_toks, manifest, card):
+    """The fleet's core on the card (ROADMAP A14b-1), every engine the
+    serve config's bf16 engine warmed from the serve phase's
+    ``manifest`` before it takes traffic, a poller on every in-process
+    replica's ``/statusz.json`` and ``/healthz`` throughout:
+
+    0. one engine driven directly on the 8 serve prompts (tok/s);
+    1. two ``ReplicaServer``s behind a ``Router`` under a ``Supervisor``:
+       the 8 prompts at once, the serve phase's tokens, no capture in
+       traffic, the paged launches counted through both engines' replays
+       equal to layers x decode steps of each and to the kernel
+       instances in a profiler trace of the window;
+    2. ``kill@2`` on one replica mid-stream: every request completes
+       once, with step 1's tokens; the supervisor restarts the dead
+       slot warm, then the sibling is drained and replaced by a warmed
+       engine under client traffic, with no client-visible failure;
+    3. a ``prefill`` and a ``decode`` replica (host tier on): step 1's
+       tokens, handoff bytes = blocks x the host block's bytes, the
+       decode replica's ``restore`` programs ran and its decode graphs
+       launched the paged kernels;
+    4. ``MXTPU_ROUTE_AFFINITY`` 1: a shared-prefix set served on replica
+       A, the router's pull hint lands the chain on B, whose prefill
+       tokens computed fall by the pulled span and whose tokens equal
+       A's; a corrupted record degrades to recompute, counted, tokens
+       unchanged;
+    5. a ``Supervisor`` slot spawning the process front at the serve
+       config's widths, warmed from a manifest: its tokens equal an
+       in-process engine's from the same numpy draw; ``kill@2`` ends
+       the child, the supervisor restarts it and a request after the
+       restart gets the same tokens."""
+    import gc
+
+    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.fleet import (FaultInjector, ProcessReplica,
+                                       ReplicaServer, Router, Supervisor)
+    from mxnet_tpu_torch.fleet import serve_replica as front
+    from mxnet_tpu_torch.fleet.supervisor import replica_command
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+    from torch.profiler import ProfilerActivity, profile
+
+    import weakref
+
+    t_phase = time.perf_counter()
+    prompts = serve_prompts(0)
+    checks, rows = {}, {}
+    poller = _FleetPoller()
+    live = []                          # every in-process replica started
+
+    class Handle:
+        def __init__(self, rep):
+            self.replica, self.url = rep, rep.url
+
+        def poll(self):
+            return None if self.replica.state != "dead" else 1
+
+        def terminate(self, grace_s=None):
+            self.replica.stop()
+
+    def start(eng, rid, **kw):
+        rep = ReplicaServer(eng, replica_id=rid, **kw).start()
+        live.append(rep)
+        poller.add(rep)
+        return rep
+
+    try:
+        # 0. one engine driven directly, cold; then again over its own
+        # cached prompts: every prompt but the 16-token ones then
+        # recomputes its last 16 tokens through the chunk program over
+        # cached blocks, which a decode replica does over restored ones
+        direct, _ = fleet_warm_engine(np_params, manifest, grid=True)
+        reqs = [direct.submit(p, max_new_tokens=32) for p in prompts]
+        direct.run()
+        checks["direct_tokens"] = [r.tokens for r in reqs] == serve_toks
+        # the timing prompts (new to every engine): driven directly here,
+        # routed in step 1, neither under the profiler
+        timing_prompts = serve_prompts(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        treqs = [direct.submit(p, max_new_tokens=32)
+                 for p in timing_prompts]
+        direct.run()
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+        direct_tok = sum(len(r.tokens) for r in treqs)
+        timed_toks = [r.tokens for r in treqs]
+        del treqs
+        reqs = [direct.submit(p, max_new_tokens=32) for p in prompts]
+        direct.run()
+        toks_cached = [r.tokens for r in reqs]
+        rows["direct"] = {
+            "cached_pass_prefix_hits": direct.stats().prefix_hits,
+            "cached_pass_flips": flips(direct, prompts, serve_toks,
+                                       toks_cached)}
+        del reqs
+
+        # 1. two replicas behind the router
+        pool = [fleet_warm_engine(np_params, manifest)[0] for _ in range(2)]
+        gen = [0]
+
+        def spawn(slot):
+            gen[0] += 1
+            return Handle(start(pool.pop(0), f"slot{slot}-{gen[0]}"))
+
+        router = Router([], scrape_interval_s=0.2, timeout_s=FLEET_HOP_S,
+                        retries=4, backoff_s=0.02, backoff_max_s=0.2,
+                        breaker_fails=10)
+        sup = Supervisor(spawn, 2, router=router, restart_backoff_s=0.0,
+                         drain_timeout_s=120)
+        sup.start()
+        router.scrape()
+        router.start()
+        reps = [h.replica for h in sup.handles()]
+        caps0 = {r.replica_id: r.engine.captures for r in reps}
+        router.scrape()
+        tres, tfails, twall = _route_all(router, timing_prompts, "f1t")
+        tok_timed = sum(len(r.tokens) for r in tres.values())
+        checks["routed_timing_pass"] = not tfails and all(
+            tres[i].tokens == direct_t for i, direct_t
+            in enumerate(timed_toks))
+        steps0 = _decode_steps(reps)
+        torch.cuda.synchronize()
+        router.scrape()
+        pac.launches = pac.combine_launches = 0  # the fleet window opens
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res, fails, wall = _route_all(router, prompts, "f1")
+            torch.cuda.synchronize()
+        window = _launch_window(pac, reps, steps0, (0, 0))
+        counts = {}
+        profile_kernels(prof, counts)
+        traced = {k: sum(c for name, c in counts.items() if k in name)
+                  for k in ("paged_attention_split",
+                            "paged_attention_combine")}
+        toks1 = [res[i].tokens if i in res else None
+                 for i in range(len(prompts))]
+        tok1 = sum(len(t) for t in toks1 if t)
+        fleet_launches = [window["launches"], window["combine_launches"]]
+        checks["routed_tokens"] = not fails and toks1 == serve_toks
+        checks["routed_no_capture"] = all(
+            r.engine.captures == caps0[r.replica_id] for r in reps)
+        checks["routed_launches"] = window["ok"]
+        checks["routed_trace"] = (
+            traced["paged_attention_split"] == window["launches"]
+            and traced["paged_attention_combine"]
+            == window["combine_launches"])
+        checks["routed_both_served"] = len(
+            {res[i].replica for i in res}) == 2
+        rows["routed"] = {
+            "tok_per_s": tok_timed / twall, "wall_s": twall,
+            "direct_tok_per_s": direct_tok / direct_s,
+            "direct_wall_s": direct_s,
+            "profiled_window_tok_per_s": tok1 / wall,
+            "router_added_ms_mean": 1e3 * statistics.mean(
+                r.added_s for r in tres.values()) if tres else None,
+            "router_added_ms_max": 1e3 * max(
+                (r.added_s for r in tres.values()), default=0.0),
+            "replicas": sorted({res[i].replica for i in res}),
+            "launch_window": window, "traced_paged_kernels": traced,
+            "failures": fails}
+
+        # 2. chaos on fresh replicas (a replica whose prefix cache holds
+        # a prompt recomputes only its last span, another path): both
+        # slots replaced, without traffic, by engines warmed meanwhile;
+        # then kill@2 on slot 0 mid-stream
+        del reps
+        for slot in (0, 1):
+            pool.append(fleet_warm_engine(np_params, manifest)[0])
+            sup.replace_slot(slot)
+        victim = sup.handles()[0].replica
+        sibling = sup.handles()[1].replica
+        victim.faults = FaultInjector("kill@2")
+        caps2 = {r.replica_id: r.engine.captures for r in (victim, sibling)}
+        steps2 = _decode_steps([victim, sibling])
+        before = (pac.launches, pac.combine_launches)
+        router.scrape()         # both idle: the picks alternate
+        res2, fails2, wall2 = _route_all(router, prompts, "f2")
+        torch.cuda.synchronize()
+        toks2 = [res2[i].tokens if i in res2 else None
+                 for i in range(len(prompts))]
+        killed = victim.state == "dead" and bool(victim.faults.fired)
+        window2 = _launch_window(pac, [victim, sibling], steps2, before)
+        fleet_launches[0] += window2["launches"]
+        fleet_launches[1] += window2["combine_launches"]
+        retried = sum(1 for r in res2.values() if r.attempts > 1)
+        checks["chaos_killed"] = killed
+        checks["chaos_tokens"] = not fails2 and toks2 == toks1
+        chaos_flips = flips(direct, prompts, toks1,
+                            [t or [] for t in toks2])
+        checks["chaos_once_each"] = (
+            len(res2) == len(prompts)
+            and len({r.request_id for r in res2.values()}) == len(prompts))
+        checks["chaos_retried"] = retried > 0
+        checks["chaos_launches"] = window2["ok"]
+        checks["chaos_no_capture"] = all(
+            r.engine.captures == caps2[r.replica_id]
+            for r in (victim, sibling))
+        fired = [(i, repr(f)) for i, f in victim.faults.fired]
+        # the dead slot back, warm: captured before it takes traffic
+        pool.append(fleet_warm_engine(np_params, manifest)[0])
+        t0 = time.perf_counter()
+        restarted = sup.check()
+        crash_restart_s = time.perf_counter() - t0
+        # the abandoned engine goes when it is collected: its weights,
+        # cache and graphs back to the allocator
+        victim_bytes = sum(int(t.nbytes)
+                           for t in victim.engine.params.values())
+        torch.cuda.synchronize()
+        mem_dead = torch.cuda.memory_allocated()
+        live.remove(victim)
+        poller.remove(victim)
+        gone = weakref.ref(victim.engine)
+        del victim
+        t0 = time.perf_counter()
+        gc.collect()
+        while gone() is not None and time.perf_counter() < t0 + 30:
+            time.sleep(0.1)           # its HTTP and step threads end
+            gc.collect()
+        collect_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        mem_collected = torch.cuda.memory_allocated()
+        mem_freed = mem_dead - mem_collected >= victim_bytes
+        router.scrape()
+        # the sibling drained and replaced under client traffic, by an
+        # engine warmed before the drain
+        pool.append(fleet_warm_engine(np_params, manifest)[0])
+        loads = {}
+        load_t = threading.Thread(target=lambda: loads.update(zip(
+            ("res", "fails", "wall"),
+            _route_all(router, prompts, "f2b", max_new=32))))
+        t0 = time.perf_counter()
+        load_t.start()
+        time.sleep(0.05)
+        sup.replace_slot(1)
+        rolling_s = time.perf_counter() - t0
+        load_t.join(timeout=600)
+        toks2b = [loads["res"][i].tokens if i in loads.get("res", {})
+                  else None for i in range(len(prompts))]
+        checks["restart_crash_slot"] = restarted == [0]
+        checks["restart_dead_engine_freed"] = mem_freed
+        # a request the drained sibling served may hit its cache (its
+        # prompts ran there before): the cached pass's tokens then
+        checks["restart_no_client_failure"] = (
+            not loads.get("fails")
+            and all(t in (toks1[i], toks_cached[i])
+                    for i, t in enumerate(toks2b)))
+        checks["restart_replaced"] = sibling.state == "dead" and all(
+            h.replica.state == "ready" for h in sup.handles())
+        rows["chaos"] = {
+            "killed": killed, "retried_requests": retried,
+            "flips": chaos_flips,
+            "replicas_and_attempts": {i: (r.replica, r.attempts)
+                                      for i, r in res2.items()},
+            "fired": fired, "victim_weight_bytes": victim_bytes,
+            "launch_window": window2, "failures": fails2,
+            "crash_restart_s": crash_restart_s,
+            "drain_replace_s": rolling_s,
+            "load_during_replace_failures": loads.get("fails"),
+            "load_during_replace_flips": flips(
+                direct, prompts, toks1, [t or [] for t in toks2b]),
+            "memory_allocated_before_after_collect": [mem_dead,
+                                                      mem_collected],
+            "collected_after_s": collect_s}
+        sup.stop()
+        router.stop()
+        del sup, sibling
+        gc.collect()
+
+        # 3. disaggregation: a prefill and a decode replica
+        pre = start(fleet_warm_engine(np_params, manifest, grid=True)[0],
+                    "prefill", role="prefill")
+        dec = start(fleet_warm_engine(np_params, manifest, grid=True,
+                                      host_kv_bytes=FLEET_HOST_KV)[0],
+                    "decode", role="decode")
+        drouter = Router([pre.url, dec.url], scrape_interval_s=0,
+                         timeout_s=FLEET_HOP_S, retries=4, backoff_s=0.02,
+                         backoff_max_s=0.2)
+        drouter.scrape()
+        caps3 = {r.replica_id: r.engine.captures for r in (pre, dec)}
+        steps3 = _decode_steps([pre, dec])
+        restores0 = sum(p.calls for (k, _), p in dec.engine._programs.items()
+                        if k == "restore")
+        before = (pac.launches, pac.combine_launches)
+        res3, fails3, wall3 = _route_all(drouter, prompts, "f3")
+        torch.cuda.synchronize()
+        window3 = _launch_window(pac, [pre, dec], steps3, before)
+        fleet_launches[0] += window3["launches"]
+        fleet_launches[1] += window3["combine_launches"]
+        toks3 = [res3[i].tokens if i in res3 else None
+                 for i in range(len(prompts))]
+        ph = pre._replica_state()["handoff"]
+        dh = dec._replica_state()["handoff"]
+        block_bytes = dec.engine.host_kv_stats()["block_bytes"]
+        blocks = sum(len(p) // dec.engine.block_size for p in prompts)
+        restores = sum(p.calls for (k, _), p
+                       in dec.engine._programs.items()
+                       if k == "restore") - restores0
+        handoff_ms = [1e3 * h["wall_s"] for r in res3.values()
+                      for h in r.hops if h.get("hop") == "handoff"]
+        prefill_hop_ms = [1e3 * h["wall_s"] for r in res3.values()
+                          for h in r.hops if h.get("hop") is None]
+        # the wire alone for the 128-token prompt's 8 blocks: the
+        # prefill replica's export (the handoff's export path) and the
+        # decode replica's verified decode of the records
+        t0 = time.perf_counter()
+        wire = _http(pre.url, "/chain_export", {"prompt":
+                                                prompts[3].tolist()})
+        wire_parsed, wire_bytes = dec._decode_records(wire["records"])
+        wire_ms = 1e3 * (time.perf_counter() - t0)
+        # the decode replica recomputes each prompt's last span over
+        # restored blocks, bit for bit the blocks a cached pass reads
+        checks["disagg_tokens"] = not fails3 and toks3 == toks_cached
+        checks["disagg_bytes"] = (ph["exported"] == len(prompts)
+                                  and ph["bytes_exported"]
+                                  == blocks * block_bytes
+                                  and dh["bytes_received"]
+                                  == ph["bytes_exported"])
+        checks["disagg_restored"] = (restores > 0
+                                     and dh["blocks_imported"] > 0
+                                     and dec.engine.stats()
+                                     .host_kv_restored_tokens > 0)
+        checks["disagg_launches"] = (window3["ok"]
+                                     and window3["decode_steps"]["decode"]
+                                     > 0)
+        checks["disagg_no_capture"] = all(
+            r.engine.captures == caps3[r.replica_id] for r in (pre, dec))
+        rows["disagg"] = {
+            "handoff": {"prefill": ph, "decode": dh},
+            "flips_against_cold": flips(direct, prompts, toks1,
+                                        [t or [] for t in toks3]),
+            "blocks": blocks, "block_bytes": block_bytes,
+            "restore_calls": restores, "launch_window": window3,
+            "handoff_hop_ms_mean": (statistics.mean(handoff_ms)
+                                    if handoff_ms else None),
+            "handoff_hop_ms_max": max(handoff_ms, default=None),
+            "prefill_hop_ms_mean": (statistics.mean(prefill_hop_ms)
+                                    if prefill_hop_ms else None),
+            "handoff_wire_ms_128": wire_ms,
+            "handoff_wire_blocks_128": len(wire_parsed),
+            "handoff_wire_bytes_128": wire_bytes,
+            "tok_per_s": sum(len(t) for t in toks3 if t) / wall3,
+            "failures": fails3}
+        drouter.stop()
+        for rep in (pre, dec):
+            rep.stop()
+        direct.shutdown()
+        del direct
+
+        # 4. affinity and pull
+        rng = np.random.RandomState(5)
+        vocab = SERVE_CFG["vocab"]
+        prefix = rng.randint(0, vocab, 96).tolist()
+        primer = prefix + rng.randint(0, vocab, 16).tolist()
+        shared = [prefix + rng.randint(0, vocab, 16).tolist()
+                  for _ in range(4)]
+        longer = prefix + rng.randint(0, vocab, 32).tolist()
+        a = start(fleet_warm_engine(np_params, manifest, grid=True,
+                                    host_kv_bytes=FLEET_HOST_KV)[0], "aff-a")
+        b = start(fleet_warm_engine(np_params, manifest, grid=True,
+                                    host_kv_bytes=FLEET_HOST_KV)[0], "aff-b")
+        caps4 = {r.replica_id: r.engine.captures for r in (a, b)}
+        steps4 = _decode_steps([a, b])
+        before = (pac.launches, pac.combine_launches)
+        a_toks = {}
+        for i, p in enumerate([primer] + shared + [longer]):
+            a_toks[i] = _http(a.url, "/generate",
+                              {"prompt": p, "max_new_tokens": 16})["tokens"]
+        arouter = Router([a.url, b.url], scrape_interval_s=0,
+                         timeout_s=FLEET_HOP_S, retries=4, affinity=1.0,
+                         pull=True)
+        b_computed0 = b.engine.stats().prefill_tokens_computed
+        b_toks, hints, pull_ms = {}, 0, []
+        for i, p in enumerate(shared, start=1):
+            arouter.scrape()
+            with arouter._lock:
+                for st in arouter._replicas:
+                    if st.url == a.url:
+                        st.load = 50.0    # A saturated: the pick is B
+            plan = arouter._affinity_plan(p)
+            hints += int(arouter._pull_hint(plan, arouter._replicas[1])
+                         is not None)
+            t0 = time.perf_counter()
+            r = arouter.generate(p, max_new_tokens=16)
+            pull_ms.append(1e3 * (time.perf_counter() - t0))
+            b_toks[i] = r.tokens
+            if r.replica != "aff-b":
+                b_toks[i] = None
+        bst = b.engine.stats()
+        pull = b._replica_state()["pull"]
+        span = 96 * len(shared)              # the prefix, never recomputed
+        computed = bst.prefill_tokens_computed - b_computed0
+        # a corrupted record: B pulls the longer chain through a proxy
+        # that flips a byte of its last record
+        proxy = _chain_proxy(a.url, corrupt=True)
+        try:
+            out = _http(b.url, "/generate", {
+                "prompt": longer, "max_new_tokens": 16,
+                "kv_pull": {"peer": f"http://127.0.0.1:"
+                                    f"{proxy.server_address[1]}",
+                            "tokens": 112}})
+        finally:
+            proxy.shutdown()
+            proxy.server_close()
+        pull2 = b._replica_state()["pull"]
+        t0 = time.perf_counter()
+        export = _http(a.url, "/chain_export", {"prompt": longer})
+        parsed, nbytes = b._decode_records(export["records"])
+        export_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        window4 = _launch_window(pac, [a, b], steps4, before)
+        fleet_launches[0] += window4["launches"]
+        fleet_launches[1] += window4["combine_launches"]
+        checks["affinity_hint"] = hints == 1 and pull["attempts"] == 1
+        # A exports the first prompt's whole chain (7 full blocks); B's
+        # walk restores all but the last, which it recomputes
+        checks["affinity_pulled"] = (pull["blocks_imported"]
+                                     == len(shared[0]) // 16
+                                     and pull["failures"] == 0
+                                     and bst.host_kv_restored_tokens == 96)
+        checks["affinity_computed_falls"] = computed == sum(
+            len(p) for p in shared) - span
+        checks["affinity_tokens"] = all(b_toks[i] == a_toks[i]
+                                        for i in b_toks)
+        checks["corrupt_counted"] = (pull2["failures"] == 1
+                                     and pull2["attempts"] == 2
+                                     and pull2["blocks_imported"]
+                                     == pull["blocks_imported"])
+        checks["corrupt_tokens"] = out["tokens"] == a_toks[5]
+        checks["affinity_launches"] = window4["ok"]
+        checks["affinity_no_capture"] = all(
+            r.engine.captures == caps4[r.replica_id] for r in (a, b))
+        rows["affinity"] = {
+            "pull": pull2, "pull_hints": hints,
+            "b_prefill_tokens_computed": computed,
+            "b_prompt_tokens": sum(len(p) for p in shared),
+            "b_host_kv_restored_tokens": bst.host_kv_restored_tokens,
+            "routed_ms_with_pull_first": pull_ms[0],
+            "routed_ms_after": pull_ms[1:],
+            "chain_export_and_decode_ms": export_ms,
+            "chain_export_blocks": len(parsed),
+            "chain_export_bytes": nbytes, "launch_window": window4}
+        arouter.stop()
+        for rep in (a, b):
+            rep.stop()
+        poller.stop()
+        checks["poller"] = poller.polls > 0 and not poller.errors
+        rows["poller"] = {"polls": poller.polls,
+                          "errors": poller.errors[:10]}
+        gc.collect()
+
+        # 5. the process front under a supervisor
+        args = front.parse_args(FLEET_FRONT_FLAGS)
+        cfg, front_params = front.build_model(args)
+        eng = full_width_engine(front_params, torch.bfloat16,
+                                max_prefills_per_step=2, max_queue=32)
+        eng.warmup(manifest)
+        front_prompts = serve_prompts(0)[:3]
+        want = []
+        for p in front_prompts:          # one at a time, as the child
+            r = eng.submit(p, max_new_tokens=16)
+            eng.run()
+            want.append(r.tokens)
+        with tempfile.TemporaryDirectory() as tmp:
+            front_manifest = os.path.join(tmp, "front.jsonl")
+            eng.save_manifest(front_manifest)
+            eng.shutdown()
+            del eng, front_params
+            env = dict(os.environ, PYTHONPATH=ROOT,
+                       MXTPU_TORCH_BUILD_DIR=_build.build_dir(),
+                       MXTPU_WARMUP_MANIFEST=front_manifest)
+            for var in ("MXTPU_FAULT_SPEC", "MXTPU_AOT_DIR",
+                        "MXTPU_FLEET_ROLE"):
+                env.pop(var, None)
+            spawned = []
+
+            def spawn_proc(slot):
+                e = dict(env)
+                if not spawned:
+                    e["MXTPU_FAULT_SPEC"] = "kill@2"
+                t0 = time.perf_counter()
+                h = ProcessReplica(replica_command(
+                    0, FLEET_FRONT_FLAGS + ["--device", DEVICE]), env=e)
+                spawned.append(h)
+                h.wait_ready(timeout_s=300)
+                h.spawn_to_ready_s = time.perf_counter() - t0
+                h.ready = next(json.loads(ln) for ln in
+                               h.output_tail().splitlines()
+                               if ln.startswith('{"ready"'))
+                return h
+
+            prouter = Router([], scrape_interval_s=0, timeout_s=FLEET_HOP_S,
+                             retries=2)
+            psup = Supervisor(spawn_proc, 1, router=prouter,
+                              restart_backoff_s=0.0)
+            try:
+                psup.start()
+                first = psup.handles()[0]
+                prouter.scrape()
+                got = [prouter.generate(front_prompts[0].tolist(),
+                                        max_new_tokens=16).tokens]
+                try:                    # the child's second arrival: kill
+                    _http(first.url, "/generate",
+                          {"prompt": front_prompts[1].tolist(),
+                           "max_new_tokens": 16})
+                    killed_proc = False
+                except Exception:
+                    killed_proc = True
+                rc = first.proc.wait(timeout=60)
+                t0 = time.perf_counter()
+                restarted = psup.check()
+                restart_s = time.perf_counter() - t0
+                prouter.scrape()
+                for p in front_prompts[1:]:
+                    got.append(prouter.generate(
+                        p.tolist(), max_new_tokens=16).tokens)
+                second = psup.handles()[0]
+            finally:
+                psup.stop()
+                prouter.stop()
+            stopped = all(h.poll() is not None for h in spawned)
+        checks["process_tokens"] = got == want
+        checks["process_killed"] = killed_proc and rc == 1
+        checks["process_restarted"] = (restarted == [0]
+                                       and second is not first)
+        # the child records what its traffic ran into the manifest it
+        # warmed from: the restarted child warms from that
+        checks["process_warmed"] = (first.ready["warmed"] > 0
+                                    and second.ready["warmed"] > 0
+                                    and first.ready["backend"] == DEVICE)
+        checks["process_stopped"] = stopped
+        rows["process"] = {
+            "ready": [first.ready, second.ready],
+            "ready_s": [first.ready["ready_s"], second.ready["ready_s"]],
+            "spawn_to_ready_s": [first.spawn_to_ready_s,
+                                 second.spawn_to_ready_s],
+            "restart_to_ready_s": restart_s,
+            "warmed": [first.ready["warmed"], second.ready["warmed"]],
+            "exit_code_after_kill": rc}
+    finally:
+        poller.stop()
+        for rep in live:
+            if rep.state != "dead":
+                rep.stop()
+    ok = all(checks.values())
+    emit({"phase": "serve_fleet_summary", "card": card,
+          "router_tok_per_s": rows.get("routed", {}).get("tok_per_s"),
+          "direct_tok_per_s": rows.get("routed", {}).get(
+              "direct_tok_per_s"),
+          "router_added_ms_mean": rows.get("routed", {}).get(
+              "router_added_ms_mean"),
+          "handoff_hop_ms_mean": rows.get("disagg", {}).get(
+              "handoff_hop_ms_mean"),
+          "handoff_wire_ms_128": rows.get("disagg", {}).get(
+              "handoff_wire_ms_128"),
+          "routed_ms_with_pull": rows.get("affinity", {}).get(
+              "routed_ms_with_pull_first"),
+          "chain_export_and_decode_ms": rows.get("affinity", {}).get(
+              "chain_export_and_decode_ms"),
+          "crash_restart_s": rows.get("chaos", {}).get("crash_restart_s"),
+          "drain_replace_s": rows.get("chaos", {}).get("drain_replace_s"),
+          "process_ready_s": rows.get("process", {}).get("ready_s"),
+          "process_restart_to_ready_s": rows.get("process", {}).get(
+              "restart_to_ready_s"),
+          "process_warmed": rows.get("process", {}).get("warmed")})
+    out = {"phase": "serve_fleet", "dtype": "bfloat16", "card": card,
+           "requests": len(prompts), "new_tokens": 32,
+           "serve_phase_tok_per_s": serve_row["tok_per_s"],
+           "kernel_launches": fleet_launches[0],
+           "combine_launches": fleet_launches[1],
+           "seconds": time.perf_counter() - t_phase,
+           **rows, "checks": checks, "ok": ok}
+    emit(out)
+    if not ok:
+        raise SystemExit("serve_fleet failed its checks: "
+                         + ", ".join(k for k, v in checks.items() if not v))
+    return out
+
+
 def small_model_check():
     """A small seeded model (the reference's serve-test shapes, rope +
     GQA + SwiGLU + RMSNorm + tied): the captured CUDA engine's greedy
@@ -4053,6 +4825,24 @@ def overhead_main(args):
     return 0
 
 
+def fleet_main():
+    """``--fleet``: the paged library built, the serve phase (its tokens
+    and manifest), then ``serve_fleet`` alone."""
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    pac._fns()
+    card = card_line()
+    np_params = serve_params()
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = os.path.join(tmp, "manifest.jsonl")
+        serve, serve_toks = serve_main_path(np_params, manifest)
+        with open(manifest) as f:
+            entries = [json.loads(ln) for ln in f if ln.strip()]
+    serve_fleet(np_params, serve, serve_toks, entries, card)
+    print(card)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
@@ -4062,6 +4852,8 @@ def main():
     ap.add_argument("--package", default=None,
                     help="with --overhead: import mxnet_tpu_torch from "
                          "this checkout")
+    ap.add_argument("--fleet", action="store_true",
+                    help="run only the serve phase and serve_fleet")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4071,6 +4863,8 @@ def main():
     import mxnet_tpu_torch  # noqa: F401  (fails alone: no package)
     if args.overhead:
         return overhead_main(args)
+    if args.fleet:
+        return fleet_main()
     from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops import flash_attention_cuda as fac
     from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
@@ -4170,6 +4964,8 @@ def main():
         lap("serve")
         serve_restart(np_params, serve_toks, manifest)
         lap("serve_restart")
+        with open(manifest) as f:
+            serve_manifest = [json.loads(ln) for ln in f if ln.strip()]
     serve_prefix(np_params)
     lap("serve_prefix")
     logits_check(np_params)
@@ -4187,8 +4983,10 @@ def main():
     lora = serve_lora(np_params)
     lap("serve_lora")
     tel = serve_telemetry(np_params, serve, serve_toks, card)
-    del np_params
     lap("serve_telemetry")
+    fleet = serve_fleet(np_params, serve, serve_toks, serve_manifest, card)
+    del np_params
+    lap("serve_fleet")
 
     train = train_main_path()
     train_grad_check()
@@ -4227,8 +5025,10 @@ def main():
     # engine's decode, the spec engine's draft, the int8 engines' decode,
     # the host-tier engines' decode over restored blocks (float32, bf16,
     # int8 K/V), the sampling engine's decode, the sampling spec
-    # engine's draft, the adapters engine's decode (both passes) and the
-    # telemetry-on engine's decode
+    # engine's draft, the adapters engine's decode (both passes), the
+    # telemetry-on engine's decode and the fleet replicas' decode (two
+    # routed replicas, the chaos pair, the decode role over handed-off
+    # blocks, the pulling pair)
     paged_paths = {"serve": (serve["kernel_launches"],
                              serve["combine_launches"]),
                    "serve_spec_draft": (spec["spec_on"]["kernel_launches"],
@@ -4250,7 +5050,9 @@ def main():
                    "serve_lora": (lora["kernel_launches"],
                                   lora["combine_launches"]),
                    "serve_telemetry": (tel["kernel_launches"],
-                                       tel["combine_launches"])}
+                                       tel["combine_launches"]),
+                   "serve_fleet": (fleet["kernel_launches"],
+                                   fleet["combine_launches"])}
     kernels = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
         "cuda_kernels": ["paged_attention_split", "paged_attention_combine"],

@@ -13,7 +13,12 @@ kernels take and raises on anything else; there is no fallback to the
 plain path (that is ``ops.attention.paged_attention_torch``, the
 caller's explicit choice).  ``launches`` counts calls of the op that
 launched the kernels (one per layer and decode step), and
-``combine_launches`` the combine kernel's launches.
+``combine_launches`` the combine kernel's launches.  Every update of the two counts takes
+one lock (:func:`count_launches`, :func:`add_counts`): several engines
+may step on several threads of one process, and a lost increment would
+be a wrong count.  :func:`thread_counts` is the calling thread's own
+tally of op calls, which a CUDA-graph capture reads to take its own
+launches off the counts.
 
 :func:`paged_partials_torch` and :func:`paged_combine_torch` are the two
 kernels' plain versions; composed, they equal ``paged_attention_torch``.
@@ -27,13 +32,15 @@ cuts the address.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from .._build import load_library
 
 __all__ = ["paged_attention_cuda", "paged_partials_torch",
-           "paged_combine_torch", "launches", "combine_launches"]
+           "paged_combine_torch", "launches", "combine_launches",
+           "count_launches", "add_counts", "thread_counts"]
 
 LIB_NAME = "mxtt_paged_attention"
 SOURCES = ("paged_attention.cu",)
@@ -42,6 +49,36 @@ SOURCES = ("paged_attention.cu",)
 # combine launch where splits > 1); reset by whoever counts a window
 launches = 0
 combine_launches = 0
+_count_lock = threading.Lock()
+# this thread's op calls (split, combine), never reset
+_tally = threading.local()
+
+
+def count_launches(split, combine):
+    """Count one op call's launches: into the process counts, under the
+    lock, and into the calling thread's own tally."""
+    global launches, combine_launches
+    with _count_lock:
+        launches += split
+        combine_launches += combine
+    _tally.split = getattr(_tally, "split", 0) + split
+    _tally.combine = getattr(_tally, "combine", 0) + combine
+
+
+def add_counts(split, combine):
+    """Add to (or, negative, take off) the process counts under the
+    lock, without touching any thread's tally: what a CUDA-graph replay
+    launched, or what a capture counted that launched nothing."""
+    global launches, combine_launches
+    with _count_lock:
+        launches += split
+        combine_launches += combine
+
+
+def thread_counts():
+    """The calling thread's own tally of op calls, ``(split, combine)``."""
+    return (getattr(_tally, "split", 0), getattr(_tally, "combine", 0))
+
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -118,7 +155,6 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens,
     device.  Returns ``(B, Hq, Dh)`` in q's dtype.  ``_splits`` forces
     the split count (tests and chip_smoke.py only; the engine never
     passes it)."""
-    global launches, combine_launches
     _need(q.is_cuda, f"q must be a CUDA tensor (got {q.device})")
     dev = q.device
     _need(q.dim() == 3, f"q must be (B, Hq, Dh), got {tuple(q.shape)}")
@@ -209,8 +245,7 @@ def paged_attention_cuda(q, k_cache, v_cache, block_tables, context_lens,
             if rc != 0:
                 _raise_launch("paged_attention_combine", rc,
                               "head_dim up to 256, splits >= 1")
-            combine_launches += 1
-    launches += 1
+    count_launches(1, int(splits > 1))
     return out
 
 

@@ -162,19 +162,11 @@ _WARM_RUNS = 2
 
 # the paged op's launch counters tick on the host when a graph is
 # captured, and a replay launches the kernels without calling the op: a
-# program restores them around its capture and adds what the capture
-# counted at every replay (chip_smoke.py holds these sums against the
-# kernel instances in a profiler trace)
-_COUNTERS = ("launches", "combine_launches")
-
-
-def _counts():
-    return [getattr(_pac, c) for c in _COUNTERS]
-
-
-def _set_counts(values):
-    for c, v in zip(_COUNTERS, values):
-        setattr(_pac, c, v)
+# program takes its own warm-up and capture counts off again (read from
+# its thread's tally, so a sibling engine stepping on another thread
+# keeps its counts) and adds what the capture counted at every replay,
+# each under the op's counter lock (chip_smoke.py holds these sums
+# against the kernel instances in a profiler trace)
 
 
 def _next_bucket(n, cap):
@@ -260,8 +252,8 @@ class _Program:
     call records an event after its staging copy, and :meth:`stage`
     waits on it: a program whose output is never read (``restore``)
     cannot have its pinned buffer refilled under a copy still in flight.
-    The launch counters are restored around warm-up and capture, and
-    each replay adds what the capture counted.  On the CPU a call runs
+    Warm-up and capture take their own launches off the counters again,
+    and each replay adds what the capture counted.  On the CPU a call runs
     the body on the same buffers.  ``calls`` counts the calls.
 
     A call is :meth:`launch` (stage, replay, queue the outputs' copy to
@@ -298,7 +290,7 @@ class _Program:
             self._capture(pool)
 
     def _capture(self, pool):
-        before = _counts()
+        before = _pac.thread_counts()
         cur = torch.cuda.current_stream(self._device)
         side = torch.cuda.Stream(self._device)
         side.wait_stream(cur)
@@ -306,12 +298,13 @@ class _Program:
             for _ in range(_WARM_RUNS):
                 self._body(**self._inputs)
         cur.wait_stream(side)
-        mark = _counts()
+        mark = _pac.thread_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.no_grad(), torch.cuda.graph(graph, pool=pool):
             out = self._body(**self._inputs)
-        self._deltas = [a - m for a, m in zip(_counts(), mark)]
-        _set_counts(before)
+        after = _pac.thread_counts()
+        self._deltas = [a - m for a, m in zip(after, mark)]
+        _pac.add_counts(*[b - a for a, b in zip(after, before)])
         self._graph, self._out = graph, out
         outs = () if out is None else (out,) if torch.is_tensor(out) \
             else out
@@ -353,7 +346,7 @@ class _Program:
         self._graph.replay()
         if timing is not None:
             timing[1].record()
-        _set_counts([a + d for a, d in zip(_counts(), self._deltas)])
+        _pac.add_counts(*self._deltas)
         if self._out is None:
             return
         outs = (self._out,) if torch.is_tensor(self._out) else self._out
@@ -1253,6 +1246,13 @@ class Engine:
             per_block += 2 * (self._scale_k.nbytes // self.num_blocks)
         out["block_bytes"] = int(per_block)
         return out
+
+    def kv_summary(self):
+        """The routable-cache advertisement: the BlockManager's
+        ``RadixSummary`` snapshot (None with the prefix cache off),
+        bounded in size and kept incrementally, so a fleet replica
+        publishes it on every ``/healthz`` and ``/statusz`` scrape."""
+        return self.blocks.summary()
 
     def ingest_pulled_blocks(self, records, salt=None):
         """Park a peer's handoff records in the host tier (the

@@ -32,12 +32,18 @@ Host copies are CPU torch tensors (numpy has no bfloat16).  The same
 records serve the prefill/decode handoff (``export_blocks`` /
 ``import_blocks`` / ``has_blocks``), chain-hash verified on import.
 
-Not ported yet: the routing advertisement (``RadixSummary``, ROADMAP
-§A item 14), which would follow both tiers' keys.
+Routing advertisement (``RadixSummary``): a counting bloom over every
+published block key in both tiers plus the top-K most recently
+published chain keys, kept incrementally at each publish, unpublish and
+host-tier insert or removal.  ``BlockManager.summary()`` is the
+``kv_summary`` a fleet replica publishes on ``/healthz`` and
+``/statusz.json``; the router hashes a prompt with ``chain_keys`` and
+probes it with ``RadixSummary.match``.
 """
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import threading
 import time
@@ -47,10 +53,11 @@ import numpy as np
 import torch
 
 from .. import telemetry
-from ..base import env_flag, env_float
+from ..base import env_flag, env_float, env_int
 
-__all__ = ["BlockManager", "HostKVPool", "NoFreeBlocks", "blocks_for",
-           "chain_keys", "salted_root", "dtype_name", "host_tensor"]
+__all__ = ["BlockManager", "HostKVPool", "NoFreeBlocks", "RadixSummary",
+           "blocks_for", "chain_keys", "salted_root", "dtype_name",
+           "host_tensor"]
 
 # chaos-harness fault: simulated seconds per host-tier restore claim (a
 # slow DRAM copy); with a restore budget set, a delay past the budget
@@ -137,6 +144,122 @@ def host_tensor(a):
     return torch.from_numpy(a)
 
 
+class RadixSummary:
+    """Compact advertisement of the radix cache's contents (the
+    reference's ``RadixSummary``): the ``kv_summary`` a replica
+    publishes so the fleet router can score prefix affinity without
+    walking the tree.
+
+    - A counting Bloom filter over every published block key in either
+      tier: the ``k`` probe positions are cut from the key's sha1 bytes,
+      ``add`` increments and ``remove`` decrements a uint16 count
+      (saturating, so a saturated position stays set), and the snapshot
+      packs ``count > 0`` into a base64 bitmap of ``m`` bits.  A false
+      positive sends a request to a replica that recomputes: never a
+      wrong token.
+    - ``top``: the most recently published chain keys (16 hex chars),
+      at most ``top_k``, an exact-membership fast path.
+
+    ``MXTPU_ROUTE_SUMMARY_BLOOM_BITS`` (4096) and
+    ``MXTPU_ROUTE_SUMMARY_TOPK`` (32) size it.  Both tiers mutate it
+    under their own locks; it keeps a leaf lock of its own."""
+
+    def __init__(self, block_size, bloom_bits=None, top_k=None):
+        self.block_size = int(block_size)
+        m = (env_int("MXTPU_ROUTE_SUMMARY_BLOOM_BITS", 4096)
+             if bloom_bits is None else int(bloom_bits))
+        self.m = max(64, int(m))
+        self.k = 4
+        self.top_k = max(0, env_int("MXTPU_ROUTE_SUMMARY_TOPK", 32)
+                         if top_k is None else int(top_k))
+        self._lock = threading.Lock()
+        self._counts = np.zeros(self.m, np.uint16)  # guarded-by: _lock
+        self._top = OrderedDict()                   # guarded-by: _lock
+        self.keys = 0                               # guarded-by: _lock
+        self.version = 0                            # guarded-by: _lock
+
+    def _positions(self, key):
+        return [int.from_bytes(key[4 * i:4 * i + 4], "little") % self.m
+                for i in range(self.k)]
+
+    def add(self, key):
+        """One block published (either tier) under ``key``."""
+        with self._lock:
+            for p in self._positions(key):
+                if self._counts[p] < np.iinfo(np.uint16).max:
+                    self._counts[p] += 1
+            self.keys += 1
+            self.version += 1
+            if self.top_k:
+                hexk = key.hex()[:16]
+                self._top[hexk] = True
+                self._top.move_to_end(hexk)
+                while len(self._top) > self.top_k:
+                    self._top.popitem(last=False)
+
+    def remove(self, key):
+        """One block unpublished or evicted (either tier)."""
+        with self._lock:
+            for p in self._positions(key):
+                if self._counts[p] > 0:
+                    self._counts[p] -= 1
+            self.keys = max(0, self.keys - 1)
+            self.version += 1
+            self._top.pop(key.hex()[:16], None)
+
+    def clear(self):
+        with self._lock:
+            self._counts[:] = 0
+            self._top.clear()
+            self.keys = 0
+            self.version += 1
+
+    def snapshot(self):
+        """The JSON-ready advertisement ``match`` probes: ``m/8`` bloom
+        bytes plus at most ``top_k`` keys, whatever the cache holds."""
+        with self._lock:
+            bits = np.packbits(self._counts > 0).tobytes()
+            return {"block_size": self.block_size,
+                    "keys": self.keys,
+                    "version": self.version,
+                    "bloom": {"m": self.m, "k": self.k,
+                              "bits": base64.b64encode(bits)
+                              .decode("ascii")},
+                    "top": list(self._top)}
+
+    @staticmethod
+    def match(snapshot, keys):
+        """How many leading ``keys`` (full digests, prefix order) the
+        ``snapshot`` advertises.  The first miss ends the count: a block
+        is never cached without its ancestor.  Stdlib only, and a
+        malformed snapshot scores zero instead of raising."""
+        if not snapshot or not keys:
+            return 0
+        bloom = snapshot.get("bloom") or {}
+        try:
+            m = int(bloom.get("m") or 0)
+            k = int(bloom.get("k") or 0)
+            raw = base64.b64decode(bloom.get("bits") or "")
+        except (TypeError, ValueError):
+            return 0
+        bloom_ok = m > 0 and k > 0 and len(raw) * 8 >= m
+        top = set(snapshot.get("top") or ())
+        depth = 0
+        for key in keys:
+            if key.hex()[:16] in top:
+                depth += 1
+                continue
+            if not bloom_ok:
+                break
+            pos = [int.from_bytes(key[4 * i:4 * i + 4], "little") % m
+                   for i in range(k)]
+            if all((raw[p >> 3] >> (7 - (p & 7))) & 1 for p in pos):
+                depth += 1
+            else:
+                break
+        return depth
+
+
 class HostKVPool:
     """Bounded host-DRAM pool of evicted prefix-cache blocks (the
     reference's ``HostKVPool``).
@@ -175,6 +298,9 @@ class HostKVPool:
         self.rejects = 0                # guarded-by: _lock
         self.degraded = 0               # guarded-by: _lock
         self.discarded_tokens = 0       # guarded-by: _lock
+        # (on_add, on_remove) per-key callbacks: the BlockManager's
+        # RadixSummary upkeep
+        self._listener = None           # guarded-by: _lock
         self.fault_delay_s = env_float(ENV_HOST_RESTORE_DELAY, 0.0)
         self.restore_budget_s = env_float(ENV_HOST_RESTORE_BUDGET, 0.0)
         self._m_offloads = telemetry.counter(
@@ -196,6 +322,19 @@ class HostKVPool:
         with self._lock:
             return key in self._entries
 
+    def keys(self):
+        """Every hosted key, LRU order (the summary rebuild after a
+        ``BlockManager.reset()``, never the scrape path)."""
+        with self._lock:
+            return list(self._entries)
+
+    def set_listener(self, on_add, on_remove):
+        """Register per-key add/remove callbacks (the BlockManager's
+        RadixSummary upkeep).  They run under ``_lock`` and get the key
+        only."""
+        with self._lock:
+            self._listener = (on_add, on_remove)
+
     def _remove(self, key):
         """Drop one entry; returns its ``(parent, arrays, nbytes)``."""
         with self._lock:
@@ -205,6 +344,8 @@ class HostKVPool:
                 self._by_parent[parent] -= 1
                 if not self._by_parent[parent]:
                     del self._by_parent[parent]
+            if self._listener is not None:
+                self._listener[1](key)
             return parent, arrays, nbytes
 
     def _evict_leaf(self):
@@ -245,6 +386,8 @@ class HostKVPool:
             self._entries[key] = (parent, tuple(arrays), nbytes)
             self.bytes_used += nbytes
             self.bytes_peak = max(self.bytes_peak, self.bytes_used)
+            if self._listener is not None:
+                self._listener[0](key)
             return True
 
     def put(self, key, parent, arrays):
@@ -293,6 +436,9 @@ class HostKVPool:
     def clear(self):
         """Release every hosted copy (engine shutdown)."""
         with self._lock:
+            if self._listener is not None:
+                for key in self._entries:
+                    self._listener[1](key)
             self._entries.clear()
             self._by_parent.clear()
             self.bytes_used = 0
@@ -388,6 +534,15 @@ class BlockManager:
             "mxtpu_serve_prefix_resurrections_total",
             "prefix hits that revived >= 1 block parked refcount-0 "
             "in the prefix LRU")
+        # the routable-cache advertisement (None with the prefix cache
+        # off), kept at every publish and unpublish in both tiers
+        self._summary = (RadixSummary(block_size)
+                         if self.prefix_cache else None)
+        if self._summary is not None and host_pool is not None:
+            host_pool.set_listener(self._summary.add,
+                                   self._summary.remove)
+            for key in host_pool.keys():
+                self._summary.add(key)
 
     def set_offload_source(self, fetch):
         """Register the device->host block copier the eviction path and
@@ -468,6 +623,14 @@ class BlockManager:
         with self._lock:
             return None if self.host is None else self.host.stats()
 
+    def summary(self):
+        """The ``RadixSummary`` snapshot a replica publishes on
+        ``/healthz`` and ``/statusz.json`` (None with the prefix cache
+        off): bit packing, never a tree walk."""
+        if self._summary is None:
+            return None
+        return self._summary.snapshot()
+
     def host_tokens(self, rid):
         """Tokens of ``rid``'s table restored from the host tier rather
         than recomputed (0 for everyone else)."""
@@ -482,6 +645,15 @@ class BlockManager:
             out, self._pending_restores = self._pending_restores, []
             return out
 
+    def can_allocate(self, n_tokens, token_ids=None):
+        """Whether ``allocate(n_tokens, token_ids=...)`` would succeed
+        now: device prefix hits need no free block, host hits do (a
+        restored span claims a fresh device block)."""
+        need = blocks_for(n_tokens, self.block_size)
+        if token_ids is not None:
+            cached_blocks, _ = self.prefix_probe(token_ids)
+            need -= cached_blocks
+        return need <= self.free_blocks
 
     def fits_at_all(self, n_tokens):
         """Whether a request of ``n_tokens`` could EVER hold the cache
@@ -666,6 +838,8 @@ class BlockManager:
                     del self._children[parent]
             self._children.pop(key, None)
             self._lru.pop(key, None)
+            if self._summary is not None:
+                self._summary.remove(key)
             return blk
 
     def _ref_hit(self, blk):
@@ -759,6 +933,8 @@ class BlockManager:
                 if parent is not None:
                     self._children[parent] = \
                         self._children.get(parent, 0) + 1
+                if self._summary is not None:
+                    self._summary.add(key)
                 self._pending_restores.append((blk, arrays))
             self._tables[rid] = [blk for _, blk in hits] + fresh
             self._lens[rid] = n * self.block_size
@@ -851,6 +1027,8 @@ class BlockManager:
                     if chain:
                         self._children[parent] = \
                             self._children.get(parent, 0) + 1
+                    if self._summary is not None:
+                        self._summary.add(key)
                 chain.append(key)
 
     # -- release -------------------------------------------------------------
@@ -934,3 +1112,9 @@ class BlockManager:
             self._chain.clear()
             self._host_tokens.clear()
             del self._pending_restores[:]
+            # the advertisement rebuilds from the surviving host tier
+            if self._summary is not None:
+                self._summary.clear()
+                if self.host is not None:
+                    for key in self.host.keys():
+                        self._summary.add(key)

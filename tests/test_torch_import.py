@@ -5,6 +5,7 @@ its entry points
 default to CUDA and refuse to run without it (no silent CPU fallback).
 """
 
+import importlib
 import os
 import subprocess
 import sys
@@ -48,6 +49,9 @@ import mxnet_tpu_torch.telemetry.statusz, mxnet_tpu_torch.telemetry.profiling
 import mxnet_tpu_torch.telemetry.perf_attrib
 import mxnet_tpu_torch.telemetry.cudamon
 import mxnet_tpu_torch.profiler, mxnet_tpu_torch.flops
+import mxnet_tpu_torch.fleet, mxnet_tpu_torch.fleet.faults
+import mxnet_tpu_torch.fleet.replica, mxnet_tpu_torch.fleet.router
+import mxnet_tpu_torch.fleet.supervisor, mxnet_tpu_torch.fleet.serve_replica
 import torch
 # the port's own name starts with "mxnet_tpu": match the reference by
 # exact key or by the "mxnet_tpu." prefix, never by bare prefix
@@ -113,7 +117,7 @@ def _require_no_cuda():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "params_from_numpy",
                                    "gpt_generate", "Engine",
-                                   "ShardedTrainer"])
+                                   "ShardedTrainer", "serve_replica"])
 def test_default_device_is_cuda_and_raises_without_it(entry):
     _require_no_cuda()
     import numpy as np
@@ -130,6 +134,11 @@ def test_default_device_is_cuda_and_raises_without_it(entry):
         "ShardedTrainer": lambda: mt.parallel.ShardedTrainer(
             mt.models.gpt(8, 4, num_layers=1, d_model=4, num_heads=1),
             {"data": (1, 4), "softmax_label": (1, 4)}),
+        # the fleet's process front (its --device defaults to cuda)
+        "serve_replica": lambda: importlib.import_module(
+            "mxnet_tpu_torch.fleet.serve_replica").main(
+                ["--layers", "1", "--d-model", "8", "--heads", "2",
+                 "--vocab", "16"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

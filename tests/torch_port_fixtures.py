@@ -252,3 +252,114 @@ def rnn_train_pair(mode, optimizer):
         device="cpu", **common)
     port.set_params(ref.get_params())
     return ref, port
+
+
+# -- fleet: in-process replicas over port engines (tests/test_torch_fleet*,
+# tests/test_torch_cache_route.py) ------------------------------------------
+FLEET_ENGINE_KW = dict(block_size=4, num_blocks=64, max_batch=4,
+                       max_model_len=64, max_prefills_per_step=2)
+FLEET_POOL = 1 << 22
+
+
+def fleet_engine(**kw):
+    """A port engine on the CPU over the reference fleet tests' model
+    (gpt2 variant, seed 3) at their engine sizes."""
+    import mxnet_tpu_torch as mt
+
+    _, params, heads = model("gpt2")
+    return mt.serve.Engine(params, num_heads=heads, device="cpu",
+                           **{**FLEET_ENGINE_KW, **kw})
+
+
+def ref_fleet_engine(**kw):
+    """The reference engine over the same model and sizes."""
+    import mxnet_tpu as mx
+
+    net, params, _ = model("gpt2")
+    return mx.serve.Engine(params, symbol=net, **{**FLEET_ENGINE_KW, **kw})
+
+
+def fleet_tokens(prompt_list, max_new, **kw):
+    """One uncontended port engine's greedy tokens: the fleet tests'
+    token-identity oracle."""
+    eng = fleet_engine(**kw)
+    reqs = [eng.submit(np.asarray(p, np.int32), max_new_tokens=max_new)
+            for p in prompt_list]
+    eng.run()
+    assert all(r.status == "finished" for r in reqs)
+    out = [list(r.tokens) for r in reqs]
+    eng.shutdown()
+    return out
+
+
+def http_post(url, path, payload, timeout=30):
+    """(status_code, body_dict); HTTP errors surface their JSON body."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"{url}{path}", data=json.dumps(payload).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_get(url, path, timeout=10):
+    import json
+    import urllib.request
+
+    with urllib.request.urlopen(f"{url}{path}", timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+class InProcHandle:
+    """Supervisor handle over an in-process ReplicaServer (either
+    package's)."""
+
+    def __init__(self, replica):
+        self.replica = replica
+        self.url = replica.url
+
+    def poll(self):
+        return None if self.replica.state != "dead" else 1
+
+    def terminate(self, grace_s=None):
+        self.replica.stop()
+
+
+@pytest.fixture
+def fleet_cleanup():
+    """Replicas, routers and supervisors to stop at the end of a test,
+    even when an assertion fires mid-test: no thread or port leaks into
+    the next test."""
+    items = []
+    yield items
+    for obj in reversed(items):
+        try:
+            obj.stop()
+        except Exception:
+            pass
+
+
+def _reset_telemetry():
+    import mxnet_tpu.telemetry as ref_tel
+    import mxnet_tpu_torch.telemetry as port_tel
+
+    for t in (ref_tel, port_tel):
+        t.disable()
+        t.reset()
+        t.flight.recorder().clear()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def fresh_telemetry_per_module():
+    """Both packages' telemetry off and empty before and after a file
+    (the fleet files count their families from zero)."""
+    _reset_telemetry()
+    yield
+    _reset_telemetry()
+    gc.collect()
