@@ -136,7 +136,27 @@ Phases (any failure exits non-zero; nothing is caught):
      serve config's widths spawned, killed by kill@2 and restarted by a
      Supervisor, its tokens an in-process engine's from the same numpy
      draw; tok/s routed and direct, router-added, handoff and pull ms,
-     restart seconds;
+     restart seconds; the fleet's sensors (serve_fleet_obs): C8, a
+     warmed replica replaying the 8 prompts round after round while an
+     unwarmed sibling in the same process serves them and captures in
+     traffic, every round and the sibling's tokens the serve phase's,
+     then the same in a child process in torch's global capture mode,
+     which must fail (planted); a FleetCollector receiving two
+     replicas' pushed trace lines, routed tok/s with it idle and
+     scraping, decode-step ms inside a /profilez window and outside
+     one, a 1.5 s delay fault on one replica breaking MXTPU_SLO_SPEC's
+     latency objective until the fast-burn alert captures a trace there
+     (done) and its flight dump carries the capture's id, /fleetz.json's
+     token totals equal to the replicas' /statusz.json sums;
+     capture_fleet over two process replicas under routed traffic, both
+     windows accepted, each trace's paged split and combine instances
+     (profiler.summarize) equal to layers x the decode steps of its
+     window, tools/timeline_report.py --check over the router's and
+     replicas' trace lines, their /statusz.json and both captures (rc
+     0, nothing unanchored); ServeMonitor with MXTPU_TIMESERIES, a line
+     every 8 steps, each a ring sample, the ring's last token count the
+     engine's; the paged counters zeroed before the phase equal to
+     layers x the decode steps of its in-process engines;
   4. training: bench.py's on-chip GPT (vocab 32768, S 1024, d_model 512,
      8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier; its depth cut
      from 8 layers to 2) trained by parallel.ShardedTrainer for 2 warm-up
@@ -199,8 +219,8 @@ across them.  Prints the card line and one JSON line.
 
     python3 chip_smoke.py --fleet
 
-runs only the serve phase and serve_fleet (their lines, then the card
-line).
+runs only the serve phase, serve_fleet and serve_fleet_obs (their
+lines, then the card line).
 """
 
 from __future__ import annotations
@@ -647,20 +667,54 @@ def captures_expected(eng, ready):
     return ready if eng.device.type == "cuda" else 0
 
 
-def profile_kernels(prof, counts=None):
-    """Device ms by kernel name in a torch.profiler window; with a dict
-    ``counts``, also each name's instances in the trace."""
-    kernels = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us and getattr(ev, "device_type", None) is not None \
-                and "CUDA" in str(ev.device_type):
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
-            if counts is not None:
-                counts[ev.key] = counts.get(ev.key, 0) + ev.count
-    return kernels
+PAGED_KERNELS = ("paged_attention_split", "paged_attention_combine")
+
+
+def traced_kernels(logdir):
+    """Device ms and instances by kernel name in the newest trace under
+    ``logdir``, read by ``profiler.summarize`` (the reader ``/profilez``
+    artifacts share): ``({name: ms}, {name: count})``."""
+    from mxnet_tpu_torch import profiler
+
+    rows = profiler.summarize(logdir, top=1 << 30)
+    return ({name: ms for name, ms, _ in rows},
+            {name: n for name, _, n in rows})
+
+
+def graph_replays(trace_file):
+    """The CUDA graph replays of a profiler trace (its ``cudaGraphLaunch``
+    runtime events, in time order), each with the device events and
+    paged split kernels its correlation id carries: which replays, if
+    any, reached the trace without their kernels, and where in the
+    window they sat."""
+    import gzip
+
+    with gzip.open(trace_file) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    launches = sorted((e for e in events
+                       if e.get("name") == "cudaGraphLaunch"),
+                      key=lambda e: e["ts"])
+    device, split = collections.Counter(), collections.Counter()
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            corr = e.get("args", {}).get("correlation")
+            device[corr] += 1
+            if PAGED_KERNELS[0] in e["name"]:
+                split[corr] += 1
+    corrs = [e.get("args", {}).get("correlation") for e in launches]
+    empty = [i for i, c in enumerate(corrs) if not device[c]]
+    return {"graph_launches": len(launches),
+            "launches_without_device_events": empty[:20],
+            "split_kernels_by_correlation": sum(split[c] for c in corrs),
+            "split_kernels": sum(split.values()),
+            "device_events": sum(device.values())}
+
+
+def paged_instances(counts):
+    """The paged kernels' instances among ``traced_kernels``' counts."""
+    return {k: sum(c for name, c in counts.items() if k in name)
+            for k in PAGED_KERNELS}
 
 
 def serve_profile(eng, prompts, steps=16):
@@ -670,8 +724,7 @@ def serve_profile(eng, prompts, steps=16):
     kernels: the time the device waits for the host), and the paged
     kernels' instances in the trace beside what the op's launch
     counters added over the window."""
-    from torch.profiler import ProfilerActivity, profile
-
+    from mxnet_tpu_torch import profiler
     from mxnet_tpu_torch.ops import paged_attention_cuda as pac
 
     for p in prompts:
@@ -683,20 +736,18 @@ def serve_profile(eng, prompts, steps=16):
     torch.cuda.synchronize()
     n = 0
     counted = (pac.launches, pac.combine_launches)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        while n < steps and eng.has_work():
-            eng.step()
-            n += 1
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiler.trace(logdir):
+            t0 = time.perf_counter()
+            while n < steps and eng.has_work():
+                eng.step()
+                n += 1
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        kernels, counts = traced_kernels(logdir)
     counted = (pac.launches - counted[0], pac.combine_launches - counted[1])
     eng.run()
-    counts = {}
-    kernels = profile_kernels(prof, counts)
-    traced = {k: sum(c for name, c in counts.items() if k in name)
-              for k in ("paged_attention_split", "paged_attention_combine")}
+    traced = paged_instances(counts)
     kinds = {}
     for name, ms in kernels.items():
         kind = _kernel_kind(name)
@@ -2924,8 +2975,8 @@ def serve_fleet(np_params, serve_row, serve_toks, manifest, card):
                                        ReplicaServer, Router, Supervisor)
     from mxnet_tpu_torch.fleet import serve_replica as front
     from mxnet_tpu_torch.fleet.supervisor import replica_command
+    from mxnet_tpu_torch import profiler
     from mxnet_tpu_torch.ops import paged_attention_cuda as pac
-    from torch.profiler import ProfilerActivity, profile
 
     import weakref
 
@@ -3006,20 +3057,20 @@ def serve_fleet(np_params, serve_row, serve_toks, manifest, card):
         checks["routed_timing_pass"] = not tfails and all(
             tres[i].tokens == direct_t for i, direct_t
             in enumerate(timed_toks))
+        # the same again on prompts new to both replicas: the first
+        # pass's one-time costs apart
+        ares, afails, awall = _route_all(router, serve_prompts(2), "f1a")
+        checks["routed_timing_pass"] &= not afails
         steps0 = _decode_steps(reps)
         torch.cuda.synchronize()
         router.scrape()
         pac.launches = pac.combine_launches = 0  # the fleet window opens
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            res, fails, wall = _route_all(router, prompts, "f1")
-            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as logdir:
+            with profiler.trace(logdir):
+                res, fails, wall = _route_all(router, prompts, "f1")
+                torch.cuda.synchronize()
+            traced = paged_instances(traced_kernels(logdir)[1])
         window = _launch_window(pac, reps, steps0, (0, 0))
-        counts = {}
-        profile_kernels(prof, counts)
-        traced = {k: sum(c for name, c in counts.items() if k in name)
-                  for k in ("paged_attention_split",
-                            "paged_attention_combine")}
         toks1 = [res[i].tokens if i in res else None
                  for i in range(len(prompts))]
         tok1 = sum(len(t) for t in toks1 if t)
@@ -3036,6 +3087,9 @@ def serve_fleet(np_params, serve_row, serve_toks, manifest, card):
             {res[i].replica for i in res}) == 2
         rows["routed"] = {
             "tok_per_s": tok_timed / twall, "wall_s": twall,
+            "second_pass_tok_per_s": sum(
+                len(r.tokens) for r in ares.values()) / awall,
+            "second_pass_wall_s": awall,
             "direct_tok_per_s": direct_tok / direct_s,
             "direct_wall_s": direct_s,
             "profiled_window_tok_per_s": tok1 / wall,
@@ -3460,6 +3514,634 @@ def serve_fleet(np_params, serve_row, serve_toks, manifest, card):
     emit(out)
     if not ok:
         raise SystemExit("serve_fleet failed its checks: "
+                         + ", ".join(k for k, v in checks.items() if not v))
+    return out
+
+
+# -- the fleet's sensors (serve_fleet_obs) -----------------------------------
+OBS_SLO = "total_p90_ms=1000"  # a routed request here takes ~0.1-0.3 s
+OBS_SLO_FAST_S = 15            # the SLO windows: the burn's requests alone
+OBS_SLO_SLOW_S = 60
+OBS_DELAY_S = 1.5              # the delay fault that breaks it on one replica
+OBS_WINDOW_S = 2.0             # capture_fleet's windows on the process pair
+OBS_ROUNDS = 4                 # tok/s arms, alternating idle/scraping
+OBS_ARM_ROUNDS = 6             # rounds of 8 fresh prompts an arm
+OBS_MONITOR_INTERVAL = 8       # ServeMonitor: a line every 8 steps
+OBS_HOP_S = 60.0               # the phase's bound on one HTTP request
+OBS_SERVE_LINE = re.compile(
+    r"^Serve: step +\d+ queue=\d+ running=\d+ done=\d+ rej=\d+\[[^\]]*\] "
+    r"preempt=\d+ blocks=\d+/\d+ \(\d+%\) ttft_ms=(-|[0-9.]+) "
+    r"tok/s=(-|[0-9.]+)( spec=\S+)?( mfu=\S+ tok_flops=\S+)?$")
+
+
+def _generate_all(url, prompts, tag, max_new=32, timeout=OBS_HOP_S):
+    """Every prompt to one replica's ``/generate`` at once, a thread
+    each: ``(tokens by index, failures by index)``."""
+    toks, fails = {}, {}
+
+    def one(i, p):
+        try:
+            toks[i] = _http(url, "/generate",
+                            {"prompt": p.tolist(), "max_new_tokens": max_new,
+                             "request_id": f"{tag}-{i}"},
+                            timeout=timeout)["tokens"]
+        except Exception as e:       # a client-visible failure: judged
+            fails[i] = repr(e)[:300]
+
+    threads = [threading.Thread(target=one, args=(i, p))
+               for i, p in enumerate(prompts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout + 30)
+    return [toks.get(i) for i in range(len(prompts))], fails
+
+
+def _wait_capture(url, cap_id, timeout=60.0):
+    """A capture's metadata once it left ``running`` (or at timeout)."""
+    deadline = time.monotonic() + timeout
+    meta = _http(url, f"/profilez/{cap_id}")
+    while meta.get("state") in ("starting", "opening", "running") \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+        meta = _http(url, f"/profilez/{cap_id}")
+    return meta
+
+
+def c8_check(np_params, manifest, want, mode):
+    """C8 (a capture beside a sibling engine's replays, one process):
+    replica A, warmed from ``manifest`` and the grid, serves the 8
+    prompts round after round on its step thread while replica B, not
+    warmed, serves them once from another thread and so captures its
+    programs in traffic, with ``serve.engine._CAPTURE_MODE = mode``.
+    Both prefix caches are off, so every round is a cold pass: A's
+    rounds and B's tokens must be ``want``, B must capture in traffic, A
+    must not, and neither replica may die."""
+    from mxnet_tpu_torch.fleet import ReplicaServer
+    from mxnet_tpu_torch.serve import engine as engine_mod
+
+    engine_mod._CAPTURE_MODE = mode
+    prompts = serve_prompts(0)
+    a_eng = fleet_warm_engine(np_params, manifest, grid=True,
+                              prefix_cache=False)[0]
+    b_eng = full_width_engine(np_params, torch.bfloat16, prefix_cache=False)
+    a = ReplicaServer(a_eng, replica_id="c8-a").start()
+    b = ReplicaServer(b_eng, replica_id="c8-b").start()
+    a_caps = a_eng.captures
+    stop, a_rounds, a_fails = threading.Event(), [], {}
+
+    def drive_a():
+        while not stop.is_set():
+            toks, fails = _generate_all(a.url, prompts,
+                                        f"a{len(a_rounds)}", timeout=30)
+            a_rounds.append(toks)
+            a_fails.update(fails)
+            if fails or a.state == "dead":
+                return
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=drive_a, daemon=True)
+    th.start()
+    try:
+        while a_eng.decode_steps == 0 and th.is_alive():
+            time.sleep(0.001)
+        b_toks, b_fails = _generate_all(b.url, prompts, "b", timeout=30)
+    finally:
+        stop.set()
+        th.join(timeout=120)
+    checks = {"a_tokens": bool(a_rounds) and all(r == want
+                                                 for r in a_rounds),
+              "b_tokens": b_toks == want,
+              "b_captured_in_traffic": b_eng.captures > 0,
+              "a_no_capture": a_eng.captures == a_caps,
+              "no_failure": not a_fails and not b_fails,
+              "alive": a.state == b.state == "ready"}
+    row = {"mode": mode, "a_rounds": len(a_rounds),
+           "b_captures_in_traffic": b_eng.captures,
+           "a_captures_in_traffic": a_eng.captures - a_caps,
+           "decode_steps": {"a": a_eng.decode_steps,
+                            "b": b_eng.decode_steps},
+           "states": {"a": a.state, "b": b.state},
+           "failures": {**{f"a{i}": f for i, f in a_fails.items()},
+                        **{f"b{i}": f for i, f in b_fails.items()}},
+           "seconds": time.perf_counter() - t0,
+           "checks": checks, "ok": all(checks.values())}
+    engine_mod._CAPTURE_MODE = "thread_local"
+    for rep in (a, b):
+        if rep.state != "dead":
+            rep.stop()
+    return row
+
+
+def c8_planted(directory):
+    """``--c8-planted DIR``: ``c8_check`` in torch's global capture mode
+    (the parent commit's), in a process of its own (a capture error may
+    leave the CUDA context unusable), from DIR's ``manifest.jsonl`` and
+    ``tokens.json``; prints its row as one JSON line.  It must fail."""
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    pac._fns()
+    with open(os.path.join(directory, "manifest.jsonl")) as f:
+        manifest = [json.loads(ln) for ln in f if ln.strip()]
+    with open(os.path.join(directory, "tokens.json")) as f:
+        want = json.load(f)
+    try:
+        row = c8_check(serve_params(), manifest, want, "global")
+    except Exception as e:           # the fault may surface anywhere
+        row = {"mode": "global", "ok": False, "raised": repr(e)[:500]}
+    print(json.dumps({"phase": "c8_planted", **row}), flush=True)
+    os._exit(0)          # replicas a capture error left behind: no join
+
+
+def monitor_check(np_params, manifest):
+    """``ServeMonitor`` with ``MXTPU_TIMESERIES``: telemetry on, a warmed
+    engine serves 8 fresh prompts with a ``tic()`` every step; a line
+    every ``OBS_MONITOR_INTERVAL`` steps in the reference's format, each
+    line a ring sample (``MXTPU_TIMESERIES_INTERVAL`` 0), the ring's
+    last tokens sample the engine's own count, and its windowed tok/s
+    beside the engine's."""
+    import logging
+
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.monitor import ServeMonitor
+    from mxnet_tpu_torch.telemetry import timeseries
+
+    old = _set_env({"MXTPU_TIMESERIES": "4096",
+                    "MXTPU_TIMESERIES_INTERVAL": "0"})
+    telemetry.reset()
+    telemetry.enable()
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger = logging.getLogger("chip_smoke.serve_monitor")
+    logger.setLevel(logging.INFO)
+    logger.propagate = False
+    keep = Keep(level=logging.INFO)
+    logger.addHandler(keep)
+    eng = None
+    try:
+        eng = fleet_warm_engine(np_params, manifest, grid=True)[0]
+        mon = ServeMonitor(eng, interval=OBS_MONITOR_INTERVAL, logger=logger)
+        for p in serve_prompts(4):
+            eng.submit(p, max_new_tokens=32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while eng.has_work():
+            eng.step()
+            mon.tic()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mon.log_now()                    # the closing sample and line
+        ring = timeseries.ring()
+        st = eng.stats()
+        name = "mxtpu_serve_tokens_generated_total"
+        ring_rate = ring.rate(name, wall + 60.0) if ring else None
+        checks = {
+            "monitor_lines": (len(lines) == mon.step // OBS_MONITOR_INTERVAL
+                              + 1 and all(OBS_SERVE_LINE.match(ln)
+                                          for ln in lines)),
+            "monitor_ring_sampled": (ring is not None
+                                     and ring.taken == len(lines)),
+            "monitor_ring_tokens": (ring is not None and ring.latest(name)
+                                    == st.tokens_generated)}
+        row = {"lines": len(lines), "decode_steps": eng.decode_steps,
+               "first_line": lines[0] if lines else None,
+               "last_line": lines[-1] if lines else None,
+               "steps": mon.step, "ring_samples": ring.taken if ring else 0,
+               "ring_tok_per_s": ring_rate,
+               "engine_decode_tok_per_s": st.decode_tok_per_sec,
+               "engine_total_tok_per_s": st.total_tok_per_sec,
+               "tokens_over_wall_tok_per_s": st.tokens_generated / wall,
+               "wall_s": wall, "checks": checks}
+    finally:
+        logger.removeHandler(keep)
+        timeseries.configure(0)
+        telemetry.disable()
+        telemetry.reset()
+        _set_env(old)
+        if eng is not None:
+            eng.shutdown()
+    return row
+
+
+def _steps_ms(eng, lo, hi):
+    """Mean wall ms of the engine's decode-only steps with ids in
+    [lo, hi] (its step profile ring), and how many there were."""
+    walls = [1e3 * e["wall_s"] for e in eng._sprof.recent(256)
+             if e["decodes"] and not e["prefills"] and lo <= e["step"] <= hi]
+    return (statistics.mean(walls) if walls else None), len(walls)
+
+
+def sensors_check(np_params, manifest, tmp):
+    """The in-process sensors over two warmed replicas behind a router,
+    a ``FleetCollector`` receiving both replicas' pushed traces: a
+    ``delay`` fault on one replica breaks ``MXTPU_SLO_SPEC``'s latency
+    objective (requests one at a time, a scrape and evaluation after
+    each) until the fast-burn alert fires on that replica, captures a
+    trace there (``done``) and writes a flight dump carrying the
+    capture's id; then, fault and evaluator gone, routed tok/s in arms
+    alternating without and with a second collector scraping every
+    0.5 s (fresh prompts); one replica's decode steps inside a
+    ``/profilez`` window against outside one (a round of fresh prompts
+    each); last, ``/fleetz.json``'s token totals against the replicas'
+    own ``/statusz.json`` sums."""
+    from mxnet_tpu_torch.fleet import (FaultInjector, FleetCollector,
+                                       ReplicaServer, Router)
+
+    caps, flight = os.path.join(tmp, "caps"), os.path.join(tmp, "flight")
+    old = _set_env({"MXTPU_SLO_SPEC": OBS_SLO,
+                    "MXTPU_SLO_FAST_WINDOW": str(OBS_SLO_FAST_S),
+                    "MXTPU_SLO_SLOW_WINDOW": str(OBS_SLO_SLOW_S),
+                    "MXTPU_SLO_FAST_BURN": "2",
+                    "MXTPU_SLO_SLOW_BURN": "1", "MXTPU_SLO_MIN_REQUESTS": "5",
+                    "MXTPU_PROFILEZ_BURN_S": "1.0",
+                    "MXTPU_PROFILEZ_INTERVAL_S": "0",
+                    "MXTPU_PROFILEZ_DIR": caps, "MXTPU_FLIGHT_DIR": flight,
+                    "MXTPU_TRACE_PUSH_URL": None})
+    checks, row, live = {}, {}, []
+    col = router = None
+    try:
+        col = FleetCollector(urls=[], interval_s=0, port=0).start()
+        os.environ["MXTPU_TRACE_PUSH_URL"] = col.url + "/trace"
+        for rid in ("obs-slow", "obs-good"):
+            rep = ReplicaServer(fleet_warm_engine(np_params, manifest)[0],
+                                replica_id=rid).start()
+            live.append(rep)
+            col.add_replica(rep.url)
+        slow, good = live
+        router = Router([r.url for r in live], scrape_interval_s=0.2,
+                        timeout_s=FLEET_HOP_S, retries=4, backoff_s=0.02,
+                        backoff_max_s=0.2, breaker_fails=10)
+        router.scrape()
+        router.start()
+        # the burn: every arrival at the slow replica waits OBS_DELAY_S;
+        # requests one at a time (the router's picks alternate) until the
+        # alert has captured and dumped there, or 64 requests
+        slow.faults = FaultInjector(";".join(
+            f"delay@{k}:{OBS_DELAY_S}" for k in range(1, 400)))
+
+        def dumped():
+            for ann in col.annotations(500):
+                if ann["kind"] == "slo_flight_dump":
+                    for d in ann["dumps"]:
+                        if d["replica"] == "obs-slow" \
+                                and d.get("capture_id"):
+                            return d
+            return None
+
+        burn_fails, entry, sent = {}, None, 0
+        rng = np.random.RandomState(8)
+        while entry is None and sent < 64:
+            p = rng.randint(0, SERVE_CFG["vocab"], (32,))
+            try:
+                router.generate(p.tolist(), max_new_tokens=16,
+                                request_id=f"obs-burn-{sent}")
+            except Exception as e:   # a client-visible failure: judged
+                burn_fails[sent] = repr(e)[:300]
+            sent += 1
+            col.scrape()             # scrape, then evaluate, as live
+            entry = dumped()
+        deadline = time.monotonic() + 30
+        while entry is None and time.monotonic() < deadline:
+            time.sleep(0.5)
+            col.scrape()
+            entry = dumped()
+        slo = col.slo.statusz()["objectives"][0]
+        burn_meta = (_wait_capture(slow.url, entry["capture_id"])
+                     if entry else {})
+        dump_extra = {}
+        if entry and entry.get("path"):
+            with open(entry["path"]) as f:
+                dump_extra = json.load(f).get("extra", {})
+        checks["burn_fired"] = (entry is not None and slo["fired_total"] > 0
+                                and not burn_fails)
+        checks["burn_capture_done"] = burn_meta.get("state") == "done"
+        checks["burn_dump_carries_capture"] = (
+            entry is not None
+            and dump_extra.get("capture_id") == entry["capture_id"]
+            and dump_extra.get("replica") == "obs-slow")
+        row["burn"] = {"objective": slo, "dump": entry,
+                       "capture": {k: burn_meta.get(k) for k in (
+                           "id", "state", "reason", "steps",
+                           "decode_steps", "open_wait_s", "error")},
+                       "dump_extra": dump_extra, "requests": sent,
+                       "failures": burn_fails}
+        # the burn's end: no fault, and no evaluator (its later dumps
+        # and captures would land in the timed arms)
+        slow.faults = FaultInjector()
+        col.slo = None
+
+        # routed tok/s, alternating arms without and with a second
+        # collector scraping both replicas every 0.5 s
+        arms = {"collector_idle": [0, 0.0], "collector_scraping": [0, 0.0]}
+        arm_fails = {}
+        for rnd in range(OBS_ROUNDS):
+            arm = ("collector_idle", "collector_scraping")[rnd % 2]
+            scraper = None
+            if arm == "collector_scraping":
+                scraper = FleetCollector(urls=[r.url for r in live],
+                                         interval_s=0.5).start()
+            try:
+                for k in range(OBS_ARM_ROUNDS):
+                    router.scrape()
+                    res, f, w = _route_all(
+                        router, serve_prompts(100 + OBS_ARM_ROUNDS * rnd
+                                              + k), f"obs-{rnd}-{k}")
+                    arms[arm][0] += sum(len(r.tokens)
+                                        for r in res.values())
+                    arms[arm][1] += w
+                    arm_fails.update(f)
+            finally:
+                if scraper is not None:
+                    row.setdefault("scraper_passes", []).append(
+                        scraper._scrape_passes)
+                    scraper.stop()
+        row["routed"] = {arm: {"tok_per_s": t / w, "wall_s": w}
+                         for arm, (t, w) in arms.items()}
+        row["routed"]["failures"] = arm_fails
+        checks["routed_served"] = not arm_fails
+
+        # decode steps inside a window against outside one, one replica
+        s0 = good.engine._step_id
+        _, out_fails = _generate_all(good.url, serve_prompts(5), "out")
+        outside = _steps_ms(good.engine, s0 + 1, good.engine._step_id)
+        t0 = time.perf_counter()
+        cap = _http(good.url, "/profilez", {"duration_s": 1.0,
+                                            "reason": "step_ms"})
+        handler_s = time.perf_counter() - t0
+        _, in_fails = _generate_all(good.url, serve_prompts(6), "in")
+        meta = _wait_capture(good.url, cap["id"])
+        ids = meta.get("step_ids") or (1, 0)
+        inside = _steps_ms(good.engine, *ids)
+        checks["window_done"] = (meta["state"] == "done"
+                                 and not out_fails and not in_fails
+                                 and inside[1] > 0)
+        row["profilez_window"] = {
+            "decode_step_ms_inside": inside[0], "steps_inside": inside[1],
+            "decode_step_ms_outside": outside[0],
+            "steps_outside": outside[1], "window_steps": meta.get("steps"),
+            "handler_wait_s": handler_s,
+            "open_wait_s": meta.get("open_wait_s")}
+
+        # three views: /fleetz.json against the replicas' own sums
+        col.scrape()
+        fleetz = _http(col.url, "/fleetz.json")
+        truth = sum(_http(r.url, "/statusz.json")["replica"]["stats"][
+            "tokens_generated"] for r in live)
+        checks["fleetz_totals"] = (
+            fleetz["totals"]["tokens_generated"] == truth > 0
+            and fleetz["totals"]["stale"] == 0)
+        row["fleetz"] = {"tokens_generated": fleetz["totals"][
+            "tokens_generated"], "replicas_sum": truth,
+            "traces_received": fleetz["traces"]["received"],
+            "scrape_passes": col._scrape_passes}
+        row["decode_steps"] = {r.replica_id: r.engine.decode_steps
+                               for r in live}
+    finally:
+        if router is not None:
+            router.stop()
+        if col is not None:
+            col.stop()
+        for rep in live:
+            if rep.state != "dead":
+                rep.stop()
+        _set_env({**old, "MXTPU_TRACE_PUSH_URL": old.get(
+            "MXTPU_TRACE_PUSH_URL")})
+    return row, checks
+
+
+def process_capture_check(tmp):
+    """``capture_fleet`` over two process replicas on the one card (the
+    process front at the serve config's widths, the full grid warmed at
+    start, the built libraries' directory handed to the children):
+    under routed traffic both windows open concurrently and are
+    accepted; each trace holds ``paged_attention_split`` and
+    ``_combine`` instances equal to layers x the decode steps that
+    replica ran inside its window (from its own counters); then
+    ``tools/timeline_report.py --check`` over the router's and the
+    replicas' trace lines, their ``/statusz.json`` and both captures."""
+    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.fleet import FleetCollector, ProcessReplica, Router
+    from mxnet_tpu_torch.fleet.supervisor import replica_command
+
+    n_layers = SERVE_CFG["num_layers"]
+    router_trace = os.path.join(tmp, "router.jsonl")
+    old = _set_env({"MXTPU_REQUEST_TRACE": router_trace,
+                    "MXTPU_TRACE_PUSH_URL": None})
+    checks, row, procs = {}, {}, []
+    router = col = None
+    try:
+        t0 = time.perf_counter()
+        for i in range(2):
+            env = dict(os.environ, PYTHONPATH=ROOT,
+                       MXTPU_TORCH_BUILD_DIR=_build.build_dir(),
+                       MXTPU_REQUEST_TRACE=os.path.join(tmp, f"rep{i}.jsonl"),
+                       MXTPU_PROFILEZ_DIR=os.path.join(tmp, f"pcaps{i}"),
+                       MXTPU_PROFILEZ_INTERVAL_S="0")
+            for var in ("MXTPU_FAULT_SPEC", "MXTPU_WARMUP_MANIFEST",
+                        "MXTPU_SLO_SPEC", "MXTPU_FLIGHT_DIR"):
+                env.pop(var, None)
+            procs.append(ProcessReplica(replica_command(
+                0, FLEET_FRONT_FLAGS + ["--device", DEVICE, "--warmup",
+                                        "full", "--replica-id",
+                                        f"obs-p{i}"]), env=env))
+        for h in procs:
+            h.wait_ready(timeout_s=300)
+        row["spawn_to_ready_s"] = time.perf_counter() - t0
+        urls = [h.url for h in procs]
+        router = Router(urls, scrape_interval_s=0, timeout_s=FLEET_HOP_S,
+                        retries=2)
+        router.scrape()
+        col = FleetCollector(urls=urls, interval_s=0)
+        col.scrape()
+        stop, fails, rounds = threading.Event(), {}, [0]
+
+        def traffic():
+            while not stop.is_set():
+                router.scrape()
+                _, f, _ = _route_all(router, serve_prompts(10 + rounds[0]),
+                                     f"cf{rounds[0]}")
+                fails.update(f)
+                rounds[0] += 1
+
+        th = threading.Thread(target=traffic, daemon=True)
+        th.start()
+        time.sleep(0.3)                       # traffic on both replicas
+        t0 = time.perf_counter()
+        results = col.capture_fleet(duration_s=OBS_WINDOW_S,
+                                    reason="chip_smoke")
+        open_s = time.perf_counter() - t0
+        metas = {}
+        for name, payload in results.items():
+            metas[name] = (_wait_capture(col.url_for_replica(name),
+                                         payload["id"])
+                           if payload else None)
+        stop.set()
+        th.join(timeout=300)
+        checks["captures_accepted"] = (
+            len(results) == 2 and all(results.values()))
+        traced, windows = {}, {}
+        for name, meta in metas.items():
+            if meta is None or meta.get("state") != "done":
+                traced[name] = None
+                continue
+            counts = traced_kernels(meta["logdir"])[1]
+            traced[name] = paged_instances(counts)
+            windows[name] = {k: meta.get(k) for k in (
+                "id", "started_epoch", "steps", "decode_steps", "step_ids",
+                "open_wait_s", "duration_s")}
+            windows[name]["expected_each"] = n_layers * meta["decode_steps"]
+            windows[name]["replays"] = graph_replays(meta["trace_file"])
+        checks["captures_done"] = (len(metas) == 2 and all(
+            m is not None and m.get("state") == "done"
+            for m in metas.values()))
+        checks["captures_trace_launches"] = checks["captures_done"] and all(
+            t is not None and windows[n]["decode_steps"] > 0
+            and all(c == windows[n]["expected_each"] for c in t.values())
+            for n, t in traced.items())
+        # every graph replay in a window reached the trace with its
+        # device events (CUPTI's last records come after the stop's
+        # settle, profiler.STOP_SETTLE_S)
+        checks["captures_replays_whole"] = bool(windows) and all(
+            w["replays"]["graph_launches"] > 0
+            and not w["replays"]["launches_without_device_events"]
+            for w in windows.values()) and len(windows) == 2
+        starts = [m["started_epoch"] for m in metas.values() if m]
+        row["capture_fleet"] = {
+            "windows": windows, "traced_paged_kernels": traced,
+            "handler_to_both_open_s": open_s,
+            "started_epoch_spread_s": (max(starts) - min(starts)
+                                       if len(starts) == 2 else None),
+            "rounds": rounds[0], "failures": fails}
+        checks["captures_traffic_served"] = not fails and rounds[0] > 0
+
+        # the stitched timeline
+        args = []
+        for i, h in enumerate(procs):
+            snap = os.path.join(tmp, f"statusz{i}.json")
+            with open(snap, "w") as f:
+                json.dump(_http(h.url, "/statusz.json"), f)
+            args += ["--trace", os.path.join(tmp, f"rep{i}.jsonl"),
+                     "--statusz", snap]
+        for name, meta in metas.items():
+            if meta:
+                path = os.path.join(tmp, f"capture-{name}.json")
+                with open(path, "w") as f:
+                    json.dump(meta, f)
+                args += ["--capture", path]
+        summary_path = os.path.join(tmp, "timeline_summary.json")
+        rc, out = _tool("timeline_report.py", "--trace", router_trace,
+                        *args, "--out", os.path.join(tmp, "TIMELINE.json"),
+                        "--json", summary_path, "--check")
+        summary = {}
+        if os.path.exists(summary_path):
+            with open(summary_path) as f:
+                summary = json.load(f)["summary"]
+        checks["timeline_check"] = (
+            rc == 0 and summary.get("unanchored") == 0
+            and summary.get("device_events", 0) > 0
+            and summary.get("captures_missing") == 0)
+        row["timeline"] = {"rc": rc, **{k: summary.get(k) for k in (
+            "requests", "hops", "router_hops", "steps", "device_events",
+            "device_events_dropped", "unanchored", "captures_missing")},
+            "output_tail": out[-600:] if rc else None}
+    finally:
+        if router is not None:
+            router.stop()
+        if col is not None:
+            col.stop()
+        for h in procs:
+            h.terminate()
+        _set_env(old)
+    row["stopped"] = all(h.poll() is not None for h in procs)
+    checks["processes_stopped"] = row["stopped"]
+    return row, checks
+
+
+def serve_fleet_obs(np_params, serve_row, serve_toks, manifest, card):
+    """The fleet's sensors on the card (ROADMAP A14b-2), at the serve
+    config's full width (bf16, 4 layers), every in-process engine but
+    C8's B warmed from the serve phase's ``manifest`` before traffic:
+
+    1. C8: ``c8_check`` in the port's capture mode (passes), then in a
+       process of its own with the parent's global mode (a planted
+       fault: the check must fail there);
+    2. ``sensors_check``: the collector, the burn alert's capture and
+       flight dump, ``/fleetz.json`` against the replicas' sums, routed
+       tok/s with the collector idle and scraping, decode-step ms inside
+       a ``/profilez`` window and outside it;
+    3. ``process_capture_check``: ``capture_fleet`` over two process
+       replicas, traced paged instances = layers x each window's decode
+       steps, ``timeline_report --check``;
+    4. ``monitor_check``: ``ServeMonitor`` lines and the time-series
+       ring.
+
+    The paged counters are zeroed before the phase and read after it:
+    they must equal layers x the decode steps of every in-process engine
+    the phase ran."""
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    t_phase = time.perf_counter()
+    n_layers = SERVE_CFG["num_layers"]
+    checks, rows = {}, {}
+
+    pac.launches = pac.combine_launches = 0   # the phase's window opens
+    c8 = c8_check(np_params, manifest, serve_toks, "thread_local")
+    rows["c8"] = c8
+    checks.update({f"c8_{k}": v for k, v in c8["checks"].items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "manifest.jsonl"), "w") as f:
+            for e in manifest:
+                f.write(json.dumps(e) + "\n")
+        with open(os.path.join(tmp, "tokens.json"), "w") as f:
+            json.dump(serve_toks, f)
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        from mxnet_tpu_torch import _build
+
+        env["MXTPU_TORCH_BUILD_DIR"] = _build.build_dir()
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--c8-planted", tmp], capture_output=True, text=True,
+                timeout=300, env=env, cwd=ROOT)
+            planted = next((json.loads(ln) for ln in out.stdout.splitlines()
+                            if ln.startswith('{"phase": "c8_planted"')),
+                           {"ok": None, "rc": out.returncode,
+                            "tail": (out.stdout + out.stderr)[-800:]})
+        except subprocess.TimeoutExpired:
+            planted = {"ok": False, "timed_out": True}
+        planted["seconds"] = time.perf_counter() - t0
+    rows["c8_planted_global_mode"] = planted
+    checks["c8_planted_fault_fails"] = planted.get("ok") is False
+    emit({"phase": "c8_planted_fault", "card": card, **planted})
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["sensors"], sc = sensors_check(np_params, manifest, tmp)
+    checks.update(sc)
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["process_pair"], pc = process_capture_check(tmp)
+    checks.update(pc)
+    rows["monitor"] = monitor_check(np_params, manifest)
+    checks.update(rows["monitor"].pop("checks"))
+    decode_steps = (sum(c8["decode_steps"].values())
+                    + sum(rows["sensors"].get("decode_steps", {}).values())
+                    + rows["monitor"]["decode_steps"])
+    launches, combines = pac.launches, pac.combine_launches
+    checks["launches_counted"] = (
+        decode_steps > 0 and launches == combines == n_layers * decode_steps)
+    ok = all(checks.values())
+    out = {"phase": "serve_fleet_obs", "dtype": "bfloat16", "card": card,
+           "serve_phase_tok_per_s": serve_row["tok_per_s"],
+           "kernel_launches": launches, "combine_launches": combines,
+           "in_process_decode_steps": decode_steps,
+           "seconds": time.perf_counter() - t_phase,
+           **rows, "checks": checks, "ok": ok}
+    emit(out)
+    if not ok:
+        raise SystemExit("serve_fleet_obs failed its checks: "
                          + ", ".join(k for k, v in checks.items() if not v))
     return out
 
@@ -4027,29 +4709,29 @@ def profiler_warmup():
     """Start torch.profiler once around one small CUDA op: its first
     start (CUPTI and kineto set-up) takes seconds, spent here, beside the
     build, rather than inside the first profile window's phase."""
-    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import profiler
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.ones(8, device=DEVICE).add_(1)
-        torch.cuda.synchronize()
-    prof.key_averages()
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiler.trace(logdir):
+            torch.ones(8, device=DEVICE).add_(1)
+            torch.cuda.synchronize()
+        traced_kernels(logdir)
 
 
 def train_profile(tr, placed, steps=2):
     """Device time by kernel over ``steps`` more train steps
     (torch.profiler), and the device's busy share of their wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import profiler
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            tr.step(placed)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = profile_kernels(prof)
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiler.trace(logdir):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                tr.step(placed)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        kernels = traced_kernels(logdir)[0]
     kinds = {}
     for name, ms in kernels.items():
         kind = _kernel_kind(name)
@@ -4839,6 +5521,7 @@ def fleet_main():
         with open(manifest) as f:
             entries = [json.loads(ln) for ln in f if ln.strip()]
     serve_fleet(np_params, serve, serve_toks, entries, card)
+    serve_fleet_obs(np_params, serve, serve_toks, entries, card)
     print(card)
     return 0
 
@@ -4853,7 +5536,10 @@ def main():
                     help="with --overhead: import mxnet_tpu_torch from "
                          "this checkout")
     ap.add_argument("--fleet", action="store_true",
-                    help="run only the serve phase and serve_fleet")
+                    help="run only the serve phase, serve_fleet and "
+                         "serve_fleet_obs")
+    ap.add_argument("--c8-planted", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4863,6 +5549,8 @@ def main():
     import mxnet_tpu_torch  # noqa: F401  (fails alone: no package)
     if args.overhead:
         return overhead_main(args)
+    if args.c8_planted:
+        return c8_planted(args.c8_planted)
     if args.fleet:
         return fleet_main()
     from mxnet_tpu_torch import _build
@@ -4985,8 +5673,11 @@ def main():
     tel = serve_telemetry(np_params, serve, serve_toks, card)
     lap("serve_telemetry")
     fleet = serve_fleet(np_params, serve, serve_toks, serve_manifest, card)
-    del np_params
     lap("serve_fleet")
+    fleet_obs = serve_fleet_obs(np_params, serve, serve_toks, serve_manifest,
+                                card)
+    del np_params
+    lap("serve_fleet_obs")
 
     train = train_main_path()
     train_grad_check()
@@ -5026,9 +5717,10 @@ def main():
     # the host-tier engines' decode over restored blocks (float32, bf16,
     # int8 K/V), the sampling engine's decode, the sampling spec
     # engine's draft, the adapters engine's decode (both passes), the
-    # telemetry-on engine's decode and the fleet replicas' decode (two
+    # telemetry-on engine's decode, the fleet replicas' decode (two
     # routed replicas, the chaos pair, the decode role over handed-off
-    # blocks, the pulling pair)
+    # blocks, the pulling pair) and the sensors phase's in-process
+    # engines (C8's pair, the collector's pair, the monitor's engine)
     paged_paths = {"serve": (serve["kernel_launches"],
                              serve["combine_launches"]),
                    "serve_spec_draft": (spec["spec_on"]["kernel_launches"],
@@ -5052,7 +5744,9 @@ def main():
                    "serve_telemetry": (tel["kernel_launches"],
                                        tel["combine_launches"]),
                    "serve_fleet": (fleet["kernel_launches"],
-                                   fleet["combine_launches"])}
+                                   fleet["combine_launches"]),
+                   "serve_fleet_obs": (fleet_obs["kernel_launches"],
+                                       fleet_obs["combine_launches"])}
     kernels = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
         "cuda_kernels": ["paged_attention_split", "paged_attention_combine"],

@@ -16,13 +16,13 @@ when CUDA is absent.
 """
 
 from . import (aot, base, context, convert, flops, initializer, models,
-               ops, parallel, profiler, serve, telemetry, fleet)
+               monitor, ops, parallel, profiler, serve, telemetry, fleet)
 from .context import resolve_device
 from .convert import params_from_numpy
 
 __version__ = "0.1.0"
 
 __all__ = ["aot", "base", "context", "convert", "flops", "fleet",
-           "initializer", "models", "ops", "parallel", "profiler", "serve",
-           "telemetry",
+           "initializer", "models", "monitor", "ops", "parallel",
+           "profiler", "serve", "telemetry",
            "resolve_device", "params_from_numpy"]

@@ -22,8 +22,15 @@ records, lifecycle and chaos hooks, over the port's engine.
                        (queue depth + KV occupancy).
   GET  /metrics        the telemetry registry as Prometheus text.
   POST /flight_dump    dump the flight recorder's ring.
-  /profilez            answered 501: on-demand profiler windows are
-                       ROADMAP §A item 14b-2.
+  POST /profilez       {"duration_s", "reason"?} -> a bounded
+                       torch.profiler window over this replica's
+                       steps: {"id", "state": "running",
+                       "started_epoch", ...}; 409
+                       ``capture_in_progress``, 429 ``rate_limited``,
+                       400 on a bad duration, 503 ``not_ready`` once
+                       the replica stopped admitting.
+  GET  /profilez/<id>  the capture's metadata (404 ``unknown_capture``);
+                       ``/profilez/<id>/trace`` the gzip trace.
 
 Idempotency: a ``request_id`` names the client request across retries.
 A re-send of an id that already completed returns the CACHED response
@@ -75,14 +82,32 @@ retriable ``adapter_slots``), and ``/load_adapter``,
 ``/unload_adapter`` and ``/adapter_export`` manage the
 ``AdapterStore``.
 
-Device access and CUDA graphs: the engine captures its programs in
-``"global"`` capture mode on the step thread (``--warmup none``, or a
-bucket warm-up skipped), and a CUDA call from any other thread during a
-capture invalidates it.  So every handler path that touches the device
-takes ``_step_lock``, which the step thread holds around
+Device access and CUDA graphs: the engine captures its programs on the
+step thread (``--warmup none``, or a bucket warm-up skipped) in
+``"thread_local"`` mode, so a sibling engine in the same process goes on
+replaying meanwhile.  A handler path that touches this engine's device
+state takes ``_step_lock``, which the step thread holds around
 ``engine.step()``: the handoff and ``/chain_export`` gathers, and a
 submit naming an adapter (its first request loads the adapter's device
 slot).  ``/healthz`` and ``/statusz.json`` read host state only.
+
+Profiler windows (``/profilez``): torch's profiler records the host
+operators of the thread that starts it and must be stopped there, so
+the step thread owns every window.  The handler validates the request,
+reserves a capture id and wakes the step loop, which starts the
+profiler between two steps (``started_epoch`` is stamped then) and
+stops it between two steps once the duration has passed, or early at
+``drain``, ``stop`` or ``hard_stop`` (the artifact is kept).  A window
+therefore holds whole steps; its metadata counts them (``steps``,
+``decode_steps``).  On the card the step thread sets the profiler up
+(``profiler.prime``, once a process) before the replica goes READY, so
+no window pays CUPTI's set-up while the replica serves.  The handler waits for the window to open, at most
+``_PROFILEZ_PICKUP_S`` for the step loop to take it and
+``_PROFILEZ_OPEN_S`` for the profiler to start, and answers 409 when
+either runs out, or when another capture (another in-process replica's
+window) holds the process's profiler.  Windows are one at a time,
+clamped to ``MXTPU_PROFILEZ_MAX_S``, spaced by
+``MXTPU_PROFILEZ_INTERVAL_S`` and written under ``MXTPU_PROFILEZ_DIR``.
 
 Faults (``faults.FaultInjector``) hook ``/generate`` and ``/handoff``
 arrivals: kill, delay, refuse or hang at a deterministic request index.
@@ -99,9 +124,11 @@ from __future__ import annotations
 import base64
 import collections
 import contextlib
+import glob
 import hashlib
 import json
 import os
+import tempfile
 import threading
 import time
 import urllib.request
@@ -110,6 +137,7 @@ from http.server import BaseHTTPRequestHandler
 import numpy as np
 import torch
 
+from .. import profiler as profiler_mod
 from .. import telemetry
 from ..base import env_float, env_int
 from ..serve.scheduler import FINISHED, QueueFull, REJECTED
@@ -150,14 +178,11 @@ _WIRE_DTYPES = {"bfloat16": (2, np.int16, torch.bfloat16),
                 "float32": (4, np.float32, torch.float32),
                 "int8": (1, np.int8, torch.int8)}
 
-# on-demand profiler windows (POST /profilez and its knobs) are ROADMAP
-# §A item 14b-2
-_PROFILEZ_ENV = ("MXTPU_PROFILEZ_DIR", "MXTPU_PROFILEZ_MAX_S",
-                 "MXTPU_PROFILEZ_INTERVAL_S")
-_PROFILEZ_UNPORTED = {
-    "error": "not_ported", "retriable": False,
-    "detail": "on-demand profiler capture (/profilez) is not ported "
-              "yet (ROADMAP §A item 14b-2)"}
+# a /profilez handler's bounds: for the step loop to take the window
+# (it is mid-step at most), then for the profiler to start (its wait for
+# a capture in flight)
+_PROFILEZ_PICKUP_S = 5.0
+_PROFILEZ_OPEN_S = 30.0
 
 
 def _raw_bytes(a):
@@ -227,12 +252,6 @@ class ReplicaServer:
                  fault_injector=None, on_kill=None, poll_s=0.002,
                  role=None, handoff_delay_s=None, handoff_drop=None,
                  version=None, model=None):
-        for var in _PROFILEZ_ENV:
-            if os.environ.get(var):
-                raise NotImplementedError(
-                    f"ReplicaServer: {var} configures on-demand profiler "
-                    "capture (/profilez), which is not ported yet "
-                    "(ROADMAP §A item 14b-2)")
         self.engine = engine
         self.host = host
         self._requested_port = int(port)
@@ -269,9 +288,9 @@ class ReplicaServer:
         self._lock = threading.RLock()
         # held by the step thread around engine.step() and by every
         # handler path that touches the device (the export gathers, an
-        # adapter submit's slot load): a step may capture a CUDA graph
-        # in global mode, and a CUDA call from another thread meanwhile
-        # invalidates the capture.  Taken before _lock, never inside it
+        # adapter submit's slot load): a step may capture a CUDA graph,
+        # which no other device work of this engine may overlap.  Taken
+        # before _lock, never inside it
         self._step_lock = threading.Lock()
         self._handoff_drops_left = (
             int(handoff_drop) if handoff_drop is not None
@@ -307,11 +326,28 @@ class ReplicaServer:
         self._chain_exports = 0           # guarded-by: _lock
         self._chain_export_blocks = 0     # guarded-by: _lock
         self._chain_export_bytes = 0      # guarded-by: _lock
+        # on-demand profiler windows (POST /profilez), bounded and one
+        # at a time, with a minimum spacing between windows, so an
+        # alert storm cannot keep a replica permanently profiled
+        self._profilez_max_s = env_float("MXTPU_PROFILEZ_MAX_S", 10.0)
+        self._profilez_interval_s = env_float(
+            "MXTPU_PROFILEZ_INTERVAL_S", 30.0)
+        self._profilez_dir = os.environ.get("MXTPU_PROFILEZ_DIR") or None
+        self._capture_seq = 0                         # guarded-by: _lock
+        self._captures = collections.OrderedDict()    # guarded-by: _lock
+        self._last_capture_t = None                   # guarded-by: _lock
+        # the reserved window the step loop opens next: (cap, opened
+        # event); the open one: (cap, monotonic deadline, engine steps
+        # and decode steps at its start).  Both touched by the step
+        # thread, the first also by handlers
+        self._pending_cap = None                      # guarded-by: _lock
+        self._window = None                           # guarded-by: _lock
         self._server = None
         self._http_thread = None
         self._step_thread = None
         self._stop_evt = threading.Event()
         self._work_evt = threading.Event()
+        self._primed = threading.Event()   # the step loop's profiler set-up
         self._health_name = None
         self._statusz_name = None
 
@@ -360,6 +396,7 @@ class ReplicaServer:
             target=self._step_loop, daemon=True,
             name=f"mxtpu-replica-step-{self.port}")
         self._step_thread.start()
+        self._primed.wait()
         self._health_name = statusz_mod.register_health(
             f"fleet.{self.replica_id}", self._health)
         self._statusz_name = statusz_mod.register(
@@ -442,22 +479,38 @@ class ReplicaServer:
         # prompt's blocks — a primary that finishes in its very first
         # step (max_new=1) would otherwise leave the scheduler empty,
         # park this loop, and hang the waiting /generate handler with
-        # its siblings never released
-        while not self._stop_evt.is_set():
-            if self.engine.has_work():
-                try:
-                    with self._step_lock:
-                        self.engine.step()
-                except Exception:
-                    # an engine that cannot step is a dead replica: fail
-                    # fast so the router's probes see it gone (the
-                    # engine already force-dumped the flight ring)
-                    _errors("step").inc()
-                    self.hard_stop()
-                    return
-            else:
-                self._work_evt.wait(0.05)
-                self._work_evt.clear()
+        # its siblings never released.  Between two steps the loop
+        # opens and closes this replica's profiler windows; before READY
+        # it sets the profiler up (once a process, on the card), so no
+        # window pays for that while the replica serves
+        try:
+            if self.engine.device.type == "cuda":
+                profiler_mod.prime()
+        except Exception:
+            _errors("profiler_prime").inc()
+        finally:
+            self._primed.set()
+        try:
+            while not self._stop_evt.is_set():
+                self._profilez_tick()
+                if self.engine.has_work():
+                    try:
+                        with self._step_lock:
+                            self.engine.step()
+                    except Exception:
+                        # an engine that cannot step is a dead replica:
+                        # fail fast so the router's probes see it gone
+                        # (the engine already force-dumped the flight
+                        # ring)
+                        _errors("step").inc()
+                        self.hard_stop()
+                        return
+                else:
+                    self._work_evt.wait(0.05)
+                    self._work_evt.clear()
+        finally:
+            self._close_window()
+            self._fail_pending("replica stopped before the window opened")
 
     # -- request handling (called from HTTP handler threads) -----------------
     def handle_generate(self, body, trace_id=None):
@@ -1047,6 +1100,228 @@ class ReplicaServer:
             ingesting = self._handoff_ingesting
         return ingesting + self.engine.scheduler.waiting_handoffs()
 
+    # -- on-demand profiler capture (/profilez) ------------------------------
+    _CAPTURE_KEEP = 8      # finished-capture metadata entries retained
+
+    def _active_capture_locked(self):
+        for cap in reversed(self._captures.values()):
+            if cap["state"] in ("starting", "opening", "running"):
+                return cap
+        return None
+
+    @staticmethod
+    def _profilez_outcome(outcome):
+        telemetry.counter("mxtpu_fleet_profilez_total",
+                          "profiler capture requests by outcome",
+                          ("outcome",)).labels(outcome=outcome).inc()
+
+    def handle_profilez(self, body):
+        """``POST /profilez``: reserve a bounded-duration profiler
+        window over this replica's steps, wait for the step thread to
+        open it, and answer with its capture id and ``started_epoch``;
+        the step thread closes it and the artifact is served back by
+        ``GET /profilez/<id>`` (metadata) and ``GET
+        /profilez/<id>/trace`` (the gzip trace itself).
+
+        One window at a time — a second POST answers a clean 409
+        ``capture_in_progress``, as does a window the process's
+        profiler refused (another in-process replica holds it) or one
+        that did not open in time — and windows are rate-limited (429,
+        ``MXTPU_PROFILEZ_INTERVAL_S``) with durations clamped to
+        ``MXTPU_PROFILEZ_MAX_S``.  Never fault-injected:
+        control-plane, not traffic."""
+        try:
+            duration = float(body.get("duration_s", 1.0))
+        except (TypeError, ValueError):
+            return 400, {"error": "bad_request", "retriable": False}
+        if not duration > 0.0:
+            return 400, {"error": "bad_request", "retriable": False}
+        duration = min(duration, self._profilez_max_s)
+        reason = str(body.get("reason") or "on_demand")[:64]
+        now = time.monotonic()
+        opened = threading.Event()
+        with self._lock:
+            if self._state != READY:
+                return 503, {"error": "not_ready", "state": self._state,
+                             "retriable": True,
+                             "replica": self.replica_id}
+            active = self._active_capture_locked()
+            if active is not None:
+                return 409, {"error": "capture_in_progress",
+                             "retriable": False, "id": active["id"],
+                             "replica": self.replica_id}
+            if self._last_capture_t is not None \
+                    and now - self._last_capture_t \
+                    < self._profilez_interval_s:
+                retry = (self._profilez_interval_s
+                         - (now - self._last_capture_t))
+                return 429, {"error": "rate_limited", "retriable": True,
+                             "retry_after_s": round(retry, 3),
+                             "replica": self.replica_id}
+            self._capture_seq += 1
+            cap_id = f"{self.replica_id}-cap{self._capture_seq}"
+            logdir = os.path.join(
+                self._profilez_dir or os.path.join(
+                    tempfile.gettempdir(),
+                    f"mxtpu_profilez_{os.getpid()}"),
+                cap_id)
+            cap = {"id": cap_id, "state": "starting", "reason": reason,
+                   "duration_s": duration, "logdir": logdir,
+                   "started_epoch": None, "replica": self.replica_id,
+                   "trace_file": None, "error": None, "steps": None,
+                   "step_ids": None, "decode_steps": None}
+            self._captures[cap_id] = cap
+            self._pending_cap = (cap, opened)
+        self._work_evt.set()
+        t0 = time.monotonic()
+        if not opened.wait(_PROFILEZ_PICKUP_S):
+            with self._lock:
+                if cap["state"] == "starting":
+                    # the step loop never took it: withdraw it
+                    self._pending_cap = None
+                    self._captures.pop(cap_id, None)
+                    return 409, {
+                        "error": "capture_in_progress",
+                        "retriable": False,
+                        "detail": "the step loop did not take the window "
+                                  f"within {_PROFILEZ_PICKUP_S} s",
+                        "replica": self.replica_id}
+            opened.wait(_PROFILEZ_OPEN_S)
+        with self._lock:
+            state, err = cap["state"], cap["error"]
+            if state == "refused":
+                self._captures.pop(cap_id, None)
+            elif state == "running":
+                self._last_capture_t = now
+                cap["open_wait_s"] = round(time.monotonic() - t0, 6)
+            while len(self._captures) > self._CAPTURE_KEEP:
+                oldest = next(iter(self._captures))
+                if self._captures[oldest]["state"] in (
+                        "starting", "opening", "running"):
+                    break
+                self._captures.pop(oldest)
+        if state == "refused":
+            # someone else (another in-process replica, a harness)
+            # holds the process's profiler, or a capture held its lock
+            return 409, {"error": "capture_in_progress",
+                         "retriable": False, "detail": err,
+                         "replica": self.replica_id}
+        if state != "running":
+            if state == "opening":
+                err = (f"the profiler did not start within "
+                       f"{_PROFILEZ_OPEN_S} s")
+            _errors("profilez_start").inc()
+            return 500, {"error": "profiler_start_failed",
+                         "retriable": True, "detail": err}
+        self._profilez_outcome("started")
+        return 200, {"id": cap_id, "state": "running",
+                     "duration_s": duration, "logdir": logdir,
+                     "started_epoch": cap["started_epoch"],
+                     "replica": self.replica_id}
+
+    def _profilez_tick(self):
+        """Step thread, between two steps: open the reserved window, or
+        close the open one once its duration has passed or the replica
+        stopped admitting."""
+        if self._pending_cap is None and self._window is None:
+            # the common case, read without the lock: a window reserved
+            # meanwhile opens on the next iteration
+            return
+        with self._lock:
+            pending, self._pending_cap = self._pending_cap, None
+            window = self._window
+            ending = self._state != READY
+            if pending is not None:
+                pending[0]["state"] = "opening"
+        if pending is not None:
+            self._open_window(*pending)
+        elif window is not None \
+                and (ending or time.monotonic() >= window[1]):
+            self._close_window()
+
+    def _open_window(self, cap, opened):
+        eng = self.engine
+        try:
+            os.makedirs(cap["logdir"], exist_ok=True)
+            profiler_mod.start(cap["logdir"])
+        except profiler_mod.ProfilerActive as e:
+            with self._lock:
+                cap["state"], cap["error"] = "refused", str(e)[:200]
+            opened.set()
+            return
+        except Exception as e:
+            with self._lock:
+                cap["state"] = "failed"
+                cap["error"] = f"{type(e).__name__}: {e}"[:200]
+            opened.set()
+            return
+        # epoch stamp at the profiler's real start: capture_fleet aligns
+        # cross-replica windows, and timeline_report places the device
+        # events, on the wall clock
+        # mxtpu-lint: disable=wall-clock (cross-replica capture alignment stamp)
+        started = time.time()
+        with self._lock:
+            cap["state"], cap["started_epoch"] = "running", started
+            self._window = (cap, time.monotonic() + cap["duration_s"],
+                            eng._step_id, eng.decode_steps)
+        opened.set()
+
+    def _close_window(self):
+        """Step thread: stop the open window's profiler and locate its
+        artifact (no-op without one)."""
+        with self._lock:
+            window, self._window = self._window, None
+        if window is None:
+            return
+        cap, _, steps0, decode0 = window
+        err = None
+        try:
+            profiler_mod.stop()
+        except Exception as e:
+            # a failed stop must not leave the entry "running" forever
+            err = f"{type(e).__name__}: {e}"[:200]
+        trace_file = None
+        try:
+            found = glob.glob(os.path.join(
+                cap["logdir"], "plugins", "profile", "*",
+                "*.trace.json.gz"))
+            if found:
+                trace_file = max(found, key=os.path.getmtime)
+        except OSError:
+            pass
+        if err is None and trace_file is None:
+            err = "no trace artifact written"
+        with self._lock:
+            cap["trace_file"] = trace_file
+            cap["error"] = err
+            last = self.engine._step_id
+            cap["steps"] = last - steps0
+            # the engine's step ids the window held (its step profile
+            # ring's "step" field), first and last
+            cap["step_ids"] = [steps0 + 1, last] if last > steps0 else None
+            cap["decode_steps"] = self.engine.decode_steps - decode0
+            cap["state"] = "failed" if err else "done"
+        self._profilez_outcome("failed" if err else "done")
+
+    def _fail_pending(self, why):
+        with self._lock:
+            pending, self._pending_cap = self._pending_cap, None
+            if pending is not None:
+                pending[0]["state"], pending[0]["error"] = "failed", why
+        if pending is not None:
+            pending[1].set()
+
+    def handle_profilez_get(self, cap_id):
+        """``GET /profilez/<id>``: capture metadata (state running/
+        done/failed, logdir, trace file, epoch start, the steps the
+        window held)."""
+        with self._lock:
+            cap = self._captures.get(cap_id)
+            if cap is None:
+                return 404, {"error": "unknown_capture",
+                             "retriable": False}
+            return 200, dict(cap)
+
     def _reject_response(self, req):
         reason = req.reject_reason or "rejected"
         retriable = reason in RETRIABLE_REASONS
@@ -1268,7 +1543,34 @@ class _Handler(BaseHTTPRequestHandler):
             self.end_headers()
             self.wfile.write(body)
         elif self.path.startswith("/profilez/"):
-            self._send_json(501, _PROFILEZ_UNPORTED)
+            # /profilez/<id> (JSON metadata) or /profilez/<id>/trace
+            # (the raw gzip trace for timeline_report)
+            parts = self.path.strip("/").split("/")
+            cap_id = parts[1] if len(parts) > 1 else ""
+            want_trace = len(parts) > 2 and parts[2] == "trace"
+            code, payload = self.replica.handle_profilez_get(cap_id)
+            if want_trace and code == 200:
+                tf = payload.get("trace_file")
+                if payload.get("state") != "done" or not tf:
+                    self._send_json(409, {
+                        "error": "capture_not_done",
+                        "state": payload.get("state"),
+                        "retriable": True})
+                    return
+                try:
+                    with open(tf, "rb") as f:
+                        data = f.read()
+                except OSError:
+                    self._send_json(404, {"error": "artifact_missing",
+                                          "retriable": False})
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "application/gzip")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+                return
+            self._send_json(code, payload)
         else:
             self.send_error(404)
 
@@ -1317,12 +1619,24 @@ class _Handler(BaseHTTPRequestHandler):
                                   "replica": self.replica.replica_id})
             return
         if self.path == "/profilez":
-            try:                 # consume any body (keep-alive hygiene)
-                self.rfile.read(int(self.headers.get("Content-Length",
-                                                     0) or 0))
+            # on-demand profiler capture: control-plane like
+            # /flight_dump — never fault-injected, and handler
+            # exceptions map to retriable 500s (the 409/429 conflict
+            # answers come back as clean JSON, not errors)
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                body = json.loads(self.rfile.read(n) or b"{}")
             except (ValueError, OSError):
-                _errors("profilez_body").inc()
-            self._send_json(501, _PROFILEZ_UNPORTED)
+                body = {}
+            try:
+                result = self.replica.handle_profilez(body)
+            except Exception:
+                _errors("profilez").inc()
+                result = 500, {"error": "internal", "retriable": True}
+            try:
+                self._send_json(*result)
+            except OSError:
+                _errors("respond").inc()
             return
         if self.path not in ("/generate", "/handoff", "/handoff_probe",
                              "/chain_export", "/load_adapter",

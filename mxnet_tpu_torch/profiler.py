@@ -14,6 +14,19 @@ CUDA is available, and ``stop`` writes it as a gzipped Chrome trace
 under ``<logdir>/plugins/profile/<run>/`` (the reference's layout), which
 Perfetto and chrome://tracing open.  While a capture is active every
 telemetry span also appears in it (``telemetry/tracing.py``).
+
+torch's profiler records the host operators of the thread that starts
+it, and must be stopped on that thread: a window over a serving engine
+is opened and closed by the thread that steps it
+(``fleet/replica.py``'s step loop owns ``/profilez`` windows).  The
+card's kernels are recorded process-wide, CUDA graph replays included.
+
+No profiler start or stop lands inside a CUDA graph capture:
+:data:`capture_lock` is held by a capture and its warm-up runs
+(``serve/engine.py`` ``_Program._capture``) and taken by ``start`` (for
+at most ``CAPTURE_WAIT_S`` seconds, then :class:`ProfilerActive`) and
+``stop``.  Other engines' device work goes on during a capture (the
+capture runs in ``"thread_local"`` mode).
 """
 
 from __future__ import annotations
@@ -22,13 +35,16 @@ import contextlib
 import functools
 import os
 import socket
+import tempfile
 import threading
 import time
 
 import torch
 
 __all__ = ["start", "stop", "trace", "scope", "annotate", "active_logdir",
-           "ProfilerActive", "device_memory", "summarize"]
+           "ProfilerActive", "device_memory", "summarize", "capture_lock",
+           "prime",
+           "CAPTURE_WAIT_S", "STOP_SETTLE_S"]
 
 # the profiler is process-global and start/stop may arrive from two
 # threads; every transition of the active-capture state happens under
@@ -36,6 +52,19 @@ __all__ = ["start", "stop", "trace", "scope", "annotate", "active_logdir",
 _lock = threading.Lock()
 _active_logdir = None    # guarded-by: _lock
 _active = None           # guarded-by: _lock (the running profile)
+_primed = False          # set once by prime()
+
+CAPTURE_WAIT_S = 5.0     # the longest a profiler start waits for a capture
+# the wait between the card's last kernel and the profiler's stop:
+# CUPTI hands over the records of the last kernels some time after they
+# ran, and a stop right after a synchronize can lose the window's last
+# graph replays from the trace (chip_profiler_tail.py measures it)
+STOP_SETTLE_S = 0.1
+
+
+# held by every CUDA graph capture of the process (with its warm-up
+# runs) and by the profiler's start and stop
+capture_lock = threading.Lock()
 
 
 class ProfilerActive(RuntimeError):
@@ -50,20 +79,34 @@ def active_logdir():
 
 
 def _start_capture(logdir):
-    """Start a torch.profiler capture; returns the running profile."""
+    """Start a torch.profiler capture outside any CUDA graph capture;
+    returns the running profile."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
-    prof.start()
+    if not capture_lock.acquire(timeout=CAPTURE_WAIT_S):
+        raise ProfilerActive(
+            f"a CUDA graph capture held the capture lock for "
+            f"{CAPTURE_WAIT_S} s; the profiler did not start")
+    try:
+        prof.start()
+    finally:
+        capture_lock.release()
     return prof
 
 
 def _stop_capture(prof, logdir):
-    """Stop ``prof`` and write its trace under ``logdir``."""
-    prof.stop()
+    """Stop ``prof`` outside any CUDA graph capture, once the card's
+    records of the work before it have come in, and write its trace under
+    ``logdir``."""
+    with capture_lock:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+            time.sleep(STOP_SETTLE_S)
+        prof.stop()
     run = os.path.join(logdir, "plugins", "profile",
                        time.strftime("%Y_%m_%d_%H_%M_%S"))
     os.makedirs(run, exist_ok=True)
@@ -97,6 +140,25 @@ def stop():
         finally:
             _active_logdir = None
             _active = None
+
+
+def prime():
+    """Start and stop one throwaway capture, once a process: the
+    profiler's first start in a process sets CUPTI up, seconds on the
+    card, which a first window would otherwise pay.  True when this call
+    primed it; False once done, or while another capture holds the
+    profiler (which then has paid)."""
+    global _primed
+    if _primed:
+        return False
+    with tempfile.TemporaryDirectory() as logdir:
+        try:
+            start(logdir)
+        except ProfilerActive:
+            return False
+        stop()
+    _primed = True
+    return True
 
 
 @contextlib.contextmanager

@@ -110,6 +110,7 @@ import numpy as np
 import torch
 
 from .. import aot, telemetry
+from .. import profiler as profiler_mod
 from ..base import env_flag, env_int
 from ..context import resolve_device
 from ..convert import params_from_numpy
@@ -117,7 +118,7 @@ from ..models.generate import (_fc, _gelu, _gumbel, _ln,
                                detect_gpt_variant)
 from ..ops import paged_attention_cuda as _pac
 from ..ops.attention import paged_attention, resolve_paged_impl
-from ..telemetry import cudamon, profiling, timeseries
+from ..telemetry import cudamon, profiling
 from ..telemetry import flight as flight_mod
 from ..telemetry import statusz as statusz_mod
 from ..telemetry.perf_attrib import PerfAttrib
@@ -159,6 +160,13 @@ _NUMPY_DTYPES = (torch.int32, torch.float32, torch.int8)
 # builds the kernel libraries and sets their launch attributes, which a
 # capture must not do
 _WARM_RUNS = 2
+
+# a capture's mode: "thread_local" forbids unsafe CUDA calls on the
+# capturing thread only (torch's default "global" makes a sibling
+# engine's stream sync fail and end the capture).  The capture and its
+# warm-up runs hold the profiler's capture lock, so no profiler start or
+# stop lands inside them and two captures never overlap
+_CAPTURE_MODE = "thread_local"
 
 # the paged op's launch counters tick on the host when a graph is
 # captured, and a replay launches the kernels without calling the op: a
@@ -248,7 +256,10 @@ class _Program:
 
     On CUDA the body runs ``_WARM_RUNS`` times on a side stream on
     all-zero inputs (so every K/V write lands in the null block 0),
-    then is captured once into ``pool``; calls replay the graph.  Each
+    then is captured once on that stream into ``pool`` (in
+    ``_CAPTURE_MODE``, warm-up and capture holding the profiler's
+    capture lock; a failed capture is undone by
+    :func:`_abandon_capture`); calls replay the graph.  Each
     call records an event after its staging copy, and :meth:`stage`
     waits on it: a program whose output is never read (``restore``)
     cannot have its pinned buffer refilled under a copy still in flight.
@@ -290,27 +301,38 @@ class _Program:
             self._capture(pool)
 
     def _capture(self, pool):
-        before = _pac.thread_counts()
-        cur = torch.cuda.current_stream(self._device)
-        side = torch.cuda.Stream(self._device)
-        side.wait_stream(cur)
-        with torch.no_grad(), torch.cuda.stream(side):
-            for _ in range(_WARM_RUNS):
-                self._body(**self._inputs)
-        cur.wait_stream(side)
-        mark = _pac.thread_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(graph, pool=pool):
-            out = self._body(**self._inputs)
-        after = _pac.thread_counts()
-        self._deltas = [a - m for a, m in zip(after, mark)]
-        _pac.add_counts(*[b - a for a, b in zip(after, before)])
-        self._graph, self._out = graph, out
-        outs = () if out is None else (out,) if torch.is_tensor(out) \
-            else out
-        self._out_host = [torch.empty(o.shape, dtype=o.dtype,
-                                      pin_memory=True) for o in outs]
-        self._copied = torch.cuda.Event()
+        with profiler_mod.capture_lock:
+            before = _pac.thread_counts()
+            cur = torch.cuda.current_stream(self._device)
+            side = torch.cuda.Stream(self._device)
+            side.wait_stream(cur)
+            graph = torch.cuda.CUDAGraph()
+            with torch.no_grad(), torch.cuda.stream(side):
+                for _ in range(_WARM_RUNS):
+                    self._body(**self._inputs)
+                mark = _pac.thread_counts()
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode=_CAPTURE_MODE)
+                try:
+                    out = self._body(**self._inputs)
+                except BaseException:
+                    _abandon_capture(graph, self._device, ended=False)
+                    raise
+                try:
+                    graph.capture_end()
+                except BaseException:
+                    _abandon_capture(graph, self._device, ended=True)
+                    raise
+            cur.wait_stream(side)
+            after = _pac.thread_counts()
+            self._deltas = [a - m for a, m in zip(after, mark)]
+            _pac.add_counts(*[b - a for a, b in zip(after, before)])
+            self._graph, self._out = graph, out
+            outs = () if out is None else (out,) if torch.is_tensor(out) \
+                else out
+            self._out_host = [torch.empty(o.shape, dtype=o.dtype,
+                                          pin_memory=True) for o in outs]
+            self._copied = torch.cuda.Event()
 
     @property
     def captured(self):
@@ -380,6 +402,31 @@ def _host_outputs(out):
     if torch.is_tensor(out):
         return out.tolist()
     return tuple(o.detach().cpu().numpy().copy() for o in out)
+
+
+def _abandon_capture(graph, device, ended):
+    """Undo what a failed capture leaves behind (the caller's ``with``
+    puts the thread back on its own stream: ``torch.cuda.graph`` left
+    it on the process's shared capture stream when ``capture_end``
+    raised, and later engines on that thread then gave other tokens).
+    A body that raised leaves its stream capturing: end the capture
+    (which then raises, the capture being invalid, or gives a graph
+    nobody keeps).  A capture that did not end cleanly can also leave its
+    pool among the caching allocator's captures in progress, with a
+    filter over the dead graph: take it out (the pool's use count
+    stays: the engine is failing)."""
+    if not ended:
+        try:
+            graph.capture_end()
+            return                   # ended cleanly: torch undid its state
+        except RuntimeError:
+            pass
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    try:
+        torch._C._cuda_endAllocateToPool(index, graph.pool())
+    except RuntimeError:
+        pass                         # torch ended it before it raised
 
 
 class Engine:
@@ -495,7 +542,6 @@ class Engine:
                 "warmup manifests instead", 12)
         if (tp if tp is not None else env_int("MXTPU_SERVE_TP", 1)) != 1:
             raise _unported("tensor-parallel serving (tp > 1)", 13)
-        timeseries.refuse_env()
         if num_heads is None:
             raise ValueError("num_heads is required")
         window = 0 if window is None else int(window)

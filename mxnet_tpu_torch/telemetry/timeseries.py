@@ -27,12 +27,14 @@ rings from replicas' scraped statusz + metrics) — and the read side is
                                     utilization)
   ``latest(name)`` / ``series(name, window_s)``
 
-The reference's process-global ring (``MXTPU_TIMESERIES``,
-``_INTERVAL``) is not here: its only sampler is the reference's
-``ServeMonitor`` logging beat (``mxnet_tpu/monitor.py``), which comes
-with the training framework core (ROADMAP §A15).  Until then
-:func:`refuse_env` raises when ``MXTPU_TIMESERIES`` asks for a ring,
-and the serving engine calls it, so the switch is never ignored.
+The process-global ring is **off by default and fully inert**: no ring
+object, no statusz section, and — by design — no thread ever.  Set
+``MXTPU_TIMESERIES`` to a ring capacity (samples kept) to enable it;
+sampling then piggybacks on call sites that already run periodically
+(``ServeMonitor.tic``'s logging cadence), rate-limited to one sample
+per ``MXTPU_TIMESERIES_INTERVAL`` seconds.  When enabled, the ring
+registers a ``timeseries`` section on ``/statusz`` with windowed rates
+of the headline serve counters.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ import time
 from collections import deque
 
 __all__ = ["TimeSeriesRing", "flatten_registry", "parse_prometheus_text",
-           "nearest_rank", "refuse_env", "ENV_CAPACITY"]
+           "nearest_rank", "ring", "sample", "configure",
+           "ENV_CAPACITY", "ENV_INTERVAL"]
 
 
 def nearest_rank(sorted_vals, q):
@@ -59,6 +62,7 @@ def nearest_rank(sorted_vals, q):
     return sorted_vals[int(idx)]
 
 ENV_CAPACITY = "MXTPU_TIMESERIES"
+ENV_INTERVAL = "MXTPU_TIMESERIES_INTERVAL"
 
 # the /statusz "rates" teaser: headline serve counters rendered as
 # 60-second windowed rates when present in the ring
@@ -273,13 +277,53 @@ class TimeSeriesRing:
                 "series": len(self.names()), "rates_60s": rates}
 
 
-def refuse_env():
-    """Raise when ``MXTPU_TIMESERIES`` asks for the process-global ring
-    (a capacity > 0): its sampler, ``ServeMonitor``, is not ported."""
-    from ..base import env_int
+# -- the process-global ring (env-gated; inert when unconfigured) -----------
+_global_lock = threading.Lock()
+_global_ring = None        # guarded-by: _global_lock
+_global_checked = False    # guarded-by: _global_lock
 
-    if env_int(ENV_CAPACITY, 0) > 0:
-        raise NotImplementedError(
-            f"{ENV_CAPACITY}: the process-global time-series ring is not "
-            "ported yet; its sampler is the reference's ServeMonitor "
-            "(ROADMAP §A item 15)")
+
+def configure(capacity, interval_s=1.0):
+    """Programmatic enable (tests / embedders): create the global ring
+    with ``capacity`` samples and register its statusz section.
+    ``capacity`` <= 0 tears it down (back to inert)."""
+    global _global_ring, _global_checked
+    from . import statusz as statusz_mod
+
+    with _global_lock:
+        _global_checked = True
+        if capacity and capacity > 0:
+            _global_ring = TimeSeriesRing(capacity)
+            _global_ring.sample_interval_s = float(interval_s)
+            statusz_mod.register("timeseries", _global_ring.statusz)
+        else:
+            _global_ring = None
+            statusz_mod.unregister("timeseries")
+    return _global_ring
+
+
+def ring():
+    """The process-global ring, or None when unconfigured.  Created on
+    first call from ``MXTPU_TIMESERIES`` (ring capacity; 0/unset =
+    off — no object, no statusz section, and never a thread)."""
+    with _global_lock:
+        if _global_checked:
+            return _global_ring
+    from ..base import env_float, env_int
+
+    cap = env_int(ENV_CAPACITY, 0)
+    return configure(cap, env_float(ENV_INTERVAL, 1.0))
+
+
+def sample(now=None):
+    """Sample the process registry into the global ring (no-op when
+    unconfigured) — call from any periodic site; the per-ring interval
+    keeps high-frequency callers cheap.  Returns True on a sample."""
+    r = ring()
+    if r is None:
+        return False
+    from mxnet_tpu_torch import telemetry
+
+    return r.sample_registry(telemetry.registry(), now=now,
+                             min_interval_s=getattr(
+                                 r, "sample_interval_s", 1.0))

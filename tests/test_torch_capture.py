@@ -14,12 +14,22 @@ replays of a sampled decode graph with different seeds draw
 differently; and that an adapters engine's rotated adapter mix replays
 its warmed graphs; and that ``warmup()`` captures while a thread polls
 the telemetry endpoints, after which ``PerfAttrib`` times each sampled
-graph replay with CUDA events.  This file imports no JAX, so the
-``cuda`` tests run on the card as they stand.
+graph replay with CUDA events; and that an engine capturing lazily on
+one thread leaves a sibling engine replaying on another thread
+unharmed, both with their tokens, also after a capture that failed in
+the process.  On the CPU, a capture (with CUDA's calls stood in for)
+runs in ``"thread_local"`` mode and holds the profiler's capture lock:
+a profiler start waits for it, or refuses after ``CAPTURE_WAIT_S``; and
+a failed capture ends its stream's capture and takes its pool out of
+the caching allocator's captures in progress.  This
+file imports no JAX, so the ``cuda`` tests run on the card as they
+stand.
 """
 
+import contextlib
 import json
 import threading
+import time
 import urllib.request
 
 import numpy as np
@@ -29,6 +39,7 @@ import torch
 import torch_port_fixtures  # noqa: F401  (puts the repo on sys.path)
 
 import mxnet_tpu_torch as mt
+from mxnet_tpu_torch import profiler as profiler_mod
 from mxnet_tpu_torch.serve import engine as port_engine
 
 ENGINE_KW = dict(block_size=4, num_blocks=64, max_batch=4, max_model_len=64,
@@ -204,23 +215,97 @@ def test_prefill_logits_take_an_int_or_a_device_plen(window):
     assert torch.equal(a, b)
 
 
-@pytest.mark.cuda
-def test_cuda_capture_of_a_host_read_raises_without_eager_retreat(
-        monkeypatch):
-    """A program body that reads a device value on the host (``.item()``)
-    cannot be captured: the program raises, and nothing runs the body
-    eagerly in its place, alone or inside the engine."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: CUDA-graph capture exists only on the "
-                    "card; chip_smoke.py serves through captured graphs")
-    calls = []
+def _sibling_check():
+    """Two engines in one process: A, warmed, replays its graphs round
+    after round on one thread while B, not warmed, serves the same
+    prompts on another and so captures its programs in traffic.  Both
+    give A's uncontended tokens in every round, B captures more than 0
+    graphs, A none, and neither raises."""
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, 53, (n,)).astype(np.int32)
+               for n in (5, 9, 12, 7, 3, 10, 6, 8)]
 
+    def serve(eng):
+        reqs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        eng.run()
+        return [list(r.tokens) for r in reqs]
+
+    a = _engine("cuda")
+    a.warmup()
+    want = serve(a)
+    a_caps = a.captures
+    b = _engine("cuda")
+    assert b.captures == 0
+    stop, errors, rounds = threading.Event(), [], [0]
+
+    def replay_a():
+        try:
+            while not stop.is_set():
+                if serve(a) != want:
+                    errors.append("A's tokens changed")
+                rounds[0] += 1
+        except Exception as e:       # a sibling's failure fails the test
+            errors.append(repr(e))
+
+    th = threading.Thread(target=replay_a)
+    th.start()
+    try:
+        while not rounds[0] and not errors:
+            time.sleep(0.001)
+        got = serve(b)
+    finally:
+        stop.set()
+        th.join(timeout=120)
+    assert not th.is_alive() and not errors, errors
+    assert got == want
+    assert b.captures > 0 and a.captures == a_caps
+    a.shutdown()
+    b.shutdown()
+
+
+def _host_read_body(calls):
     def body(x):
         calls.append(1)
         return x + int(x.sum().item())
+    return body
 
+
+@pytest.mark.cuda
+def test_cuda_lazy_capture_beside_a_replaying_sibling():
+    """The sibling check (``_sibling_check``): a capture in torch's
+    default "global" mode would make A's stream sync illegal while B
+    captures."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA-graph capture exists only on the "
+                    "card; chip_smoke.py's serve_fleet_obs runs the same "
+                    "check at full width")
+    _sibling_check()
+
+
+@pytest.mark.cuda
+def test_cuda_sibling_capture_after_a_failed_capture(monkeypatch):
+    """The sibling check after captures that failed in the process (the
+    host-read case's, a program alone and one inside an engine).  When
+    captures ran in ``torch.cuda.graph``, a failed one left this thread
+    on the process's shared capture stream, and A then gave other
+    tokens here (ROADMAP §C9)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA-graph capture exists only on the "
+                    "card; chip_smoke.py's serve_fleet_obs runs the same "
+                    "check at full width")
+    _host_read_failures(monkeypatch)
+    monkeypatch.undo()
+    _sibling_check()
+
+
+def _host_read_failures(monkeypatch):
+    """A program body that reads a device value on the host
+    (``.item()``) cannot be captured: the program raises, and nothing
+    runs the body eagerly in its place, alone or inside the engine."""
+    calls = []
     with pytest.raises(RuntimeError):
-        port_engine._Program((("x", (4,)),), body, torch.device("cuda"),
+        port_engine._Program((("x", (4,)),), _host_read_body(calls),
+                             torch.device("cuda"),
                              torch.cuda.graph_pool_handle())
     # the warm-up runs, then the failed capture; no eager call after it
     assert len(calls) == port_engine._WARM_RUNS + 1
@@ -239,6 +324,16 @@ def test_cuda_capture_of_a_host_read_raises_without_eager_retreat(
     assert len(req.tokens) == 1           # the prefill's token only
     assert ("decode", 1) not in eng._programs
     assert eng.captures == 1              # the prefill program's graph
+
+
+@pytest.mark.cuda
+def test_cuda_capture_of_a_host_read_raises_without_eager_retreat(
+        monkeypatch):
+    """``_host_read_failures``."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA-graph capture exists only on the "
+                    "card; chip_smoke.py serves through captured graphs")
+    _host_read_failures(monkeypatch)
 
 
 @pytest.mark.cuda
@@ -431,3 +526,142 @@ def test_cuda_capture_under_live_statusz_and_event_timed_replays(
         server.shutdown()
         telemetry.disable()
         telemetry.reset()
+
+
+class _FakeStream:
+    def wait_stream(self, other):
+        pass
+
+
+class _FakeGraph:
+    """``torch.cuda.CUDAGraph`` stood in for: records its calls, and
+    ``capture_end`` raises when ``end_raises``."""
+
+    end_raises = False
+
+    def __init__(self):
+        self.calls = []
+
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        self.calls.append(("begin", capture_error_mode))
+        _FakeGraph.hook()
+
+    def capture_end(self):
+        self.calls.append(("end",))
+        self.t_end = time.monotonic()
+        if self.end_raises:
+            raise RuntimeError("operation failed due to a previous error "
+                               "during capture")
+
+    def pool(self):
+        return (0, 7)
+
+    @staticmethod
+    def hook():
+        pass
+
+
+def _fake_cuda(monkeypatch):
+    """Stand CUDA's streams, graph and event in for, so a capture's own
+    code runs on the CPU; returns the graphs it made and the pools it
+    took out of the allocator's captures."""
+    graphs, ended = [], []
+
+    def make_graph():
+        g = _FakeGraph()
+        graphs.append(g)
+        return g
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "Stream", lambda d=None: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", make_graph)
+    monkeypatch.setattr(torch.cuda, "Event", object)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_endAllocateToPool",
+                        lambda i, p: ended.append((i, p)), raising=False)
+    return graphs, ended
+
+
+def test_capture_holds_the_lock_against_profiler_start(monkeypatch,
+                                                       tmp_path):
+    """``_Program._capture`` captures in ``"thread_local"`` mode and
+    holds the profiler's capture lock throughout: a ``profiler.start``
+    on another thread that waits less than the capture lasts refuses
+    (``ProfilerActive``), and one that waits longer starts only once
+    the capture has ended.  CUDA's streams, graph and event are stood
+    in for; the capture's own code runs."""
+    seen, starts = {}, {}
+
+    def start_on_thread(tag, wait_s):
+        # the profiler is stopped on the thread that started it
+        def run():
+            try:
+                profiler_mod.start(str(tmp_path / tag))
+            except profiler_mod.ProfilerActive:
+                starts[tag] = "refused"
+                return
+            starts[tag] = time.monotonic()
+            profiler_mod.stop()
+
+        monkeypatch.setattr(profiler_mod, "CAPTURE_WAIT_S", wait_s)
+        th = threading.Thread(target=run)
+        th.start()
+        return th
+
+    def during_capture():
+        start_on_thread("short", 0.2).join(timeout=30)
+        seen["late"] = start_on_thread("late", 60.0)
+        time.sleep(0.3)
+        seen["late_waited"] = "late" not in starts
+
+    graphs, _ = _fake_cuda(monkeypatch)
+    monkeypatch.setattr(_FakeGraph, "hook", staticmethod(during_capture))
+    bodies = []
+    prog = port_engine._Program((("x", (4,)),),
+                                lambda x: bodies.append(1),
+                                torch.device("cpu"))
+    prog._capture(None)
+    seen["late"].join(timeout=60)
+    assert graphs[0].calls == [("begin", "thread_local"), ("end",)]
+    assert len(bodies) == port_engine._WARM_RUNS + 1
+    assert prog.captured
+    assert starts["short"] == "refused"
+    assert seen["late_waited"] and starts["late"] >= graphs[0].t_end
+    assert profiler_mod.active_logdir() is None
+
+
+@pytest.mark.parametrize("fault", ["body_raises", "end_raises",
+                                   "body_raises_end_clean"])
+def test_failed_capture_is_abandoned(monkeypatch, fault):
+    """A capture that fails ends its stream's capture, takes its pool out
+    of the caching allocator's captures in progress when torch did not
+    (ROADMAP §C9: a leftover pool drew a sibling engine's later
+    captures into it), re-raises the capture's own error, and releases
+    the capture lock.  A body that raised inside a capture that still
+    ends cleanly leaves torch's state as torch made it.  CUDA is stood
+    in for."""
+    graphs, ended = _fake_cuda(monkeypatch)
+    monkeypatch.setattr(_FakeGraph, "end_raises",
+                        fault != "body_raises_end_clean")
+    calls = []
+
+    def body(x):
+        calls.append(1)
+        if fault != "end_raises" and len(calls) > port_engine._WARM_RUNS:
+            raise RuntimeError("the body's own error")
+
+    with pytest.raises(RuntimeError) as err:
+        port_engine._Program((("x", (4,)),), body, torch.device("cpu"),
+                             (0, 7))._capture((0, 7))
+    assert len(calls) == port_engine._WARM_RUNS + 1
+    assert graphs[0].calls == [("begin", "thread_local"), ("end",)]
+    want = ("during capture" if fault == "end_raises"
+            else "the body's own error")
+    assert want in str(err.value)
+    assert ended == ([] if fault == "body_raises_end_clean"
+                     else [(0, (0, 7))])
+    assert profiler_mod.capture_lock.acquire(timeout=1.0)
+    profiler_mod.capture_lock.release()

@@ -230,14 +230,39 @@ def test_unported_options_raise_with_their_roadmap_item(kw, item):
 
 
 @pytest.mark.parametrize("env,item", [
-    pytest.param("MXTPU_SERVE_TP=2", "item 13", id="MXTPU_SERVE_TP=2"),
-    pytest.param("MXTPU_TIMESERIES=64", "item 15", id="MXTPU_TIMESERIES=64")])
+    pytest.param("MXTPU_SERVE_TP=2", "item 13", id="MXTPU_SERVE_TP=2")])
 def test_unported_env_knobs_raise(monkeypatch, env, item):
     name, value = env.split("=")
     monkeypatch.setenv(name, value)
     _, params, heads = fx.model("gpt2")
     with pytest.raises(NotImplementedError, match=item):
         mt.serve.Engine(params, num_heads=heads, device="cpu")
+
+
+def test_timeseries_env_serves_with_a_statusz_section(monkeypatch):
+    """``MXTPU_TIMESERIES=64`` (the reference's process-global ring): the
+    engine serves the reference's tokens, and ``/statusz`` carries the
+    ring's ``timeseries`` section once the ring is first asked for."""
+    from mxnet_tpu_torch.telemetry import timeseries
+
+    monkeypatch.setenv("MXTPU_TIMESERIES", "64")
+    monkeypatch.setattr(timeseries, "_global_checked", False)
+    model = fx.model("gpt2")
+    prompts = fx.prompts(3, seed=9)
+    ref = _ref_engine(model)
+    want = [list(r.tokens) for r in _serve(ref, prompts, 6)[0]]
+    ref.shutdown()
+    eng = _port_engine(model)
+    try:
+        assert [list(r.tokens) for r in _serve(eng, prompts, 6)[0]] == want
+        ring = timeseries.ring()
+        assert ring is not None and ring.capacity == 64
+        assert timeseries.sample() is True
+        sec = mt.telemetry.statusz.snapshot()["timeseries"]
+        assert sec["capacity"] == 64 and sec["samples"] == 1
+    finally:
+        timeseries.configure(0)
+        eng.shutdown()
 
 
 def test_greedy_engine_refuses_per_request_sampling():

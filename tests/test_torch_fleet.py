@@ -419,19 +419,42 @@ def test_fleet_metric_families_match_reference(fleet_cleanup):
     assert port == ref
 
 
-def test_profilez_answers_with_its_roadmap_item(fleet_cleanup, monkeypatch):
+def test_profilez_knobs_are_honoured(fleet_cleanup, monkeypatch, tmp_path):
+    """``MXTPU_PROFILEZ_DIR``, ``_MAX_S`` and ``_INTERVAL_S`` configure
+    the replica's ``/profilez`` windows with the reference's defaults
+    (10 s, 30 s, a temporary directory) when unset."""
+    for var in ("MXTPU_PROFILEZ_DIR", "MXTPU_PROFILEZ_MAX_S",
+                "MXTPU_PROFILEZ_INTERVAL_S"):
+        monkeypatch.delenv(var, raising=False)
+    eng = _engine()
+    ref_eng = fx.ref_fleet_engine()
+    port_rep, ref_rep = ReplicaServer(eng), ref_fleet.ReplicaServer(ref_eng)
+    for rep in (port_rep, ref_rep):
+        assert (rep._profilez_dir, rep._profilez_max_s,
+                rep._profilez_interval_s) == (None, 10.0, 30.0)
+    eng.shutdown()
+    ref_eng.shutdown()
+    monkeypatch.setenv("MXTPU_PROFILEZ_DIR", str(tmp_path / "caps"))
+    monkeypatch.setenv("MXTPU_PROFILEZ_MAX_S", "0.3")
+    monkeypatch.setenv("MXTPU_PROFILEZ_INTERVAL_S", "60")
     rep = ReplicaServer(_engine(), replica_id="pz").start()
     fleet_cleanup.append(rep)
-    code, out = http_post(rep.url, "/profilez", {"duration_s": 0.1})
-    assert code == 501 and "14b-2" in out["detail"]
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        http_get(rep.url, "/profilez/x-cap1")
-    assert ei.value.code == 501
-    monkeypatch.setenv("MXTPU_PROFILEZ_DIR", "/nonexistent")
-    eng = _engine()
-    with pytest.raises(NotImplementedError, match="14b-2"):
-        ReplicaServer(eng)
-    eng.shutdown()
+    code, out = http_post(rep.url, "/profilez", {"duration_s": 5})
+    assert code == 200 and out["duration_s"] == 0.3
+    assert out["logdir"] == str(tmp_path / "caps" / out["id"])
+    code, late = http_post(rep.url, "/profilez", {"duration_s": 0.1})
+    assert code in (409, 429) and late["error"] in (
+        "capture_in_progress", "rate_limited")
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline \
+            and http_get(rep.url, f"/profilez/{out['id']}")["state"] \
+            == "running":
+        time.sleep(0.05)
+    meta = http_get(rep.url, f"/profilez/{out['id']}")
+    assert meta["state"] == "done", meta
+    assert meta["trace_file"].startswith(out["logdir"])
+    code, again = http_post(rep.url, "/profilez", {"duration_s": 0.1})
+    assert code == 429 and 0 < again["retry_after_s"] <= 60
 
 
 def test_abandoned_engine_is_collected(fleet_cleanup):
@@ -837,7 +860,7 @@ def test_supervisor_crash_restart_with_backoff(fleet_cleanup):
 
 def test_supervisor_pool_resize_and_later_items(fleet_cleanup):
     """``add_slot`` / ``remove_slot`` follow the router; the catalog
-    rebalancer and the A14b-2/3 names refuse with their items."""
+    rebalancer and the A14b-3 names refuse with their item."""
     def spawn(slot):
         rep = ReplicaServer(_engine(), replica_id=f"p{slot}").start()
         fleet_cleanup.append(rep)
@@ -856,10 +879,9 @@ def test_supervisor_pool_resize_and_later_items(fleet_cleanup):
         sup.rebalance_catalog()
     with pytest.raises(NotImplementedError, match="14b-3"):
         Supervisor(spawn, 1, catalog=object())
-    for name, item in (("FleetCollector", "14b-2"),
-                       ("SLOEvaluator", "14b-2"),
-                       ("Autoscaler", "14b-3"), ("Deployer", "14b-3"),
-                       ("CatalogRebalancer", "14b-3")):
+    for name, item in (("Autoscaler", "14b-3"), ("Deployer", "14b-3"),
+                       ("CatalogRebalancer", "14b-3"),
+                       ("parse_autoscale_spec", "14b-3")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(mt.fleet, name)
     cmd = mt.fleet.supervisor.replica_command(7, ["--device", "cpu"])

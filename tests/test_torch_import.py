@@ -52,6 +52,8 @@ import mxnet_tpu_torch.profiler, mxnet_tpu_torch.flops
 import mxnet_tpu_torch.fleet, mxnet_tpu_torch.fleet.faults
 import mxnet_tpu_torch.fleet.replica, mxnet_tpu_torch.fleet.router
 import mxnet_tpu_torch.fleet.supervisor, mxnet_tpu_torch.fleet.serve_replica
+import mxnet_tpu_torch.fleet.collector, mxnet_tpu_torch.fleet.slo
+import mxnet_tpu_torch.monitor
 import torch
 # the port's own name starts with "mxnet_tpu": match the reference by
 # exact key or by the "mxnet_tpu." prefix, never by bare prefix
@@ -266,3 +268,49 @@ def test_kernel_build_compiles_each_unit_at_once_then_links(monkeypatch,
     with pytest.raises(RuntimeError, match="bad.cu: error"):
         _build.build_library("mxtt_bad", ("a.cu", "bad.cu"))
     assert [p.name for p in out.iterdir()] == [os.path.basename(lib)]
+
+
+# the sensors' knobs (A14b-2) with a value each: the port reads every one
+# with the reference's name and default
+SENSOR_KNOBS = {"MXTPU_FLEET_COLLECT_INTERVAL": "2.5",
+                "MXTPU_SLO_FAST_WINDOW": "7", "MXTPU_SLO_SLOW_WINDOW": "70",
+                "MXTPU_SLO_FAST_BURN": "3", "MXTPU_SLO_SLOW_BURN": "1.5",
+                "MXTPU_SLO_MIN_REQUESTS": "4",
+                "MXTPU_PROFILEZ_ON_BURN": "0", "MXTPU_PROFILEZ_BURN_S": "2",
+                "MXTPU_TIMESERIES_INTERVAL": "0.25",
+                "MXTPU_TIMESERIES": "16"}
+
+
+@pytest.mark.parametrize("set_env", [False, True], ids=["unset", "set"])
+def test_sensor_knobs_are_honoured_as_the_reference(monkeypatch, set_env):
+    """The collector's interval and SLO spec, the evaluator's windows,
+    burns, minimum and burn capture, and the time-series ring's capacity
+    and interval read the reference's knobs with its defaults."""
+    import mxnet_tpu.fleet as ref_fleet
+    from mxnet_tpu.telemetry import timeseries as ref_ts
+    from mxnet_tpu_torch.telemetry import timeseries as port_ts
+
+    for var, value in SENSOR_KNOBS.items():
+        if set_env:
+            monkeypatch.setenv(var, value)
+        else:
+            monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("MXTPU_SLO_SPEC", "ttft_p99_ms=500;availability=0.99")
+    monkeypatch.delenv("MXTPU_FLEET_COLLECT_PORT", raising=False)
+
+    def read(fleet, ts):
+        col = fleet.FleetCollector(urls=[])
+        ev = col.slo
+        ts._global_checked = False
+        ring = ts.ring()
+        out = (col.interval_s, col.port, [o.key for o in ev.objectives],
+               ev.fast_s, ev.slow_s, ev.fast_burn, ev.slow_burn,
+               ev.min_requests, ev.capture_on_burn, ev.capture_s,
+               None if ring is None else (ring.capacity,
+                                          ring.sample_interval_s))
+        ts.configure(0)
+        return out
+
+    port = read(mt.fleet, port_ts)
+    assert port == read(ref_fleet, ref_ts)
+    assert (port[-1] is not None) == set_env
