@@ -156,7 +156,29 @@ Phases (any failure exits non-zero; nothing is caught):
      0, nothing unanchored); ServeMonitor with MXTPU_TIMESERIES, a line
      every 8 steps, each a ring sample, the ring's last token count the
      engine's; the paged counters zeroed before the phase equal to
-     layers x the decode steps of its in-process engines;
+     layers x the decode steps of its in-process engines; the fleet's
+     control plane (serve_fleet_control), every replica warmed from the
+     serve manifest and the grid before traffic, a FleetCollector
+     scraping every 0.3 s: an Autoscaler on AUTOSCALE_BENCH.json's spec
+     (both=2:4, up_queue 1.5, down_idle_s 4, cooldown_s 2) scaling a pool
+     of 2 up on a burst of 32 requests (24 at once, the collector
+     scraping once the replicas queue them; the rest once the new
+     replica is READY) and back down after the idle window: no
+     client-visible failure, every request's tokens one warmed engine's,
+     no capture in traffic, the retired replica collected and
+     memory_allocated() back within 16 MiB; a Deployer rolling v2 (the
+     weights re-exported through the host) under 8 streaming clients,
+     ok with /fleetz.json's versions all v2, and v3 (another seed)
+     rolled back on parity with every slot's canary tokens unchanged;
+     the same v2 rollout in float32 (the control arm); a
+     CatalogRebalancer attached to an adapters pool (rank 8, both=1:2)
+     whose a1 burst on slot 0 scales it up, the autoscaler's rebalance
+     pass moving a1 onto the new slot, which serves slot 0's a1 tokens;
+     MXTPU_COMPILE_CACHE in two child processes (the paged library a
+     miss and a put, then a hit with no miss and a paged call within
+     its bound), a 15-day-old toolkit namespace pruned and, with
+     max_entries 1, the library used last kept; the paged counters
+     equal layers x the decode steps of every engine of the phase;
   4. training: bench.py's on-chip GPT (vocab 32768, S 1024, d_model 512,
      8 heads, fused QKV, batch 16, bf16, Adam 3e-4, Xavier; its depth cut
      from 8 layers to 2) trained by parallel.ShardedTrainer for 2 warm-up
@@ -219,8 +241,8 @@ across them.  Prints the card line and one JSON line.
 
     python3 chip_smoke.py --fleet
 
-runs only the serve phase, serve_fleet and serve_fleet_obs (their
-lines, then the card line).
+runs only the serve phase, serve_fleet, serve_fleet_obs and
+serve_fleet_control (their lines, then the card line).
 """
 
 from __future__ import annotations
@@ -283,7 +305,14 @@ _LAP = [None]
 
 
 def lap(phase):
-    """Record the seconds since the previous lap under ``phase``."""
+    """Collect the garbage the phase left, then record the seconds since
+    the previous lap under ``phase``.  An engine is a reference cycle: one
+    the collector frees later, inside another phase, shows on that
+    phase's /statusz page until then and frees its graphs amid that
+    phase's steps."""
+    import gc
+
+    gc.collect()
     now = time.perf_counter()
     if _LAP[0] is not None:
         PHASE_SECONDS[phase] = now - _LAP[0]
@@ -631,11 +660,12 @@ def serve_prompts(seed=0):
             for n in (16, 32, 64, 128, 16, 32, 64, 128)]
 
 
-def serve_params(seed=0):
+def serve_params(seed=0, std=0.02):
     """The serving model's random weights, drawn on the card from a seed
     (a host draw of ~67M values would take seconds): gpt()'s argument
-    names and shapes with gpt_params' scales (weights N(0, 0.02^2),
-    biases and norm shifts 0, norm gains 1), float32."""
+    names and shapes with gpt_params' scales (weights N(0, std^2), std
+    0.02 by default, biases and norm shifts 0, norm gains 1),
+    float32."""
     from mxnet_tpu_torch.models import gpt_arguments
 
     g = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -643,7 +673,7 @@ def serve_params(seed=0):
     for arg, shp in gpt_arguments(SERVE_CFG["vocab"], 256,
                                   **{k: v for k, v in SERVE_CFG.items()
                                      if k != "vocab"}):
-        s = 0.02 if arg.endswith("weight") else 0.0
+        s = std if arg.endswith("weight") else 0.0
         params[arg] = (torch.randn(shp, generator=g, device=DEVICE) * s
                        + (1.0 if arg.endswith("gamma") else 0.0))
     return params
@@ -1869,7 +1899,8 @@ def serve_sample(np_params):
               / rows["greedy"]["decode_step_ms_mean"]),
           "profiles": {tag: {k: p[k] for k in (
               "decode_steps", "kernel_ms_per_step", "wall_ms_per_step",
-              "ms_per_step_by_kind", "top_kernels_ms_per_step")}
+              "ms_per_step_by_kind", "top_kernels_ms_per_step",
+              "traced_paged_kernels", "counted_paged_launches")}
               for tag, p in profiles.items()},
           "greedy_rows": greedy_rows, "greedy_rows_equal": greedy_equal,
           "logprobs_ok": logprobs_ok, "sampler": sampler,
@@ -1882,7 +1913,11 @@ def serve_sample(np_params):
           "same_seed_same_stream": same_seed,
           "other_seed_other_stream": other_seed, "ok": ok})
     if not ok:
-        raise SystemExit("sampled serving failed its checks")
+        raise SystemExit("sampled serving failed its checks: " + json.dumps(
+            {"profiles_ok": prof_ok, "profiles": {
+                tag: {k: p[k] for k in ("traced_paged_kernels",
+                                        "counted_paged_launches")}
+                for tag, p in profiles.items()}}))
     return {"sampling": rows["sampling"], "spec_on": r_on}
 
 
@@ -2151,7 +2186,8 @@ def serve_lora(np_params):
            "profiles": {tag: {k: p[k] for k in (
                "decode_steps", "kernel_ms_per_step", "wall_ms_per_step",
                "kernels_per_step", "ms_per_step_by_kind",
-               "top_kernels_ms_per_step")} for tag, p in profiles.items()},
+               "top_kernels_ms_per_step", "traced_paged_kernels",
+               "counted_paged_launches")} for tag, p in profiles.items()},
            "base_rows_equal_off": base_equal, "launches_ok": launches_ok,
            "bf16_agreement_vs_merged": agree, "bf16_flips": bad,
            "adapter_info": info, "float32": f32, "ok": ok}
@@ -2627,10 +2663,11 @@ def serve_telemetry(np_params, serve_row, serve_toks, card):
                 page = json.loads(r.read())
             with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
                 prom = r.read().decode()
-            served = [v for k, v in page.items()
-                      if k.startswith("serve.engine")]
+            # this engine's own section: another engine the collector has
+            # not freed yet may share the page
             summary = eng.perf_summary()
-            http_perf = served[0]["perf"] if len(served) == 1 else None
+            http_perf = (page[eng._statusz_name]["perf"]
+                         if eng._statusz_name in page else None)
             prom_counts = {
                 (lb["kind"], int(lb["bucket"])): v for lb, v in _prom_series(
                     prom, "mxtpu_serve_program_seconds_count")}
@@ -2646,6 +2683,15 @@ def serve_telemetry(np_params, serve_row, serve_toks, card):
                         / sum(r["mean_s"] * r["sampled"] for r in rs)
                         / perf["peak_flops_per_chip"])
             mfu = perf["mfu"]
+            views = {"statusz_engine": eng._statusz_name,
+                     "statusz_engines": sorted(k for k in page
+                                               if k.startswith("serve.engine")),
+                     "mfu": [http_perf and http_perf["mfu"], summary["mfu"],
+                             mfu],
+                     "sampled": [summary["sampled"],
+                                 sum(prom_counts.values())],
+                     "prom_kinds": sorted(prom_mfu),
+                     "perf_kinds": sorted(kind_mfu)}
             checks["views_agree"] = (
                 http_perf is not None
                 and http_perf["mfu"] == summary["mfu"] == mfu
@@ -2745,7 +2791,7 @@ def serve_telemetry(np_params, serve_row, serve_toks, card):
            "split_plans": {str(b): list(p) for b, p in plans.items()},
            "perf_decode8_ms": perf_ms, "graph_ms_decode8": g_ms,
            "timing_bound_ms": TIMING_REL * g_ms + TIMING_ABS_MS,
-           "mfu": mfu, "mfu_by_kind": kind_mfu,
+           "mfu": mfu, "mfu_by_kind": kind_mfu, "views": views,
            "achieved_tflops": perf["achieved_tflops"],
            "cost_per_1k_tokens_s": perf["cost_per_1k_tokens_s"],
            "perf_programs": {f"{k}/{b}": {
@@ -2765,7 +2811,9 @@ def serve_telemetry(np_params, serve_row, serve_toks, card):
            "checks": checks, "ok": ok}
     emit(out)
     if not ok:
-        raise SystemExit(f"serve_telemetry failed its checks: {checks}")
+        # stderr is what a refused run shows: the views beside the checks
+        raise SystemExit(f"serve_telemetry failed its checks: {checks}; "
+                         f"views: {out.get('views')}")
     return out
 
 
@@ -3411,7 +3459,7 @@ def serve_fleet(np_params, serve_row, serve_toks, manifest, card):
                        MXTPU_TORCH_BUILD_DIR=_build.build_dir(),
                        MXTPU_WARMUP_MANIFEST=front_manifest)
             for var in ("MXTPU_FAULT_SPEC", "MXTPU_AOT_DIR",
-                        "MXTPU_FLEET_ROLE"):
+                        "MXTPU_FLEET_ROLE", "MXTPU_COMPILE_CACHE"):
                 env.pop(var, None)
             spawned = []
 
@@ -3942,7 +3990,8 @@ def process_capture_check(tmp):
                        MXTPU_PROFILEZ_DIR=os.path.join(tmp, f"pcaps{i}"),
                        MXTPU_PROFILEZ_INTERVAL_S="0")
             for var in ("MXTPU_FAULT_SPEC", "MXTPU_WARMUP_MANIFEST",
-                        "MXTPU_SLO_SPEC", "MXTPU_FLIGHT_DIR"):
+                        "MXTPU_SLO_SPEC", "MXTPU_FLIGHT_DIR",
+                        "MXTPU_COMPILE_CACHE"):
                 env.pop(var, None)
             procs.append(ProcessReplica(replica_command(
                 0, FLEET_FRONT_FLAGS + ["--device", DEVICE, "--warmup",
@@ -4102,6 +4151,7 @@ def serve_fleet_obs(np_params, serve_row, serve_toks, manifest, card):
         from mxnet_tpu_torch import _build
 
         env["MXTPU_TORCH_BUILD_DIR"] = _build.build_dir()
+        env.pop("MXTPU_COMPILE_CACHE", None)   # the build dir names it
         t0 = time.perf_counter()
         try:
             out = subprocess.run(
@@ -4146,6 +4196,928 @@ def serve_fleet_obs(np_params, serve_row, serve_toks, manifest, card):
     return out
 
 
+# -- the fleet's control plane (serve_fleet_control) -------------------------
+# tools/fleet_bench.py --autoscale-spec's setting, as AUTOSCALE_BENCH.json
+# records it
+CONTROL_SPEC = "both=2:4;up_queue=1.5;down_idle_s=4;cooldown_s=2"
+# the phase's checkpoints: the serve config's draw at std 0.05.  At
+# gpt_params' 0.02 every greedy stream repeats its prompt's last token
+# whatever the seed, so no canary could tell two checkpoints apart; at
+# 0.05 the tokens depend on the weights
+CONTROL_WEIGHT_STD = 0.05
+CONTROL_BURST = 32             # requests of the burst, 32 new tokens each
+CONTROL_BURST_STEP = 24        # arriving at once; the rest once the
+#                                scaled-up replica is READY
+CONTROL_SCRAPE_S = 0.3         # the collectors' scrape period
+CONTROL_EVAL_S = 0.05          # the autoscalers' policy period
+# memory_allocated() after the scaled-up replica retired and was collected
+# against before the scale-up: 16 MiB, plus the one cuBLAS workspace
+# (32 MiB on sm_90) torch keeps for the engine's capture thread and
+# stream, which a later thread given the same cuBLAS handle reuses.  The
+# engine alone holds its bf16 weights (~146 MB) and cache (~25 MB)
+CONTROL_MEM_SLACK = (16 + 32) << 20
+CONTROL_STREAM = 8             # concurrent clients of the deploy arm
+CONTROL_HOP_S = 30.0           # the phase's routers' per-hop timeout
+CONTROL_WATCHDOG_S = 200.0     # every thread's stack to stderr past this
+CONTROL_IDLE_S = 2.0           # the stream's window without a rollout
+CATALOG_SPEC = "both=1:2"
+CATALOG_RANK = 8
+CATALOG_ALPHA = 16.0
+CATALOG_BURST = 24             # a1 requests at once, 16 new tokens each
+CATALOG_MODEL = "gpt-serve"
+
+
+class _Ledger:
+    """Every engine the phase ran: its captures after warm-up and, once
+    it retired, its decode steps and its captures in traffic.  Holds
+    engines by weak reference only, so a retired one can be collected."""
+
+    def __init__(self):
+        self.rows = {}
+        self._lock = threading.Lock()
+
+    def add(self, name, eng, spawn_s=None):
+        import weakref
+
+        with self._lock:
+            self.rows[name] = {"ready_t": time.monotonic(),
+                               "spawn_s": spawn_s,
+                               "warm_captures": eng.captures,
+                               "engine": weakref.ref(eng)}
+
+    def retire(self, name, eng):
+        with self._lock:
+            row = self.rows[name]
+            if "decode_steps" not in row:
+                row["decode_steps"] = eng.decode_steps
+                row["captures_in_traffic"] = (eng.captures
+                                              - row["warm_captures"])
+
+    def close(self):
+        """Retire every engine still alive; the table without the
+        references."""
+        for name, row in list(self.rows.items()):
+            eng = row["engine"]()
+            if eng is not None:
+                self.retire(name, eng)
+        return {name: {k: v for k, v in row.items() if k != "engine"}
+                for name, row in self.rows.items()}
+
+
+class _CtlHandle:
+    """A supervisor handle over an in-process replica; retiring it
+    records its engine in the ledger."""
+
+    def __init__(self, rep, ledger):
+        self.replica, self.url, self.ledger = rep, rep.url, ledger
+
+    def poll(self):
+        return None if self.replica.state != "dead" else 1
+
+    def terminate(self, grace_s=None):
+        self.replica.stop()
+        self.ledger.retire(self.replica.replica_id, self.replica.engine)
+
+
+def _control_engine(params, manifest, dtype=torch.bfloat16, before=None,
+                    **kw):
+    """The serve config's engine in ``dtype`` warmed from ``manifest``
+    (entries of another engine's digest are skipped) and the full bucket
+    grid; ``before(eng)`` runs ahead of the warm-up."""
+    eng = full_width_engine(params, dtype, **kw)
+    if before is not None:
+        before(eng)
+    eng.warmup(manifest)
+    eng.warmup()
+    torch.cuda.synchronize()
+    if eng.paged_impl != "cuda":
+        raise SystemExit(f"engine resolved paged_impl={eng.paged_impl}")
+    return eng
+
+
+def _control_spawn(params, manifest, ledger, version, tag, dtype=None,
+                   before=None, replica_kw=None, **kw):
+    """``spawn(slot)`` for a Supervisor: a warmed replica of the serve
+    config, tagged ``version``, its engine in the ledger."""
+    import itertools
+
+    from mxnet_tpu_torch.fleet import ReplicaServer
+
+    gen = itertools.count(1)
+
+    def spawn(slot):
+        t0 = time.perf_counter()
+        eng = _control_engine(params, manifest, dtype or torch.bfloat16,
+                              before=(lambda e: before(slot, e))
+                              if before else None, **kw)
+        rid = f"{tag}-{version}-s{slot}-{next(gen)}"
+        rep = ReplicaServer(eng, replica_id=rid, version=version,
+                            **(replica_kw or {})).start()
+        ledger.add(rid, eng, time.perf_counter() - t0)
+        return _CtlHandle(rep, ledger)
+
+    return spawn
+
+
+def _progress(step, **fields):
+    """One line a step of the phase, flushed: where a slow or stuck run
+    got to."""
+    print(json.dumps({"phase": "serve_fleet_control_progress",
+                      "step": step, "t": round(time.perf_counter(), 3),
+                      **fields}), flush=True)
+
+
+def _wait(pred, timeout, poll=0.005):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(poll)
+    return True
+
+
+def _serving(sup):
+    """Replicas of the pool that are up (a slot being spawned has no
+    handle yet)."""
+    return sum(1 for h in sup.handles()
+               if h is not None and h.replica.state == "ready")
+
+
+def _queued(sup):
+    """Requests waiting in the pool's engines' queues (host state)."""
+    return sum(h.replica.engine.scheduler.queue_depth
+               for h in sup.handles() if h is not None)
+
+
+def _counter_rows(name):
+    from mxnet_tpu_torch import telemetry
+
+    snap = telemetry.registry().snapshot().get(name) or {}
+    return [{"labels": s["labels"], "value": s["value"]}
+            for s in snap.get("samples", ())]
+
+
+def _counter_delta(name, before):
+    """``{label values: increase}`` of counter ``name`` since the rows
+    ``before`` (:func:`_counter_rows`), the unmoved series left out."""
+    def by_labels(rows):
+        return {tuple(r["labels"].values()): r["value"] for r in rows}
+
+    was = by_labels(before)
+    return {k: v - was.get(k, 0.0)
+            for k, v in by_labels(_counter_rows(name)).items()
+            if v != was.get(k, 0.0)}
+
+
+class _Stream:
+    """``n`` closed-loop clients through ``router``: each sends a fresh
+    prompt (16-128 tokens, ``max_new`` new) as soon as its previous one
+    returned, until stopped; each completion's time and tokens, each
+    client-visible failure."""
+
+    def __init__(self, router, n, seed, max_new=16):
+        self.router, self.n, self.max_new = router, n, max_new
+        self.seed = seed
+        self.done, self.failures, self.slow = [], [], []
+        self._stop = threading.Event()
+        self._threads = []
+
+    def _client(self, k):
+        rng = np.random.RandomState(self.seed * 100 + k)
+        i = 0
+        while not self._stop.is_set():
+            p = rng.randint(0, SERVE_CFG["vocab"],
+                            (int(rng.randint(16, 129)),))
+            t0 = time.monotonic()
+            try:
+                r = self.router.generate(p.tolist(),
+                                         max_new_tokens=self.max_new,
+                                         request_id=f"s{self.seed}-{k}-{i}")
+                now = time.monotonic()
+                self.done.append((now, len(r.tokens)))
+                if now - t0 > 5.0:        # a stall: where it waited
+                    self.slow.append({"s": now - t0, "at": t0,
+                                      "attempts": r.attempts,
+                                      "hops": r.hops})
+            except Exception as e:   # a client-visible failure: judged
+                self.failures.append(repr(e)[:300])
+            i += 1
+
+    def start(self):
+        self._threads = [threading.Thread(target=self._client, args=(k,),
+                                          daemon=True)
+                         for k in range(self.n)]
+        for t in self._threads:
+            t.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=CONTROL_HOP_S * 5 + 30)
+
+    def tok_per_s(self, a, b):
+        toks = sum(n for t, n in list(self.done) if a <= t <= b)
+        return toks / (b - a) if b > a else None
+
+
+def control_autoscale(np_params, manifest, ledger):
+    """The autoscale arm: a pool of 2 under ``CONTROL_SPEC``, the
+    burst's first ``CONTROL_BURST_STEP`` requests at once (the collector
+    scrapes once the replicas queue them), the rest once the scaled-up
+    replica is READY; then quiet until the pool is back at 2.  Tokens
+    against one warmed engine serving every prompt; the retired replica
+    collected and its memory released."""
+    import gc
+
+    from mxnet_tpu_torch.fleet import (Autoscaler, FleetCollector, Router,
+                                       Supervisor)
+
+    checks, row = {}, {}
+    rng = np.random.RandomState(21)
+    prompts = [rng.randint(0, SERVE_CFG["vocab"], (int(n),)).astype(np.int32)
+               for n in rng.randint(16, 129, CONTROL_BURST)]
+    ref = _control_engine(np_params, manifest)
+    ledger.add("autoscale-reference", ref)
+    reqs = [ref.submit(p, max_new_tokens=32) for p in prompts]
+    ref.run()
+    want = [r.tokens for r in reqs]
+    del reqs
+    _progress("autoscale_reference_served")
+    router = Router([], scrape_interval_s=0.2, timeout_s=CONTROL_HOP_S,
+                    retries=4, backoff_s=0.02, backoff_max_s=0.2,
+                    breaker_fails=10)
+    col = FleetCollector(router=router, interval_s=CONTROL_SCRAPE_S,
+                         slo_spec="")
+    sup = Supervisor(_control_spawn(np_params, manifest, ledger, "v1",
+                                    "auto"), 2, router=router,
+                     collector=col, restart_backoff_s=0.0,
+                     drain_timeout_s=120)
+    scaler = Autoscaler(col, sup, spec=CONTROL_SPEC,
+                        interval_s=CONTROL_EVAL_S)
+    results, fails, done_t = {}, {}, {}
+    sizes = []
+    try:
+        sup.start()
+        _progress("autoscale_pool_started")
+        router.scrape()
+        router.start()
+        col.scrape()
+        col.start()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        scaler.start()
+        stop_mon = threading.Event()
+
+        def monitor():
+            while not stop_mon.wait(0.02):
+                sizes.append((time.monotonic(), _serving(sup)))
+
+        mon = threading.Thread(target=monitor, daemon=True)
+        mon.start()
+
+        def one(i):
+            try:
+                results[i] = router.generate(prompts[i].tolist(),
+                                             max_new_tokens=32,
+                                             request_id=f"burst-{i}")
+                done_t[i] = time.monotonic()
+            except Exception as e:   # a client-visible failure: judged
+                fails[i] = repr(e)[:300]
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(CONTROL_BURST_STEP)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        need = scaler.cfg["up_queue"] * 2
+        queued = _wait(lambda: _queued(sup) >= need, 10.0, poll=0.001)
+        queued_t = time.monotonic()
+        # forced by this script: the burst's queue can end within one
+        # scrape period, unseen by the autoscaler (the reaction times
+        # below include this scrape, not the collector's period)
+        col.scrape()
+        _progress("autoscale_queue", seen=queued, queued=_queued(sup))
+        grew = _wait(lambda: _serving(sup) > 2, 60.0)
+        _progress("autoscale_grew", grew=grew, serving=_serving(sup))
+        fresh_ids = [h.replica.replica_id for h in sup.handles()[2:]
+                     if h is not None]
+        router.scrape()
+        rest = [threading.Thread(target=one, args=(i,))
+                for i in range(CONTROL_BURST_STEP, CONTROL_BURST)]
+        for t in rest:
+            t.start()
+            time.sleep(0.1)
+        for t in threads + rest:
+            t.join(timeout=CONTROL_HOP_S * 5 + 30)
+        _progress("autoscale_burst_done", completed=len(results),
+                  failures=len(fails))
+        t_end = max(done_t.values(), default=t0)
+        settled = _wait(lambda: sup.pool_size() == 2
+                        and time.monotonic() - t_end > 4.0, 60.0)
+        stop_mon.set()
+        mon.join(timeout=5)
+        scaler.stop()
+        _progress("autoscale_settled", settled=settled,
+                  serving=_serving(sup))
+        fresh = {rid: ledger.rows[rid] for rid in fresh_ids}
+        gone = all(r["engine"]() is None for r in fresh.values())
+        t_gc = time.monotonic()
+        while not gone and time.monotonic() < t_gc + 30:
+            gc.collect()
+            time.sleep(0.1)     # its HTTP and step threads end
+            gone = all(r["engine"]() is None for r in fresh.values())
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        anns = col.annotations(500)
+    finally:
+        scaler.stop()
+        col.stop()
+        router.stop()
+        sup.stop()
+    got = [results[i].tokens if i in results else None
+           for i in range(CONTROL_BURST)]
+    ups = [a for a in anns if a["kind"] == "autoscale"
+           and a["direction"] == "up"]
+    downs = [a for a in anns if a["kind"] == "autoscale"
+             and a["direction"] == "down"]
+    fresh_served = sorted(done_t[i] for i, r in results.items()
+                          if r.replica in fresh_ids)
+    peak = max((n for _, n in sizes), default=0)
+    checks["autoscale_scaled_up"] = grew and peak >= 3 and bool(ups)
+    checks["autoscale_scaled_down"] = (settled and bool(downs)
+                                       and sup.pool_size() == 2)
+    checks["autoscale_completed"] = (not fails
+                                     and len(results) == CONTROL_BURST)
+    checks["autoscale_tokens"] = got == want
+    checks["autoscale_fresh_served"] = bool(fresh_served)
+    checks["autoscale_retired_collected"] = gone
+    checks["autoscale_memory_released"] = (
+        mem_after - mem_before <= CONTROL_MEM_SLACK)
+    tokens = sum(len(t) for t in got if t)
+    step_done = [done_t[i] for i in range(CONTROL_BURST_STEP) if i in done_t]
+    row.update({
+        "spec": CONTROL_SPEC, "requests": CONTROL_BURST,
+        "arriving_at_once": CONTROL_BURST_STEP,
+        "queue_seen": queued, "queue_seen_s": queued_t - t0,
+        "reaction_s": {
+            "scale_up_spawn_began": (min(r["ready_t"] - r["spawn_s"]
+                                         for r in fresh.values()) - t0
+                                     if fresh else None),
+            "autoscale_annotation": (ups[0]["t"] - t0) if ups else None,
+            "fresh_ready": (min(r["ready_t"] for r in fresh.values()) - t0
+                            if fresh else None),
+            "fresh_first_served": (fresh_served[0] - t0
+                                   if fresh_served else None)},
+        "fresh_spawn_s": [r["spawn_s"] for r in fresh.values()],
+        "fresh_requests_served": len(fresh_served),
+        "peak_replicas": peak, "settled_replicas": sup.pool_size(),
+        "scale_down_s_after_last_request": (
+            downs[0]["t"] - t_end if downs else None),
+        "burst_tok_per_s": tokens / (t_end - t0) if t_end > t0 else None,
+        "step_tok_per_s": (sum(len(got[i]) for i in range(CONTROL_BURST_STEP)
+                               if got[i]) / (max(step_done) - t0)
+                           if step_done else None),
+        "failures": fails,
+        "flips": flips(ref, prompts, want, [t or [] for t in got]),
+        "memory_allocated_before_scale_up": mem_before,
+        "memory_allocated_after_retire": mem_after,
+        "memory_bound_bytes": CONTROL_MEM_SLACK,
+        "annotations": [{k: a.get(k) for k in ("kind", "direction",
+                                               "reason", "slot",
+                                               "pool_size", "phase")}
+                        for a in anns if a["kind"].startswith(
+                            ("autoscale", "scale_"))]})
+    ref.shutdown()
+    ledger.retire("autoscale-reference", ref)
+    del ref
+    return row, checks
+
+
+def _fleetz_versions(col):
+    col.scrape()
+    view = _http(col.url, "/fleetz.json", timeout=30)
+    return (view.get("roles") or {}).get("both", {}).get("versions")
+
+
+def _rollout_walls(anns):
+    """Each replacement's drain-to-ready seconds in the order they ran,
+    split at the rollback's start: (rollout slots, rollback slots)."""
+    out, back, rolling_back = [], [], False
+    for a in anns:
+        if a["kind"] == "deploy_rollback" and a.get("phase") == "start":
+            rolling_back = True
+        elif (a["kind"] == "deploy_replace_slot"
+              and a.get("phase") == "respawned"):
+            (back if rolling_back else out).append(a["wall_s"])
+    return out, back
+
+
+def control_deploy(np_params, manifest, ledger, dtype, v3=True):
+    """The deploy arm in ``dtype``: a pool of 2 (``v1``) under a stream
+    of ``CONTROL_STREAM`` clients; rollout ``v2`` (the same weights,
+    re-exported through the host) must end ``ok`` with every slot ``v2``
+    in ``/fleetz.json``; with ``v3``, weights from another seed must
+    roll back on ``parity``, every slot back on ``v2`` and serving the
+    canary signatures it served before; no client-visible failure."""
+    from mxnet_tpu_torch.fleet import (Deployer, FleetCollector, Router,
+                                       Supervisor)
+
+    tag = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+    checks, row = {}, {}
+    params_v2 = {k: torch.from_numpy(v.detach().cpu().numpy()).to(DEVICE)
+                 for k, v in np_params.items()}
+    spawn_v1 = _control_spawn(np_params, manifest, ledger, "v1", tag,
+                              dtype=dtype)
+    spawn_v2 = _control_spawn(params_v2, manifest, ledger, "v2", tag,
+                              dtype=dtype)
+    router = Router([], scrape_interval_s=0.2, timeout_s=CONTROL_HOP_S,
+                    retries=4, backoff_s=0.02, backoff_max_s=0.2,
+                    breaker_fails=10)
+    col = FleetCollector(router=router, interval_s=CONTROL_SCRAPE_S, port=0,
+                         slo_spec="")
+    sup = Supervisor(spawn_v1, 2, router=router, collector=col,
+                     restart_backoff_s=0.0, drain_timeout_s=120)
+    dep = Deployer(sup, collector=col)
+    stream = _Stream(router, CONTROL_STREAM, seed=31 if v3 else 32)
+    params_v3 = None
+    try:
+        sup.start()
+        router.scrape()
+        router.start()
+        col.start()
+        stream.start()
+        t_idle = time.monotonic()
+        time.sleep(CONTROL_IDLE_S)
+        t2 = time.monotonic()
+        row["t_v2_start"] = t2
+        _progress(f"deploy_{tag}_v2_start")
+        report2 = dep.rollout(spawn_v2, version="v2", old_factory=spawn_v1)
+        t2_end = time.monotonic()
+        row["t_v2_done"] = t2_end
+        _progress(f"deploy_{tag}_v2_done", status=report2["status"],
+                  reason=report2["reason"])
+        versions2 = _fleetz_versions(col)
+        anns2 = col.annotations(500)
+        row["v2"] = {k: report2[k] for k in ("status", "reason", "replaced",
+                                             "rolled_back", "refs")}
+        row["v2"].update(wall_s=t2_end - t2, versions=versions2,
+                         slot_wall_s=_rollout_walls(anns2)[0])
+        checks[f"deploy_{tag}_v2_ok"] = (report2["status"] == "ok"
+                                         and report2["replaced"] == 2)
+        checks[f"deploy_{tag}_v2_versions"] = versions2 == {"v2": 2}
+        row["stream_tok_per_s_idle"] = stream.tok_per_s(t_idle, t2)
+        row["stream_tok_per_s_rollout_v2"] = stream.tok_per_s(t2, t2_end)
+        if v3:
+            before = {s: dep.probe(sup.handles()[s].url, "both")
+                      for s in sup.active_slots()}
+            params_v3 = serve_params(1, std=CONTROL_WEIGHT_STD)
+            spawn_v3 = _control_spawn(params_v3, manifest, ledger, "v3",
+                                      tag, dtype=dtype)
+            n_anns = len(col.annotations(500))
+            t3 = time.monotonic()
+            report3 = dep.rollout(spawn_v3, version="v3",
+                                  old_factory=spawn_v2)
+            t3_end = time.monotonic()
+            _progress(f"deploy_{tag}_v3_done", status=report3["status"],
+                      reason=report3["reason"])
+            versions3 = _fleetz_versions(col)
+            after = {s: dep.probe(sup.handles()[s].url, "both")
+                     for s in sup.active_slots()}
+            out3, back3 = _rollout_walls(col.annotations(500)[n_anns:])
+            row["v3"] = {k: report3[k] for k in (
+                "status", "reason", "replaced", "rolled_back", "refs")}
+            row["v3"].update(wall_s=t3_end - t3, versions=versions3,
+                             slot_wall_s=out3, rollback_slot_wall_s=back3,
+                             rollback_wall_s=sum(back3))
+            row["stream_tok_per_s_rollout_v3"] = stream.tok_per_s(t3,
+                                                                  t3_end)
+            checks[f"deploy_{tag}_v3_rolled_back_on_parity"] = (
+                report3["status"] == "rolled_back"
+                and report3["reason"] == "parity"
+                and report3["rolled_back"] == report3["replaced"] >= 1)
+            checks[f"deploy_{tag}_v3_back_on_v2"] = versions3 == {"v2": 2}
+            checks[f"deploy_{tag}_v3_tokens_unchanged"] = (
+                after == before and len(after) == 2)
+            row["canary_signatures"] = {str(s): [list(t) for t in sig]
+                                        for s, sig in before.items()}
+        stream.stop()
+        _progress(f"deploy_{tag}_stream_stopped")
+        row["stream_requests"] = len(stream.done)
+        row["stream_slow_requests"] = stream.slow[:10]
+        row["stream_failures"] = stream.failures[:10]
+        checks[f"deploy_{tag}_no_client_failure"] = (
+            not stream.failures and len(stream.done) > 0)
+        row["counters"] = {
+            name: _counter_rows(name) for name in (
+                "mxtpu_deploy_slots_replaced_total",
+                "mxtpu_deploy_rollbacks_total")}
+    finally:
+        stream.stop()
+        col.stop()
+        router.stop()
+        sup.stop()
+    _progress(f"deploy_{tag}_stopped")
+    del params_v2, params_v3
+    return row, checks
+
+
+def control_catalog(np_params, manifest, ledger):
+    """The catalog arm: an adapters pool (rank ``CATALOG_RANK``) under
+    ``CATALOG_SPEC``, adapter ``a1`` on slot 0 only; a burst of a1
+    requests queues there and scales the pool up; the autoscaler's
+    ``rebalance_catalog`` pass (the supervisor's, over an unmodified
+    ``CatalogRebalancer``) moves a1 onto the fresh slot, which then
+    serves a1 with slot 0's tokens (one request at a time to each)."""
+    from mxnet_tpu_torch.fleet import (Autoscaler, CatalogRebalancer,
+                                       FleetCollector, Router, Supervisor)
+    from mxnet_tpu_torch.serve.adapters import gpt_stems
+
+    checks, row = {}, {}
+    stems = gpt_stems("gpt", SERVE_CFG["num_layers"], True, True, np_params)
+    rng = np.random.RandomState(41)
+    a1 = {stem: ((rng.randn(CATALOG_RANK, din) * 0.1).astype(np.float32),
+                 (rng.randn(dout, CATALOG_RANK) * 0.1).astype(np.float32))
+          for stem, (dout, din) in stems.items()}
+
+    def before(slot, eng):
+        if slot == 0:
+            eng.adapter_store.register("a1", a1, alpha=CATALOG_ALPHA)
+
+    router = Router([], scrape_interval_s=0.2, timeout_s=CONTROL_HOP_S,
+                    retries=4, backoff_s=0.02, backoff_max_s=0.2,
+                    breaker_fails=10)
+    col = FleetCollector(router=router, interval_s=CONTROL_SCRAPE_S,
+                         slo_spec="")
+    moves_before = _counter_rows("mxtpu_fleet_catalog_moves_total")
+    sup = Supervisor(_control_spawn(
+        np_params, manifest, ledger, "v1", "cat", before=before,
+        replica_kw={"model": CATALOG_MODEL}, adapters=4,
+        adapter_rank=CATALOG_RANK), 1, router=router, collector=col,
+        catalog=CatalogRebalancer(col), restart_backoff_s=0.0,
+        drain_timeout_s=120)
+    scaler = Autoscaler(col, sup, spec=CATALOG_SPEC,
+                        interval_s=CONTROL_EVAL_S)
+    rng = np.random.RandomState(42)
+    prompts = [rng.randint(0, SERVE_CFG["vocab"], (int(n),))
+               for n in rng.randint(16, 129, CATALOG_BURST)]
+    results, fails = {}, {}
+
+    def one(i):
+        try:
+            results[i] = router.generate(
+                prompts[i].tolist(), max_new_tokens=16, model=CATALOG_MODEL,
+                adapter="a1", request_id=f"a1-{i}")
+        except Exception as e:   # a client-visible failure: judged
+            fails[i] = repr(e)[:300]
+
+    try:
+        sup.start()
+        router.scrape()
+        router.start()
+        # a1 in use before the burst: its goodput is on the collector's
+        # view whenever the scale-up's pass plans
+        router.generate(prompts[0].tolist(), max_new_tokens=16,
+                        model=CATALOG_MODEL, adapter="a1",
+                        request_id="a1-first")
+        col.scrape()
+        col.start()
+        scaler.start()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(CATALOG_BURST)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        need = scaler.cfg["up_queue"]
+        queued = _wait(lambda: _queued(sup) >= need, 10.0, poll=0.001)
+        # forced by this script: the burst's queue can end within one
+        # scrape period, unseen by the autoscaler
+        col.scrape()
+        _progress("catalog_queue", seen=queued, queued=_queued(sup))
+        moved = _wait(lambda: any(
+            a["kind"] == "catalog_rebalance"
+            and a.get("reason") == "scale_up_both"
+            for a in col.annotations(500)), 60.0)
+        t_moved = time.monotonic()
+        _progress("catalog_moved", moved=moved)
+        for t in threads:
+            t.join(timeout=CONTROL_HOP_S * 5 + 30)
+        scaler.stop()
+        handles = [h for h in sup.handles() if h is not None]
+        slot0 = handles[0]
+        fresh = handles[1] if len(handles) > 1 else None
+        fresh_ads = (_http(fresh.url, "/healthz")["adapters"]
+                     if fresh is not None else None)
+        probe = np.random.RandomState(43).randint(
+            0, SERVE_CFG["vocab"], (40,)).tolist()
+        toks = {}
+        for name, h in (("slot0", slot0), ("fresh", fresh)):
+            if h is not None and (name == "slot0" or fresh_ads == ["a1"]):
+                toks[name] = _http(h.url, "/generate", {
+                    "prompt": probe, "max_new_tokens": 32, "adapter": "a1",
+                    "model": CATALOG_MODEL})["tokens"]
+        base = _http(slot0.url, "/generate", {
+            "prompt": probe, "max_new_tokens": 32})["tokens"]
+        t_export = time.perf_counter()
+        export = json.dumps(_http(slot0.url, "/adapter_export",
+                                  {"adapter": "a1"})).encode()
+        export_ms = 1e3 * (time.perf_counter() - t_export)
+        anns = col.annotations(500)
+    finally:
+        scaler.stop()
+        col.stop()
+        router.stop()
+        sup.stop()
+    moves = _counter_delta("mxtpu_fleet_catalog_moves_total", moves_before)
+    ups = [a for a in anns if a["kind"] == "autoscale"
+           and a.get("direction") == "up"]
+    passes = [a for a in anns if a["kind"] == "catalog_rebalance"
+              and a.get("reason") == "scale_up_both"]
+    checks["catalog_scaled_up"] = moved and fresh is not None
+    # only the autoscaler's passes load adapters in this arm
+    checks["catalog_moved_by_autoscaler"] = (
+        fresh_ads == ["a1"] and bool(passes)
+        and passes[0].get("applied") == passes[0].get("ok") == 1
+        and moves == {("spread", "ok"): 1.0})
+    checks["catalog_tokens"] = ("fresh" in toks
+                                and toks["fresh"] == toks["slot0"])
+    checks["catalog_adapter_moves_tokens"] = base != toks["slot0"]
+    checks["catalog_burst_completed"] = (not fails
+                                         and len(results) == CATALOG_BURST)
+    row.update({
+        "spec": CATALOG_SPEC, "rank": CATALOG_RANK, "requests":
+        CATALOG_BURST, "queue_seen": queued,
+        "moved_s_after_burst_start": t_moved - t0,
+        "moves_by_action_outcome": {"/".join(k): v
+                                    for k, v in moves.items()},
+        # the scale-up's catalog pass, its autoscale annotation to its
+        # catalog_rebalance one: the supervisor's scrape, the plan and
+        # the export -> load move
+        "scale_up_pass_ms": (1e3 * (passes[0]["t"] - ups[0]["t"])
+                             if passes and ups else None),
+        "export_ms": export_ms, "move_wire_bytes": len(export),
+        "fresh_adapters": fresh_ads, "failures": fails,
+        "annotations": [{k: a.get(k) for k in (
+            "kind", "reason", "applied", "ok", "direction")}
+            for a in anns if a["kind"].startswith(
+                ("catalog", "autoscale"))]})
+    return row, checks
+
+
+def _cache_env(cache_dir):
+    env = dict(os.environ, PYTHONPATH=ROOT, MXTPU_COMPILE_CACHE=cache_dir)
+    for var in ("MXTPU_TORCH_BUILD_DIR", "MXTPU_COMPILE_CACHE_MAX_BYTES",
+                "MXTPU_COMPILE_CACHE_MAX_ENTRIES",
+                "MXTPU_COMPILE_CACHE_MIN_COMPILE_SECS", "MXTPU_TELEMETRY"):
+        env.pop(var, None)
+    return env
+
+
+def _cache_child_start(cache_dir, stage):
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--cache-child", str(stage)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=_cache_env(cache_dir),
+        cwd=ROOT)
+
+
+def _cache_child_row(proc, timeout=600):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    row = next((json.loads(ln) for ln in out.splitlines()
+                if ln.startswith('{"phase": "cache_child"')), None)
+    return row or {"rc": proc.returncode, "tail": (out + err)[-800:]}
+
+
+def cache_child(stage):
+    """``--cache-child STAGE``: with ``MXTPU_COMPILE_CACHE`` set (and
+    honoured at import), build or load the paged library through the
+    managed cache, telemetry on; stage 2 also runs one paged decode call
+    against its plain version.  Prints one JSON line."""
+    from mxnet_tpu_torch import _build, telemetry
+    from mxnet_tpu_torch.aot import cache
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    telemetry.enable()
+    mgr = cache.active()
+    t0 = time.perf_counter()
+    pac._fns()
+    load_s = time.perf_counter() - t0
+    sz = mgr.statusz() if mgr is not None else {}
+    row = {"phase": "cache_child", "stage": stage,
+           "build_dir": _build.build_dir(),
+           "namespace": getattr(mgr, "namespace", None),
+           "load_s": load_s,
+           "nvcc_s": _build.BUILD_SECONDS.get(pac.LIB_NAME),
+           "libraries": [os.path.basename(p) for p, _, _ in mgr._entries()]
+           if mgr is not None else [],
+           **{k: sz.get(k) for k in ("hits", "misses", "puts", "entries",
+                                     "bytes", "dir")}}
+    if stage == 2:
+        args, kw = paged_case([1, 17, 48, 100, 160, 0, 1, 33], "bfloat16",
+                              W=16, nb=512, padded=(6,))
+        out = pac.paged_attention_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        within, fields = paged_bound_row(out, args, kw, "bfloat16")
+        row.update(paged_within=within, launches=pac.launches, **fields)
+    print(json.dumps(row), flush=True)
+    return 0
+
+
+def control_compile_cache(tmp, child1):
+    """The compile-cache arm over ``tmp``/cache: child 1 (started by the
+    caller) built the paged library there, a miss and a put; the library
+    is dated an hour back and a copy under another name half an hour
+    back; child 2 loads it (a hit, no miss) and runs one paged decode
+    call; a namespace dated 15 days back and a fresh one are planted;
+    ``prune`` with ``max_entries=1`` keeps the library used last (the
+    paged one, built first) and drops the stale namespace."""
+    import shutil
+
+    from mxnet_tpu_torch.aot import cache
+
+    checks = {}
+    cache_dir = os.path.join(tmp, "cache")
+    first = _cache_child_row(child1)
+    _progress("cache_child_1", row=first)
+    mgr = cache.CompileCacheManager(cache_dir, max_entries=1)
+    libs = [p for p, _, _ in mgr._entries()]
+    now = time.time()
+    probe = None
+    if len(libs) == 1:
+        os.utime(libs[0], (now - 3600, now - 3600))
+        probe = os.path.join(mgr.dir, "libmxtt_cache_probe-000000000000.so")
+        shutil.copyfile(libs[0], probe)
+        os.utime(probe, (now - 1800, now - 1800))
+    second = _cache_child_row(_cache_child_start(cache_dir, 2))
+    stale = os.path.join(cache_dir, "nvcc-11.0-sm_90a")
+    sibling = os.path.join(cache_dir, "nvcc-99.0-sm_90a")
+    for d, stamp in ((stale, now - 15 * 86400), (sibling, now)):
+        os.makedirs(d, exist_ok=True)
+        lib = os.path.join(d, "libmxtt_old-000000000000.so")
+        with open(lib, "wb") as f:
+            f.write(b"\0" * 64)
+        os.utime(lib, (stamp, stamp))
+        os.utime(d, (stamp, stamp))
+    removed = mgr.prune()
+    left = [os.path.basename(p) for p, _, _ in mgr._entries()]
+    checks["cache_miss_then_put"] = (
+        first.get("dir") == mgr.dir and first.get("misses") == 1.0
+        and first.get("puts") == 1.0 and first.get("hits") == 0.0
+        and first.get("entries") == 1 and first.get("nvcc_s") is not None)
+    checks["cache_hit_no_miss"] = (
+        second.get("hits") == 1.0 and second.get("misses") == 0.0
+        and second.get("puts") == 0.0 and second.get("nvcc_s") is None
+        and second.get("paged_within") is True)
+    checks["cache_stale_namespace_pruned"] = (not os.path.exists(stale)
+                                              and os.path.isdir(sibling))
+    checks["cache_used_last_survives"] = (
+        probe is not None and left == [os.path.basename(libs[0])]
+        and not os.path.exists(probe))
+    row = {"namespace": mgr.namespace, "miss": first, "hit": second,
+           "miss_build_s": first.get("load_s"),
+           "miss_nvcc_s": first.get("nvcc_s"),
+           "hit_load_s": second.get("load_s"),
+           "pruned_files": removed, "left": left}
+    return row, checks
+
+
+def serve_fleet_control(serve_row, manifest, card):
+    """The fleet's control plane on the card (ROADMAP A14b-3) and the
+    compile cache (A12), at the serve config's full width, every replica
+    an in-process ``ReplicaServer`` on an engine warmed from the serve
+    phase's ``manifest`` and the grid before it takes traffic, a
+    ``FleetCollector`` scraping every ``CONTROL_SCRAPE_S``, a ``Router``
+    and a ``Supervisor`` whose spawn builds such a replica:
+
+    1. autoscale (``control_autoscale``): scale up on the burst's queue
+       and back down after the idle window, no client-visible failure,
+       each request's tokens one warmed engine's, the scaled-up replica
+       capturing nothing in traffic, collected when it retired, its
+       memory released;
+    2. deploy (``control_deploy``), bf16: ``v2`` (re-exported weights)
+       ``ok`` under a stream of 8 clients, ``v3`` (another seed) rolled
+       back on ``parity`` with the canary tokens unchanged; a float32
+       control arm's ``v2`` rollout (tells a bf16 batching flip of the
+       canary from a fault);
+    3. catalog (``control_catalog``): ``a1`` moved by the autoscaler's
+       rebalance pass onto the scaled-up slot, served with slot 0's
+       tokens;
+    4. compile cache (``control_compile_cache``): two child processes
+       with ``MXTPU_COMPILE_CACHE`` (miss and put, then hit and a paged
+       call), pruning and eviction by access.
+
+    The weights: the serve phase's seed at ``CONTROL_WEIGHT_STD``.  The
+    paged counters are zeroed before the phase and read after it:
+    every replica's and reference engine's decode steps x layers."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    import faulthandler
+
+    t_phase = time.perf_counter()
+    faulthandler.dump_traceback_later(CONTROL_WATCHDOG_S, repeat=True)
+    n_layers = SERVE_CFG["num_layers"]
+    checks, rows, seconds = {}, {}, {}
+    was_on = telemetry.enabled()
+    telemetry.reset()
+    telemetry.enable()
+    ledger = _Ledger()
+    np_params = serve_params(0, std=CONTROL_WEIGHT_STD)
+    with tempfile.TemporaryDirectory() as tmp:
+        old = _set_env({"MXTPU_FLIGHT_DIR": os.path.join(tmp, "flight")})
+        child1 = _cache_child_start(os.path.join(tmp, "cache"), 1)
+        try:
+            pac.launches = pac.combine_launches = 0   # the window opens
+            for name, arm in (
+                    ("autoscale", lambda: control_autoscale(
+                        np_params, manifest, ledger)),
+                    ("deploy_bf16", lambda: control_deploy(
+                        np_params, manifest, ledger, torch.bfloat16)),
+                    ("deploy_f32_control", lambda: control_deploy(
+                        np_params, manifest, ledger, torch.float32,
+                        v3=False)),
+                    ("catalog", lambda: control_catalog(
+                        np_params, manifest, ledger))):
+                t0 = time.perf_counter()
+                _progress(f"{name}_start")
+                rows[name], c = arm()
+                checks.update(c)
+                seconds[name] = time.perf_counter() - t0
+                _progress(f"{name}_done", seconds=seconds[name],
+                          failed=[k for k, v in c.items() if not v])
+                torch.cuda.empty_cache()
+            launches, combines = pac.launches, pac.combine_launches
+            t0 = time.perf_counter()
+            rows["compile_cache"], c = control_compile_cache(tmp, child1)
+            checks.update(c)
+            seconds["compile_cache"] = time.perf_counter() - t0
+            flight = os.path.join(tmp, "flight")
+            rows["flight_dumps"] = sorted(
+                n.split("-", 2)[-1] for n in (os.listdir(flight)
+                                              if os.path.isdir(flight)
+                                              else ()))
+        finally:
+            if child1.poll() is None:
+                child1.kill()
+                child1.wait()
+            _set_env(old)
+    faulthandler.cancel_dump_traceback_later()
+    del np_params
+    engines = ledger.close()
+    decode_steps = sum(r.get("decode_steps", 0) for r in engines.values())
+    checks["no_capture_in_traffic"] = all(
+        r.get("captures_in_traffic") == 0 for r in engines.values())
+    checks["launches_counted"] = (
+        decode_steps > 0 and launches == combines == n_layers * decode_steps)
+    rows["counters"] = {name: _counter_rows(name) for name in (
+        "mxtpu_fleet_scale_events_total",
+        "mxtpu_fleet_autoscaler_errors_total",
+        "mxtpu_deploy_slots_replaced_total", "mxtpu_deploy_rollbacks_total",
+        "mxtpu_fleet_catalog_moves_total")}
+    telemetry.disable()
+    telemetry.reset()
+    if was_on:
+        telemetry.enable()
+    ok = all(checks.values())
+    auto, dep = rows["autoscale"], rows["deploy_bf16"]
+    emit({"phase": "serve_fleet_control_summary", "card": card,
+          "reaction_s": auto["reaction_s"],
+          "peak_replicas": auto["peak_replicas"],
+          "settled_replicas": auto["settled_replicas"],
+          "burst_tok_per_s": auto["burst_tok_per_s"],
+          "v2_wall_s": dep["v2"]["wall_s"],
+          "v2_slot_wall_s": dep["v2"]["slot_wall_s"],
+          "v3_wall_s": dep.get("v3", {}).get("wall_s"),
+          "v3_rollback_wall_s": dep.get("v3", {}).get("rollback_wall_s"),
+          "stream_tok_per_s": {k: dep.get(k) for k in (
+              "stream_tok_per_s_idle", "stream_tok_per_s_rollout_v2",
+              "stream_tok_per_s_rollout_v3")},
+          "catalog_scale_up_pass_ms": rows["catalog"]["scale_up_pass_ms"],
+          "catalog_export_ms": rows["catalog"]["export_ms"],
+          "catalog_move_wire_bytes": rows["catalog"]["move_wire_bytes"],
+          "cache_miss_build_s": rows["compile_cache"]["miss_build_s"],
+          "cache_hit_load_s": rows["compile_cache"]["hit_load_s"],
+          "paged_launches": launches, "combine_launches": combines,
+          "layers_x_decode_steps": n_layers * decode_steps,
+          "arm_seconds": seconds})
+    out = {"phase": "serve_fleet_control", "dtype": "bfloat16", "card": card,
+           "serve_phase_tok_per_s": serve_row["tok_per_s"],
+           "kernel_launches": launches, "combine_launches": combines,
+           "decode_steps": decode_steps, "engines": engines,
+           "seconds": time.perf_counter() - t_phase, "arm_seconds": seconds,
+           **rows, "checks": checks, "ok": ok}
+    emit(out)
+    if not ok:
+        raise SystemExit("serve_fleet_control failed its checks: "
+                         + ", ".join(k for k, v in checks.items() if not v))
+    return out
+
+
 def small_model_check():
     """A small seeded model (the reference's serve-test shapes, rope +
     GQA + SwiGLU + RMSNorm + tied): the captured CUDA engine's greedy
@@ -4176,6 +5148,9 @@ def small_model_check():
         st[dev] = (eng.stats().prefix_hits, eng.captures,
                    sum(p.calls for (k, _), p in eng._programs.items()
                        if k == "chunk"), len(eng._programs))
+        # a dropped engine lives on (in /statusz too) until the cyclic
+        # collector runs
+        eng.shutdown()
     oracle = [models.gpt_generate(params, p[None], 16, num_heads=4,
                                   window=0, device=DEVICE)[0, p.size:]
               .tolist() for p in prompts]
@@ -5509,7 +6484,8 @@ def overhead_main(args):
 
 def fleet_main():
     """``--fleet``: the paged library built, the serve phase (its tokens
-    and manifest), then ``serve_fleet`` alone."""
+    and manifest), then ``serve_fleet``, ``serve_fleet_obs`` and
+    ``serve_fleet_control``."""
     from mxnet_tpu_torch.ops import paged_attention_cuda as pac
 
     pac._fns()
@@ -5522,6 +6498,7 @@ def fleet_main():
             entries = [json.loads(ln) for ln in f if ln.strip()]
     serve_fleet(np_params, serve, serve_toks, entries, card)
     serve_fleet_obs(np_params, serve, serve_toks, entries, card)
+    serve_fleet_control(serve, entries, card)
     print(card)
     return 0
 
@@ -5536,9 +6513,11 @@ def main():
                     help="with --overhead: import mxnet_tpu_torch from "
                          "this checkout")
     ap.add_argument("--fleet", action="store_true",
-                    help="run only the serve phase, serve_fleet and "
-                         "serve_fleet_obs")
+                    help="run only the serve phase, serve_fleet, "
+                         "serve_fleet_obs and serve_fleet_control")
     ap.add_argument("--c8-planted", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--cache-child", type=int, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5551,6 +6530,8 @@ def main():
         return overhead_main(args)
     if args.c8_planted:
         return c8_planted(args.c8_planted)
+    if args.cache_child:
+        return cache_child(args.cache_child)
     if args.fleet:
         return fleet_main()
     from mxnet_tpu_torch import _build
@@ -5678,6 +6659,8 @@ def main():
                                 card)
     del np_params
     lap("serve_fleet_obs")
+    control = serve_fleet_control(serve, serve_manifest, card)
+    lap("serve_fleet_control")
 
     train = train_main_path()
     train_grad_check()
@@ -5719,8 +6702,10 @@ def main():
     # engine's draft, the adapters engine's decode (both passes), the
     # telemetry-on engine's decode, the fleet replicas' decode (two
     # routed replicas, the chaos pair, the decode role over handed-off
-    # blocks, the pulling pair) and the sensors phase's in-process
+    # blocks, the pulling pair), the sensors phase's in-process
     # engines (C8's pair, the collector's pair, the monitor's engine)
+    # and the control plane's (autoscaled, redeployed, rolled back and
+    # adapter-loaded replicas, their reference engine)
     paged_paths = {"serve": (serve["kernel_launches"],
                              serve["combine_launches"]),
                    "serve_spec_draft": (spec["spec_on"]["kernel_launches"],
@@ -5746,7 +6731,9 @@ def main():
                    "serve_fleet": (fleet["kernel_launches"],
                                    fleet["combine_launches"]),
                    "serve_fleet_obs": (fleet_obs["kernel_launches"],
-                                       fleet_obs["combine_launches"])}
+                                       fleet_obs["combine_launches"]),
+                   "serve_fleet_control": (control["kernel_launches"],
+                                           control["combine_launches"])}
     kernels = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
         "cuda_kernels": ["paged_attention_split", "paged_attention_combine"],

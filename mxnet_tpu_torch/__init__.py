@@ -15,10 +15,17 @@ package imports
 when CUDA is absent.
 """
 
-from . import (aot, base, context, convert, flops, initializer, models,
+from . import aot, base
+
+# MXTPU_COMPILE_CACHE=<dir>: kernel libraries persist across processes
+# under a managed, toolkit-namespaced directory.  Wired before anything
+# can build one (it reads files only; nothing is built at import).
+aot.enable_from_env()
+
+from . import (context, convert, flops, initializer, models,  # noqa: E402
                monitor, ops, parallel, profiler, serve, telemetry, fleet)
-from .context import resolve_device
-from .convert import params_from_numpy
+from .context import resolve_device  # noqa: E402
+from .convert import params_from_numpy  # noqa: E402
 
 __version__ = "0.1.0"
 

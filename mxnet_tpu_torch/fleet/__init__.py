@@ -1,8 +1,8 @@
 """Fleet layer: one engine process -> a service that survives losing it.
 
-The port of ``mxnet_tpu.fleet``'s replica/router core and sensor plane,
-over the port's engine (torch, numpy and the standard library only; no
-HTTP path initialises CUDA):
+The port of ``mxnet_tpu.fleet`` (replica/router core, sensor plane and
+control plane) over the port's engine (torch, numpy and the standard
+library only; no HTTP path initialises CUDA):
 
 - ``replica``   — ``ReplicaServer``: a stdlib-HTTP front over one
   ``serve.Engine`` (``/generate``, ``/healthz``, ``/drain``,
@@ -34,13 +34,24 @@ HTTP path initialises CUDA):
   (``MXTPU_SLO_SPEC``) with multi-window burn-rate alerts whose fast
   burn captures a device trace on the offending replica and chains its
   id into that replica's flight dump.
-
-Not ported yet, raising on access with their ROADMAP item 14b-3:
-``Autoscaler`` (``parse_autoscale_spec``), ``Deployer`` and
-``CatalogRebalancer``.
+- ``autoscaler`` — ``Autoscaler``: the control plane's policy loop,
+  scaling each role's ``Supervisor`` pool on the collector's role
+  aggregates and SLO burns (``MXTPU_AUTOSCALE_SPEC``,
+  ``parse_autoscale_spec``), with hysteresis and per-role cooldowns.
+- ``deploy``    — ``Deployer``: rolling weight-reload deploys through
+  ``Supervisor.replace_slot``, each replacement gated by a canary
+  token-parity probe, the whole rollout rolled back on a parity
+  failure, an unanswerable replacement or an SLO burn.
+- ``catalog``   — ``CatalogRebalancer``: adapter placement follows
+  traffic (``/adapter_export`` -> ``/load_adapter``,
+  ``/unload_adapter``), behind ``Supervisor(catalog=)``'s
+  ``rebalance_catalog``.
 """
 
+from .autoscaler import Autoscaler, parse_autoscale_spec
+from .catalog import CatalogRebalancer
 from .collector import FleetCollector
+from .deploy import Deployer
 from .faults import Fault, FaultInjector, parse_fault_spec
 from .replica import (DEAD, DRAINING, READY, ROLES, STARTING,
                       ReplicaServer, TRACE_HEADER)
@@ -50,22 +61,9 @@ from .slo import Objective, SLOEvaluator, parse_slo_spec
 from .supervisor import ProcessReplica, Supervisor, probe_health
 
 __all__ = ["ReplicaServer", "Router", "RouterResult", "Supervisor",
-           "ProcessReplica", "FleetCollector", "SLOEvaluator",
-           "Objective", "parse_slo_spec", "FaultInjector", "Fault",
-           "parse_fault_spec", "probe_health", "FleetError",
+           "ProcessReplica", "Autoscaler", "parse_autoscale_spec",
+           "Deployer", "CatalogRebalancer", "FleetCollector",
+           "SLOEvaluator", "Objective", "parse_slo_spec", "FaultInjector",
+           "Fault", "parse_fault_spec", "probe_health", "FleetError",
            "PermanentError", "NoReplicaAvailable", "TRACE_HEADER",
            "ROLES", "STARTING", "READY", "DRAINING", "DEAD"]
-
-# the reference's fleet names that wait for later ROADMAP items
-_UNPORTED = {"Autoscaler": "14b-3", "parse_autoscale_spec": "14b-3",
-             "Deployer": "14b-3", "CatalogRebalancer": "14b-3"}
-
-
-def __getattr__(name):
-    item = _UNPORTED.get(name)
-    if item is None:
-        raise AttributeError(
-            f"module {__name__!r} has no attribute {name!r}")
-    raise NotImplementedError(
-        f"mxnet_tpu_torch.fleet.{name} is not ported yet "
-        f"(ROADMAP §A item {item})")

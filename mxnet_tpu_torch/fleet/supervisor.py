@@ -155,12 +155,13 @@ class Supervisor:
         slot is restarted anyway (``MXTPU_FLEET_DRAIN_TIMEOUT``, 120).
       router: optional ``fleet.Router`` whose membership follows
         respawns (old url out, new url in).
-      collector: optional object with ``annotate(kind, **fields)``
-        (the fleet collector, ROADMAP §A item 14b-2) — lifecycle
-        events (crash-restart, drain, respawn, rolling-restart phases)
-        are pushed onto it as timeline annotations.
-      catalog: the catalog rebalancer (ROADMAP §A item 14b-3); only
-        None is taken.
+      collector: optional ``fleet.FleetCollector`` — lifecycle events
+        (crash-restart, drain, respawn, rolling-restart phases) are
+        pushed as annotations onto its fleet timeline, so ``/fleetz``
+        explains a load dip ("slot 2 was rolling") without log
+        archaeology.
+      catalog: optional ``fleet.CatalogRebalancer`` behind
+        :meth:`rebalance_catalog`.
       clock/sleep: injectable (tests).
     """
 
@@ -168,12 +169,12 @@ class Supervisor:
                  restart_backoff_max_s=None, drain_timeout_s=None,
                  router=None, collector=None, catalog=None,
                  clock=time.monotonic, sleep=time.sleep):
-        if catalog is not None:
-            raise NotImplementedError(
-                "Supervisor(catalog=): the catalog rebalancer is not "
-                "ported yet (ROADMAP §A item 14b-3)")
         self.spawn = spawn
         self.n = int(n)
+        # optional CatalogRebalancer: the adapter-placement actuator
+        # behind rebalance_catalog() (wired once at construction,
+        # read-only afterwards — no lock needed)
+        self.catalog = catalog
         self.restart_backoff_s = (
             float(restart_backoff_s) if restart_backoff_s is not None
             else env_float("MXTPU_FLEET_RESTART_BACKOFF", 0.5))
@@ -244,16 +245,22 @@ class Supervisor:
         return self
 
     def _spawn_slot(self, slot, factory=None):
-        handle = (factory or self.spawn)(slot)
         with self._lock:
             old = self._handles[slot]
+        # the old url leaves the rotation BEFORE the (slow) spawn: a
+        # connect to a stopped replica's port is not always refused (on
+        # some hosts it goes unanswered until the router's hop timeout)
+        self._out_of_rotation(old)
+        handle = (factory or self.spawn)(slot)
+        with self._lock:
             self._handles[slot] = handle
-        if self.router is not None:
-            if old is not None and old.url:
-                self.router.remove_replica(old.url)
-            if handle.url:
-                self.router.add_replica(handle.url)
+        if self.router is not None and handle.url:
+            self.router.add_replica(handle.url)
         return handle
+
+    def _out_of_rotation(self, handle):
+        if self.router is not None and handle is not None and handle.url:
+            self.router.remove_replica(handle.url)
 
     # -- crash monitoring ----------------------------------------------------
     def check(self):
@@ -391,13 +398,13 @@ class Supervisor:
             self.sleep(0.05)
 
     def replace_slot(self, slot, factory=None, reason="rolling"):
-        """The zero-downtime slot replacement: drain -> wait ->
-        terminate -> spawn-with-``factory`` (default: this
-        supervisor's own ``spawn``, i.e. a plain restart — warm via
-        the warmup-manifest env the spawn command carries) under the
-        ``_rolling`` exclusive claim, so the deployer never races the
-        crash monitor.  Returns the replacement handle, or None for a
-        retired slot."""
+        """The zero-downtime slot replacement: drain (out of the
+        router's rotation) -> wait -> terminate -> spawn-with-``factory``
+        (default: this supervisor's own ``spawn``, i.e. a plain restart
+        — warm via the warmup-manifest env the spawn command carries)
+        under the ``_rolling`` exclusive claim, so the deployer never
+        races the crash monitor.  Returns the replacement handle, or
+        None for a retired slot."""
         with self._lock:
             if slot in self._retired:
                 return None
@@ -408,6 +415,9 @@ class Supervisor:
         try:
             self._annotate(kind, slot=slot, phase="drain")
             self.drain(slot)
+            # a draining replica only refuses new work: out of rotation
+            # now, so nothing is routed to it once it stops
+            self._out_of_rotation(self.handles()[slot])
             self.wait_drained(slot)
             h = self.handles()[slot]
             if h is not None:
@@ -477,8 +487,8 @@ class Supervisor:
         return slot
 
     def remove_slot(self, slot):
-        """Shrink the pool by one slot: drain -> wait -> terminate,
-        then RETIRE the index (router membership follows).  Returns
+        """Shrink the pool by one slot: drain (out of the router's
+        rotation) -> wait -> terminate, then RETIRE the index.  Returns
         True when the slot was removed, False when already retired."""
         with self._lock:
             if slot in self._retired:
@@ -490,14 +500,13 @@ class Supervisor:
                     return False
             self._annotate("scale_down_slot", slot=slot, phase="drain")
             self.drain(slot)
+            self._out_of_rotation(self.handles()[slot])
             self.wait_drained(slot)
             with self._lock:
                 h = self._handles[slot]
                 self._handles[slot] = None
                 self._retired.add(slot)
             if h is not None:
-                if self.router is not None and h.url:
-                    self.router.remove_replica(h.url)
                 h.terminate()
             self._annotate("scale_down_slot", slot=slot,
                            phase="terminated",
@@ -508,8 +517,30 @@ class Supervisor:
         return True
 
     def rebalance_catalog(self, reason="manual"):
-        """The catalog-rebalance actuator (``CatalogRebalancer``) is not
-        ported yet: ROADMAP §A item 14b-3."""
-        raise NotImplementedError(
-            "Supervisor.rebalance_catalog: the catalog rebalancer is not "
-            "ported yet (ROADMAP §A item 14b-3)")
+        """Catalog-rebalance actuator: one plan+apply pass of the
+        attached ``CatalogRebalancer`` (adapter placement follows
+        traffic — see fleet/catalog.py).  Invoked manually or by the
+        autoscaler after a scale-up so a fresh replica picks up the
+        hot adapters.  The pass plans on a scrape it makes first: a
+        replica spawned since the collector's last scrape (the
+        scale-up's) is not in the older view, and no later pass runs
+        by itself (ROADMAP §C13; the reference plans on the older view).
+        No-op (empty list) without an attached rebalancer; a failing
+        pass is annotated, never raised — the catalog converging late
+        must not take the pool down."""
+        if self.catalog is None:
+            return []
+        try:
+            self.catalog.collector.scrape()
+            results = self.catalog.rebalance()
+        except Exception:
+            telemetry.counter(
+                "mxtpu_fleet_supervisor_errors_total",
+                "supervisor monitor failures").inc()
+            self._annotate("catalog_rebalance_failed", reason=reason)
+            return []
+        if results:
+            self._annotate("catalog_rebalance", reason=reason,
+                           applied=len(results),
+                           ok=sum(1 for r in results if r["ok"]))
+        return results

@@ -102,9 +102,11 @@ import functools
 import json
 import math
 import os
+import queue
 import threading
 import time
 import traceback
+import weakref
 
 import numpy as np
 import torch
@@ -256,7 +258,8 @@ class _Program:
 
     On CUDA the body runs ``_WARM_RUNS`` times on a side stream on
     all-zero inputs (so every K/V write lands in the null block 0),
-    then is captured once on that stream into ``pool`` (in
+    then is captured once on that stream into ``pool``, on ``capturer``'s
+    thread and stream (the engine's :class:`_CaptureThread`; in
     ``_CAPTURE_MODE``, warm-up and capture holding the profiler's
     capture lock; a failed capture is undone by
     :func:`_abandon_capture`); calls replay the graph.  Each
@@ -272,7 +275,7 @@ class _Program:
     time the launch and attribute the wait apart.
     """
 
-    def __init__(self, fields, body, device, pool=None):
+    def __init__(self, fields, body, device, pool=None, capturer=None):
         cuda = device.type == "cuda"
         specs = [(f[0], tuple(f[1]), f[2] if len(f) > 2 else torch.int32)
                  for f in fields]
@@ -298,13 +301,16 @@ class _Program:
         self._pending = None           # the CPU body's last output
         self.calls = 0
         if cuda:
-            self._capture(pool)
+            caller = torch.cuda.current_stream(device)
+            capturer.run(lambda: self._capture(pool, capturer.stream,
+                                               caller))
 
-    def _capture(self, pool):
+    def _capture(self, pool, side, cur):
+        """Warm the body and capture it on ``side``, ordered after
+        ``cur`` (the constructing thread's stream), which then waits for
+        the capture."""
         with profiler_mod.capture_lock:
             before = _pac.thread_counts()
-            cur = torch.cuda.current_stream(self._device)
-            side = torch.cuda.Stream(self._device)
             side.wait_stream(cur)
             graph = torch.cuda.CUDAGraph()
             with torch.no_grad(), torch.cuda.stream(side):
@@ -402,6 +408,59 @@ def _host_outputs(out):
     if torch.is_tensor(out):
         return out.tolist()
     return tuple(o.detach().cpu().numpy().copy() for o in out)
+
+
+class _CaptureThread:
+    """The thread and the side stream an engine's CUDA-graph captures run
+    on, one each per engine, for the engine's lifetime.  torch keeps one
+    cuBLAS workspace per (thread's cuBLAS handle, stream), allocated by a
+    program's warm-up and kept after the engine is gone, and a graph
+    replays with the workspace its capture used.  A new side stream a
+    program left 22 workspaces (704 MiB on the H100) an engine and
+    thread; and engines captured on one thread and stream share one,
+    which their graphs, replayed at once from two step threads, would
+    both write.  A thread of its own gives an engine a cuBLAS handle no
+    other live engine holds, and one stream keeps it to one
+    workspace."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device)
+        self._jobs = queue.SimpleQueue()
+        self._thread = threading.Thread(
+            target=self._loop, args=(self._jobs, device), daemon=True,
+            name="mxtpu-capture")
+        self._thread.start()
+
+    @staticmethod
+    def _loop(jobs, device):
+        if device.index is not None:
+            torch.cuda.set_device(device)
+        while True:
+            job = jobs.get()
+            if job is None:
+                return
+            fn, box, done = job
+            try:
+                box["out"] = fn()
+            except BaseException as e:  # re-raised on the caller's thread
+                box["err"] = e
+            done.set()
+            job = fn = box = done = None   # hold nothing between jobs
+
+    def run(self, fn):
+        """``fn()`` on the capture thread; its result, or its error
+        raised here."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        box, done = {}, threading.Event()
+        self._jobs.put((fn, box, done))
+        done.wait()
+        if "err" in box:
+            raise box["err"]
+        return box.get("out")
+
+    def stop(self):
+        self._jobs.put(None)
 
 
 def _abandon_capture(graph, device, ended):
@@ -751,6 +810,11 @@ class Engine:
         self.captures = 0              # CUDA graphs captured
         self._pool = (torch.cuda.graph_pool_handle()
                       if self.device.type == "cuda" else None)
+        self._capturer = (_CaptureThread(self.device)
+                          if self.device.type == "cuda" else None)
+        if self._capturer is not None:
+            # an engine dropped without shutdown() ends its thread too
+            weakref.finalize(self, self._capturer.stop)
         self._spec_digest = aot.digest(self._fingerprint())[:16]
         self._manifest = aot.ManifestRecorder(
             self._spec_digest, os.environ.get(aot.ENV_MANIFEST))
@@ -1090,6 +1154,8 @@ class Engine:
         statusz_mod.unregister(self._statusz_name)
         self._programs.clear()
         self._pool = None
+        if self._capturer is not None:
+            self._capturer.stop()
         if self._spec is not None:
             self._spec.shutdown()
         self._cache_k = self._cache_v = None
@@ -1553,7 +1619,8 @@ class Engine:
                 body = functools.partial(_chunk, sw.cfg, bucket)
             body = functools.partial(body, params=sw.params, ck=sw.cache_k,
                                      cv=sw.cache_v)
-            return _Program(fields, body, self.device, self._pool)
+            return _Program(fields, body, self.device, self._pool,
+                            self._capturer)
         adp = {}
         if self._adapters:
             # the target programs' slot inputs and the store's stacks
@@ -1566,7 +1633,8 @@ class Engine:
                                  ck=self._cache_k, cv=self._cache_v,
                                  ksc=self._scale_k, vsc=self._scale_v,
                                  **adp)
-        return _Program(fields, body, self.device, self._pool)
+        return _Program(fields, body, self.device, self._pool,
+                        self._capturer)
 
     def _restore_program(self, bucket):
         """The ``restore`` program at ``bucket`` blocks: the block ids
@@ -1585,7 +1653,8 @@ class Engine:
         body = functools.partial(_restore, ck=self._cache_k,
                                  cv=self._cache_v, ksc=self._scale_k,
                                  vsc=self._scale_v)
-        return _Program(fields, body, self.device, self._pool)
+        return _Program(fields, body, self.device, self._pool,
+                        self._capturer)
 
     # -- execution -----------------------------------------------------------
     def _next_seed(self):

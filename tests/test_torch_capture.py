@@ -303,10 +303,14 @@ def _host_read_failures(monkeypatch):
     (``.item()``) cannot be captured: the program raises, and nothing
     runs the body eagerly in its place, alone or inside the engine."""
     calls = []
-    with pytest.raises(RuntimeError):
-        port_engine._Program((("x", (4,)),), _host_read_body(calls),
-                             torch.device("cuda"),
-                             torch.cuda.graph_pool_handle())
+    capt = port_engine._CaptureThread(torch.device("cuda"))
+    try:
+        with pytest.raises(RuntimeError):
+            port_engine._Program((("x", (4,)),), _host_read_body(calls),
+                                 torch.device("cuda"),
+                                 torch.cuda.graph_pool_handle(), capt)
+    finally:
+        capt.stop()
     # the warm-up runs, then the failed capture; no eager call after it
     assert len(calls) == port_engine._WARM_RUNS + 1
 
@@ -585,6 +589,18 @@ def _fake_cuda(monkeypatch):
     return graphs, ended
 
 
+def _capture_on_thread(prog, pool):
+    """Capture ``prog`` as an engine does: on a capture thread and its
+    stream, ordered after this thread's stream; the capture's error is
+    raised here."""
+    capt = port_engine._CaptureThread(torch.device("cpu"))
+    try:
+        caller = torch.cuda.current_stream()
+        return capt.run(lambda: prog._capture(pool, capt.stream, caller))
+    finally:
+        capt.stop()
+
+
 def test_capture_holds_the_lock_against_profiler_start(monkeypatch,
                                                        tmp_path):
     """``_Program._capture`` captures in ``"thread_local"`` mode and
@@ -623,7 +639,7 @@ def test_capture_holds_the_lock_against_profiler_start(monkeypatch,
     prog = port_engine._Program((("x", (4,)),),
                                 lambda x: bodies.append(1),
                                 torch.device("cpu"))
-    prog._capture(None)
+    _capture_on_thread(prog, None)
     seen["late"].join(timeout=60)
     assert graphs[0].calls == [("begin", "thread_local"), ("end",)]
     assert len(bodies) == port_engine._WARM_RUNS + 1
@@ -639,10 +655,11 @@ def test_failed_capture_is_abandoned(monkeypatch, fault):
     """A capture that fails ends its stream's capture, takes its pool out
     of the caching allocator's captures in progress when torch did not
     (ROADMAP §C9: a leftover pool drew a sibling engine's later
-    captures into it), re-raises the capture's own error, and releases
-    the capture lock.  A body that raised inside a capture that still
-    ends cleanly leaves torch's state as torch made it.  CUDA is stood
-    in for."""
+    captures into it), re-raises the capture's own error to the thread
+    that built the program, and releases the capture lock.  A body that
+    raised inside a capture that still ends cleanly leaves torch's state
+    as torch made it.  The capture runs on a capture thread, as an
+    engine's does; CUDA is stood in for."""
     graphs, ended = _fake_cuda(monkeypatch)
     monkeypatch.setattr(_FakeGraph, "end_raises",
                         fault != "body_raises_end_clean")
@@ -654,8 +671,8 @@ def test_failed_capture_is_abandoned(monkeypatch, fault):
             raise RuntimeError("the body's own error")
 
     with pytest.raises(RuntimeError) as err:
-        port_engine._Program((("x", (4,)),), body, torch.device("cpu"),
-                             (0, 7))._capture((0, 7))
+        _capture_on_thread(port_engine._Program(
+            (("x", (4,)),), body, torch.device("cpu"), (0, 7)), (0, 7))
     assert len(calls) == port_engine._WARM_RUNS + 1
     assert graphs[0].calls == [("begin", "thread_local"), ("end",)]
     want = ("during capture" if fault == "end_raises"
@@ -665,3 +682,47 @@ def test_failed_capture_is_abandoned(monkeypatch, fault):
                      else [(0, (0, 7))])
     assert profiler_mod.capture_lock.acquire(timeout=1.0)
     profiler_mod.capture_lock.release()
+
+
+def test_capture_thread_runs_each_capture_on_its_own_thread(monkeypatch):
+    """An engine's captures run on its own thread and stream
+    (``_CaptureThread``): the caller gets the result or the error, a run
+    from the thread itself runs in place, a capture given the thread's
+    stream and the caller's stream warms and captures on the former,
+    ordered after the latter, and ``stop`` ends the thread.  A CPU
+    engine has none.  CUDA's streams, graph and event are stood in
+    for."""
+    _fake_cuda(monkeypatch)
+    capt = port_engine._CaptureThread(torch.device("cpu"))
+    assert capt.run(threading.current_thread) is capt._thread
+    assert capt.run(lambda: capt.run(lambda: 7)) == 7
+
+    def fail():
+        raise ValueError("in the capture")
+
+    with pytest.raises(ValueError, match="in the capture"):
+        capt.run(fail)
+    waits = []
+
+    class Stream:
+        def __init__(self, name):
+            self.name = name
+
+        def wait_stream(self, other):
+            waits.append((self.name, other.name))
+
+    side, caller = Stream("side"), Stream("caller")
+    capt.stream = side
+    bodies = []
+    prog = port_engine._Program((("x", (4,)),),
+                                lambda x: bodies.append(
+                                    threading.current_thread()),
+                                torch.device("cpu"))
+    capt.run(lambda: prog._capture(None, capt.stream, caller))
+    assert bodies == [capt._thread] * (port_engine._WARM_RUNS + 1)
+    assert waits == [("side", "caller"), ("caller", "side")]
+    assert prog.captured
+    capt.stop()
+    capt._thread.join(timeout=10)
+    assert not capt._thread.is_alive()
+    assert _engine()._capturer is None

@@ -17,7 +17,8 @@ payloads, and the process front's weights against the reference
 front's numpy draw.  Added: two engines stepped on two threads count
 the paged op's launches exactly; the process front as a subprocess
 (ready line, ``/generate``, SIGTERM; it imports neither ``jax`` nor the
-reference); the names later ROADMAP items own refuse.
+reference); the control plane's names resolve and
+``Supervisor(catalog=)`` is taken.
 """
 
 import json
@@ -859,8 +860,10 @@ def test_supervisor_crash_restart_with_backoff(fleet_cleanup):
 
 
 def test_supervisor_pool_resize_and_later_items(fleet_cleanup):
-    """``add_slot`` / ``remove_slot`` follow the router; the catalog
-    rebalancer and the A14b-3 names refuse with their item."""
+    """``add_slot`` / ``remove_slot`` follow the router; the control
+    plane's names resolve to the port's classes, ``Supervisor(catalog=)``
+    is taken and ``rebalance_catalog()`` without a rebalancer is the
+    reference's no-op."""
     def spawn(slot):
         rep = ReplicaServer(_engine(), replica_id=f"p{slot}").start()
         fleet_cleanup.append(rep)
@@ -875,15 +878,16 @@ def test_supervisor_pool_resize_and_later_items(fleet_cleanup):
     assert sup.remove_slot(0) and sup.pool_size() == 1
     assert [r.url for r in router.replicas()] == sup.urls()
     assert not sup.remove_slot(0)
-    with pytest.raises(NotImplementedError, match="14b-3"):
-        sup.rebalance_catalog()
-    with pytest.raises(NotImplementedError, match="14b-3"):
-        Supervisor(spawn, 1, catalog=object())
-    for name, item in (("Autoscaler", "14b-3"), ("Deployer", "14b-3"),
-                       ("CatalogRebalancer", "14b-3"),
-                       ("parse_autoscale_spec", "14b-3")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(mt.fleet, name)
+    assert sup.rebalance_catalog() == [] == ref_fleet.Supervisor(
+        lambda s: None, 0).rebalance_catalog()
+    catalog = mt.fleet.CatalogRebalancer(None)
+    assert Supervisor(spawn, 1, catalog=catalog).catalog is catalog
+    for name in ("Autoscaler", "Deployer", "CatalogRebalancer",
+                 "parse_autoscale_spec"):
+        port_obj = getattr(mt.fleet, name)
+        assert port_obj.__module__.startswith("mxnet_tpu_torch.fleet.")
+        assert port_obj.__name__ == getattr(ref_fleet, name).__name__
+        assert name in mt.fleet.__all__
     cmd = mt.fleet.supervisor.replica_command(7, ["--device", "cpu"])
     assert cmd[1:] == ["-m", "mxnet_tpu_torch.fleet.serve_replica",
                        "--port", "7", "--device", "cpu"]

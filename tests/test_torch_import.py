@@ -26,6 +26,7 @@ import mxnet_tpu_torch
 import mxnet_tpu_torch.base, mxnet_tpu_torch.context, mxnet_tpu_torch.convert
 import mxnet_tpu_torch._build
 import mxnet_tpu_torch.aot, mxnet_tpu_torch.aot.warmup
+import mxnet_tpu_torch.aot.cache
 import mxnet_tpu_torch.models, mxnet_tpu_torch.models.generate
 import mxnet_tpu_torch.models.transformer
 import mxnet_tpu_torch.ops, mxnet_tpu_torch.ops.attention
@@ -53,6 +54,8 @@ import mxnet_tpu_torch.fleet, mxnet_tpu_torch.fleet.faults
 import mxnet_tpu_torch.fleet.replica, mxnet_tpu_torch.fleet.router
 import mxnet_tpu_torch.fleet.supervisor, mxnet_tpu_torch.fleet.serve_replica
 import mxnet_tpu_torch.fleet.collector, mxnet_tpu_torch.fleet.slo
+import mxnet_tpu_torch.fleet.autoscaler, mxnet_tpu_torch.fleet.deploy
+import mxnet_tpu_torch.fleet.catalog
 import mxnet_tpu_torch.monitor
 import torch
 # the port's own name starts with "mxnet_tpu": match the reference by
