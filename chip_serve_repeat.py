@@ -20,6 +20,8 @@ one call; ``--smoke`` imports chip_smoke from another checkout too.
 chip_smoke's small-model check first, as the whole script does, and
 ``--gc-off`` turns the cyclic garbage collector off before any engine
 is built, so an engine dropped without ``shutdown()`` stays alive.
+``--start-settle 0,0.05`` gives the iterations each value of
+``profiler.START_SETTLE_S`` in turn (ROADMAP §C14).
 """
 
 import gc
@@ -36,7 +38,8 @@ import torch
 
 def _profiles(line):
     return {tag: {"traced": p["traced_paged_kernels"],
-                  "counted": p["counted_paged_launches"]}
+                  "counted": p["counted_paged_launches"],
+                  "gap": p.get("gap")}
             for tag, p in (line.get("profiles") or {}).items()}
 
 
@@ -59,6 +62,9 @@ def main():
                     help="run chip_smoke's small-model check first")
     ap.add_argument("--gc-off", action="store_true",
                     help="turn the cyclic garbage collector off")
+    ap.add_argument("--start-settle", default=None,
+                    help="comma-separated profiler.START_SETTLE_S values, "
+                         "taken in turn by the iterations")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_serve_repeat: CUDA is not available", file=sys.stderr)
@@ -91,8 +97,13 @@ def main():
                   np_params, serve, serve_toks, card), _telemetry))
     wanted = set(args.phases.split(","))
     phases = [ph for ph in phases if ph[0] in wanted]
+    from mxnet_tpu_torch import profiler
+
+    starts = ([float(v) for v in args.start_settle.split(",")]
+              if args.start_settle else [profiler.START_SETTLE_S])
     failures = 0
     for it in range(args.iters):
+        profiler.START_SETTLE_S = starts[it % len(starts)]
         for name, run, fields in phases:
             n_lines = len(cs.REPORT.get("lines", ()))
             t0 = time.perf_counter()
@@ -110,6 +121,7 @@ def main():
                               "package": package,
                               "smoke": os.path.dirname(cs.__file__),
                               "gc_enabled": gc.isenabled(),
+                              "start_settle_s": profiler.START_SETTLE_S,
                               **fields(line)}),
                   flush=True)
     print(card, flush=True)

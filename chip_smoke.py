@@ -48,7 +48,22 @@ Phases (any failure exits non-zero; nothing is caught):
      instances of each paged kernel, as many as the counters added; a
      restarted engine warmed from the serve
      engine's manifest serving the same prompts with no capture and the
-     same tokens; a float32 engine with the prefix cache and 64-token
+     same tokens; the export store and tensor parallelism (serve_aot_tp,
+     weights at std 0.05): a cold bf16 engine exporting the serve
+     manifest's programs to a store (every one traced and saved, its
+     tokens those of an engine without the store), a fresh process
+     warming the manifest from the store (no trace, one capture a
+     program, the cold tokens, the restored graphs' paged launches equal
+     to a profiler trace's instances), a restamped (stale) artifact
+     costing a counted trace and a functionalized program failing the
+     in-place check and refused (planted); on
+     MXTPU_TORCH_VIRTUAL_DEVICES=3, tp=3 float32 and float32 + int8-K/V
+     tokens equal to tp=1's, bf16 flips with their margins, 4 x 3 paged
+     launches a decode step counted and traced, a device's K/V bytes a
+     third of the total on its shard tensors, a host block fetched and
+     restored bit for bit, decode-step ms against tp=1, and a tp=3
+     restart from a store with no trace and the same tokens; a float32
+     engine with the prefix cache and 64-token
      chunks (8 requests on one 96-token prefix, a 200-token prompt)
      against a cache-off engine, token for token; one full-width float32
      decode step through the kernel and the plain path; a small model's
@@ -243,15 +258,21 @@ across them.  Prints the card line and one JSON line.
 
 runs only the serve phase, serve_fleet, serve_fleet_obs and
 serve_fleet_control (their lines, then the card line).
+
+    python3 chip_smoke.py --aot-tp
+
+runs only the serve phase, serve_restart and serve_aot_tp.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import glob
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -741,6 +762,38 @@ def graph_replays(trace_file):
             "device_events": sum(device.values())}
 
 
+def replay_gaps(trace_file, per_replay):
+    """Where a profiler window's trace lost paged split kernels: each CUDA
+    graph replay (``cudaGraphLaunch``, in time order) whose correlation
+    id carries other than ``per_replay`` split kernels, with its index,
+    its host time after the window's first replay and before its last
+    (ms), and the split kernels it carries; plus the split kernels whose
+    correlation id is no replay's, and the window's replay count."""
+    import gzip
+
+    with gzip.open(trace_file) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    launches = sorted((e for e in events
+                       if e.get("name") == "cudaGraphLaunch"),
+                      key=lambda e: e["ts"])
+    split = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel" and PAGED_KERNELS[0] in e["name"]:
+            split[e.get("args", {}).get("correlation")] += 1
+    corrs = [e.get("args", {}).get("correlation") for e in launches]
+    t_first = launches[0]["ts"] if launches else 0
+    t_last = launches[-1]["ts"] if launches else 0
+    short = [{"replay": i, "split_kernels": split[c],
+              "ms_after_first": (e["ts"] - t_first) / 1e3,
+              "ms_before_last": (t_last - e["ts"]) / 1e3}
+             for i, (e, c) in enumerate(zip(launches, corrs))
+             if split[c] != per_replay]
+    return {"replays": len(launches), "short_replays": short[:20],
+            "orphan_split_kernels": sum(n for c, n in split.items()
+                                        if c not in set(corrs))}
+
+
 def paged_instances(counts):
     """The paged kernels' instances among ``traced_kernels``' counts."""
     return {k: sum(c for name, c in counts.items() if k in name)
@@ -775,9 +828,20 @@ def serve_profile(eng, prompts, steps=16):
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         kernels, counts = traced_kernels(logdir)
-    counted = (pac.launches - counted[0], pac.combine_launches - counted[1])
+        counted = (pac.launches - counted[0],
+                   pac.combine_launches - counted[1])
+        traced = paged_instances(counts)
+        gap = None
+        if traced["paged_attention_split"] != counted[0]:
+            # which replays lost their kernels, and where in the window
+            files = glob.glob(os.path.join(logdir, "plugins", "profile",
+                                           "*", "*.trace.json.gz"))
+            gap = replay_gaps(files[0], eng._cfg.n_layers * eng.tp) \
+                if files else {"trace_files": 0}
+            print(json.dumps({"profile_gap": gap, "traced": traced,
+                              "counted": counted}), file=sys.stderr,
+                  flush=True)
     eng.run()
-    traced = paged_instances(counts)
     kinds = {}
     for name, ms in kernels.items():
         kind = _kernel_kind(name)
@@ -793,6 +857,7 @@ def serve_profile(eng, prompts, steps=16):
             "counted_paged_launches": {
                 "paged_attention_split": counted[0],
                 "paged_attention_combine": counted[1]},
+            "gap": gap,
             "ms_per_step_by_kind": kinds,
             "top_kernels_ms_per_step": [(k[:120], ms / n) for k, ms in top]}
 
@@ -923,13 +988,15 @@ def serve_restart(np_params, toks_a, manifest_path):
     same = toks == toks_a
     ok = (0 < ready == listed and caps == captures_expected(eng, ready)
           and eng.captures == caps and same)
-    emit({"phase": "serve_restart", "manifest_programs": listed,
-          "warmup_programs": ready, "warmup_s": warm_s,
-          "warmup_captures": caps, "traffic_captures": eng.captures - caps,
-          "tokens_identical": same, "ok": ok})
+    row = {"phase": "serve_restart", "manifest_programs": listed,
+           "warmup_programs": ready, "warmup_s": warm_s,
+           "warmup_captures": caps, "traffic_captures": eng.captures - caps,
+           "tokens_identical": same, "ok": ok}
+    emit(row)
     eng.shutdown()
     if not ok:
         raise SystemExit("warm restart captured again or changed tokens")
+    return row
 
 
 def first_logits(eng, seq, slot=None):
@@ -1900,7 +1967,7 @@ def serve_sample(np_params):
           "profiles": {tag: {k: p[k] for k in (
               "decode_steps", "kernel_ms_per_step", "wall_ms_per_step",
               "ms_per_step_by_kind", "top_kernels_ms_per_step",
-              "traced_paged_kernels", "counted_paged_launches")}
+              "traced_paged_kernels", "counted_paged_launches", "gap")}
               for tag, p in profiles.items()},
           "greedy_rows": greedy_rows, "greedy_rows_equal": greedy_equal,
           "logprobs_ok": logprobs_ok, "sampler": sampler,
@@ -5118,6 +5185,462 @@ def serve_fleet_control(serve_row, manifest, card):
     return out
 
 
+# -- serve_aot_tp: the export store and tensor-parallel serving ---------------
+AOT_TP = 3                      # divides the serve config's 12 and 3 heads
+AOT_TP_PROMPTS = 4              # the identity pairs' prompts (16..128)
+
+
+def _aot_counts():
+    """The export store's counters now: program resolutions by source
+    and artifact errors by kind (telemetry on)."""
+    from mxnet_tpu_torch import telemetry
+
+    snap = telemetry.registry().snapshot()
+
+    def by(name, label):
+        out = collections.Counter()
+        for s in snap.get(name, {"samples": []})["samples"]:
+            out[s["labels"].get(label)] += s["value"]
+        return out
+
+    return {"programs": dict(by("mxtpu_aot_programs_total", "source")),
+            "errors": dict(by("mxtpu_aot_errors_total", "kind"))}
+
+
+def _count_delta(after, before, group, key):
+    return (after[group].get(key, 0) - before[group].get(key, 0))
+
+
+def _drive(eng, prompts, new_tokens=32):
+    """Serve ``prompts`` on ``eng`` from zeroed paged counters: (tokens,
+    split launches, combine launches, decode-only step ms, traffic
+    captures)."""
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    caps = eng.captures
+    torch.cuda.synchronize()
+    pac.launches = pac.combine_launches = 0
+    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    step_ms = []
+    while eng.has_work():
+        decode_only = (eng.scheduler.queue_depth == 0
+                       and bool(eng.scheduler.running)
+                       and not eng.scheduler.prefilling)
+        ts = time.perf_counter()
+        eng.step()
+        if decode_only:
+            step_ms.append(1e3 * (time.perf_counter() - ts))
+    torch.cuda.synchronize()
+    toks = [list(r.tokens) for r in reqs]
+    ok = all(r.status == "finished" for r in reqs)
+    return {"tokens": toks, "launches": pac.launches,
+            "combine_launches": pac.combine_launches,
+            "decode_steps": eng.decode_steps, "step_ms": step_ms,
+            "traffic_captures": eng.captures - caps, "finished": ok}
+
+
+def _warm_timed(eng, manifest):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ready = eng.warmup(manifest)
+    torch.cuda.synchronize()
+    return ready, time.perf_counter() - t0
+
+
+def _restamp(store_dir, field="num_blocks"):
+    """Rewrite every artifact header under ``store_dir`` to another
+    fingerprint (``field`` + 1), the program bytes kept: a stale
+    store."""
+    from mxnet_tpu_torch.aot import export_store
+
+    for path, _ in export_store.ExportStore(store_dir).entries():
+        with open(path, "rb") as f:
+            raw = f.read()
+        n = int.from_bytes(raw[8:16], "little")
+        hdr = json.loads(raw[16:16 + n])
+        hdr["fingerprint"][field] = hdr["fingerprint"][field] + 1
+        other = json.dumps(hdr, sort_keys=True).encode()
+        with open(path, "wb") as f:
+            f.write(raw[:8] + len(other).to_bytes(8, "little") + other
+                    + raw[16 + n:])
+
+
+def aot_child(store, manifest_path, tp):
+    """``--aot-child STORE``: a fresh process builds the serve config's
+    bf16 engine (weights at ``CONTROL_WEIGHT_STD``) on the export store
+    ``STORE`` and warms ``--aot-manifest``: every program loaded, none
+    traced, each captured.  Then it serves the 8 prompts from zeroed
+    counters and profiles 16 decode-only steps over the restored graphs.
+    Prints one JSON line."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    telemetry.enable()
+    pac._fns()
+    params = serve_params(std=CONTROL_WEIGHT_STD)
+    before = _aot_counts()
+    t0 = time.perf_counter()
+    eng = full_width_engine(params, torch.bfloat16, aot_dir=store, tp=tp)
+    build_s = time.perf_counter() - t0
+    ready, warm_s = _warm_timed(eng, manifest_path)
+    after = _aot_counts()
+    drive = _drive(eng, serve_prompts(0))
+    prof = serve_profile(eng, serve_prompts(0))
+    row = {"phase": "aot_child", "tp": tp, "build_s": build_s,
+           "warmup_s": warm_s, "warmup_programs": ready,
+           "warmup_captures": eng.captures - drive["traffic_captures"],
+           "captures_expected": captures_expected(eng, ready),
+           "traces": _count_delta(after, before, "programs", "trace"),
+           "artifacts": _count_delta(after, before, "programs", "artifact"),
+           "errors": after["errors"], "tokens": drive["tokens"],
+           "launches": drive["launches"],
+           "combine_launches": drive["combine_launches"],
+           "decode_steps": drive["decode_steps"],
+           "traffic_captures": drive["traffic_captures"],
+           "profile": {k: prof[k] for k in (
+               "decode_steps", "traced_paged_kernels",
+               "counted_paged_launches", "wall_ms_per_step",
+               "kernel_ms_per_step")}}
+    eng.shutdown()
+    print(json.dumps(row), flush=True)
+    return 0
+
+
+def _aot_child_start(store, manifest_path, tp):
+    """Start the ``--aot-child`` process; ``(process, start time)``."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("MXTPU_TELEMETRY", None)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--aot-child",
+         store, "--aot-manifest", manifest_path, "--aot-child-tp", str(tp)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    return proc, time.perf_counter()
+
+
+def _aot_child_row(child, timeout=600):
+    """The ``--aot-child`` process's JSON line (its output's tail when it
+    printed none), with its seconds from start to exit."""
+    proc, t0 = child
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    row = next((json.loads(ln) for ln in out.splitlines()
+                if ln.startswith('{"phase": "aot_child"')), None)
+    if row is None:
+        return {"rc": proc.returncode, "tail": (out + err)[-2000:]}
+    row["process_s"] = time.perf_counter() - t0
+    return row
+
+
+def inplace_fault(params, store_dir, manifest):
+    """The loaded decode program writes its caches in place (no copy of
+    a cache-sized tensor in its graph); the same program decomposed
+    (functionalized) copies them back, fails that check, and an engine
+    finding it in the store refuses it: a counted ``inplace`` error and
+    a trace."""
+    from mxnet_tpu_torch.aot import export_store
+
+    eng = full_width_engine(params, torch.bfloat16, aot_dir=store_dir)
+    bucket = max(e["bucket"] for e in manifest if e["kind"] == "decode")
+    fp, label = eng._aot_fp("decode", bucket), f"serve-decode{bucket}"
+    store = export_store.ExportStore(store_dir)
+    ep = store.load(fp, label=label)
+    numel = eng._cache_k[0].numel()
+    loaded = export_store.cache_copies(ep.module(), numel)
+    flat = ep.run_decompositions()
+    planted = export_store.cache_copies(flat.module(), numel)
+    store.save(fp, flat, label=label)
+    eng.shutdown()
+    before = _aot_counts()
+    eng = full_width_engine(params, torch.bfloat16, aot_dir=store_dir)
+    eng.warmup([{"kind": "decode", "bucket": bucket}])
+    after = _aot_counts()
+    eng.shutdown()
+    refused = (_count_delta(after, before, "errors", "inplace") == 1
+               and _count_delta(after, before, "programs", "trace") == 1)
+    return {"loaded_cache_copies": loaded, "planted_cache_copies":
+            len(planted), "engine_refused": refused,
+            "ok": loaded == [] and len(planted) > 0 and refused}
+
+
+def stale_fault(params, store_dir, manifest):
+    """Every artifact's header restamped to another fingerprint: the
+    program the engine warms (the manifest's first decode) costs a
+    counted stale error and a trace."""
+    _restamp(store_dir)
+    entry = next(e for e in manifest if e["kind"] == "decode")
+    before = _aot_counts()
+    eng = full_width_engine(params, torch.bfloat16, aot_dir=store_dir)
+    ready = eng.warmup([entry])
+    after = _aot_counts()
+    eng.shutdown()
+    stale = _count_delta(after, before, "errors", "stale")
+    traces = _count_delta(after, before, "programs", "trace")
+    return {"programs": ready, "stale_errors": stale, "traces": traces,
+            "ok": ready == stale == traces == 1}
+
+
+def host_round_trip(eng):
+    """A used block fetched to the host (every shard's heads gathered),
+    restored through the restore program into a free block, and fetched
+    again: bit for bit, and each shard holding its heads."""
+    used = next(b for b in range(1, eng.num_blocks)
+                if bool(eng._cache_k[0][:, b].abs().sum() > 0))
+    parts = eng._host_kv_fetch(used)
+    dst = eng.num_blocks - 1
+    prog = eng._program("restore", 1)
+    h = prog.stage()
+    h["blks"][0] = dst
+    for name, a in zip(("hk", "hv", "hks", "hvs"), parts):
+        torch.as_tensor(h[name][:, 0]).copy_(a)
+    prog()
+    torch.cuda.synchronize()
+    back = eng._host_kv_fetch(dst)
+    per = eng._cfg.kv_heads // eng.tp
+    shards_ok = all(
+        torch.equal(eng._cache_k[s][:, dst].cpu(),
+                    parts[0][:, :, s * per:(s + 1) * per])
+        for s in range(eng.tp))
+    return {"block": used, "into": dst,
+            "bit_exact": all(torch.equal(a, b) for a, b in zip(parts, back)),
+            "shards_hold_their_heads": shards_ok}
+
+
+def serve_aot_tp(manifest, restart_row, card):
+    """The export store and tensor-parallel serving on one card, with
+    weights at ``CONTROL_WEIGHT_STD`` (at 0.02 every stream repeats its
+    prompt's last token): (1) a cold bf16 engine on a new store warms the
+    serve phase's manifest (exporting every program), serves the 8
+    prompts, and a manifest-only engine (no store) gives the same
+    tokens; a fresh process, run meanwhile, restarts from the store with
+    no trace, the cold tokens, and its restored graphs' paged launches
+    equal to a profiler trace's instances; a stale artifact and a
+    functionalized program are refused (planted).  (2) tp = 3 on this
+    one card (``MXTPU_TORCH_VIRTUAL_DEVICES``): float32 and float32 +
+    int8 K/V tokens equal tp=1's, bf16 agreement with each flip's
+    margin, the paged op launched layers x 3 times a decode step
+    (counted and traced), a device's K/V bytes the total / 3 on its
+    shard tensors, a host block's round trip bit for bit, decode-step ms
+    against tp=1, and a tp=3 restart from a store with no trace and the
+    same tokens."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.aot import export_store
+    from mxnet_tpu_torch.parallel import mesh as mesh_mod
+
+    telemetry.reset()
+    telemetry.enable()
+    params = serve_params(std=CONTROL_WEIGHT_STD)
+    prompts = serve_prompts(0)
+    L = SERVE_CFG["num_layers"]
+    checks = {}
+    row = {"phase": "serve_aot_tp", "card": card,
+           "manifest_programs": len(manifest), "tp": AOT_TP}
+    old_virtual = os.environ.get(mesh_mod.ENV_VIRTUAL)
+    with tempfile.TemporaryDirectory() as tmp:
+        mpath = os.path.join(tmp, "manifest.jsonl")
+        with open(mpath, "w") as f:
+            for e in manifest:
+                f.write(json.dumps(e) + "\n")
+        store = os.path.join(tmp, "aot")
+        # (1) cold: trace, export, save and capture every program
+        before = _aot_counts()
+        cold = full_width_engine(params, torch.bfloat16, aot_dir=store)
+        ready, cold_s = _warm_timed(cold, manifest)
+        after = _aot_counts()
+        drive = _drive(cold, prompts)
+        toks = drive["tokens"]
+        entries = export_store.ExportStore(store).entries()
+        checks["cold_traced_every_program"] = (
+            ready == len(manifest)
+            == _count_delta(after, before, "programs", "trace")
+            == len(entries)
+            and _count_delta(after, before, "programs", "artifact") == 0)
+        checks["cold_no_traffic_capture"] = drive["traffic_captures"] == 0
+        checks["cold_launches"] = (drive["launches"]
+                                   == L * drive["decode_steps"] > 0)
+        cold.shutdown()
+        plain = full_width_engine(params, torch.bfloat16)
+        _, manifest_s = _warm_timed(plain, manifest)
+        checks["store_tokens_equal_traced_body"] = \
+            _drive(plain, prompts)["tokens"] == toks
+        plain.shutdown()
+        row["store"] = {"artifacts": len(entries),
+                        "bytes": sum(b for _, b in entries)}
+        # the fresh process restarts from the store while this one goes
+        # on with the planted faults and the identity pairs (its profile
+        # counts its own kernels only)
+        stale_dir = os.path.join(tmp, "stale")
+        shutil.copytree(store, stale_dir)
+        flat_dir = os.path.join(tmp, "flat")
+        shutil.copytree(store, flat_dir)
+        child_proc = _aot_child_start(store, mpath, 1)
+        row["planted_stale"] = stale_fault(params, stale_dir, manifest)
+        checks["planted_stale_costs_a_trace"] = row["planted_stale"]["ok"]
+        row["planted_functionalized"] = inplace_fault(params, flat_dir,
+                                                      manifest)
+        checks["planted_functionalized_fails_inplace"] = \
+            row["planted_functionalized"]["ok"]
+        # (2) tp = 3 on this one card
+        os.environ[mesh_mod.ENV_VIRTUAL] = str(AOT_TP)
+        try:
+            few = prompts[:AOT_TP_PROMPTS]
+            pairs = {}
+            for tag, kw in (("float32", {}), ("int8_kv",
+                                              {"kv_dtype": "int8"})):
+                got = {}
+                for tp in (1, AOT_TP):
+                    eng = full_width_engine(params, torch.float32, tp=tp,
+                                            **kw)
+                    got[tp] = _drive(eng, few)
+                    eng.shutdown()
+                same = got[1]["tokens"] == got[AOT_TP]["tokens"]
+                pairs[tag] = {"identical": same,
+                              "launches_tp": got[AOT_TP]["launches"],
+                              "decode_steps_tp":
+                                  got[AOT_TP]["decode_steps"]}
+                checks[f"{tag}_tp{AOT_TP}_tokens_equal_tp1"] = same
+            row["tp_pairs"] = pairs
+            child = _aot_child_row(child_proc)
+            prof = child.get("profile", {})
+            traced = prof.get("traced_paged_kernels")
+            checks["restart_zero_traces"] = (child.get("traces") == 0 and
+                                             child.get("artifacts")
+                                             == len(manifest))
+            checks["restart_captures"] = (
+                child.get("warmup_programs") == len(manifest)
+                and child.get("warmup_captures")
+                == child.get("captures_expected")
+                and child.get("traffic_captures") == 0)
+            checks["restart_tokens"] = child.get("tokens") == toks
+            checks["restart_launches_traced"] = (
+                bool(traced) and prof.get("counted_paged_launches") == traced
+                and traced.get("paged_attention_split")
+                == L * prof.get("decode_steps", 0) > 0
+                and child.get("launches")
+                == L * child.get("decode_steps", -1))
+            row["start_seconds"] = {
+                "cold_store_warmup_s": cold_s,
+                "manifest_only_warmup_s": manifest_s,
+                "serve_restart_warmup_s": restart_row.get("warmup_s"),
+                "store_warm_warmup_s": child.get("warmup_s"),
+                "store_warm_engine_build_s": child.get("build_s"),
+                "store_warm_process_s": child.get("process_s")}
+            row["restart"] = {k: child.get(k) for k in (
+                "traces", "artifacts", "warmup_captures",
+                "captures_expected", "launches", "decode_steps",
+                "traffic_captures", "errors", "rc", "tail")}
+            row["restart"]["profile"] = prof
+            # bf16: tp=1 against tp=3 (the tier on: a host block's round
+            # trip), each warmed from the manifest's programs (its lines'
+            # spec digest is the tp=1 engine's: unstamped, trusted)
+            grid = [{"kind": e["kind"], "bucket": e["bucket"]}
+                    for e in manifest]
+            e1 = full_width_engine(params, torch.bfloat16)
+            e1.warmup(grid)
+            d1 = _drive(e1, prompts)
+            p1 = serve_profile(e1, prompts)
+            e3 = full_width_engine(params, torch.bfloat16, tp=AOT_TP,
+                                   host_kv_bytes=1 << 26)
+            e3.warmup(grid)
+            d3 = _drive(e3, prompts)
+            p3 = serve_profile(e3, prompts)
+            flipped = flips(e1, prompts, d1["tokens"], d3["tokens"])
+            kv = e3.kv_cache_stats()
+            shard0 = int(e3._cache_k[0].nbytes + e3._cache_v[0].nbytes)
+            rt = host_round_trip(e3)
+            e1.shutdown()
+            e3.shutdown()
+            per_step = L * AOT_TP
+            traced3 = p3["traced_paged_kernels"]
+            checks["tp_launches_per_decode_step"] = (
+                d3["launches"] == per_step * d3["decode_steps"] > 0)
+            checks["tp_launches_traced"] = (
+                traced3["paged_attention_split"]
+                == per_step * p3["decode_steps"] > 0
+                and p3["counted_paged_launches"] == traced3)
+            checks["tp_bytes_per_device"] = (
+                shard0 == kv["bytes_per_device"]
+                and kv["bytes_per_device"] * AOT_TP == kv["bytes_total"])
+            checks["tp_host_round_trip"] = (rt["bit_exact"]
+                                            and rt["shards_hold_their_heads"])
+            checks["tp_no_traffic_capture"] = d3["traffic_captures"] == 0
+            # the tp=3 restart from a store: two 16-token prompts (one
+            # prefill and one decode program), traced in the cold
+            # engine's traffic, loaded by the warm one's warmup
+            pair = [prompts[0], prompts[4]]
+            tp_store = os.path.join(tmp, "aot_tp")
+            before = _aot_counts()
+            c3 = full_width_engine(params, torch.bfloat16, tp=AOT_TP,
+                                   aot_dir=tp_store)
+            t0 = time.perf_counter()
+            dc3 = _drive(c3, pair)
+            cold3_s = time.perf_counter() - t0
+            mid = _aot_counts()
+            tp_manifest = c3.manifest()
+            c3.shutdown()
+            w3 = full_width_engine(params, torch.bfloat16, tp=AOT_TP,
+                                   aot_dir=tp_store)
+            ready_w3, warm3_s = _warm_timed(w3, tp_manifest)
+            after = _aot_counts()
+            dw3 = _drive(w3, pair)
+            w3.shutdown()
+            checks["tp_cold_traced"] = (
+                _count_delta(mid, before, "programs", "trace")
+                == len(tp_manifest) > 0)
+            checks["tp_restart_zero_traces"] = (
+                _count_delta(after, mid, "programs", "trace") == 0
+                and _count_delta(after, mid, "programs", "artifact")
+                == ready_w3 == len(tp_manifest))
+            checks["tp_restart_tokens"] = dw3["tokens"] == dc3["tokens"]
+            row["bf16"] = {
+                "flips": flipped,
+                "requests_identical": sum(
+                    a == b for a, b in zip(d1["tokens"], d3["tokens"])),
+                "decode_step_ms_mean_tp1": statistics.mean(d1["step_ms"]),
+                f"decode_step_ms_mean_tp{AOT_TP}":
+                    statistics.mean(d3["step_ms"]),
+                "profile_tp1": {k: p1[k] for k in (
+                    "wall_ms_per_step", "kernel_ms_per_step",
+                    "kernels_per_step", "busy_share")},
+                f"profile_tp{AOT_TP}": {k: p3[k] for k in (
+                    "wall_ms_per_step", "kernel_ms_per_step",
+                    "kernels_per_step", "busy_share",
+                    "traced_paged_kernels", "counted_paged_launches")},
+                "launches": d3["launches"],
+                "combine_launches": d3["combine_launches"],
+                "decode_steps": d3["decode_steps"],
+                "launches_per_decode_step":
+                    d3["launches"] / max(1, d3["decode_steps"])}
+            row["tp_kv"] = {**kv, "shard0_bytes": shard0}
+            row["tp_host_round_trip"] = rt
+            row["tp_store"] = {"programs": len(tp_manifest),
+                               "cold_traffic_s": cold3_s,
+                               "store_warm_warmup_s": warm3_s}
+        finally:
+            if old_virtual is None:
+                os.environ.pop(mesh_mod.ENV_VIRTUAL, None)
+            else:
+                os.environ[mesh_mod.ENV_VIRTUAL] = old_virtual
+            if child_proc[0].poll() is None:
+                child_proc[0].kill()
+                child_proc[0].wait()
+    telemetry.disable()
+    telemetry.reset()
+    row["checks"] = checks
+    row["ok"] = all(checks.values())
+    emit(row)
+    if not row["ok"]:
+        raise SystemExit("serve_aot_tp failed: " + ", ".join(
+            k for k, v in checks.items() if not v))
+    return {"kernel_launches": d3["launches"],
+            "combine_launches": d3["combine_launches"],
+            "restored_launches": child.get("launches", 0),
+            "restored_combine_launches": child.get("combine_launches", 0)}
+
+
 def small_model_check():
     """A small seeded model (the reference's serve-test shapes, rope +
     GQA + SwiGLU + RMSNorm + tied): the captured CUDA engine's greedy
@@ -6503,6 +7026,29 @@ def fleet_main():
     return 0
 
 
+def aot_tp_main():
+    """``--aot-tp``: the paged library built, the serve phase (its tokens
+    and manifest), ``serve_restart``, then ``serve_aot_tp``."""
+    from mxnet_tpu_torch.ops import paged_attention_cuda as pac
+
+    pac._fns()
+    card = card_line()
+    np_params = serve_params()
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = os.path.join(tmp, "manifest.jsonl")
+        _, serve_toks = serve_main_path(np_params, manifest)
+        restart = serve_restart(np_params, serve_toks, manifest)
+        with open(manifest) as f:
+            entries = [json.loads(ln) for ln in f if ln.strip()]
+    del np_params
+    t0 = time.perf_counter()
+    serve_aot_tp(entries, restart, card)
+    print(json.dumps({"phase": "serve_aot_tp_seconds",
+                      "seconds": time.perf_counter() - t0}))
+    print(card)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
@@ -6519,6 +7065,13 @@ def main():
                     help=argparse.SUPPRESS)
     ap.add_argument("--cache-child", type=int, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--aot-tp", dest="aot_tp_only", action="store_true",
+                    help="run only the serve phase, serve_restart and "
+                         "serve_aot_tp")
+    ap.add_argument("--aot-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--aot-manifest", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--aot-child-tp", type=int, default=1,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6532,6 +7085,10 @@ def main():
         return c8_planted(args.c8_planted)
     if args.cache_child:
         return cache_child(args.cache_child)
+    if args.aot_child:
+        return aot_child(args.aot_child, args.aot_manifest, args.aot_child_tp)
+    if args.aot_tp_only:
+        return aot_tp_main()
     if args.fleet:
         return fleet_main()
     from mxnet_tpu_torch import _build
@@ -6631,10 +7188,12 @@ def main():
         manifest = os.path.join(tmp, "manifest.jsonl")
         serve, serve_toks = serve_main_path(np_params, manifest)
         lap("serve")
-        serve_restart(np_params, serve_toks, manifest)
+        restart = serve_restart(np_params, serve_toks, manifest)
         lap("serve_restart")
         with open(manifest) as f:
             serve_manifest = [json.loads(ln) for ln in f if ln.strip()]
+    aot_tp = serve_aot_tp(serve_manifest, restart, card)
+    lap("serve_aot_tp")
     serve_prefix(np_params)
     lap("serve_prefix")
     logits_check(np_params)
@@ -6705,7 +7264,9 @@ def main():
     # blocks, the pulling pair), the sensors phase's in-process
     # engines (C8's pair, the collector's pair, the monitor's engine)
     # and the control plane's (autoscaled, redeployed, rolled back and
-    # adapter-loaded replicas, their reference engine)
+    # adapter-loaded replicas, their reference engine), the tp=3
+    # engine's decode (layers x 3 a step) and the store-warm child
+    # process's restored decode graphs
     paged_paths = {"serve": (serve["kernel_launches"],
                              serve["combine_launches"]),
                    "serve_spec_draft": (spec["spec_on"]["kernel_launches"],
@@ -6733,7 +7294,12 @@ def main():
                    "serve_fleet_obs": (fleet_obs["kernel_launches"],
                                        fleet_obs["combine_launches"]),
                    "serve_fleet_control": (control["kernel_launches"],
-                                           control["combine_launches"])}
+                                           control["combine_launches"]),
+                   "serve_aot_tp": (aot_tp["kernel_launches"],
+                                    aot_tp["combine_launches"]),
+                   "serve_aot_store_warm": (
+                       aot_tp["restored_launches"],
+                       aot_tp["restored_combine_launches"])}
     kernels = {"kernels": [{
         "name": "paged_attention_decode", "route": "cuda",
         "cuda_kernels": ["paged_attention_split", "paged_attention_combine"],

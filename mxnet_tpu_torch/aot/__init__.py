@@ -7,25 +7,29 @@ The port of ``mxnet_tpu/aot/``, in two layers:
   import): kernel builds become library loads across processes, under
   a toolkit namespace, with eviction and ``aot.compile_cache`` on
   ``/statusz``.
+- :mod:`export_store` — serialized ``torch.export`` programs on disk
+  (``MXTPU_AOT_DIR``): a restarted serving engine loads its bucket
+  programs instead of tracing them (on CUDA it then captures the loaded
+  program as a CUDA graph; the graph, bound to its process's device
+  addresses, is never stored).
 - :mod:`warmup` — records the (kind, bucket) programs live traffic hit
   (``MXTPU_WARMUP_MANIFEST``); ``serve.Engine.warmup()`` replays them
   before traffic, building (on CUDA, capturing as a CUDA graph) every
   program ahead of the first request.  :func:`fingerprint` and
   :func:`digest` stamp each line with the recording engine's program
   key, torch version and card.
-
-Not ported (ROADMAP §A item 12): the export store, since a CUDA graph is
-bound to its process's device addresses and cannot be stored.
 """
 
 from __future__ import annotations
 
-from . import cache, warmup
+from . import cache, export_store, warmup
 from .cache import CompileCacheManager
+from .export_store import ENV_DIR, ExportStore, default_store
 from .warmup import (ENV_MANIFEST, ManifestRecorder, digest, fingerprint,
                      load_manifest)
 
-__all__ = ["cache", "warmup", "CompileCacheManager", "ManifestRecorder",
+__all__ = ["cache", "export_store", "warmup", "CompileCacheManager",
+           "ExportStore", "default_store", "ENV_DIR", "ManifestRecorder",
            "load_manifest", "fingerprint", "digest", "ENV_MANIFEST",
            "enable_from_env"]
 

@@ -12,12 +12,13 @@ the gpt() argument order, the same scales), so every replica started
 with the same model flags and seed, of either package, holds the same
 float32 weights, and router retries are token-identical.
 
-Startup is warm with ``MXTPU_WARMUP_MANIFEST`` set: the engine captures
+Startup is warm when the AOT env is set: ``MXTPU_AOT_DIR`` loads the
+exported bucket programs instead of tracing them, and
+``MXTPU_WARMUP_MANIFEST`` makes the engine build (on CUDA, capture)
 every program the manifest lists before the ready line prints (the
-drain -> restart path of a rolling restart).  ``MXTPU_AOT_DIR`` raises:
-CUDA graphs are not stored across processes (ROADMAP §A item 12).  The
-kernel libraries load from ``MXTPU_TORCH_BUILD_DIR``: a parent that
-builds them first spares every child its ``nvcc`` runs.
+drain -> restart path of a rolling restart).  The kernel libraries load
+from ``MXTPU_TORCH_BUILD_DIR``: a parent that builds them first spares
+every child its ``nvcc`` runs.
 
 Faults: ``MXTPU_FAULT_SPEC`` arms the chaos injector; a *kill* fault here
 is a real ``os._exit(1)`` mid-request.
@@ -139,11 +140,6 @@ def _device(args):
 def main(argv=None):
     args = parse_args(argv)
     t0 = time.perf_counter()
-    if os.environ.get("MXTPU_AOT_DIR"):
-        raise NotImplementedError(
-            "MXTPU_AOT_DIR: the AOT program store is not ported yet (ROADMAP "
-            "§A item 12): a CUDA graph is bound to its process's device "
-            "addresses, so warm starts replay MXTPU_WARMUP_MANIFEST")
     import torch
 
     from ..context import resolve_device
@@ -204,10 +200,10 @@ def main(argv=None):
         "backend": device.type,
         "device_name": (torch.cuda.get_device_name(device)
                         if device.type == "cuda" else "cpu"),
-        "dtype": str(engine._cache_k.dtype).replace("torch.", ""),
+        "dtype": str(engine.cache_dtype).replace("torch.", ""),
         "ready_s": round(time.perf_counter() - t0, 3),
         "warmed": warmed,
-        "aot_dir": None,
+        "aot_dir": os.environ.get("MXTPU_AOT_DIR") or None,
         "fault_spec": os.environ.get("MXTPU_FAULT_SPEC") or None}),
         flush=True)
 

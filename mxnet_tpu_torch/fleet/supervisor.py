@@ -17,9 +17,11 @@ invisible to clients:
   2. wait until ``/healthz`` reports the drain complete (no queued, no
      running, no in-flight handler work);
   3. terminate the process and spawn the replacement — which starts
-     WARM: the warmup manifest (``MXTPU_WARMUP_MANIFEST``) captures
-     every bucket program the traffic ran before the ready line, so
-     the slot is back in rotation without capturing under traffic;
+     WARM: the export store and the warmup manifest (``MXTPU_AOT_DIR``
+     / ``MXTPU_WARMUP_MANIFEST``, carried in the spawn's environment)
+     load and capture every bucket program the traffic ran, without a
+     fresh trace, before the ready line, so the slot is back in
+     rotation without capturing under traffic;
   4. next slot.
 
 The supervisor is deliberately transport-agnostic: a *handle* is
@@ -401,9 +403,9 @@ class Supervisor:
         """The zero-downtime slot replacement: drain (out of the
         router's rotation) -> wait -> terminate -> spawn-with-``factory``
         (default: this supervisor's own ``spawn``, i.e. a plain restart
-        — warm via the warmup-manifest env the spawn command carries)
-        under the ``_rolling`` exclusive claim, so the deployer never
-        races the crash monitor.  Returns the replacement handle, or
+        — warm via the AOT store and warmup-manifest env the spawn
+        command carries) under the ``_rolling`` exclusive claim, so the
+        deployer never races the crash monitor.  Returns the replacement handle, or
         None for a retired slot."""
         with self._lock:
             if slot in self._retired:

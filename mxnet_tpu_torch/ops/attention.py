@@ -5,22 +5,28 @@ tensors.  Training half: :func:`LayerNorm`, :func:`RMSNorm`,
 :func:`gelu`, :func:`silu` (statistics and activations in float32, cast
 back to the input dtype), :func:`FlashAttention` (the op: the Hopper
 kernels or the dense formulation, by ``impl``) and :func:`RoPE`.
-``spmd_attention`` is not ported: the port has no mesh yet.
+``spmd_attention`` is not ported: the port's mesh (``parallel/mesh.py``)
+serves tensor-parallel decoding only.
 
-Serving half: a CUDA tensor goes to the hand-written Hopper
-paged-attention kernel (``ops/paged_attention_cuda.py``); a CPU tensor
-goes to the plain torch path below, which repeats the reference's jnp
-path step for step (gather through the block tables, masked float32
-softmax, grouped-query heads) and is the kernel's parity oracle.
-``impl="torch"`` (or ``MXTPU_TORCH_PAGED_ATTENTION=torch``) forces the
-plain path on any device; it is a caller's explicit choice, never an
-automatic retreat.
+Serving half: :func:`paged_attention` calls the custom op
+``torch.ops.mxnet_tpu_torch.paged_attention``, registered when this
+module is imported.  Inside the op, at run time, a CUDA tensor goes to
+the hand-written Hopper paged-attention kernel
+(``ops/paged_attention_cuda.py``) and a CPU tensor to the plain torch
+path below, which repeats the reference's jnp path step for step
+(gather through the block tables, masked float32 softmax, grouped-query
+heads) and is the kernel's parity oracle.  Being one op, it is one node
+of a ``torch.export`` graph: an exported program holds the call, never
+the branch a device took.  ``impl="torch"`` (or
+``MXTPU_TORCH_PAGED_ATTENTION=torch``) forces the plain path on any
+device; it is a caller's explicit choice, never an automatic retreat.
 """
 
 from __future__ import annotations
 
 import math
 import os
+from typing import Optional
 
 import torch
 
@@ -109,15 +115,39 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
     Returns (B, Hq, Dh) in q's dtype.
     """
     _check_args(q, k_cache, window, k_scale, v_scale)
+    scale = float(scale) if scale is not None else 1.0 / (q.shape[2] ** 0.5)
+    return torch.ops.mxnet_tpu_torch.paged_attention(
+        q, k_cache, v_cache, block_tables, context_lens, k_scale, v_scale,
+        int(window), scale, impl)
+
+
+@torch.library.custom_op("mxnet_tpu_torch::paged_attention",
+                         mutates_args=())
+def _paged_attention_op(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, block_tables: torch.Tensor,
+                        context_lens: torch.Tensor,
+                        k_scale: Optional[torch.Tensor],
+                        v_scale: Optional[torch.Tensor], window: int,
+                        scale: float, impl: Optional[str]) -> torch.Tensor:
+    """The op behind :func:`paged_attention`: the implementation is
+    resolved here, on every call, from the tensors' device (and
+    ``impl``/the env), so a graph that holds the op runs the kernel on
+    CUDA tensors and the plain path on CPU tensors."""
     if resolve_paged_impl(k_cache.shape[1], q.shape[2], impl,
                           q.device) == "cuda":
-        from .paged_attention_cuda import paged_attention_cuda
-        return paged_attention_cuda(
+        from . import paged_attention_cuda as pac
+        return pac.paged_attention_cuda(
             q, k_cache, v_cache, block_tables, context_lens,
             window=window, scale=scale, k_scale=k_scale, v_scale=v_scale)
     return paged_attention_torch(
         q, k_cache, v_cache, block_tables, context_lens, window=window,
         scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
+@_paged_attention_op.register_fake
+def _paged_attention_fake(q, k_cache, v_cache, block_tables, context_lens,
+                          k_scale, v_scale, window, scale, impl):
+    return torch.empty_like(q)
 
 
 def paged_attention_torch(q, k_cache, v_cache, block_tables, context_lens,

@@ -44,7 +44,7 @@ import torch
 __all__ = ["start", "stop", "trace", "scope", "annotate", "active_logdir",
            "ProfilerActive", "device_memory", "summarize", "capture_lock",
            "prime",
-           "CAPTURE_WAIT_S", "STOP_SETTLE_S"]
+           "CAPTURE_WAIT_S", "STOP_SETTLE_S", "START_SETTLE_S"]
 
 # the profiler is process-global and start/stop may arrive from two
 # threads; every transition of the active-capture state happens under
@@ -60,6 +60,12 @@ CAPTURE_WAIT_S = 5.0     # the longest a profiler start waits for a capture
 # ran, and a stop right after a synchronize can lose the window's last
 # graph replays from the trace (chip_profiler_tail.py measures it)
 STOP_SETTLE_S = 0.1
+# the wait between the profiler's start and its return: CUPTI turns the
+# card's kernel records on some time after the start, and a CUDA graph
+# replayed at once can reach the trace with only its later kernels (the
+# window's first decode replay held 3 of its 4 paged split kernels;
+# chip_profiler_tail.py --start-settle measures it)
+START_SETTLE_S = 0.05
 
 
 # held by every CUDA graph capture of the process (with its warm-up
@@ -79,8 +85,9 @@ def active_logdir():
 
 
 def _start_capture(logdir):
-    """Start a torch.profiler capture outside any CUDA graph capture;
-    returns the running profile."""
+    """Start a torch.profiler capture outside any CUDA graph capture,
+    returning once the card records kernels (``START_SETTLE_S`` after
+    the start); returns the running profile."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -93,6 +100,9 @@ def _start_capture(logdir):
             f"{CAPTURE_WAIT_S} s; the profiler did not start")
     try:
         prof.start()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+            time.sleep(START_SETTLE_S)
     finally:
         capture_lock.release()
     return prof

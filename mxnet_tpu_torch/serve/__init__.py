@@ -3,7 +3,8 @@
 The port of ``mxnet_tpu.serve``: ``Engine`` (scheduler iterations of
 whole-prompt prefills plus one batched decode, or one speculative
 iteration with ``spec_k``; int8 weights and K/V, per-request
-sampling, a host-DRAM KV tier and LoRA adapters on request),
+sampling, a host-DRAM KV tier, LoRA adapters, tensor-parallel shards
+and the export store on request),
 ``Scheduler`` (admission, back-pressure, preemption by recomputation),
 ``BlockManager`` (paged block accounting) and ``HostKVPool`` (the host
 tier), ``AdapterStore`` (the adapters' device slots and host tier),

@@ -37,8 +37,9 @@ Slot discipline (BlockManager-style accounting):
 
 ``acquire`` raises :class:`NoAdapterSlots` when every slot is pinned,
 which the engine maps to the retriable ``adapter_slots`` rejection.
-The stacks' sharding (the reference's ``shardings=``) waits for
-tensor-parallel serving (ROADMAP §A item 13).
+Under tensor parallelism (the reference's ``shardings=``) a stack named
+in ``split`` is a list of one tensor a shard, split on that dim; a load
+writes each shard its piece of the slot's rows.
 """
 
 from __future__ import annotations
@@ -101,11 +102,12 @@ class AdapterStore:
     zero-padded: padding rows add exactly 0); ``slots`` counts device
     slots INCLUDING the reserved all-zero slot 0; the A/B stacks are
     ``dtype`` (the engine's float dtype) on ``device``, the scales
-    float32.
+    float32.  ``split`` maps a stack key (``f"{stem}_A"``/``_B``) to the
+    dim its ``shards`` pieces split (the others are whole).
     """
 
     def __init__(self, stems, rank, slots, dtype=torch.float32,
-                 device="cpu", host_bytes=None):
+                 device="cpu", host_bytes=None, split=None, shards=1):
         if slots < 2:
             raise ValueError("adapters needs >= 2 slots "
                              "(slot 0 is the reserved base-model row)")
@@ -127,12 +129,23 @@ class AdapterStore:
         self.loads = 0                   # guarded-by: _lock
         self.device_evictions = 0        # guarded-by: _lock
         self.host_evictions = 0          # guarded-by: _lock
+        self.split = dict(split or {})
         stacks = {}
+
+        def zeros(key, shape):
+            dim = self.split.get(key)
+            if dim is None:
+                return torch.zeros(shape, dtype=dtype, device=device)
+            shape = list(shape)
+            shape[dim] //= shards
+            return [torch.zeros(shape, dtype=dtype, device=device)
+                    for _ in range(shards)]
+
         for stem, (dout, din) in self.stems.items():
-            stacks[f"{stem}_A"] = torch.zeros(
-                (self.slots, self.rank, din), dtype=dtype, device=device)
-            stacks[f"{stem}_B"] = torch.zeros(
-                (self.slots, dout, self.rank), dtype=dtype, device=device)
+            stacks[f"{stem}_A"] = zeros(f"{stem}_A",
+                                        (self.slots, self.rank, din))
+            stacks[f"{stem}_B"] = zeros(f"{stem}_B",
+                                        (self.slots, dout, self.rank))
         stacks["scale"] = torch.zeros((self.slots,), dtype=torch.float32,
                                       device=device)
         self._device = stacks            # bound once; loads write in place
@@ -314,17 +327,27 @@ class AdapterStore:
         with self._lock:
             rec = self._host[digest]
             for stem in self.stems:
-                a = self._device[f"{stem}_A"][slot]
-                b = self._device[f"{stem}_B"][slot]
-                a.zero_()
-                b.zero_()
                 pair = rec["arrays"].get(stem)
-                if pair is not None:
-                    r = pair[0].shape[0]
-                    a[:r].copy_(torch.from_numpy(
-                        np.ascontiguousarray(pair[0])))
-                    b[:, :r].copy_(torch.from_numpy(
-                        np.ascontiguousarray(pair[1])))
+                for tag, i in (("A", 0), ("B", 1)):
+                    key = f"{stem}_{tag}"
+                    full = self._device[key]
+                    rows = None
+                    if pair is not None:
+                        rows = torch.from_numpy(
+                            np.ascontiguousarray(pair[i]))
+                    shards = full if isinstance(full, list) else [full]
+                    pieces = [rows] * len(shards)
+                    if rows is not None and isinstance(full, list):
+                        # the slot's rows lose the slot axis: dim - 1
+                        pieces = torch.chunk(rows, len(shards),
+                                             dim=self.split[key] - 1)
+                    for shard, piece in zip(shards, pieces):
+                        dst = shard[slot]
+                        dst.zero_()
+                        if piece is None:
+                            continue
+                        r = pair[0].shape[0]
+                        (dst[:r] if tag == "A" else dst[:, :r]).copy_(piece)
             self._device["scale"][slot] = float(
                 np.float32(rec["alpha"] / rec["rank"]))
             self.loads += 1

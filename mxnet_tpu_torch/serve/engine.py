@@ -89,10 +89,33 @@ thread may render ``/statusz`` while ``warmup()`` captures.  With
 also return ``isfinite(logits).all()``, read in the same copy as the
 tokens; a false flag records an anomaly and dumps.
 
+With ``aot_dir`` (or ``MXTPU_AOT_DIR``) every program goes through the
+export store (``aot/export_store.py``): a body is exported with
+``torch.export`` over a module that takes its inputs, parameters,
+caches, scales and adapter stacks as inputs (the artifact holds no
+weights) and saved under the engine's fingerprint and its (kind,
+bucket); a restarted engine loads it and runs the loaded program's
+module instead of tracing the body, and on CUDA captures it as a graph
+as it would the body.  ``mxtpu_aot_programs_total{kind,source}`` counts
+``source="trace"`` (built from the body) and ``source="artifact"``
+(loaded).  A stale, corrupt or truncated artifact costs a trace.
+
+With ``tp=N`` (or ``MXTPU_SERVE_TP``) the parameters are placed by
+regex partition rules (``parallel/partition.py``; the GPT default or
+``partition_rules=``/``MXTPU_SERVE_PARTITION_RULES``) on a ``{'tp': N}``
+mesh (``parallel/mesh.py``), one shard a mesh device, and the K/V-cache
+is born head-sharded: each shard holds ``kv_heads/N`` heads of every
+block.  In the bodies a column-sharded projection gives each shard its
+heads (or hidden units), a row-sharded one partial sums reduced over
+the shards with the bias added once after, and a replicated one is
+computed whole and sliced to the shard's heads where attention needs
+them; paged attention runs once a shard and layer on that shard's
+cache, inside the one program.  The mesh may only hold shards of one
+device (``MXTPU_TORCH_VIRTUAL_DEVICES``): distinct cards raise.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP §A item: AOT program stores (the rest of 12), tensor
-parallelism (13), and Symbol-driven config, the draft's included, and
-the ``MXTPU_TIMESERIES`` ring, whose sampler is ``ServeMonitor`` (15).
+ROADMAP §A item: Symbol-driven config, the draft's included, and the
+``MXTPU_TIMESERIES`` ring, whose sampler is ``ServeMonitor`` (15).
 """
 
 from __future__ import annotations
@@ -113,6 +136,7 @@ import torch
 
 from .. import aot, telemetry
 from .. import profiler as profiler_mod
+from ..aot import export_store
 from ..base import env_flag, env_int
 from ..context import resolve_device
 from ..convert import params_from_numpy
@@ -120,6 +144,8 @@ from ..models.generate import (_fc, _gelu, _gumbel, _ln,
                                detect_gpt_variant)
 from ..ops import paged_attention_cuda as _pac
 from ..ops.attention import paged_attention, resolve_paged_impl
+from ..parallel import mesh as mesh_mod
+from ..parallel import partition as partition_mod
 from ..telemetry import cudamon, profiling
 from ..telemetry import flight as flight_mod
 from ..telemetry import statusz as statusz_mod
@@ -139,12 +165,15 @@ __all__ = ["Engine", "TOP_LOGPROBS"]
 # attention's implementation ("cuda" or "torch"); ``sampling`` and
 # ``sample_cap`` (the candidate width) are on in sampling mode only;
 # ``numeric_watch`` adds the logits-finite flag to the decode, prefill,
-# chunk and verify outputs
+# chunk and verify outputs; ``tp`` is the tensor-parallel degree and
+# ``split`` the sharded parameters' ``(name, dim)`` pairs (``()`` at
+# tp 1), the parameter layout the bodies compute over
 _ModelCfg = collections.namedtuple("_ModelCfg", [
     "name", "n_layers", "num_heads", "head_dim", "kv_heads", "pos_table",
     "swiglu", "tied", "rmsnorm", "window", "block_size", "kv_quant",
-    "paged_impl", "sampling", "sample_cap", "numeric_watch"],
-    defaults=(False, 0, False))
+    "paged_impl", "sampling", "sample_cap", "numeric_watch", "tp",
+    "split"],
+    defaults=(False, 0, False, 1, ()))
 
 # top-logprob candidates every sampling-mode program returns for each
 # sampled position (the request's ``logprobs`` picks how many surface)
@@ -566,6 +595,17 @@ class Engine:
         ``MXTPU_SERVE_ADAPTER_RANK``, default 8).
       adapter_host_bytes: the adapter host tier's byte budget (env
         ``MXTPU_SERVE_ADAPTER_HOST_BYTES``, default 0 = unbounded).
+      tp: tensor-parallel degree (env ``MXTPU_SERVE_TP``, default 1):
+        must divide ``num_heads`` and the K/V heads, and not exceed the
+        visible devices (physical ones x ``MXTPU_TORCH_VIRTUAL_DEVICES``).
+        At 1 nothing is sharded and programs, fingerprint and tokens
+        stay as they were.
+      partition_rules: the ``(pattern, PartitionSpec)`` rules, or their
+        ``MXTPU_SERVE_PARTITION_RULES`` text, placing the parameters at
+        tp > 1 (default ``parallel.gpt_partition_rules``).
+      aot_dir: the export store's directory (env ``MXTPU_AOT_DIR``,
+        default none): programs are exported there on a miss and loaded
+        on a hit.
       clock: injectable monotonic clock (tests drive deadlines).
       device: where weights, cache and programs live (default
         ``"cuda"``; raises when CUDA is absent — no CPU fallback).
@@ -588,19 +628,13 @@ class Engine:
                  draft_params=None, draft_num_heads=None, draft_window=None,
                  draft_name=None, draft_symbol=None, adapters=None,
                  adapter_rank=None, adapter_host_bytes=None,
-                 host_kv_bytes=None, aot_dir=None, symbol=None):
+                 host_kv_bytes=None, aot_dir=None, symbol=None,
+                 partition_rules=None):
         if symbol is not None:
             raise _unported("symbol= (decode config from a Symbol)", 15)
         if draft_symbol is not None:
             raise _unported("draft_symbol= (the draft's decode config "
                             "from a Symbol)", 15)
-        if aot_dir is not None or os.environ.get("MXTPU_AOT_DIR"):
-            raise _unported(
-                "the AOT program store (aot_dir): a CUDA graph is bound to "
-                "its process's device addresses, so warm starts replay "
-                "warmup manifests instead", 12)
-        if (tp if tp is not None else env_int("MXTPU_SERVE_TP", 1)) != 1:
-            raise _unported("tensor-parallel serving (tp > 1)", 13)
         if num_heads is None:
             raise ValueError("num_heads is required")
         window = 0 if window is None else int(window)
@@ -686,11 +720,15 @@ class Engine:
         max_queue = (int(max_queue) if max_queue is not None
                      else env_int("MXTPU_SERVE_MAX_QUEUE", 64))
 
+        self.tp = int(tp) if tp is not None else env_int("MXTPU_SERVE_TP", 1)
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1 (got {self.tp})")
         # weight-only int8 quantizes the normalized checkpoint at its
-        # own precision, then casts what stays floating point
+        # own precision, then casts what stays floating point.  At tp > 1
+        # this happens on the host, and each shard is copied alone
         self.params = params_from_numpy(
-            params, self.device, dtype=None if self.quantize else dtype,
-            name=name)
+            params, self.device if self.tp == 1 else "cpu",
+            dtype=None if self.quantize else dtype, name=name)
         self.spec = detect_gpt_variant(self.params, num_heads, name)
         if self.quantize:
             self.params = {
@@ -700,6 +738,15 @@ class Engine:
                     self.params, name, self.spec).items()}
         self.name = name
         self.num_heads = int(num_heads)
+        adapter_stems = (adapters_mod.gpt_stems(
+            name, self.spec["n_layers"], self.spec["swiglu"],
+            self.spec["tied"], self.params) if self._adapters else None)
+        # the tensor-parallel mesh and layout (tp 1: none)
+        self.mesh = None
+        self._rules = self._rules_digest = None
+        self._split = {}               # sharded parameter -> its dim
+        if self.tp > 1:
+            self._shard_params(partition_rules)
         self.window = window
         cache_tokens = (self.num_blocks - 1) * self.block_size
         if max_model_len is None:
@@ -761,30 +808,37 @@ class Engine:
         self._pending_fanout = []      # guarded-by: _fanout_lock
 
         L = self.spec["n_layers"]
-        dt = self.params[f"{name}_tok_embed_weight"].dtype
+        dt = _first(self.params[f"{name}_tok_embed_weight"]).dtype
+        # born head-sharded at tp > 1: each shard holds kv_heads/tp heads
+        # of every block (block accounting never changes)
         shape = (L, self.num_blocks, self.block_size,
-                 self.spec["kv_heads"], self.spec["head_dim"])
+                 self.spec["kv_heads"] // self.tp, self.spec["head_dim"])
         cache_dt = torch.int8 if self._kv_quant else dt
-        self._cache_k = torch.zeros(shape, dtype=cache_dt,
-                                    device=self.device)
-        self._cache_v = torch.zeros(shape, dtype=cache_dt,
-                                    device=self.device)
+        self._cache_k = self._zeros(shape, cache_dt)
+        self._cache_v = self._zeros(shape, cache_dt)
         self._scale_k = self._scale_v = None
         if self._kv_quant:
             # one float32 scale a slot and head, indexed by the same
-            # block ids: block accounting never changes
-            self._scale_k = torch.zeros(shape[:-1], dtype=torch.float32,
-                                        device=self.device)
-            self._scale_v = torch.zeros_like(self._scale_k)
+            # block ids, sharded on the same head axis
+            self._scale_k = self._zeros(shape[:-1], torch.float32)
+            self._scale_v = self._zeros(shape[:-1], torch.float32)
         # the adapter stacks in the activation dtype (int8 weights never
-        # make the deltas int8); slot 0 stays all zero
+        # make the deltas int8); slot 0 stays all zero.  Under tp a stack
+        # follows its parent projection: an out-sharded parent shards B's
+        # d_out (A replicated), an in-sharded one A's d_in (B replicated)
         self.adapter_store = None
         if self._adapters:
+            stack_split = {}
+            for stem in adapter_stems:
+                wdim = self._split.get(f"{stem}_weight")
+                if wdim == 0:
+                    stack_split[f"{stem}_B"] = 1
+                elif wdim == 1:
+                    stack_split[f"{stem}_A"] = 2
             self.adapter_store = adapters_mod.AdapterStore(
-                adapters_mod.gpt_stems(name, L, self.spec["swiglu"],
-                                       self.spec["tied"], self.params),
-                self.adapter_rank, self._adapters, dtype=dt,
-                device=self.device, host_bytes=self.adapter_host_bytes)
+                adapter_stems, self.adapter_rank, self._adapters, dtype=dt,
+                device=self.device, host_bytes=self.adapter_host_bytes,
+                split=stack_split, shards=self.tp)
         self._cfg = _ModelCfg(
             name=name, n_layers=L, num_heads=self.num_heads,
             head_dim=self.spec["head_dim"], kv_heads=self.spec["kv_heads"],
@@ -797,7 +851,8 @@ class Engine:
                                           device=self.device),
             sampling=self._sampling,
             sample_cap=self.sample_cap if self._sampling else 0,
-            numeric_watch=self._numeric_watch)
+            numeric_watch=self._numeric_watch, tp=self.tp,
+            split=tuple(sorted(self._split.items())))
         # the draft side last: target params, target cache, then the
         # (much smaller) draft
         self._spec = None
@@ -815,6 +870,9 @@ class Engine:
         if self._capturer is not None:
             # an engine dropped without shutdown() ends its thread too
             weakref.finalize(self, self._capturer.stop)
+        # the export store (None: every program is traced)
+        self._aot = (export_store.ExportStore(aot_dir) if aot_dir is not None
+                     else export_store.default_store())
         self._spec_digest = aot.digest(self._fingerprint())[:16]
         self._manifest = aot.ManifestRecorder(
             self._spec_digest, os.environ.get(aot.ENV_MANIFEST))
@@ -851,10 +909,70 @@ class Engine:
         # retired engine drops off the page)
         self._statusz_name = statusz_mod.register_weak(self, "serve.engine")
 
+    def _shard_params(self, partition_rules):
+        """Validate ``tp``, build the ``{'tp': tp}`` mesh and place the
+        (host) parameters by the partition rules: replicated ones as one
+        tensor on the mesh's device, sharded ones as a list of shards,
+        each copied alone."""
+        visible = mesh_mod.visible_devices(self.device.type)
+        if self.tp > len(visible):
+            raise ValueError(
+                f"tp={self.tp} exceeds the {len(visible)} visible "
+                f"{self.device.type} devices (physical devices x "
+                f"{mesh_mod.ENV_VIRTUAL})")
+        kv = self.spec["kv_heads"]
+        if self.num_heads % self.tp or kv % self.tp:
+            raise ValueError(
+                f"tp={self.tp} must divide num_heads={self.num_heads} and "
+                f"kv_heads={kv} (head-sharded attention and KV-cache)")
+        if partition_rules is None:
+            partition_rules = os.environ.get(
+                "MXTPU_SERVE_PARTITION_RULES") or None
+        if isinstance(partition_rules, str):
+            self._rules = partition_mod.parse_rules(partition_rules)
+        elif partition_rules is not None:
+            self._rules = list(partition_rules)
+        if not self._rules:
+            self._rules = partition_mod.gpt_partition_rules(name=self.name,
+                                                            axis="tp")
+        self._rules_digest = partition_mod.rules_digest(self._rules)
+        # the engine's own device first: the mesh holds its shards there
+        visible.sort(key=lambda d: d != self.device)
+        self.mesh = mesh_mod.make_mesh({"tp": self.tp}, devices=visible)
+        shardings = partition_mod.named_shardings(
+            self.mesh, partition_mod.match_partition_rules(self._rules,
+                                                           self.params))
+        placed = {}
+        for k, v in self.params.items():
+            sh = shardings[k]
+            try:
+                dim = sh.split_dim(v.dim())
+                placed[k] = sh.place(v)
+            except ValueError as e:
+                raise ValueError(
+                    f"partition rule for {k!r} {tuple(v.shape)}: {e}; "
+                    "serving executes P(), P('tp'), P('tp', None) and "
+                    "P(None, 'tp') on the 'tp' axis") from None
+            if dim is not None:
+                self._split[k] = dim
+        self.params = placed
+
+    def _zeros(self, shape, dtype):
+        """A zero cache buffer: one tensor at tp 1, else one a shard."""
+        if self.mesh is None:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return [torch.zeros(shape, dtype=dtype, device=d)
+                for d in self.mesh.devices]
+
     @property
     def paged_impl(self):
         """Decode attention's implementation: "cuda" or "torch"."""
         return self._cfg.paged_impl
+
+    @property
+    def cache_dtype(self):
+        """The K/V-cache's dtype (None once shut down)."""
+        return None if self._cache_k is None else _first(self._cache_k).dtype
 
     # -- public API ----------------------------------------------------------
     def submit(self, prompt, max_new_tokens=64, deadline_s=None,
@@ -1024,12 +1142,12 @@ class Engine:
             rec = flight_mod.recorder()
             rec.record("error", site="engine.step",
                        error=traceback.format_exc(limit=4))
-            # the digest identifies which programs were live (tp 1:
-            # no sharding rules)
+            # the digest identifies which programs were live
             rec.dump("engine_exception", force=True,
                      extra={"traceback": traceback.format_exc(limit=30),
                             "spec_digest": self._spec_digest,
-                            "tp": 1, "sharding_rules_digest": None})
+                            "tp": self.tp,
+                            "sharding_rules_digest": self._rules_digest})
             raise
 
     def _step_inner(self):
@@ -1158,6 +1276,10 @@ class Engine:
             self._capturer.stop()
         if self._spec is not None:
             self._spec.shutdown()
+        for bufs in (self._cache_k, self._cache_v, self._scale_k,
+                     self._scale_v):
+            if isinstance(bufs, list):
+                bufs.clear()       # every shard, whoever still holds the list
         self._cache_k = self._cache_v = None
         self._scale_k = self._scale_v = None
         if self._host_pool is not None:
@@ -1200,6 +1322,11 @@ class Engine:
         (tensor metadata, host counters): it runs on the HTTP thread,
         possibly while the step thread captures a CUDA graph."""
         now = self.clock()
+        aot_info = {"dir": getattr(self._aot, "dir", None)}
+        if self._aot is not None:
+            entries = self._aot.entries()
+            aot_info.update(artifacts=len(entries),
+                            bytes=sum(b for _, b in entries))
         reqs = []
         mid_prefill = {id(r) for r in self.scheduler.prefilling}
         for req in (list(self.scheduler.running)
@@ -1257,9 +1384,7 @@ class Engine:
                               "written": self._rtrace.written,
                               "path": self._rtrace.path},
             "numeric_watch": self._numeric_watch,
-            # the reference's export store is not ported (ROADMAP §A12):
-            # its section reads as the reference's with no store
-            "aot": {"dir": None},
+            "aot": aot_info,
         }
 
     def perf_summary(self):
@@ -1281,45 +1406,61 @@ class Engine:
         if not self.quantize and not self._kv_quant:
             return None
         info = {"weights": self.quantize,
-                "kv_dtype": (dtype_name(self._cache_k)
+                "kv_dtype": (dtype_name(_first(self._cache_k))
                              if self._cache_k is not None else None)}
         if self.quantize and self.params:
             info["quantized_weights"] = sum(
                 1 for k in self.params if k.endswith("_wscale"))
             info["weight_bytes"] = sum(
-                int(v.nbytes) for k, v in self.params.items()
+                _nbytes(v) for k, v in self.params.items()
                 if k.endswith("_weight") or k.endswith("_wscale"))
         if self._kv_quant and self._scale_k is not None:
-            info["kv_scale_bytes"] = 2 * int(self._scale_k.nbytes)
+            info["kv_scale_bytes"] = 2 * _nbytes(self._scale_k)
         return info
 
     def sharding_info(self):
-        """The ``/statusz`` ``sharding`` section at tp 1 (tensor
-        parallelism waits for ROADMAP §A13): the digest and the
-        parameters' bytes by device."""
-        info = {"tp": 1, "rules_digest": None,
+        """The ``/statusz`` ``sharding`` section: tp degree, rules and
+        program digests, the mesh's axes and devices (at tp > 1), and
+        the parameters' bytes by device (a replicated tensor counts once
+        a mesh device, its real footprint there; at tp > 1 keyed by the
+        mesh's device ids)."""
+        info = {"tp": self.tp, "rules_digest": self._rules_digest,
                 "spec_digest": self._spec_digest}
+        if self.mesh is not None:
+            info["mesh"] = {
+                "axes": dict(self.mesh.shape),
+                "devices": list(self.mesh.device_ids),
+                "device_names": [str(d) for d in self.mesh.devices]}
         if self.params:
-            info["params_bytes_per_device"] = statusz_mod.bytes_by_device(
-                self.params.values())
+            if self.mesh is None:
+                info["params_bytes_per_device"] = \
+                    statusz_mod.bytes_by_device(self.params.values())
+            else:
+                info["params_bytes_per_device"] = {
+                    i: sum(int(_shard(v, s).nbytes)
+                           for v in self.params.values())
+                    for s, i in enumerate(self.mesh.device_ids)}
         return info
 
     def kv_cache_stats(self):
-        """K/V cache bytes, in total and in use (one device: tp 1)."""
+        """K/V-cache bytes, in total and a device: each device holds
+        ``kv_heads/tp`` of every block, so the bytes a device (total and
+        in use) drop by tp while the block accounting stays."""
         if self._cache_k is None:
             return None
-        total = 2 * int(self._cache_k.nbytes)          # K and V
-        per_block = total // self.num_blocks
+        total = 2 * _nbytes(self._cache_k)              # K and V
+        per_dev = total // self.tp
+        per_block = per_dev // self.num_blocks
         out = {"bytes_total": total,
-               "bytes_per_device": total,
+               "bytes_per_device": per_dev,
                "bytes_per_block_per_device": per_block,
                "bytes_in_use_per_device":
                    per_block * self.blocks.blocks_in_use,
-               "dtype": dtype_name(self._cache_k)}
+               "dtype": dtype_name(_first(self._cache_k))}
         if self._kv_quant:
-            sb = 2 * int(self._scale_k.nbytes)
+            sb = 2 * _nbytes(self._scale_k)
             out["scale_bytes_total"] = sb
-            out["scale_bytes_per_device"] = sb
+            out["scale_bytes_per_device"] = sb // self.tp
         return out
 
     def sampling_info(self):
@@ -1340,7 +1481,7 @@ class Engine:
         reference's names: ``"bfloat16"``, ``"float32"``, ``"int8"``)."""
         L, bs = self._cfg.n_layers, self.block_size
         Hkv, Dh = self._cfg.kv_heads, self._cfg.head_dim
-        dt = dtype_name(self._cache_k)
+        dt = dtype_name(_first(self._cache_k))
         specs = [((L, bs, Hkv, Dh), dt), ((L, bs, Hkv, Dh), dt)]
         if self._kv_quant:
             specs += [((L, bs, Hkv), "float32"), ((L, bs, Hkv), "float32")]
@@ -1352,10 +1493,10 @@ class Engine:
         if self._host_pool is None:
             return None
         out = self._host_pool.stats()
-        per_block = 2 * (self._cache_k.nbytes // self.num_blocks
+        per_block = 2 * (_nbytes(self._cache_k) // self.num_blocks
                          if self._cache_k is not None else 0)
         if self._kv_quant and self._scale_k is not None:
-            per_block += 2 * (self._scale_k.nbytes // self.num_blocks)
+            per_block += 2 * (_nbytes(self._scale_k) // self.num_blocks)
         out["block_bytes"] = int(per_block)
         return out
 
@@ -1475,7 +1616,8 @@ class Engine:
         ``adapters`` and ``adapter_rank`` enter only when on, so an
         engine without them keeps its digest and manifests.  The host
         tier never enters: it changes no program (its restore programs
-        are a kind of their own)."""
+        are a kind of their own).  The tp degree, mesh shape and rules
+        digest enter at tp > 1 only."""
         extra = {}
         if self._spec is not None:
             extra.update(spec_k=self.spec_k, draft=dict(
@@ -1486,22 +1628,22 @@ class Engine:
         if self._adapters:
             extra.update(adapters=self._adapters,
                          adapter_rank=self.adapter_rank)
+        if self.tp > 1:
+            # the sharding layout enters only at tp > 1: a tp 1 engine
+            # keeps its digest, manifests and artifacts
+            extra.update(tp=self.tp, mesh_shape=dict(self.mesh.shape),
+                         partition_rules=self._rules_digest)
         return aot.fingerprint(device=self.device,
                                cfg=_cfg_fields(self._cfg),
                                num_blocks=self.num_blocks,
                                table_width=self.table_width,
-                               cache_dtype=str(self._cache_k.dtype),
+                               cache_dtype=str(self.cache_dtype),
                                **extra)
 
     def _program(self, kind, bucket):
         prog = self._programs.get((kind, bucket))
         if prog is None:
-            # the reference's resolution counter: every port program is
-            # built fresh (a CUDA graph cannot be stored), its "trace"
-            telemetry.counter(
-                "mxtpu_aot_programs_total", "bucket-program resolutions",
-                ("kind", "source")).labels(kind=kind, source="trace").inc()
-            prog = self._build_program(kind, bucket)
+            prog = self._resolve_program(kind, bucket)
             self._programs[(kind, bucket)] = prog
             self.captures += prog.captured
             if prog.captured:
@@ -1529,13 +1671,14 @@ class Engine:
         else:
             cfg, params = self._cfg, self.params
         try:
-            tok_w = params[f"{cfg.name}_tok_embed_weight"]
-            ffw = params.get(f"{cfg.name}_l0_ff_up_weight")
+            tok_w = _full_shape(cfg, params, f"{cfg.name}_tok_embed_weight")
+            ffw = (_full_shape(cfg, params, f"{cfg.name}_l0_ff_up_weight")
+                   if f"{cfg.name}_l0_ff_up_weight" in params else None)
             kw = dict(n_layers=cfg.n_layers,
-                      d_model=int(tok_w.shape[1]),
+                      d_model=int(tok_w[1]),
                       num_heads=cfg.num_heads, head_dim=cfg.head_dim,
-                      kv_heads=cfg.kv_heads, vocab=int(tok_w.shape[0]),
-                      d_ff=int(ffw.shape[0]) if ffw is not None else None,
+                      kv_heads=cfg.kv_heads, vocab=int(tok_w[0]),
+                      d_ff=int(ffw[0]) if ffw is not None else None,
                       swiglu=cfg.swiglu)
         except (KeyError, TypeError):
             return None, None          # params already freed (shutdown)
@@ -1555,11 +1698,98 @@ class Engine:
             L, bs = self._cfg.n_layers, self.block_size
             Hkv, Dh = self._cfg.kv_heads, self._cfg.head_dim
             payload = (2 * L * bucket * bs * Hkv * Dh
-                       * self._cache_k.element_size())
+                       * _first(self._cache_k).element_size())
             return None, 2 * payload
         return bucket * per_tok, None      # decode
 
-    def _build_program(self, kind, bucket):
+    def _aot_fp(self, kind, bucket):
+        """The export store's fingerprint of one (kind, bucket) program:
+        the engine's program key, with the store's format, and the CUDA
+        device's index (an exported graph names its device)."""
+        key = {k: v for k, v in self._fingerprint().items()
+               if k not in ("format", "torch_version", "device")}
+        if self.device.type == "cuda":
+            key["device_index"] = self.device.index
+        return export_store.fingerprint(device=self.device,
+                                        subsystem="serve", kind=kind,
+                                        bucket=int(bucket), **key)
+
+    def _resolve_program(self, kind, bucket):
+        """One (kind, bucket) program: its body traced from the Python
+        (and, with the export store on, exported and saved for the next
+        start), or loaded from the store.  ``mxtpu_aot_programs_total
+        {kind,source}`` counts which: ``source="trace"`` is exactly a
+        build the warm start is meant to avoid.  With the store on, the
+        cold and the warm engine both run an exported program's module
+        (on CUDA captured as a graph), never the body itself; a body that
+        cannot be exported runs as traced, counted as an ``export``
+        error."""
+        fields, body, state = self._program_parts(kind, bucket)
+        source, module = "trace", None
+        if self._aot is not None:
+            fp = self._aot_fp(kind, bucket)
+            label = f"serve-{kind}{bucket}"
+            exported = self._aot.load(fp, label=label)
+            if exported is not None:
+                module = exported.module()
+                if export_store.cache_copies(module, _cache_numel(state)):
+                    # a program that copies its caches would not write
+                    # this engine's: stale, traced afresh
+                    telemetry.counter(
+                        "mxtpu_aot_errors_total", "AOT artifact failures",
+                        ("kind",)).labels(kind="inplace").inc()
+                    module = None
+                else:
+                    source = "artifact"
+            if module is None:
+                try:
+                    exported = self._export(fields, body, state)
+                except Exception:
+                    # a body torch.export cannot take runs as traced,
+                    # counted: a fleet serving unexportable programs has
+                    # lost its warm start (the reference's rule)
+                    telemetry.counter(
+                        "mxtpu_aot_errors_total", "AOT artifact failures",
+                        ("kind",)).labels(kind="export").inc()
+                else:
+                    self._aot.save(fp, exported, label=label)
+                    module = exported.module()
+        if module is not None:
+            body = functools.partial(_call_exported, module, state)
+        else:
+            body = functools.partial(body, **state)
+        telemetry.counter(
+            "mxtpu_aot_programs_total", "bucket-program resolutions",
+            ("kind", "source")).labels(kind=kind, source=source).inc()
+        return _Program(fields, body, self.device, self._pool,
+                        self._capturer)
+
+    def _export(self, fields, body, state):
+        """``torch.export`` of ``body`` over its inputs (zeros of the
+        fields' shapes) and ``state`` (parameters, caches, scales and
+        adapter stacks, as inputs: the program holds no weights, and its
+        example inputs are dropped).  The default export IR keeps the
+        caches' in-place writes; it is never decomposed (that would
+        functionalize them)."""
+        example = {}
+        for f in fields:
+            dt = f[2] if len(f) > 2 else torch.int32
+            example[f[0]] = torch.zeros(f[1], dtype=dt, device=self.device)
+        with torch.no_grad():
+            exported = torch.export.export(_Exportable(body),
+                                           (example, state), strict=False)
+        # the program keeps its example inputs, which are this engine's
+        # parameters and caches: dropped, so that neither the artifact
+        # nor the program holds them
+        exported.example_inputs = None
+        return exported
+
+    def _program_parts(self, kind, bucket):
+        """``(fields, body, state)`` of one (kind, bucket) program: its
+        inputs' ``(name, shape[, dtype])``, the body over its static
+        arguments, and the tensors it also takes (``params``, caches
+        ``ck``/``cv``, int8 scales ``ksc``/``vsc``, adapter stacks
+        ``adp``), by keyword."""
         W = self.table_width
         k = self.spec_k
         f32 = torch.float32
@@ -1584,7 +1814,7 @@ class Engine:
             fields = chunk + samp
             body = functools.partial(_chunk, self._cfg, bucket)
         elif kind == "restore":
-            return self._restore_program(bucket)
+            return self._restore_parts(bucket)
         elif kind == "verify":
             if self._sampling:
                 # the draft's candidate-space q, staged like every input
@@ -1617,44 +1847,38 @@ class Engine:
             else:
                 fields = chunk
                 body = functools.partial(_chunk, sw.cfg, bucket)
-            body = functools.partial(body, params=sw.params, ck=sw.cache_k,
-                                     cv=sw.cache_v)
-            return _Program(fields, body, self.device, self._pool,
-                            self._capturer)
-        adp = {}
+            return fields, body, {"params": sw.params, "ck": sw.cache_k,
+                                  "cv": sw.cache_v}
+        state = {"params": self.params, "ck": self._cache_k,
+                 "cv": self._cache_v}
+        if self._kv_quant:
+            state.update(ksc=self._scale_k, vsc=self._scale_v)
         if self._adapters:
             # the target programs' slot inputs and the store's stacks
             # (the draft's programs above stay base-model)
-            adp = {"adp": self.adapter_store.device}
+            state["adp"] = self.adapter_store.device
             fields = tuple(fields) + (
                 (("slot", (1,)),) if kind in ("prefill", "chunk")
                 else (("slots", (bucket,)),))
-        body = functools.partial(body, params=self.params,
-                                 ck=self._cache_k, cv=self._cache_v,
-                                 ksc=self._scale_k, vsc=self._scale_v,
-                                 **adp)
-        return _Program(fields, body, self.device, self._pool,
-                        self._capturer)
+        return fields, body, state
 
-    def _restore_program(self, bucket):
+    def _restore_parts(self, bucket):
         """The ``restore`` program at ``bucket`` blocks: the block ids
         (int32) and the parked K/V ``(L, R, bs, Hkv, Dh)`` in the cache
         dtype, plus ``(L, R, bs, Hkv)`` float32 scales under int8 K/V,
         each dtype staged by one pinned copy; the body scatters them into
-        the cache."""
+        the cache (under tp, each shard's heads into its shard)."""
         L, bs = self._cfg.n_layers, self.block_size
         Hkv, Dh = self._cfg.kv_heads, self._cfg.head_dim
-        dt = self._cache_k.dtype
+        dt = self.cache_dtype
         fields = [("blks", (bucket,)), ("hk", (L, bucket, bs, Hkv, Dh), dt),
                   ("hv", (L, bucket, bs, Hkv, Dh), dt)]
+        state = {"ck": self._cache_k, "cv": self._cache_v}
         if self._kv_quant:
             fields += [("hks", (L, bucket, bs, Hkv), torch.float32),
                        ("hvs", (L, bucket, bs, Hkv), torch.float32)]
-        body = functools.partial(_restore, ck=self._cache_k,
-                                 cv=self._cache_v, ksc=self._scale_k,
-                                 vsc=self._scale_v)
-        return _Program(fields, body, self.device, self._pool,
-                        self._capturer)
+            state.update(ksc=self._scale_k, vsc=self._scale_v)
+        return fields, _restore, state
 
     # -- execution -----------------------------------------------------------
     def _next_seed(self):
@@ -1705,9 +1929,13 @@ class Engine:
         restore's scatter precedes this copy on the stream."""
         if self._cache_k is None:
             return None
-        parts = [self._cache_k[:, blk], self._cache_v[:, blk]]
+        bufs = [self._cache_k, self._cache_v]
         if self._kv_quant:
-            parts += [self._scale_k[:, blk], self._scale_v[:, blk]]
+            bufs += [self._scale_k, self._scale_v]
+        # under tp each shard's head slice, gathered into one full block
+        # on the head axis (3 of (L, bs, Hkv[, Dh]))
+        parts = [torch.cat([t[:, blk] for t in b], dim=2)
+                 if isinstance(b, list) else b[:, blk] for b in bufs]
         # a copy on the CPU too, where .cpu() would alias the cache
         return tuple(a.to("cpu", copy=True) for a in parts)
 
@@ -2037,15 +2265,187 @@ def _quantize_gpt_params(params, name, spec):
     return out
 
 
+# -- the export store's program module ---------------------------------------
+class _Exportable(torch.nn.Module):
+    """A program body as a module for ``torch.export``: ``forward``
+    takes the inputs and the state (parameters, caches, scales, adapter
+    stacks) as two dicts, so both are inputs of the exported program."""
+
+    def __init__(self, body):
+        super().__init__()
+        self.body = body
+
+    def forward(self, inputs, state):
+        return self.body(**inputs, **state)
+
+
+def _call_exported(module, state, **inputs):
+    """A ``_Program`` body over an exported program's module."""
+    return module(inputs, state)
+
+
+def _cache_numel(state):
+    """Elements of one layer of one shard of a program's K cache: the
+    smallest cache write a program makes, the size
+    ``export_store.cache_copies`` looks for."""
+    return _first(state["ck"])[0].numel()
+
+
+# -- the tensor-parallel layout ------------------------------------------------
+# At tp > 1 a sharded parameter (and a cache, a scale, a sharded adapter
+# stack) is a list of one tensor a shard, a replicated one a tensor.  An
+# activation between two projections is either a tensor (whole) or a
+# list of the shards' pieces of its last dimension.  At tp 1 nothing is
+# a list, and every helper below reduces to the op it wraps.
+def _first(t):
+    """A buffer's first shard (the tensor itself when not sharded)."""
+    return t[0] if isinstance(t, list) else t
+
+
+def _shard(t, s):
+    """Shard ``s`` of a buffer (a replicated tensor serves every one)."""
+    return t[s] if isinstance(t, list) else t
+
+
+def _nbytes(t):
+    """Bytes of a buffer, every shard's."""
+    return sum(int(x.nbytes) for x in t) if isinstance(t, list) \
+        else int(t.nbytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_map(split):
+    return dict(split)
+
+
+def _full(cfg, params, key):
+    """Parameter ``key`` whole: its shards joined on their dim."""
+    v = params[key]
+    if not isinstance(v, list):
+        return v
+    return torch.cat(v, dim=_split_map(cfg.split)[key])
+
+
+def _full_shape(cfg, params, key):
+    """The whole shape of parameter ``key``."""
+    v = params[key]
+    if not isinstance(v, list):
+        return tuple(v.shape)
+    shape = list(v[0].shape)
+    shape[_split_map(cfg.split)[key]] *= len(v)
+    return tuple(shape)
+
+
+def _rows(cfg, params, key):
+    """Per-shard pieces of a 1-D per-output vector (a bias, a weight
+    scale): its shards, or the whole vector chunked."""
+    v = params.get(key)
+    if v is None or isinstance(v, list):
+        return v if v is not None else [None] * cfg.tp
+    return list(torch.chunk(v, cfg.tp))
+
+
+def _joined(x):
+    """An activation whole: a list of pieces concatenated."""
+    if not isinstance(x, list):
+        return x
+    return x[0] if len(x) == 1 else torch.cat(x, dim=-1)
+
+
+def _pieces(cfg, x):
+    """An activation as its shards' pieces of the last dimension."""
+    return x if isinstance(x, list) else list(torch.chunk(x, cfg.tp, -1))
+
+
+def _elementwise(cfg, fn, *xs):
+    """``fn`` over activations: piece by piece where any is split."""
+    if not any(isinstance(x, list) for x in xs):
+        return fn(*xs)
+    return [fn(*p) for p in zip(*(_pieces(cfg, x) for x in xs))]
+
+
+def _deq(w, sc, dtype):
+    """An int8 weight dequantized as ``_wfc`` does (weight, then scale,
+    cast to the activation dtype, then multiplied); a floating-point
+    weight (``sc`` None) as it is."""
+    return w if sc is None else w.to(dtype) * sc.to(dtype)[:, None]
+
+
+def _proj(cfg, params, adp, stem, x, slots):
+    """Projection ``stem`` of activation ``x`` (its LoRA delta too when
+    the program binds the adapter stacks).  At tp 1, :func:`_awfc`.  At
+    tp > 1, by the weight's layout: a replicated weight takes ``x``
+    whole and gives the output whole; an out-sharded (column) weight
+    takes ``x`` whole and gives each shard its piece (its bias and scale
+    pieces added there); an in-sharded (row) weight takes each shard's
+    piece of ``x`` and gives partial sums, reduced over the shards, the
+    bias added once after.  A sharded stack follows its parent: B split
+    on d_out with an out-sharded one, A on d_in with an in-sharded
+    one."""
+    if cfg.tp == 1:
+        return _awfc(params, adp, stem, _joined(x), slots)
+    wkey = f"{stem}_weight"
+    dim = _split_map(cfg.split).get(wkey)
+    if dim is None:
+        xf = _joined(x)
+        w = _deq(_full(cfg, params, wkey),
+                 _full(cfg, params, f"{stem}_wscale")
+                 if f"{stem}_wscale" in params else None, xf.dtype)
+        out = _fc(xf, w, _full(cfg, params, f"{stem}_bias"))
+        if adp is not None:
+            out = out + _lora_delta(_stack_view(adp, stem, None), stem, xf,
+                                    slots)
+        return out
+    ws = params[wkey]
+    if dim == 0:
+        xf = _joined(x)
+        scs = _rows(cfg, params, f"{stem}_wscale")
+        bs = _rows(cfg, params, f"{stem}_bias")
+        outs = []
+        for s in range(cfg.tp):
+            o = _fc(xf, _deq(ws[s], scs[s], xf.dtype), bs[s])
+            if adp is not None:
+                o = o + _lora_delta(_stack_view(adp, stem, s), stem, xf,
+                                    slots)
+            outs.append(o)
+        return outs
+    xs = _pieces(cfg, x)
+    sc = (_full(cfg, params, f"{stem}_wscale")
+          if f"{stem}_wscale" in params else None)
+    out = None
+    for s in range(cfg.tp):
+        w = _deq(ws[s], sc, xs[s].dtype)
+        part = xs[s] @ w.t().to(xs[s].dtype)
+        if adp is not None:
+            part = part + _lora_delta(_stack_view(adp, stem, s), stem,
+                                      xs[s], slots)
+        out = part if out is None else out + part
+    return out + _full(cfg, params, f"{stem}_bias").to(out.dtype)
+
+
+def _stack_view(adp, stem, s):
+    """The adapter stacks of ``stem`` as shard ``s`` sees them."""
+    return {f"{stem}_A": _shard(adp[f"{stem}_A"], s),
+            f"{stem}_B": _shard(adp[f"{stem}_B"], s),
+            "scale": adp["scale"]}
+
+
+def _head_shards(cfg, x, n_heads, lead):
+    """Each shard's heads of a projection output ``x`` (whole or split),
+    as ``(*lead, n_heads/tp, head_dim)`` tensors, one a shard."""
+    h = n_heads // cfg.tp
+    return [t.reshape(*lead, h, cfg.head_dim) for t in
+            (x if isinstance(x, list) else
+             [x] if cfg.tp == 1 else torch.chunk(x, cfg.tp, -1))]
+
+
 def _wfc(params, stem, x):
     """``_fc`` through a possibly int8 checkpoint entry: with a
     ``<stem>_wscale`` the int8 weight is dequantized in the activation
     dtype first (weight, then scale, cast to it, then multiplied, as the
     reference does); without one this is ``_fc`` on the entry."""
-    w = params[f"{stem}_weight"]
-    sc = params.get(f"{stem}_wscale")
-    if sc is not None:
-        w = w.to(x.dtype) * sc.to(x.dtype)[:, None]
+    w = _deq(params[f"{stem}_weight"], params.get(f"{stem}_wscale"),
+             x.dtype)
     return _fc(x, w, params[f"{stem}_bias"])
 
 
@@ -2209,6 +2609,9 @@ def _cfg_fields(cfg):
     ``sampling`` and ``sample_cap``, and ``numeric_watch``, only when
     on."""
     d = cfg._asdict()
+    # the layout enters the engine's fingerprint as its tp degree, mesh
+    # and rules digest (at tp > 1 only)
+    del d["tp"], d["split"]
     if not d["kv_quant"]:
         del d["kv_quant"]
     if not d["sampling"]:
@@ -2253,37 +2656,61 @@ def _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh):
 # the int8 cache's scale tensors (None without ``cfg.kv_quant``);
 # ``adp`` the adapter stacks and ``slots`` the rows' slots (None with
 # adapters off, and in the draft's bodies).
+def _norm(cfg, params, key, x):
+    """Layer norm (or RMS norm) ``key`` (``..._ln1``) of ``x``."""
+    return _ln(x, _full(cfg, params, f"{key}_gamma"),
+               None if cfg.rmsnorm else _full(cfg, params, f"{key}_beta"))
+
+
+def _silu_mul(g, u):
+    gf = g.float()                               # f32 silu == sym.silu
+    return (gf * torch.sigmoid(gf)).to(g.dtype) * u
+
+
 def _mlp(cfg, params, p, x, adp=None, slots=None):
-    h2 = _ln(x, params[f"{p}_ln2_gamma"],
-             None if cfg.rmsnorm else params[f"{p}_ln2_beta"])
+    h2 = _norm(cfg, params, f"{p}_ln2", x)
     if cfg.swiglu:
-        g = _awfc(params, adp, f"{p}_ff_gate", h2, slots)
-        gf = g.float()                           # f32 silu == sym.silu
-        up = ((gf * torch.sigmoid(gf)).to(g.dtype)
-              * _awfc(params, adp, f"{p}_ff_up", h2, slots))
+        up = _elementwise(cfg, _silu_mul,
+                          _proj(cfg, params, adp, f"{p}_ff_gate", h2, slots),
+                          _proj(cfg, params, adp, f"{p}_ff_up", h2, slots))
     else:
-        up = _gelu(_awfc(params, adp, f"{p}_ff_up", h2, slots))
-    return _awfc(params, adp, f"{p}_ff_down", up, slots)
+        up = _elementwise(cfg, _gelu,
+                          _proj(cfg, params, adp, f"{p}_ff_up", h2, slots))
+    return _joined(_proj(cfg, params, adp, f"{p}_ff_down", up, slots))
 
 
 def _logits(cfg, params, x):
     name = cfg.name
-    final = _ln(x, params[f"{name}_ln_f_gamma"],
-                None if cfg.rmsnorm else params[f"{name}_ln_f_beta"])
+    final = _norm(cfg, params, f"{name}_ln_f", x)
     if cfg.tied:
-        return final @ params[f"{name}_tok_embed_weight"].t().to(final.dtype)
-    return _wfc(params, f"{name}_head", final)
+        return final @ _full(cfg, params, f"{name}_tok_embed_weight").t().to(
+            final.dtype)
+    return _joined(_proj(cfg, params, None, f"{name}_head", final, None))
+
+
+def _embed(cfg, params, toks, pos):
+    """Token rows (and learned positions, clamped: a padded row's may
+    run past the table)."""
+    name = cfg.name
+    x = _full(cfg, params, f"{name}_tok_embed_weight")[toks.long()]
+    if cfg.pos_table is not None:
+        x = x + _full(cfg, params, f"{name}_pos_embed_weight")[
+            0, pos.clamp(max=cfg.pos_table - 1)]
+    return x
 
 
 def _qkv(cfg, params, p, x, n, adp=None, slots=None):
-    h = _ln(x, params[f"{p}_ln1_gamma"],
-            None if cfg.rmsnorm else params[f"{p}_ln1_beta"])
-    q = _awfc(params, adp, f"{p}_q", h, slots)
-    k = _awfc(params, adp, f"{p}_k", h, slots)
-    v = _awfc(params, adp, f"{p}_v", h, slots)
-    return (q.reshape(n, cfg.num_heads, cfg.head_dim),
-            k.reshape(n, cfg.kv_heads, cfg.head_dim),
-            v.reshape(n, cfg.kv_heads, cfg.head_dim))
+    """Layer ``p``'s q, k and v heads of rows ``x``: one ``(*n, heads,
+    head_dim)`` triple a shard (``n`` an int or a tuple of leading
+    dims)."""
+    lead = tuple(n) if isinstance(n, tuple) else (n,)
+    h = _norm(cfg, params, f"{p}_ln1", x)
+    q = _proj(cfg, params, adp, f"{p}_q", h, slots)
+    k = _proj(cfg, params, adp, f"{p}_k", h, slots)
+    v = _proj(cfg, params, adp, f"{p}_v", h, slots)
+    return list(zip(_head_shards(cfg, q, cfg.num_heads, lead),
+                    _head_shards(cfg, k, cfg.kv_heads, lead),
+                    _head_shards(cfg, v, cfg.kv_heads, lead)))
 
 
 def _token_layers(cfg, params, ck, cv, toks, pos, tables, ksc=None,
@@ -2296,27 +2723,31 @@ def _token_layers(cfg, params, ck, cv, toks, pos, tables, ksc=None,
     name = cfg.name
     B = toks.shape[0]
     pos = pos.long()
-    x = params[f"{name}_tok_embed_weight"][toks.long()]     # (B, D)
-    if cfg.pos_table is not None:
-        x = x + params[f"{name}_pos_embed_weight"][
-            0, pos.clamp(max=cfg.pos_table - 1)]
+    x = _embed(cfg, params, toks, pos)                       # (B, D)
     col = (pos // cfg.block_size).clamp(max=tables.shape[1] - 1)
     blk = tables.long().gather(1, col[:, None])[:, 0]
     off = pos % cfg.block_size
     ctx = (pos + 1).to(torch.int32)
     for i in range(cfg.n_layers):
         p = f"{name}_l{i}"
-        qh, kh, vh = _qkv(cfg, params, p, x, B, adp, slots)
-        if cfg.pos_table is None:
-            qh, kh = _rope(qh, pos), _rope(kh, pos)
-        _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh)
-        scales = ({"k_scale": ksc[i], "v_scale": vsc[i]} if cfg.kv_quant
-                  else {})
-        attn = paged_attention(qh, ck[i], cv[i], tables, ctx,
-                               window=cfg.window, impl=cfg.paged_impl,
-                               **scales)
-        x = x + _awfc(params, adp, f"{p}_proj",
-                      attn.reshape(B, cfg.num_heads * cfg.head_dim), slots)
+        outs = []
+        # one paged-attention call a shard, on that shard's cache
+        for s, (qh, kh, vh) in enumerate(_qkv(cfg, params, p, x, B, adp,
+                                              slots)):
+            if cfg.pos_table is None:
+                qh, kh = _rope(qh, pos), _rope(kh, pos)
+            sk, sv = _shard(ck, s), _shard(cv, s)
+            sks = svs = None
+            if cfg.kv_quant:
+                sks, svs = _shard(ksc, s), _shard(vsc, s)
+            _write_kv(cfg, i, sk, sv, sks, svs, blk, off, kh, vh)
+            scales = ({"k_scale": sks[i], "v_scale": svs[i]}
+                      if cfg.kv_quant else {})
+            attn = paged_attention(qh, sk[i], sv[i], tables, ctx,
+                                   window=cfg.window, impl=cfg.paged_impl,
+                                   **scales)
+            outs.append(attn.reshape(B, qh.shape[1] * cfg.head_dim))
+        x = x + _joined(_proj(cfg, params, adp, f"{p}_proj", outs, slots))
         x = x + _mlp(cfg, params, p, x, adp, slots)
     return x
 
@@ -2368,11 +2799,16 @@ def _restore(blks, hk, hv, hks=None, hvs=None, *, ck, cv, ksc=None,
     block 0, the null block, whose contents are garbage by design (their
     duplicate writes land in any order).  No output: nothing waits."""
     b = blks.long()
-    ck.index_copy_(1, b, hk)
-    cv.index_copy_(1, b, hv)
+    bufs = [(ck, hk), (cv, hv)]
     if hks is not None:
-        ksc.index_copy_(1, b, hks)
-        vsc.index_copy_(1, b, hvs)
+        bufs += [(ksc, hks), (vsc, hvs)]
+    for buf, h in bufs:
+        if not isinstance(buf, list):
+            buf.index_copy_(1, b, h)
+            continue
+        # each shard takes its heads of the parked block (axis 3)
+        for shard, piece in zip(buf, torch.chunk(h, len(buf), dim=3)):
+            shard.index_copy_(1, b, piece)
 
 
 def _scalar(slot):
@@ -2453,37 +2889,43 @@ def _dense_logits(cfg, params, ck, cv, ksc, vsc, toks, pos, blk, off, keep,
     rows dequantized, chunk dequantizes the gathered table.  Returns the
     (1, V) logits of row ``last - 1``."""
     name = cfg.name
-    Hq, Hkv, Dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    group = cfg.num_heads // cfg.kv_heads
     n = toks.shape[0]
     blk, off = blk.long(), off.long()
-    x = params[f"{name}_tok_embed_weight"][toks.long()]     # (n, D)
-    if cfg.pos_table is not None:
-        # clamp padded chunk rows: their position may exceed the table
-        pidx = pos.clamp(max=cfg.pos_table - 1)
-        x = x + params[f"{name}_pos_embed_weight"][0, pidx]
+    x = _embed(cfg, params, toks, pos)                       # (n, D)
     for i in range(cfg.n_layers):
         p = f"{name}_l{i}"
-        qh, kh, vh = _qkv(cfg, params, p, x, n, adp, slots)
-        if cfg.pos_table is None:
-            qh, kh = _rope(qh, pos), _rope(kh, pos)
-        written = _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh)
-        if table is not None:
-            kh = ck[i][table].reshape(-1, Hkv, Dh)
-            vh = cv[i][table].reshape(-1, Hkv, Dh)
+        outs = []
+        for s, (qh, kh, vh) in enumerate(_qkv(cfg, params, p, x, n, adp,
+                                              slots)):
+            if cfg.pos_table is None:
+                qh, kh = _rope(qh, pos), _rope(kh, pos)
+            sk, sv = _shard(ck, s), _shard(cv, s)
+            sks = svs = None
             if cfg.kv_quant:
-                kh = _kv_dequant(kh, ksc[i][table].reshape(-1, Hkv), x.dtype)
-                vh = _kv_dequant(vh, vsc[i][table].reshape(-1, Hkv), x.dtype)
-        elif written is not None:
-            kq, ks, vq, vs = written
-            kh = _kv_dequant(kq, ks, x.dtype)
-            vh = _kv_dequant(vq, vs, x.dtype)
-        # grouped-query attention: (kv head, group) x rows x keys
-        qg = qh.reshape(n, Hkv, Hq // Hkv, Dh)
-        sc = torch.einsum("qkgd,skd->kgqs", qg, kh) / math.sqrt(Dh)
-        sc = sc.masked_fill(~keep, float("-inf"))
-        pr = torch.softmax(sc.float(), dim=-1).to(x.dtype)
-        at = torch.einsum("kgqs,skd->qkgd", pr, vh)
-        x = x + _awfc(params, adp, f"{p}_proj", at.reshape(n, Hq * Dh),
-                      slots)
+                sks, svs = _shard(ksc, s), _shard(vsc, s)
+            Hkv = kh.shape[1]
+            written = _write_kv(cfg, i, sk, sv, sks, svs, blk, off, kh, vh)
+            if table is not None:
+                kh = sk[i][table].reshape(-1, Hkv, Dh)
+                vh = sv[i][table].reshape(-1, Hkv, Dh)
+                if cfg.kv_quant:
+                    kh = _kv_dequant(kh, sks[i][table].reshape(-1, Hkv),
+                                     x.dtype)
+                    vh = _kv_dequant(vh, svs[i][table].reshape(-1, Hkv),
+                                     x.dtype)
+            elif written is not None:
+                kq, ks, vq, vs = written
+                kh = _kv_dequant(kq, ks, x.dtype)
+                vh = _kv_dequant(vq, vs, x.dtype)
+            # grouped-query attention: (kv head, group) x rows x keys
+            qg = qh.reshape(n, Hkv, group, Dh)
+            sc = torch.einsum("qkgd,skd->kgqs", qg, kh) / math.sqrt(Dh)
+            sc = sc.masked_fill(~keep, float("-inf"))
+            pr = torch.softmax(sc.float(), dim=-1).to(x.dtype)
+            at = torch.einsum("kgqs,skd->qkgd", pr, vh)
+            outs.append(at.reshape(n, Hkv * group * Dh))
+        x = x + _joined(_proj(cfg, params, adp, f"{p}_proj", outs, slots))
         x = x + _mlp(cfg, params, p, x, adp, slots)
     return _logits(cfg, params, _last_row(x, last))

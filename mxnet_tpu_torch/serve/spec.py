@@ -402,20 +402,19 @@ def _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc, vsc,
     scales under ``cfg.kv_quant``); a row past the table (``pos >= S``)
     writes into the null block.  Then each layer gathers each request's
     whole table once and masks it per row by position (and window):
-    in-window causality is exact without a dense score matrix."""
-    from .engine import _awfc, _kv_dequant, _ln, _logits, _mlp, _write_kv
+    in-window causality is exact without a dense score matrix.  Under
+    tp each shard writes and attends over its own heads and cache."""
+    from .engine import (_embed, _joined, _kv_dequant, _logits, _mlp,
+                         _proj, _qkv, _shard, _write_kv)
 
     name = cfg.name
-    Hq, Hkv, Dh, bs = (cfg.num_heads, cfg.kv_heads, cfg.head_dim,
-                       cfg.block_size)
+    Dh, bs = cfg.head_dim, cfg.block_size
+    group = cfg.num_heads // cfg.kv_heads
     B, K1 = rows.shape
     dev = rows.device
     pos = pos0.long()[:, None] + torch.arange(K1, device=dev)[None, :]
-    x = params[f"{name}_tok_embed_weight"][rows.long()]   # (B, K1, D)
-    if cfg.pos_table is not None:
-        # clamp rows past the table: their outputs are dropped
-        x = x + params[f"{name}_pos_embed_weight"][
-            0, pos.clamp(max=cfg.pos_table - 1)]
+    # rows past the table are clamped: their outputs are dropped
+    x = _embed(cfg, params, rows, pos)                    # (B, K1, D)
     tables = tables.long()
     W = tables.shape[1]
     S = W * bs
@@ -431,25 +430,30 @@ def _verify_logits(cfg, k, rows, pos0, tables, params, ck, cv, ksc, vsc,
     scale = 1.0 / (Dh ** 0.5)
     for i in range(cfg.n_layers):
         p = f"{name}_l{i}"
-        h = _ln(x, params[f"{p}_ln1_gamma"],
-                None if cfg.rmsnorm else params[f"{p}_ln1_beta"])
-        qh = _awfc(params, adp, f"{p}_q", h, slots).reshape(B, K1, Hq, Dh)
-        kh = _awfc(params, adp, f"{p}_k", h, slots).reshape(B, K1, Hkv, Dh)
-        vh = _awfc(params, adp, f"{p}_v", h, slots).reshape(B, K1, Hkv, Dh)
-        if cfg.pos_table is None:
-            qh, kh = _rope_rows(qh, pos), _rope_rows(kh, pos)
-        _write_kv(cfg, i, ck, cv, ksc, vsc, blk, off, kh, vh)
-        kb = ck[i][tables].reshape(B, S, Hkv, Dh)
-        vb = cv[i][tables].reshape(B, S, Hkv, Dh)
-        if cfg.kv_quant:
-            kb = _kv_dequant(kb, ksc[i][tables].reshape(B, S, Hkv), x.dtype)
-            vb = _kv_dequant(vb, vsc[i][tables].reshape(B, S, Hkv), x.dtype)
-        qg = qh.reshape(B, K1, Hkv, Hq // Hkv, Dh)
-        sc = torch.einsum("bckgd,bskd->bkgcs", qg, kb) * scale
-        sc = sc.masked_fill(~keep, float("-inf"))
-        pr = torch.softmax(sc.float(), dim=-1).to(x.dtype)
-        at = torch.einsum("bkgcs,bskd->bckgd", pr, vb)
-        x = x + _awfc(params, adp, f"{p}_proj", at.reshape(B, K1, Hq * Dh),
-                      slots)
+        outs = []
+        for s, (qh, kh, vh) in enumerate(_qkv(cfg, params, p, x, (B, K1),
+                                              adp, slots)):
+            if cfg.pos_table is None:
+                qh, kh = _rope_rows(qh, pos), _rope_rows(kh, pos)
+            sk, sv = _shard(ck, s), _shard(cv, s)
+            sks = svs = None
+            if cfg.kv_quant:
+                sks, svs = _shard(ksc, s), _shard(vsc, s)
+            Hkv = kh.shape[2]
+            _write_kv(cfg, i, sk, sv, sks, svs, blk, off, kh, vh)
+            kb = sk[i][tables].reshape(B, S, Hkv, Dh)
+            vb = sv[i][tables].reshape(B, S, Hkv, Dh)
+            if cfg.kv_quant:
+                kb = _kv_dequant(kb, sks[i][tables].reshape(B, S, Hkv),
+                                 x.dtype)
+                vb = _kv_dequant(vb, svs[i][tables].reshape(B, S, Hkv),
+                                 x.dtype)
+            qg = qh.reshape(B, K1, Hkv, group, Dh)
+            sc = torch.einsum("bckgd,bskd->bkgcs", qg, kb) * scale
+            sc = sc.masked_fill(~keep, float("-inf"))
+            pr = torch.softmax(sc.float(), dim=-1).to(x.dtype)
+            at = torch.einsum("bkgcs,bskd->bckgd", pr, vb)
+            outs.append(at.reshape(B, K1, Hkv * group * Dh))
+        x = x + _joined(_proj(cfg, params, adp, f"{p}_proj", outs, slots))
         x = x + _mlp(cfg, params, p, x, adp, slots)
     return _logits(cfg, params, x)

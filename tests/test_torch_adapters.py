@@ -19,10 +19,11 @@ load evicting a cold one) serving its merged engine's tokens, which a
 load that rebinds the stacks would miss; a sampling-mode engine's
 greedy adapter rows; an adapter row restored from the host KV tier.
 
-Left out: ``test_adapter_tp2_parity`` (tensor parallelism, ROADMAP §A
-item 13).  The ``/statusz`` adapters section is held against the
-reference's in ``tests/test_torch_observability.py``.  The ``cuda`` case (a
-rotated mix after ``warmup()`` captures nothing) lives in
+``test_adapter_tp2_parity`` (sharded stacks) lives in
+``tests/test_torch_serve_sharded.py``.  The ``/statusz`` adapters
+section is held against the reference's in
+``tests/test_torch_observability.py``.  The ``cuda`` case (a rotated mix
+after ``warmup()`` captures nothing) lives in
 ``tests/test_torch_capture.py``, which imports no JAX and so runs on the
 card.
 """

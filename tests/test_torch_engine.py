@@ -218,7 +218,6 @@ def test_shutdown_cancels_in_flight(model):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(adapters=1), "reserved base slot 0"),
-    (dict(aot_dir="/nonexistent"), "item 12"), (dict(tp=2), "item 13"),
     (dict(symbol=object()), "item 15"),
     (dict(spec_k=2, draft_symbol=object()), "item 15")])
 def test_unported_options_raise_with_their_roadmap_item(kw, item):
@@ -227,16 +226,6 @@ def test_unported_options_raise_with_their_roadmap_item(kw, item):
     exc = ValueError if "adapters" in kw else NotImplementedError
     with pytest.raises(exc, match=item):
         mt.serve.Engine(params, num_heads=heads, device="cpu", **kw)
-
-
-@pytest.mark.parametrize("env,item", [
-    pytest.param("MXTPU_SERVE_TP=2", "item 13", id="MXTPU_SERVE_TP=2")])
-def test_unported_env_knobs_raise(monkeypatch, env, item):
-    name, value = env.split("=")
-    monkeypatch.setenv(name, value)
-    _, params, heads = fx.model("gpt2")
-    with pytest.raises(NotImplementedError, match=item):
-        mt.serve.Engine(params, num_heads=heads, device="cpu")
 
 
 def test_timeseries_env_serves_with_a_statusz_section(monkeypatch):

@@ -1098,9 +1098,72 @@ def test_process_front_subprocess_ready_generate_sigterm(tmp_path):
     assert bad == []
 
 
-def test_process_front_refuses_aot_dir(monkeypatch):
-    from mxnet_tpu_torch.fleet import serve_replica as port_front
+def _front_metric(url, source):
+    """``mxtpu_aot_programs_total{source=...}`` summed over kinds, from a
+    replica's ``/metrics``."""
+    import urllib.request
 
-    monkeypatch.setenv("MXTPU_AOT_DIR", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_front.main(["--device", "cpu"])
+    with urllib.request.urlopen(f"{url}/metrics", timeout=10) as resp:
+        text = resp.read().decode()
+    return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+               if ln.startswith("mxtpu_aot_programs_total{")
+               and f'source="{source}"' in ln)
+
+
+def test_process_front_warm_restart_from_aot_dir(tmp_path):
+    """``MXTPU_AOT_DIR`` through the process front: a first replica
+    process exports every program its traffic runs into the store (and
+    records the manifest), a restarted one warms the manifest from the
+    store before its ready line, tracing nothing, and serves the first
+    one's tokens; both report the store on READY."""
+    flags = ["--layers", "1", "--d-model", "32", "--heads", "4",
+             "--vocab", "61", "--max-model-len", "32", "--seed", "2",
+             "--max-batch", "2"]
+    store, manifest = str(tmp_path / "aot"), str(tmp_path / "m.jsonl")
+    env = dict(os.environ, PYTHONPATH=fx.REPO, MXTPU_AOT_DIR=store,
+               MXTPU_WARMUP_MANIFEST=manifest, MXTPU_TELEMETRY="1",
+               MXTPU_TELEMETRY_DIR=str(tmp_path / "telemetry"))
+    for var in ("MXTPU_FAULT_SPEC", "MXTPU_FLEET_ROLE",
+                "MXTPU_TELEMETRY_HTTP_PORT"):
+        env.pop(var, None)
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+
+    def run(warmup):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.fleet.serve_replica",
+             "--device", "cpu", "--warmup", warmup] + flags,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+            cwd=fx.REPO, env=env)
+        try:
+            ready = {}
+            t = threading.Thread(target=lambda: ready.update(
+                json.loads(proc.stdout.readline())))
+            t.start()
+            t.join(timeout=120)
+            assert ready.get("ready") is True, ready
+            assert ready["aot_dir"] == store
+            url = f"http://{ready['host']}:{ready['port']}"
+            warm = (_front_metric(url, "trace"),
+                    _front_metric(url, "artifact"))
+            code, out = http_post(url, "/generate",
+                                  {"prompt": prompt, "max_new_tokens": 5})
+            assert code == 200
+            after = (_front_metric(url, "trace"),
+                     _front_metric(url, "artifact"))
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=60) == 0
+            return ready, warm, after, out["tokens"]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    ready, warm, after, toks = run("none")
+    assert ready["warmed"] == 0 and warm == (0, 0)
+    listed = len(mt.aot.load_manifest(manifest))
+    assert after == (listed, 0) and listed >= 2
+    assert len(mt.aot.ExportStore(store).entries()) == listed
+    ready, warm, after, toks2 = run("auto")
+    assert ready["warmed"] == listed
+    assert warm == after == (0, listed)
+    assert toks2 == toks

@@ -10,8 +10,8 @@ export/import units, the role surface, the fleet's token identity and
 wire dedup, idempotency, the chaos matrix (dropped records, a slow wire
 past the hop timeout, a decode replica killed mid-handoff and
 respawned), deadlines, traces across roles and the load signal.  The
-tp=2 composition case asserts the refusal naming ROADMAP item 13; the
-int8 K/V and prefix-sharing part of it runs at tp 1.
+composition gate runs handoff x int8 K/V x tp=2 x shared prefixes, its
+tp=2 engines on two virtual devices of the CPU.
 
 Cross-package: ``_encode_records`` gives the reference's bytes and
 digests for the same K/V (float32, bfloat16, int8 with its scales) and
@@ -343,13 +343,16 @@ def test_mixed_package_handoff_matches_reference_fleet(fleet_cleanup, pre,
 
 
 def test_disagg_identity_int8_kv_prefix_sharing_and_tp2_refusal(
-        fleet_cleanup):
-    """Handoff x int8 K/V blocks x shared prefixes: the tokens of a
-    role='both' engine with the same formulation.  tp=2 refuses,
-    naming ROADMAP item 13."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _engine(kv_dtype="int8", tp=2)
-    kw = dict(kv_dtype="int8")
+        fleet_cleanup, monkeypatch):
+    """The reference's composition gate: handoff x int8 K/V blocks x
+    tp=2 x shared prefixes gives the tokens of a role='both' engine with
+    the same formulation.  (tp=2 refused before tensor-parallel serving
+    was ported; the handed-off records are whole blocks, every shard's
+    heads gathered, and scatter back onto the decode side's shards.)"""
+    from mxnet_tpu_torch.parallel import mesh
+
+    monkeypatch.setenv(mesh.ENV_VIRTUAL, "2")
+    kw = dict(kv_dtype="int8", tp=2)
     prompts = _prompts(3, seed=13, shared_prefix=8)
     refs = _reference_tokens(prompts, 6, **kw)
     pre, decs, router = _disagg_fleet(fleet_cleanup, n_decode=1,
@@ -360,7 +363,11 @@ def test_disagg_identity_int8_kv_prefix_sharing_and_tp2_refusal(
         assert res.tokens == refs[i], f"request {i} diverged"
     h = decs[0]._replica_state()["handoff"]
     assert h["received"] == 3 and h["blocks_imported"] > 0
-    assert len(decs[0].engine.host_block_spec()) == 4
+    # int8 wire records carry the scale slots: 2 extra arrays, each with
+    # every kv head
+    spec = decs[0].engine.host_block_spec()
+    assert len(spec) == 4 and spec[0][0][2] == decs[0].engine._cfg.kv_heads
+    assert pre.engine.tp == decs[0].engine.tp == 2
 
 
 def test_handoff_idempotency_by_request_id(fleet_cleanup):

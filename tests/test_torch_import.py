@@ -26,7 +26,7 @@ import mxnet_tpu_torch
 import mxnet_tpu_torch.base, mxnet_tpu_torch.context, mxnet_tpu_torch.convert
 import mxnet_tpu_torch._build
 import mxnet_tpu_torch.aot, mxnet_tpu_torch.aot.warmup
-import mxnet_tpu_torch.aot.cache
+import mxnet_tpu_torch.aot.cache, mxnet_tpu_torch.aot.export_store
 import mxnet_tpu_torch.models, mxnet_tpu_torch.models.generate
 import mxnet_tpu_torch.models.transformer
 import mxnet_tpu_torch.ops, mxnet_tpu_torch.ops.attention
@@ -39,6 +39,7 @@ import mxnet_tpu_torch.models.lstm
 import mxnet_tpu_torch.ops.nn, mxnet_tpu_torch.ops.loss
 import mxnet_tpu_torch.initializer
 import mxnet_tpu_torch.parallel, mxnet_tpu_torch.parallel.trainer
+import mxnet_tpu_torch.parallel.mesh, mxnet_tpu_torch.parallel.partition
 import mxnet_tpu_torch.serve, mxnet_tpu_torch.serve.engine
 import mxnet_tpu_torch.serve.kv_block_manager, mxnet_tpu_torch.serve.scheduler
 import mxnet_tpu_torch.serve.stats, mxnet_tpu_torch.serve.adapters

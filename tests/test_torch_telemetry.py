@@ -554,6 +554,38 @@ def test_profiler_stop_resets_state_on_error(monkeypatch):
     assert port_profiler.active_logdir() is None
 
 
+def test_profiler_start_returns_once_the_card_records(monkeypatch):
+    """ROADMAP §C14: CUPTI turns the card's kernel records on some time
+    after ``torch.profiler``'s start, and a graph replayed at once lost
+    its first kernels from the trace.  ``profiler.start`` returns only
+    after the start, a device synchronize and ``START_SETTLE_S``, in that
+    order, and not at all before the start."""
+    import torch.profiler as tprof
+
+    calls = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def start(self):
+            calls.append("start")
+
+        def stop(self):
+            calls.append("stop")
+
+    monkeypatch.setattr(tprof, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: calls.append("synchronize"))
+    monkeypatch.setattr(port_profiler.time, "sleep",
+                        lambda s: calls.append(("sleep", s)))
+    port_profiler._start_capture("/nonexistent/prof-settle")
+    assert port_profiler.START_SETTLE_S > 0
+    assert calls == ["start", "synchronize",
+                     ("sleep", port_profiler.START_SETTLE_S)]
+
+
 def test_profiler_summarize_device_events_and_memory(tmp_path):
     """summarize() sums a trace's kernel events by name (a synthetic
     trace in the capture layout), and device_memory() is empty without
