@@ -204,7 +204,16 @@ Phases (any failure exits non-zero; nothing is caught):
      full-width float32 step's gradients through the kernels against the
      dense attention, the check shown to fail on a planted fault; a small
      model's CUDA trainer against its CPU
-     trainer over 3 Adam steps;
+     trainer over 3 Adam steps; the same model built as the reference's
+     Symbol (models.gpt_symbol) and trained by mod.Module on gpu(0) in
+     float32 (the reference Module's dtype; Xavier, Adam 3e-4) for 2 + 10
+     steps, each float32 flash kernel's launches checked against layers x
+     steps (none on the tensor-core ones), the NLL finite and falling and
+     the output (16384, 32768); the Module against ShardedTrainer from the
+     same numpy parameters over 3 Adam steps; a tiny gpt_symbol Module on
+     the card against the CPU's plain flash versions (outputs and every
+     gradient), and its checkpoint through Module.load giving the same
+     outputs;
   5. RNN training: the fused-LSTM and fused-GRU forward and backward
      kernels against their plain versions (ys, hT, cT, the residuals,
      dgx, dWh, dbh, dh0, dc0, non-zero hT/cT cotangents) in float32 and
@@ -233,7 +242,9 @@ Phases (any failure exits non-zero; nothing is caught):
      one and two back-to-back one-element kernels), for the flash forward,
      dQ and dK/dV the other
      (float32-FMA) kernel at the same bf16 shape and the tensor-core
-     kernel's ptxas registers and spills, and for the RNN kernels the
+     kernel's ptxas registers and spills, then the float32 kernels (the
+     Module path's) at the training shape beside SDPA in float32, and
+     for the RNN kernels the
      barrier floor (an
      empty cooperative kernel of T grid barriers), and for the RNN
      backward the other kernel at the same bf16 inputs, the tensor-core
@@ -262,6 +273,12 @@ serve_fleet_control (their lines, then the card line).
     python3 chip_smoke.py --aot-tp
 
 runs only the serve phase, serve_restart and serve_aot_tp.
+
+    python3 chip_smoke.py --train-module
+
+runs only the float32 flash checks at the training shapes, the train
+phase, train_module, module_vs_trainer, module_small_check and the
+float32 flash timings (their lines, then the card line).
 """
 
 from __future__ import annotations
@@ -6028,27 +6045,34 @@ def time_flash(shape, dtype):
         flash_attention_bwd_torch, flash_attention_fwd_torch)
 
     F = torch.nn.functional
+    tc = dtype == torch.bfloat16
     (q, k, v, do, dlse), kw = flash_case(shape, dtype, seed=1)
-    q_simt = misaligned_copy(q)
     saved = dict(fac.launches)
     o, lse = fac.flash_fwd_cuda(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1).contiguous()
     bwd = (q, k, v, do, lse, delta, dlse)
-    # the tensor-core kernels and, in the same run, the other kernels at
-    # the same shape (through the selectors: q 2 bytes off alignment)
+    # bf16: the tensor-core kernels and, in the same run, the other
+    # kernels at the same shape (through the selectors: q 2 bytes off
+    # alignment); float32: the other kernels, which it always takes
     fac.launches.update({n: 0 for n in fac.launches})
     t = {"flash_fwd": time_ms(lambda: fac.flash_fwd_cuda(q, k, v, **kw)),
          "flash_dq": time_ms(lambda: fac.flash_dq_cuda(*bwd, **kw)),
          "flash_dkv": time_ms(lambda: fac.flash_dkv_cuda(*bwd, **kw))}
-    ms_simt = {
-        "flash_fwd": time_ms(lambda: fac.flash_fwd_cuda(q_simt, k, v, **kw)),
-        "flash_dq": time_ms(lambda: fac.flash_dq_cuda(q_simt, *bwd[1:],
-                                                      **kw)),
-        "flash_dkv": time_ms(lambda: fac.flash_dkv_cuda(q_simt, *bwd[1:],
-                                                        **kw))}
+    ms_simt = {}
+    if tc:
+        q_simt = misaligned_copy(q)
+        ms_simt = {
+            "flash_fwd": time_ms(lambda: fac.flash_fwd_cuda(q_simt, k, v,
+                                                            **kw)),
+            "flash_dq": time_ms(lambda: fac.flash_dq_cuda(q_simt, *bwd[1:],
+                                                          **kw)),
+            "flash_dkv": time_ms(lambda: fac.flash_dkv_cuda(q_simt, *bwd[1:],
+                                                            **kw))}
     timed = dict(fac.launches)
     fac.launches.update(saved)        # timing launches are not the path's
-    if len(set(timed.values())) != 1:
+    ran = {n: c for n, c in timed.items() if c}
+    want = set(fac.launches) if tc else {f"{n}_simt" for n in t}
+    if set(ran) != want or len(set(ran.values())) != 1:
         raise SystemExit(f"flash_time: variants not as timed: {timed}")
     plain_fwd = time_ms(lambda: flash_attention_fwd_torch(q, k, v, **kw),
                         reps=10)
@@ -6067,7 +6091,8 @@ def time_flash(shape, dtype):
     for name in t:
         b_ms, b_by, ops, nbytes = bounds[name]
         rows[name] = {
-            "phase": "flash_time", "kernel": name, "shape": "train",
+            "phase": "flash_time", "kernel": name if tc else f"{name}_simt",
+            "shape": "train",
             "dtype": str(dtype)[6:], "ms": t[name],
             "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
             "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
@@ -6078,6 +6103,8 @@ def time_flash(shape, dtype):
             "library": ("F.scaled_dot_product_attention(is_causal=True)"
                         if name == "flash_fwd" else
                         "SDPA backward alone (dq, dk, dv together)")}
+        if not tc:
+            rows[name]["source"] = "csrc/flash_attention.cu"
         if name in ms_simt:
             rows[name].update({
                 "source": f"csrc/{name}_tc.cu",
@@ -6151,7 +6178,7 @@ def train_main_path():
     wall = time.perf_counter() - t0
     launches = dict(fac.launches)      # ... and closes
     lap("gpt_train_steps")
-    profile = train_profile(tr, placed)
+    profile = train_profile(lambda: tr.step(placed))
     lap("gpt_train_profile")
     want = cfg["num_layers"] * TRAIN_STEPS
     # every bf16 flash launch on the tensor-core kernels, none on the
@@ -6216,9 +6243,10 @@ def profiler_warmup():
         traced_kernels(logdir)
 
 
-def train_profile(tr, placed, steps=2):
-    """Device time by kernel over ``steps`` more train steps
-    (torch.profiler), and the device's busy share of their wall time."""
+def train_profile(step, steps=2):
+    """Device time by kernel over ``steps`` more calls of ``step`` (one
+    train step each; torch.profiler), and the device's busy share of
+    their wall time."""
     from mxnet_tpu_torch import profiler
 
     torch.cuda.synchronize()
@@ -6226,7 +6254,7 @@ def train_profile(tr, placed, steps=2):
         with profiler.trace(logdir):
             t0 = time.perf_counter()
             for _ in range(steps):
-                tr.step(placed)
+                step()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         kernels = traced_kernels(logdir)[0]
@@ -6337,6 +6365,244 @@ def small_train_check():
           "param_worst_share_of_bound": worst, "ok": ok})
     if not ok:
         raise SystemExit("small-model training: CUDA vs CPU disagree")
+
+
+# -- training through the Symbol frontend: module.Module ---------------------
+# The train phase's model built as the reference's Symbol
+# (models.gpt_symbol at TRAIN_CFG) and trained by module.Module on
+# gpu(0) in float32, the reference Module's bind dtype, with Xavier and
+# Adam(3e-4): its attention runs the float32 flash kernels
+# (flash_fwd_simt, flash_dq_simt, flash_dkv_simt), never the
+# tensor-core ones.
+MODULE_LR = 3e-4
+# the card-vs-CPU model: 2 layers, d_model 64, 4 heads, S 128, with
+# attn_impl="flash" (the kernels on the card, their plain versions on
+# the CPU)
+MODULE_TINY = dict(vocab=53, seq_len=128, num_layers=2, d_model=64,
+                   num_heads=4, fused_qkv=True, attn_layout="bhsd",
+                   loss="softmax")
+MODULE_TINY_BATCH = 4
+# card vs CPU, float32, the same parameters and batch: probabilities
+# within MODULE_OUT_ABS; each parameter's gradient within GRAD_REL of its
+# largest (the kernels and the plain versions differ by summation order
+# alone, held per element by the flash checks above)
+MODULE_OUT_ABS = 1e-5
+
+
+def module_ctx():
+    import mxnet_tpu_torch as mt
+
+    return mt.cpu() if DEVICE == "cpu" else mt.gpu(0)
+
+
+def gpt_module(cfg, batch, impl="auto", ctx=None, params=None, seed=0):
+    """A bound, initialised Module over ``gpt_symbol(cfg)`` with Adam:
+    Xavier from ``mt.random.seed(seed)``, or ``params`` (numpy)."""
+    import mxnet_tpu_torch as mt
+
+    net = mt.models.gpt_symbol(
+        cfg["vocab"], cfg["seq_len"], attn_impl=impl,
+        **{k: v for k, v in cfg.items() if k not in ("vocab", "seq_len")})
+    mod = mt.mod.Module(net, context=ctx or module_ctx())
+    shape = (batch, cfg["seq_len"])
+    mod.bind([("data", shape)], [("softmax_label", shape)])
+    if params is None:
+        mt.random.seed(seed)
+        mod.init_params(mt.init.Xavier())
+    else:
+        mod.set_params(params, {})
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params=(("learning_rate", MODULE_LR),))
+    return mod
+
+
+def module_batch(cfg, batch, ctx, seed=0):
+    import mxnet_tpu_torch as mt
+
+    b = train_batch(cfg["vocab"], batch, cfg["seq_len"], seed=seed)
+    return mt.io.DataBatch([mt.nd.array(b["data"], ctx=ctx)],
+                           [mt.nd.array(b["softmax_label"], ctx=ctx)])
+
+
+def module_step(mod, db):
+    """forward(is_train=True) / backward() / update(): the head's
+    probabilities."""
+    mod.forward(db, is_train=True)
+    mod.backward()
+    mod.update()
+    return mod.get_outputs()[0]._data
+
+
+def module_params(mod):
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def train_module_main_path(train_row):
+    from mxnet_tpu_torch.ops import flash_attention_cuda as fac
+
+    cfg = TRAIN_CFG
+    torch.cuda.reset_peak_memory_stats()
+    mod = gpt_module(cfg, TRAIN_BATCH)
+    db = module_batch(cfg, TRAIN_BATCH, module_ctx())
+    labels = db.label[0]._data
+    lap("module_train_setup")
+    nll = [nll_of(module_step(mod, db), labels)
+           for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    for name in fac.launches:          # the main path's window opens
+        fac.launches[name] = 0
+    step_ms = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        ts = time.perf_counter()
+        probs = module_step(mod, db)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - ts))
+        nll.append(nll_of(probs, labels))
+    wall = time.perf_counter() - t0
+    launches = dict(fac.launches)      # ... and closes
+    lap("module_train_steps")
+    profile = train_profile(lambda: module_step(mod, db))
+    lap("module_train_profile")
+    want = cfg["num_layers"] * TRAIN_STEPS
+    # every float32 flash launch on the other kernels, none on the
+    # tensor-core ones
+    expected = {"flash_fwd": 0, "flash_fwd_simt": want, "flash_dq": 0,
+                "flash_dq_simt": want, "flash_dkv": 0, "flash_dkv_simt": want}
+    finite = all(np.isfinite(nll))
+    shape = tuple(probs.shape)
+    ok = (finite and nll[-1] < nll[0] and launches == expected
+          and shape == (TRAIN_BATCH * cfg["seq_len"], cfg["vocab"]))
+    median = statistics.median(step_ms)
+    tok_s = TRAIN_BATCH * cfg["seq_len"] * TRAIN_STEPS / wall
+    row = {"phase": "train_module", "dtype": "float32", "config": cfg,
+           "entry": "models.gpt_symbol + mod.Module (bind, init_params("
+                    "Xavier), init_optimizer(adam, 3e-4), forward/backward/"
+                    "update)",
+           "batch": TRAIN_BATCH, "output_shape": shape,
+           "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+           "kernel_launches": launches, "launches_expected": expected,
+           "step_ms": step_ms, "step_ms_median": median, "wall_s": wall,
+           "tokens_per_s": tok_s, "nll": nll,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "profile": profile,
+           "vs_train_bf16": {
+               "step_ms_median_ratio": median / train_row["step_ms_median"],
+               "tokens_per_s_ratio": tok_s / train_row["tokens_per_s"]},
+           "ok": ok}
+    emit(row)
+    del mod, db, probs, labels
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("Module training failed its checks")
+    return row
+
+
+def adam_param_worst(got, want, grads, lr):
+    """Worst share of the bound |got - want| <= 2e-5 + 3 lr min(2, 1e-5
+    max|g| / |g_i|) (small_train_check's: Adam's first steps move an
+    element whose gradient is near zero by up to lr either way), the
+    key biases (an exactly-zero gradient) within 2e-5 + 6 lr."""
+    worst, worst_name = 0.0, None
+    for name in want:
+        g = np.abs(grads[name])
+        allowed = 2e-5 + 3 * lr * np.minimum(
+            2.0, 1e-5 * float(g.max()) / np.maximum(g, 1e-30))
+        if name.endswith(("_k_bias", "_qkv_bias")):
+            allowed = np.maximum(allowed, 2e-5 + 6 * lr)
+        share = float((np.abs(got[name] - want[name]) / allowed).max())
+        if share > worst:
+            worst, worst_name = share, name
+    return worst, worst_name
+
+
+def module_trainer_check():
+    """Module against ShardedTrainer on the card at TRAIN_CFG width:
+    the same numpy parameters (Module.set_params, the trainer's
+    set_params through convert), the same float32 Adam and batch, 3
+    steps.  Both launch the same kernels; they differ in summation order
+    alone.  Probabilities within 1e-5 at step 1 and 1e-4 after;
+    parameters within adam_param_worst's bound."""
+    cfg = TRAIN_CFG
+    mod = gpt_module(cfg, TRAIN_BATCH, seed=1)
+    start = module_params(mod)
+    tr = make_trainer(cfg, TRAIN_BATCH, "float32")
+    tr.set_params(start)
+    batch = train_batch(cfg["vocab"], TRAIN_BATCH, cfg["seq_len"], seed=5)
+    db = module_batch(cfg, TRAIN_BATCH, module_ctx(), seed=5)
+    exe = mod._exec_group.execs[0]
+    out_err, grads = [], None
+    for step in range(3):
+        mod.forward(db, is_train=True)
+        mod.backward()
+        if grads is None:
+            grads = {k: exe.grad_dict[k].asnumpy() for k in start}
+        mod.update()
+        a = mod.get_outputs()[0]._data
+        b = tr.step(batch)[0]
+        out_err.append(float((a - b).abs().max()))
+    worst, worst_name = adam_param_worst(module_params(mod),
+                                         tr.get_params(), grads, MODULE_LR)
+    ok = out_err[0] <= 1e-5 and max(out_err) <= 1e-4 and worst <= 1.0
+    emit({"phase": "module_vs_trainer", "dtype": "float32", "steps": 3,
+          "out_max_abs_err": out_err,
+          "param_worst_share_of_bound": worst, "worst_param": worst_name,
+          "bound": "out <= 1e-5 (step 1), 1e-4 (after); params "
+                   "2e-5 + 3 lr min(2, 1e-5 max|g|/|g_i|)", "ok": ok})
+    del mod, tr, db
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("Module and ShardedTrainer disagree")
+
+
+def module_small_check():
+    """A tiny gpt_symbol through Module on the card (the flash kernels)
+    and on the CPU (their plain versions), the same parameters and
+    batch: outputs and every gradient within the stated float32 bounds;
+    then the card module's checkpoint loaded by Module.load gives the
+    same outputs."""
+    import mxnet_tpu_torch as mt
+
+    cfg, B = MODULE_TINY, MODULE_TINY_BATCH
+    card = gpt_module(cfg, B, impl="flash", seed=2)
+    params = module_params(card)
+    host = gpt_module(cfg, B, impl="flash", ctx=mt.cpu(), params=params)
+    outs, grads = {}, {}
+    for tag, mod in (("card", card), ("cpu", host)):
+        db = module_batch(cfg, B, mod._context[0], seed=3)
+        mod.forward(db, is_train=True)
+        mod.backward()
+        outs[tag] = mod.get_outputs()[0].asnumpy()
+        exe = mod._exec_group.execs[0]
+        grads[tag] = {k: exe.grad_dict[k].asnumpy() for k in params}
+    out_err = float(np.abs(outs["card"] - outs["cpu"]).max())
+    grad_share = max(
+        float(np.abs(grads["card"][k] - grads["cpu"][k]).max())
+        / max(GRAD_REL * float(np.abs(grads["cpu"][k]).max()), 1e-30)
+        for k in params)
+    db = module_batch(cfg, B, module_ctx(), seed=4)
+    card.forward(db, is_train=False)
+    before = card.get_outputs()[0].asnumpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "gpt_module")
+        card.save_checkpoint(prefix, 1)
+        loaded = mt.mod.Module.load(prefix, 1, context=module_ctx())
+    loaded.bind(*[[(d.name, d.shape) for d in descs]
+                  for descs in (card.data_shapes, card.label_shapes)],
+                for_training=False)
+    loaded.forward(db, is_train=False)
+    after = loaded.get_outputs()[0].asnumpy()
+    same = bool(np.array_equal(before, after))
+    ok = (out_err <= MODULE_OUT_ABS and grad_share <= 1.0 and same
+          and bool(np.isfinite(outs["card"]).all()))
+    emit({"phase": "module_small_check", "config": cfg, "batch": B,
+          "out_max_abs_err": out_err, "grad_worst_share_of_bound": grad_share,
+          "bound": "out <= 1e-5; max|g_card - g_cpu| <= 2e-5 max|g_cpu| "
+                   "per param",
+          "checkpoint_round_trip_identical": same, "ok": ok})
+    if not ok:
+        raise SystemExit("Module: card vs CPU or checkpoint round trip "
+                         "disagree")
 
 
 # -- RNN training: fused LSTM/GRU kernels vs their plain versions ------------
@@ -6859,7 +7125,8 @@ def rnn_train_main_path(mode, steps):
     wall = time.perf_counter() - t0
     launches = dict(frc.launches)      # ... and closes
     lap(f"{mode}_train_steps")
-    profile = train_profile(tr, placed) if mode == "lstm" else None
+    profile = (train_profile(lambda: tr.step(placed)) if mode == "lstm"
+               else None)
     lap(f"{mode}_train_profile")
     want = cfg["num_layers"] * steps
     path = {k: v for k, v in launches.items() if k.startswith(mode)}
@@ -7049,6 +7316,25 @@ def aot_tp_main():
     return 0
 
 
+def train_module_main():
+    """``--train-module``: the flash library built, the float32 flash
+    checks at the training shapes, the bf16 ``train`` phase (the ratio's
+    other side), then ``train_module``, ``module_vs_trainer``,
+    ``module_small_check`` and the float32 kernels' timings."""
+    from mxnet_tpu_torch.ops import flash_attention_cuda as fac
+
+    fac._lib()
+    card = card_line()
+    for tag in ("train", "train_fused"):
+        check_flash(tag, FLASH_SHAPES[tag], torch.float32)
+    train_module_main_path(train_main_path())
+    module_trainer_check()
+    module_small_check()
+    time_flash(FLASH_SHAPES["train"], torch.float32)
+    print(card)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
@@ -7068,6 +7354,10 @@ def main():
     ap.add_argument("--aot-tp", dest="aot_tp_only", action="store_true",
                     help="run only the serve phase, serve_restart and "
                          "serve_aot_tp")
+    ap.add_argument("--train-module", dest="train_module_only",
+                    action="store_true",
+                    help="run only the float32 flash checks, the train "
+                         "phase and the Module phases")
     ap.add_argument("--aot-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--aot-manifest", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--aot-child-tp", type=int, default=1,
@@ -7089,6 +7379,8 @@ def main():
         return aot_child(args.aot_child, args.aot_manifest, args.aot_child_tp)
     if args.aot_tp_only:
         return aot_tp_main()
+    if args.train_module_only:
+        return train_module_main()
     if args.fleet:
         return fleet_main()
     from mxnet_tpu_torch import _build
@@ -7226,6 +7518,11 @@ def main():
     lap("gpt_train_grad_check")
     small_train_check()
     lap("gpt_train_small_check")
+    train_module = train_module_main_path(train)
+    module_trainer_check()
+    lap("module_vs_trainer")
+    module_small_check()
+    lap("module_small_check")
 
     rnn_train = {"lstm": rnn_train_main_path("lstm", RNN_STEPS),
                  "gru": rnn_train_main_path("gru", GRU_STEPS)}
@@ -7249,6 +7546,7 @@ def main():
     floor = launch_floor()
     lap("paged_time")
     flash_t = time_flash(FLASH_SHAPES["train"], torch.bfloat16)
+    flash_t32 = time_flash(FLASH_SHAPES["train"], torch.float32)
     lap("flash_time")
     rnn_t = {**time_rnn("lstm"), **time_rnn("gru")}
     lap("rnn_time")
@@ -7324,6 +7622,7 @@ def main():
                        "library_ms": q8_t["library_ms"]},
         "ptxas": paged_ptxas}]}
     train_err = flash_rows[("train", torch.bfloat16)]["max_abs_err_same_dtype"]
+    train_err32 = flash_rows[("train", torch.float32)]["max_abs_err_same_dtype"]
     # the plain and library backwards compute dq, dk and dv in one call:
     # the dQ and dK/dV entries carry that whole time, and the two kernels'
     # sum beside it
@@ -7348,6 +7647,19 @@ def main():
             "plain_and_library_cover": cover}
         if cover == "dq+dk+dv":
             entry["kernels_ms_dq_plus_dkv"] = bwd_ms
+        # the float32 variant: the Module path's (train_module) kernel
+        t32 = flash_t32[kname]
+        entry["launches_by_path"] = {
+            "train": train["kernel_launches"][kname],
+            "train_module": train_module["kernel_launches"][f"{kname}_simt"]}
+        entry["float32"] = {
+            "name": f"{kname}_simt", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "launches": train_module["kernel_launches"][f"{kname}_simt"],
+            "max_abs_err": max(train_err32[o] for o in outs),
+            "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+            "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+            "library_ms": t32["library_ms"]}
         kernels["kernels"].append(entry)
     for kname, replaces in (
             ("lstm_fwd", "mxnet_tpu/ops/pallas_lstm.py:102"),

@@ -7,8 +7,9 @@ serve engine's performance attribution.  :func:`peak_flops_per_chip`
 and :func:`peak_hbm_bytes_per_chip` read the CUDA card's name from
 torch (NVIDIA data-sheet figures: dense bf16 tensor-core FLOP/s and HBM
 bytes/s) and give None for a card they do not know, or for the CPU, as
-the reference does off TPU.  :func:`count_flops` walks a Symbol graph,
-which the port does not have yet (ROADMAP §A15): it raises.
+the reference does off TPU.  :func:`count_flops` (the reference's walk
+of a Symbol graph's per-op FLOPs) is not ported yet (ROADMAP §A15b): it
+raises.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ __all__ = ["count_flops", "peak_flops_per_chip", "peak_hbm_bytes_per_chip",
 def count_flops(symbol, **input_shapes):
     """Forward-pass FLOPs of a Symbol graph: not ported."""
     raise NotImplementedError(
-        "flops.count_flops walks a Symbol graph, which is not ported yet "
-        "(ROADMAP §A15: the training framework core)")
+        "flops.count_flops (per-op FLOPs of a Symbol graph) is not ported "
+        "yet (ROADMAP §A15b)")
 
 
 def gpt_token_flops(n_layers, d_model, num_heads, head_dim, kv_heads,

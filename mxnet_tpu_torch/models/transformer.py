@@ -3,9 +3,12 @@ checkpoint-shaped parameters.
 
 :func:`gpt` is the port of ``mxnet_tpu/models/transformer.py`` ``gpt()``:
 the same signature, returning a :class:`GPT` ``nn.Module`` in place of a
-Symbol.  Its parameters carry the reference checkpoint's names (those of
-:func:`gpt_arguments`) and are created on the ``meta`` device, like a
-Symbol's arguments, until a trainer places and initialises them.
+Symbol (for serving and ``parallel.ShardedTrainer``).
+:func:`gpt_symbol` is the reference's ``gpt()`` itself: the same Symbol,
+node for node, for the training frontend (``module.Module``).  The
+``GPT`` module's parameters carry the reference checkpoint's names
+(those of :func:`gpt_arguments`) and are created on the ``meta`` device,
+like a Symbol's arguments, until a trainer places and initialises them.
 
 The reference takes parameter shapes from the Symbol's ``infer_shape``;
 :func:`gpt_params` writes the same parameter list out by hand: the same
@@ -18,6 +21,8 @@ biases zero, norm gains one.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
@@ -27,7 +32,7 @@ from ..ops.attention import (FlashAttention, LayerNorm, RMSNorm, RoPE, gelu,
 from ..ops.loss import SoftmaxCELoss, SoftmaxOutput
 from ..ops.nn import Embedding, FullyConnected
 
-__all__ = ["gpt", "GPT", "gpt_arguments", "gpt_params"]
+__all__ = ["gpt", "GPT", "gpt_arguments", "gpt_params", "gpt_symbol"]
 
 
 def gpt_arguments(vocab, seq_len, num_layers=2, d_model=128, num_heads=4,
@@ -247,3 +252,166 @@ def gpt(vocab_size, seq_len, num_layers=2, d_model=128, num_heads=4,
                d_ff or 4 * d_model, causal, fused_qkv, attn_layout,
                attn_impl, kv_heads, attn_window, pos_embed, loss, mlp,
                tie_embeddings, norm, name)
+
+
+def gpt_symbol(vocab_size, seq_len, num_layers=2, d_model=128, num_heads=4,
+        d_ff=None, dropout=0.0, causal=True, remat=False, fused_qkv=False,
+        attn_layout="bhsd", attn_impl="auto", attn_sp_impl="ring",
+        kv_heads=None, attn_window=0, pos_embed="learned", loss="softmax",
+        mlp="gelu", tie_embeddings=False, norm="layernorm", name="gpt"):
+    """The reference's ``gpt()``: a Symbol computing the next-token
+    loss, built node for node from the port's symbol ops, so its JSON,
+    arguments and shapes are the reference's.
+
+    Inputs: ``data`` (batch, seq_len) token ids; ``softmax_label``
+    (batch, seq_len) next-token targets.  Output: per-position softmax
+    (batch*seq_len, vocab_size), or the (batch*seq_len,) NLL with
+    ``loss="ce"``.  The options are the reference's (see its docstring
+    and :func:`gpt`'s).  ``remat=True`` marks every block
+    ``force_mirroring`` (recomputed in backward through
+    ``torch.utils.checkpoint``); ``dropout`` adds Dropout ops after the
+    projections.  ``attn_impl="auto"`` runs the Hopper flash kernels on
+    the card and the dense formulation on the CPU; ``attn_sp_impl`` is
+    carried into the graph and used by no one-device program.
+    """
+    if d_model % num_heads:
+        raise ValueError("d_model must divide into num_heads")
+    d_ff = d_ff or 4 * d_model
+    head_dim = d_model // num_heads
+    kv_heads = kv_heads or num_heads
+    if num_heads % kv_heads:
+        raise ValueError("num_heads must be a multiple of kv_heads")
+    # GQA composes with fused_qkv: the fused projection emits
+    # (d_model + 2*d_kv) columns and the slice bounds below use d_kv
+    d_kv = kv_heads * head_dim
+
+    from .. import symbol as sym
+
+    def layer_scope(i):
+        # mirror_stage separates per-layer checkpoint blocks: without it
+        # consecutive mirrored layers would merge into one region whose
+        # backward recomputes the entire stack
+        if remat:
+            return sym.AttrScope(force_mirroring="1", mirror_stage=str(i))
+        return contextlib.nullcontext()
+
+    if pos_embed not in ("learned", "rope"):
+        raise ValueError(f"pos_embed must be learned|rope, got {pos_embed}")
+    if loss not in ("softmax", "ce"):
+        raise ValueError(f"loss must be softmax|ce, got {loss}")
+    if mlp not in ("gelu", "swiglu"):
+        raise ValueError(f"mlp must be gelu|swiglu, got {mlp}")
+    if norm not in ("layernorm", "rmsnorm"):
+        raise ValueError(f"norm must be layernorm|rmsnorm, got {norm}")
+
+    def norm_layer(x, nm):
+        if norm == "rmsnorm":
+            return sym.RMSNorm(x, name=nm)
+        return sym.LayerNorm(x, name=nm)
+    if pos_embed == "rope" and head_dim % 2:
+        raise ValueError("rope needs an even head_dim")
+    data = sym.Variable("data")
+    tok = sym.Embedding(data, name=f"{name}_tok_embed", input_dim=vocab_size,
+                        output_dim=d_model)                  # (B, S, D)
+    if pos_embed == "learned":
+        pos = sym.Variable(f"{name}_pos_embed_weight",
+                           shape=(1, seq_len, d_model))
+        h = sym.broadcast_plus(tok, pos)
+    else:
+        h = tok              # rope: positions enter at each Q/K rotation
+
+    for i in range(num_layers):
+        p = f"{name}_l{i}"
+        with layer_scope(i):
+            # -- attention block (pre-LN) -------------------------------
+            ln1 = norm_layer(h, f"{p}_ln1")
+            flat = sym.Reshape(ln1, shape=(-1, d_model))
+            if fused_qkv:
+                qkv = sym.FullyConnected(flat, name=f"{p}_qkv",
+                                         num_hidden=d_model + 2 * d_kv)
+                q = sym.slice_axis(qkv, axis=1, begin=0, end=d_model)
+                k = sym.slice_axis(qkv, axis=1, begin=d_model,
+                                   end=d_model + d_kv)
+                v = sym.slice_axis(qkv, axis=1, begin=d_model + d_kv,
+                                   end=d_model + 2 * d_kv)
+            else:
+                q = sym.FullyConnected(flat, name=f"{p}_q",
+                                       num_hidden=d_model)
+                k = sym.FullyConnected(flat, name=f"{p}_k",
+                                       num_hidden=d_kv)
+                v = sym.FullyConnected(flat, name=f"{p}_v",
+                                       num_hidden=d_kv)
+
+            if attn_layout == "bshd":
+                # sequence-major: (B, S, H, Dh) straight from the
+                # projection reshape, no transpose in or out
+                def heads(x, n):
+                    return sym.Reshape(x, shape=(-1, seq_len, n,
+                                                 head_dim))
+            else:
+                def heads(x, n):
+                    x = sym.Reshape(x, shape=(-1, seq_len, n,
+                                              head_dim))
+                    return sym.SwapAxis(x, dim1=1, dim2=2)   # (B, n, S, Dh)
+
+            qh, kh = heads(q, num_heads), heads(k, kv_heads)
+            if pos_embed == "rope":
+                qh = sym.RoPE(qh, layout=attn_layout)
+                kh = sym.RoPE(kh, layout=attn_layout)
+            attn = sym.FlashAttention(qh, kh, heads(v, kv_heads),
+                                      name=f"{p}_attn", causal=causal,
+                                      layout=attn_layout, impl=attn_impl,
+                                      sp_impl=attn_sp_impl,
+                                      window=attn_window)
+            if attn_layout == "bshd":
+                merged = sym.Reshape(attn, shape=(-1, d_model))
+            else:
+                merged = sym.Reshape(sym.SwapAxis(attn, dim1=1, dim2=2),
+                                     shape=(-1, d_model))
+            proj = sym.FullyConnected(merged, name=f"{p}_proj",
+                                      num_hidden=d_model)
+            if dropout > 0:
+                proj = sym.Dropout(proj, p=dropout)
+            h = h + sym.Reshape(proj, shape=(-1, seq_len, d_model))
+
+            # -- MLP block (pre-LN) -------------------------------------
+            ln2 = norm_layer(h, f"{p}_ln2")
+            flat2 = sym.Reshape(ln2, shape=(-1, d_model))
+            up = sym.FullyConnected(flat2, name=f"{p}_ff_up",
+                                     num_hidden=d_ff)
+            if mlp == "swiglu":
+                gate = sym.FullyConnected(flat2, name=f"{p}_ff_gate",
+                                          num_hidden=d_ff)
+                act = sym.silu(gate) * up       # f32 silu, like gelu
+            else:
+                act = sym.gelu(up)
+            down = sym.FullyConnected(act, name=f"{p}_ff_down",
+                                      num_hidden=d_model)
+            if dropout > 0:
+                down = sym.Dropout(down, p=dropout)
+            h = h + sym.Reshape(down, shape=(-1, seq_len, d_model))
+
+    final = norm_layer(h, f"{name}_ln_f")
+    final_flat = sym.Reshape(final, shape=(-1, d_model))
+    if tie_embeddings:
+        # same named variable as the Embedding: the executor binds one
+        # array and sums both ops' gradient contributions
+        tok_w = sym.Variable(f"{name}_tok_embed_weight")
+        logits = sym.FullyConnected(final_flat, weight=tok_w,
+                                    name=f"{name}_head",
+                                    num_hidden=vocab_size, no_bias=True)
+    else:
+        logits = sym.FullyConnected(final_flat, name=f"{name}_head",
+                                    num_hidden=vocab_size)
+    label = sym.Variable("softmax_label")        # (batch, seq_len)
+    label_flat = sym.Reshape(label, shape=(-1,))
+    if loss == "ce":
+        out = sym.SoftmaxCELoss(logits, label_flat, name="softmax")
+    else:
+        out = sym.SoftmaxOutput(logits, label_flat, name="softmax")
+    # decode-time config NOT derivable from weight shapes (generate.py
+    # detects kv_heads/rope/swiglu/tied from the checkpoint, but head
+    # count and the trained sliding window are invisible there) —
+    # persist it in the symbol so the two-artifact checkpoint carries it
+    out._set_attr(__gpt_num_heads__=num_heads, __gpt_attn_window__=attn_window)
+    return out

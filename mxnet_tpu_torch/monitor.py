@@ -4,8 +4,8 @@
 ``ServeMonitor`` logs the reference's line, byte for byte on the same
 ``Engine.stats()`` values, and samples the process-global time-series
 ring (``MXTPU_TIMESERIES``) on each log tick.  The training ``Monitor``
-(tensor-stat hooks on executors) comes with the training framework
-core and raises on access until then.
+(tensor-stat hooks on executors) comes with the rest of the training
+framework (ROADMAP §A15b) and raises on access until then.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ def __getattr__(name):
     if name == "Monitor":
         raise NotImplementedError(
             "mxnet_tpu_torch.monitor.Monitor (tensor-stat hooks on "
-            "executors) is not ported yet (ROADMAP §A item 15)")
+            "executors) is not ported yet (ROADMAP §A item 15: A15b)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -6,7 +6,10 @@ tensors.  Training half: :func:`LayerNorm`, :func:`RMSNorm`,
 back to the input dtype), :func:`FlashAttention` (the op: the Hopper
 kernels or the dense formulation, by ``impl``) and :func:`RoPE`.
 ``spmd_attention`` is not ported: the port's mesh (``parallel/mesh.py``)
-serves tensor-parallel decoding only.
+serves tensor-parallel decoding only.  The registered ops of the
+training frontend (``LayerNorm``, ``RMSNorm``, ``gelu``, ``silu``,
+``FlashAttention``, ``RoPE``: the reference's parameters and shape
+rules) call these functions.
 
 Serving half: :func:`paged_attention` calls the custom op
 ``torch.ops.mxnet_tpu_torch.paged_attention``, registered when this
@@ -29,6 +32,9 @@ import os
 from typing import Optional
 
 import torch
+
+from ..param import Params, field
+from .op import OpDef, register_op, register_simple_op
 
 __all__ = ["paged_eligible", "resolve_paged_impl", "paged_attention",
            "paged_attention_torch", "gqa_group", "LayerNorm", "RMSNorm",
@@ -311,3 +317,139 @@ def RoPE(data, base=10000.0, layout="bshd", offset=0):
     x1, x2 = xf[..., :half], xf[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(data.dtype)
+
+
+# -- the registered ops of the training frontend -----------------------------
+# Each OpDef's forward calls the function above; FlashAttention's reaches
+# the Hopper kernels on CUDA tensors (ops/flash_attention.py's autograd
+# Function) and the dense formulation on CPU tensors, by ``impl``.
+class LayerNormParam(Params):
+    axis = field(int, default=-1)
+    eps = field(float, default=1e-5)
+
+
+@register_op("LayerNorm", aliases=("layernorm",))
+class LayerNormOp(OpDef):
+    """Normalize over one axis with learnable scale/shift (statistics in
+    float32)."""
+
+    param_cls = LayerNormParam
+
+    def list_arguments(self, params):
+        return ["data", "gamma", "beta"]
+
+    def infer_shape(self, params, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            raise ValueError("LayerNorm: data shape unknown")
+        c = (d[params.axis % len(d)],)
+        return [tuple(d), c, c], [tuple(d)], []
+
+    def forward(self, params, inputs, aux, train, key):
+        x, gamma, beta = inputs
+        return [LayerNorm(x, gamma, beta, axis=params.axis,
+                          eps=params.eps)], []
+
+
+class RMSNormParam(Params):
+    axis = field(int, default=-1)
+    eps = field(float, default=1e-5)
+
+
+@register_op("RMSNorm", aliases=("rmsnorm",))
+class RMSNormOp(OpDef):
+    """y = x / rms(x) * gamma (statistics in float32)."""
+
+    param_cls = RMSNormParam
+
+    def list_arguments(self, params):
+        return ["data", "gamma"]
+
+    def infer_shape(self, params, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            raise ValueError("RMSNorm: data shape unknown")
+        c = (d[params.axis % len(d)],)
+        return [tuple(d), c], [tuple(d)], []
+
+    def forward(self, params, inputs, aux, train, key):
+        x, gamma = inputs
+        return [RMSNorm(x, gamma, axis=params.axis, eps=params.eps)], []
+
+
+register_simple_op("gelu", gelu, nin=1)
+register_simple_op("silu", silu, nin=1)
+
+
+class FlashAttentionParam(Params):
+    causal = field(bool, default=False)
+    # sliding-window (local) attention radius; 0 = full attention
+    window = field(int, default=0)
+    block_q = field(int, default=512)
+    block_k = field(int, default=512)
+    impl = field(str, default="auto", enum=("auto", "flash", "xla"))
+    layout = field(str, default="bhsd", enum=("bhsd", "bshd"))
+    # the schedule of a sequence-sharded program (ROADMAP §A18); one
+    # device runs no such program, so it is carried and not used
+    sp_impl = field(str, default="ring", enum=("ring", "ulysses"))
+
+
+@register_op("FlashAttention", aliases=("flashattention",))
+class FlashAttentionOp(OpDef):
+    """softmax(Q K^T / sqrt(D)) V over (B, H, S, D) [layout='bhsd'] or
+    (B, S, H, D) [layout='bshd']; K/V may carry fewer heads than Q.
+    ``impl="auto"`` launches the Hopper flash kernels on CUDA tensors
+    and runs the dense formulation on CPU tensors; ``"flash"`` runs
+    ``ops.flash_attention`` on any device (its plain versions on the
+    CPU); ``"xla"`` the dense formulation."""
+
+    param_cls = FlashAttentionParam
+
+    def list_arguments(self, params):
+        return ["query", "key", "value"]
+
+    def infer_shape(self, params, in_shapes):
+        q = in_shapes[0]
+        kv = in_shapes[1] or in_shapes[2]
+        if q is None and kv is None:
+            raise ValueError("FlashAttention: input shapes unknown")
+        if q is None:
+            q = kv
+        if kv is None:
+            kv = q          # MHA default; GQA needs k/v shapes known
+        return [tuple(q), tuple(kv), tuple(kv)], [tuple(q)], []
+
+    def forward(self, params, inputs, aux, train, key):
+        q, k, v = inputs
+        return [FlashAttention(q, k, v, causal=params.causal,
+                               window=params.window, block_q=params.block_q,
+                               block_k=params.block_k, impl=params.impl,
+                               layout=params.layout)], []
+
+
+class RoPEParam(Params):
+    base = field(float, default=10000.0)
+    layout = field(str, default="bshd", enum=("bshd", "bhsd"))
+    offset = field(int, default=0)
+
+
+@register_op("RoPE", aliases=("rope",))
+class RoPEOp(OpDef):
+    """Rotary position embedding of each head-dim pair."""
+
+    param_cls = RoPEParam
+
+    def list_arguments(self, params):
+        return ["data"]
+
+    def infer_shape(self, params, in_shapes):
+        d = in_shapes[0]
+        if d is None:
+            raise ValueError("RoPE: data shape unknown")
+        if d[-1] % 2:
+            raise ValueError(f"RoPE: head_dim must be even, got {d[-1]}")
+        return [tuple(d)], [tuple(d)], []
+
+    def forward(self, params, inputs, aux, train, key):
+        return [RoPE(inputs[0], base=params.base, layout=params.layout,
+                     offset=params.offset)], []

@@ -58,6 +58,18 @@ import mxnet_tpu_torch.fleet.collector, mxnet_tpu_torch.fleet.slo
 import mxnet_tpu_torch.fleet.autoscaler, mxnet_tpu_torch.fleet.deploy
 import mxnet_tpu_torch.fleet.catalog
 import mxnet_tpu_torch.monitor
+import mxnet_tpu_torch.ndarray, mxnet_tpu_torch.symbol
+import mxnet_tpu_torch.executor, mxnet_tpu_torch.graph
+import mxnet_tpu_torch.optimizer, mxnet_tpu_torch.lr_scheduler
+import mxnet_tpu_torch.metric, mxnet_tpu_torch.callback, mxnet_tpu_torch.io
+import mxnet_tpu_torch.model, mxnet_tpu_torch.module
+import mxnet_tpu_torch.module.base_module, mxnet_tpu_torch.module.module
+import mxnet_tpu_torch.module.executor_group
+import mxnet_tpu_torch.random, mxnet_tpu_torch.registry
+import mxnet_tpu_torch.param, mxnet_tpu_torch.attribute
+import mxnet_tpu_torch.ops.op, mxnet_tpu_torch.ops.elementwise
+import mxnet_tpu_torch.ops.reduce, mxnet_tpu_torch.ops.matrix
+import mxnet_tpu_torch.ops.sample
 import torch
 # the port's own name starts with "mxnet_tpu": match the reference by
 # exact key or by the "mxnet_tpu." prefix, never by bare prefix
@@ -123,7 +135,10 @@ def _require_no_cuda():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "params_from_numpy",
                                    "gpt_generate", "Engine",
-                                   "ShardedTrainer", "serve_replica"])
+                                   "ShardedTrainer", "serve_replica",
+                                   "gpu_context", "tpu_context",
+                                   "default_context_array",
+                                   "default_context_module_bind"])
 def test_default_device_is_cuda_and_raises_without_it(entry):
     _require_no_cuda()
     import numpy as np
@@ -145,6 +160,16 @@ def test_default_device_is_cuda_and_raises_without_it(entry):
             "mxnet_tpu_torch.fleet.serve_replica").main(
                 ["--layers", "1", "--d-model", "8", "--heads", "2",
                  "--vocab", "16"]),
+        # the training frontend: gpu/tpu contexts name cuda:i, and the
+        # default context is gpu(0)
+        "gpu_context": lambda: mt.nd.zeros((2,), ctx=mt.gpu(0)),
+        "tpu_context": lambda: mt.nd.ones((2,), ctx=mt.tpu(0)),
+        "default_context_array": lambda: mt.nd.array([1.0, 2.0]),
+        "default_context_module_bind": lambda: mt.mod.Module(
+            mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+                mt.sym.Variable("data"), num_hidden=2, name="fc"),
+                name="softmax")).bind([("data", (2, 3))],
+                                      [("softmax_label", (2,))]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -221,9 +221,22 @@ def test_loss_heads_ignore_the_head_gradient_by_default():
     _, g1 = _port_loss(ops.SoftmaxOutput, x, lab, head)
     _, g2 = _port_loss(ops.SoftmaxOutput, x, lab, np.ones_like(head))
     np.testing.assert_array_equal(g1, g2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ops.SoftmaxOutput(torch.from_numpy(x), torch.from_numpy(lab),
-                          multi_output=True)
+    # multi_output (softmax over axis 1 of (n, c, d)) holds the same
+    # contract, and matches the reference in every normalization
+    rng = np.random.RandomState(9)
+    xm = rng.randn(4, 5, 3).astype(np.float32)
+    labm = rng.randint(0, 5, (4, 3)).astype(np.int32)
+    labm[0, 1] = -1
+    headm = rng.randn(4, 5, 3).astype(np.float32)
+    for norm in ("null", "batch", "valid"):
+        kw = dict(multi_output=True, use_ignore=True, normalization=norm)
+        ref_out, ref_g = _ref_loss("SoftmaxOutput", xm, labm, headm, **kw)
+        out, g = _port_loss(ops.SoftmaxOutput, xm, labm, headm, **kw)
+        _, g_ones = _port_loss(ops.SoftmaxOutput, xm, labm,
+                               np.ones_like(headm), **kw)
+        _close(out, ref_out)
+        _close(g, ref_g)
+        np.testing.assert_array_equal(g, g_ones)
 
 
 # -- initializers -----------------------------------------------------------
