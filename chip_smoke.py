@@ -30,9 +30,13 @@ Phases (any failure exits non-zero; nothing is caught):
      shapes (bshd, 12 q / 3 kv heads, Sq != Sk, offsets with fully-masked
      rows, a 256 window; and without a mask).  bfloat16 is
      held element by element, scaled by each output, and the check is
-     shown to fail on an output that skipped one tile; each check says
-     which forward, dQ and dK/dV kernel ran (bf16: the tensor-core ones;
-     float32: the others);
+     shown to fail on an output that skipped one tile; float32 is held
+     to its own bound, shown at the training shape to tell the split-TF32
+     dK/dV's three products from one TF32 product (torch models of both on
+     the same inputs: the split passes, the single product fails); each
+     check says which forward, dQ and dK/dV kernel ran (bf16: the
+     tensor-core ones; float32: the float32-FMA forward and dQ and the
+     split-TF32 dK/dV);
   3. serving: the paged op captured in a CUDA graph, replayed on new
      inputs, against an eager call (decode shape and ctx 2048, bit for
      bit); a full-width GPT (the repo's on-chip serve config, its depth
@@ -208,7 +212,8 @@ Phases (any failure exits non-zero; nothing is caught):
      Symbol (models.gpt_symbol) and trained by mod.Module on gpu(0) in
      float32 (the reference Module's dtype; Xavier, Adam 3e-4) for 2 + 10
      steps, each float32 flash kernel's launches checked against layers x
-     steps (none on the tensor-core ones), the NLL finite and falling and
+     steps (dK/dV on the split-TF32 kernel, none on the bf16 ones or the
+     float32-FMA dK/dV), the NLL finite and falling and
      the output (16384, 32768); the Module against ShardedTrainer from the
      same numpy parameters over 3 Adam steps; a tiny gpt_symbol Module on
      the card against the CPU's plain flash versions (outputs and every
@@ -243,7 +248,10 @@ Phases (any failure exits non-zero; nothing is caught):
      dQ and dK/dV the other
      (float32-FMA) kernel at the same bf16 shape and the tensor-core
      kernel's ptxas registers and spills, then the float32 kernels (the
-     Module path's) at the training shape beside SDPA in float32, and
+     Module path's) at the training shape beside SDPA in float32, the
+     split-TF32 dK/dV with the float32-FMA one beside it, its ptxas
+     registers and spills, and both its bounds (3 TF32 products at 495
+     TFLOP/s; float32 FMAs at 67), and
      for the RNN kernels the
      barrier floor (an
      empty cooperative kernel of T grid barriers), and for the RNN
@@ -276,8 +284,9 @@ runs only the serve phase, serve_restart and serve_aot_tp.
 
     python3 chip_smoke.py --train-module
 
-runs only the float32 flash checks at the training shapes, the train
-phase, train_module, module_vs_trainer, module_small_check and the
+runs only the float32 flash checks at every flash shape (with the
+planted one-product TF32 dK/dV), the train phase, the float32 gradient
+check, train_module, module_vs_trainer, module_small_check and the
 float32 flash timings (their lines, then the card line).
 """
 
@@ -307,6 +316,7 @@ import torch  # noqa: E402
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12}
+PEAK_TF32_OPS_S = 495e12      # dense TF32 on the tensor cores (same sheet)
 # the repo's on-chip serve config (tools/serve_bench.py) at its full width,
 # its depth cut from 12 layers to 4 to keep the script's time
 SERVE_CFG = dict(vocab=50304, num_layers=4, d_model=768, num_heads=12,
@@ -5905,17 +5915,18 @@ def check_flash(tag, shape, dtype):
     before = dict(fac.launches)
     o, lse, dq, dk, dv = flash_through_autograd(*args, kw)
     torch.cuda.synchronize()
-    # every shape here is within the tensor-core forward's, dQ's and
-    # dK/dV's limits: bf16 runs them, float32 the others
+    # every shape here is within the tensor-core kernels' limits: bf16
+    # runs them, float32 the float32-FMA forward and dQ and the split-TF32
+    # dK/dV
     fwd_ran, dq_ran, dkv_ran = (
         [n for n in names if fac.launches[n] != before[n]]
         for names in (("flash_fwd", "flash_fwd_simt"),
                       ("flash_dq", "flash_dq_simt"),
-                      ("flash_dkv", "flash_dkv_simt")))
+                      ("flash_dkv", "flash_dkv_f32", "flash_dkv_simt")))
     tc = dtype == torch.bfloat16
     fwd_want = "flash_fwd" if tc else "flash_fwd_simt"
     dq_want = "flash_dq" if tc else "flash_dq_simt"
-    dkv_want = "flash_dkv" if tc else "flash_dkv_simt"
+    dkv_want = "flash_dkv" if tc else "flash_dkv_f32"
     up = [t.float() for t in (q, k, v, do)]
     p_o, p_lse = flash_attention_fwd_torch(*up[:3], **kw)
     p_grads = flash_attention_bwd_torch(*up[:3], o.float(), lse, up[3],
@@ -5959,6 +5970,10 @@ def check_flash(tag, shape, dtype):
                   for n in mut}
         row["dropped_tile_caught"] = caught
         ok = ok and all(caught.values())
+    if tag == "train" and dtype == torch.float32:
+        row["tf32_models"] = tf32_models(q, k, v, o, lse, do, dlse, kw, ref,
+                                         A)
+        ok = ok and row["tf32_models"]["ok"]
     row["bound"] = ("|k - plain32| <= 2^-8 (|plain32| + A) + 1e-5 A + 1e-6"
                     if dtype == torch.bfloat16 else
                     "|k - plain32| <= 1e-5 A + 1e-6")
@@ -5967,6 +5982,32 @@ def check_flash(tag, shape, dtype):
     if not ok:
         raise SystemExit(f"flash kernels disagree with plain: {tag} {dtype}")
     return row
+
+
+def tf32_models(q, k, v, o, lse, do, dlse, kw, ref, A):
+    """The float32 bound tells split TF32 from plain TF32: dK/dV from
+    torch models of the kernel's four products on the same inputs, with
+    the three-product split (it must pass) and with one TF32 product of
+    operands rounded once (a planted fault: it must fail); each one's
+    worst share of the bound beside the kernel's."""
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention_dkv_tf32
+
+    res = {}
+    for products in (3, 1):
+        dk, dv = flash_attention_dkv_tf32(q, k, v, o, lse, do, dlse,
+                                          products=products, **kw)
+        res[f"products_{products}"] = {
+            n: within_bound(x, ref[n], A[n], torch.float32)
+            for n, x in (("dk", dk), ("dv", dv))}
+        del dk, dv
+    torch.cuda.empty_cache()
+    split, single = res["products_3"], res["products_1"]
+    caught = all(not fine for fine, _ in single.values())
+    return {"split_3_worst_share": {n: v[1] for n, v in split.items()},
+            "single_1_worst_share": {n: v[1] for n, v in single.items()},
+            "split_passes": all(fine for fine, _ in split.values()),
+            "single_caught": caught,
+            "ok": caught and all(fine for fine, _ in split.values())}
 
 
 def live_pairs(shape):
@@ -6016,14 +6057,15 @@ def misaligned_copy(t):
 def ptxas_report(log, kernel, names=("D",)):
     """Registers and spill bytes of each instantiation of ``kernel`` in
     nvcc's -Xptxas -v output, keyed by its integer template arguments
-    under ``names`` (the flash kernels' D; the RNN kernel's G)."""
+    under ``names`` (the flash kernels' D; the RNN kernel's G), or by
+    ``kernel`` for a kernel that is not a template."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             args = re.findall(r"Li(\d+)E", m.group(1))
             key = "_".join(f"{n}{v}" for n, v in zip(names, args))
-            cur = (key or m.group(1)) if kernel in m.group(1) else None
+            cur = (key or kernel) if kernel in m.group(1) else None
             continue
         if cur is None:
             continue
@@ -6053,25 +6095,30 @@ def time_flash(shape, dtype):
     bwd = (q, k, v, do, lse, delta, dlse)
     # bf16: the tensor-core kernels and, in the same run, the other
     # kernels at the same shape (through the selectors: q 2 bytes off
-    # alignment); float32: the other kernels, which it always takes
+    # alignment); float32: the float32-FMA forward and dQ, which it always
+    # takes, and the split-TF32 dK/dV beside the float32-FMA one (q 4
+    # bytes off alignment)
     fac.launches.update({n: 0 for n in fac.launches})
     t = {"flash_fwd": time_ms(lambda: fac.flash_fwd_cuda(q, k, v, **kw)),
          "flash_dq": time_ms(lambda: fac.flash_dq_cuda(*bwd, **kw)),
          "flash_dkv": time_ms(lambda: fac.flash_dkv_cuda(*bwd, **kw))}
+    q_simt = misaligned_copy(q)
     ms_simt = {}
     if tc:
-        q_simt = misaligned_copy(q)
-        ms_simt = {
-            "flash_fwd": time_ms(lambda: fac.flash_fwd_cuda(q_simt, k, v,
-                                                            **kw)),
-            "flash_dq": time_ms(lambda: fac.flash_dq_cuda(q_simt, *bwd[1:],
-                                                          **kw)),
-            "flash_dkv": time_ms(lambda: fac.flash_dkv_cuda(q_simt, *bwd[1:],
-                                                            **kw))}
+        ms_simt["flash_fwd"] = time_ms(lambda: fac.flash_fwd_cuda(
+            q_simt, k, v, **kw))
+        ms_simt["flash_dq"] = time_ms(lambda: fac.flash_dq_cuda(
+            q_simt, *bwd[1:], **kw))
+    ms_simt["flash_dkv"] = time_ms(lambda: fac.flash_dkv_cuda(
+        q_simt, *bwd[1:], **kw))
     timed = dict(fac.launches)
     fac.launches.update(saved)        # timing launches are not the path's
     ran = {n: c for n, c in timed.items() if c}
-    want = set(fac.launches) if tc else {f"{n}_simt" for n in t}
+    names = {n: (n if tc else "flash_dkv_f32" if n == "flash_dkv"
+                 else f"{n}_simt") for n in t}
+    want = ({"flash_fwd", "flash_fwd_simt", "flash_dq", "flash_dq_simt",
+             "flash_dkv", "flash_dkv_simt"} if tc else
+            set(names.values()) | {"flash_dkv_simt"})
     if set(ran) != want or len(set(ran.values())) != 1:
         raise SystemExit(f"flash_time: variants not as timed: {timed}")
     plain_fwd = time_ms(lambda: flash_attention_fwd_torch(q, k, v, **kw),
@@ -6091,7 +6138,7 @@ def time_flash(shape, dtype):
     for name in t:
         b_ms, b_by, ops, nbytes = bounds[name]
         rows[name] = {
-            "phase": "flash_time", "kernel": name if tc else f"{name}_simt",
+            "phase": "flash_time", "kernel": names[name],
             "shape": "train",
             "dtype": str(dtype)[6:], "ms": t[name],
             "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
@@ -6106,15 +6153,30 @@ def time_flash(shape, dtype):
         if not tc:
             rows[name]["source"] = "csrc/flash_attention.cu"
         if name in ms_simt:
+            src = f"{name}_tc" if tc else "flash_dkv_f32tc"
             rows[name].update({
-                "source": f"csrc/{name}_tc.cu",
+                "source": f"csrc/{src}.cu",
                 "ms_simt": ms_simt[name],
                 "simt_over_tc": ms_simt[name] / t[name],
                 "simt": f"{name}_kernel (csrc/flash_attention.cu), the "
-                        "same shape with q 2 bytes off 16-byte alignment",
+                        f"same shape with q {q.element_size()} bytes off "
+                        "16-byte alignment",
                 "ptxas": ptxas_report(
                     _build.BUILD_LOGS.get(fac.LIB_NAME, ""),
-                    f"{name}_tc_kernel")})
+                    f"{src}_kernel")})
+        if not tc and name == "flash_dkv":
+            # its products are three TF32 ones: that bound, and the
+            # float32-FMA one of the same work beside it
+            t_b, t_o = nbytes / PEAK_BYTES_S, 3 * ops / PEAK_TF32_OPS_S
+            rows[name].update({
+                "bound_ms": 1e3 * max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "bound_share": 1e3 * max(t_b, t_o) / t[name],
+                "bound_rule": "3 x ops at 495 TFLOP/s (split TF32) vs "
+                              "bytes at 3.35 TB/s",
+                "bound_fma_ms": b_ms, "bound_fma_by": b_by,
+                "bound_fma_rule": "ops at 67 TFLOP/s (float32 FMA) vs "
+                                  "bytes at 3.35 TB/s"})
         emit(rows[name])
     return rows
 
@@ -6184,7 +6246,8 @@ def train_main_path():
     # every bf16 flash launch on the tensor-core kernels, none on the
     # others
     expected = {"flash_fwd": want, "flash_fwd_simt": 0, "flash_dq": want,
-                "flash_dq_simt": 0, "flash_dkv": want, "flash_dkv_simt": 0}
+                "flash_dq_simt": 0, "flash_dkv": want, "flash_dkv_f32": 0,
+                "flash_dkv_simt": 0}
     finite = all(np.isfinite(nll))
     ok = (finite and nll[-1] < nll[0] and launches == expected
           and tuple(probs.shape) == (TRAIN_BATCH * cfg["seq_len"],
@@ -6372,8 +6435,8 @@ def small_train_check():
 # (models.gpt_symbol at TRAIN_CFG) and trained by module.Module on
 # gpu(0) in float32, the reference Module's bind dtype, with Xavier and
 # Adam(3e-4): its attention runs the float32 flash kernels
-# (flash_fwd_simt, flash_dq_simt, flash_dkv_simt), never the
-# tensor-core ones.
+# (flash_fwd_simt, flash_dq_simt and the split-TF32 flash_dkv_f32), never
+# the bf16 tensor-core ones.
 MODULE_LR = 3e-4
 # the card-vs-CPU model: 2 layers, d_model 64, 4 heads, S 128, with
 # attn_impl="flash" (the kernels on the card, their plain versions on
@@ -6465,10 +6528,11 @@ def train_module_main_path(train_row):
     profile = train_profile(lambda: module_step(mod, db))
     lap("module_train_profile")
     want = cfg["num_layers"] * TRAIN_STEPS
-    # every float32 flash launch on the other kernels, none on the
-    # tensor-core ones
+    # every float32 flash launch on the float32 kernels (dK/dV on the
+    # split-TF32 one), none on the bf16 tensor-core ones
     expected = {"flash_fwd": 0, "flash_fwd_simt": want, "flash_dq": 0,
-                "flash_dq_simt": want, "flash_dkv": 0, "flash_dkv_simt": want}
+                "flash_dq_simt": want, "flash_dkv": 0, "flash_dkv_f32": want,
+                "flash_dkv_simt": 0}
     finite = all(np.isfinite(nll))
     shape = tuple(probs.shape)
     ok = (finite and nll[-1] < nll[0] and launches == expected
@@ -7318,16 +7382,20 @@ def aot_tp_main():
 
 def train_module_main():
     """``--train-module``: the flash library built, the float32 flash
-    checks at the training shapes, the bf16 ``train`` phase (the ratio's
-    other side), then ``train_module``, ``module_vs_trainer``,
-    ``module_small_check`` and the float32 kernels' timings."""
+    checks at every flash shape (the split-TF32 dK/dV and its planted
+    one-product fault), the bf16 ``train`` phase (the ratio's other
+    side), the float32 gradient check, then ``train_module``,
+    ``module_vs_trainer``, ``module_small_check`` and the float32
+    kernels' timings."""
     from mxnet_tpu_torch.ops import flash_attention_cuda as fac
 
     fac._lib()
     card = card_line()
-    for tag in ("train", "train_fused"):
-        check_flash(tag, FLASH_SHAPES[tag], torch.float32)
-    train_module_main_path(train_main_path())
+    for tag, shape in FLASH_SHAPES.items():
+        check_flash(tag, shape, torch.float32)
+    train = train_main_path()
+    train_grad_check()
+    train_module_main_path(train)
     module_trainer_check()
     module_small_check()
     time_flash(FLASH_SHAPES["train"], torch.float32)
@@ -7357,7 +7425,8 @@ def main():
     ap.add_argument("--train-module", dest="train_module_only",
                     action="store_true",
                     help="run only the float32 flash checks, the train "
-                         "phase and the Module phases")
+                         "phase, the float32 gradient check and the "
+                         "Module phases")
     ap.add_argument("--aot-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--aot-manifest", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--aot-child-tp", type=int, default=1,
@@ -7649,17 +7718,21 @@ def main():
             entry["kernels_ms_dq_plus_dkv"] = bwd_ms
         # the float32 variant: the Module path's (train_module) kernel
         t32 = flash_t32[kname]
+        k32 = t32["kernel"]
         entry["launches_by_path"] = {
             "train": train["kernel_launches"][kname],
-            "train_module": train_module["kernel_launches"][f"{kname}_simt"]}
+            "train_module": train_module["kernel_launches"][k32]}
         entry["float32"] = {
-            "name": f"{kname}_simt", "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
-            "launches": train_module["kernel_launches"][f"{kname}_simt"],
+            "name": k32, "route": "cuda",
+            "source": f"mxnet_tpu_torch/{t32['source']}",
+            "replaces": replaces,
+            "launches": train_module["kernel_launches"][k32],
             "max_abs_err": max(train_err32[o] for o in outs),
             "ms": t32["ms"], "plain_ms": t32["plain_ms"],
             "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
             "library_ms": t32["library_ms"]}
+        entry["float32"].update({key: t32[key] for key in (
+            "ms_simt", "bound_fma_ms", "ptxas") if key in t32})
         kernels["kernels"].append(entry)
     for kname, replaces in (
             ("lstm_fwd", "mxnet_tpu/ops/pallas_lstm.py:102"),

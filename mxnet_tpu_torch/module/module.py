@@ -56,6 +56,8 @@ class Module(BaseModule):
 
         self._arg_params = None
         self._aux_params = None
+        # a .states file that Module.load named, read by init_optimizer
+        self._preload_opt_states = None
         # dirty = device arrays newer than the CPU master dicts.  Held
         # in a one-element list so modules sharing one set of params
         # (shared_module) share ONE flag: an update through any of them
@@ -254,6 +256,27 @@ class Module(BaseModule):
         self._update_on_kvstore = update_on_kvstore
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            # MXNet's Module.init_optimizer: the states Module.load named
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    def save_optimizer_states(self, fname):
+        """Write the updater's states and update counts to ``fname``
+        (``updater.get_states``' layout)."""
+        if not self.optimizer_initialized:
+            raise MXNetError("optimizer is not initialized")
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        """Load a ``save_optimizer_states`` file into the updater, its
+        states on the module's context: the next ``update`` continues
+        the saved run (Adam's moments and step count)."""
+        if not self.optimizer_initialized:
+            raise MXNetError("optimizer is not initialized")
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read(), self._context[0])
 
     # -- fused train step --------------------------------------------------
     def _select_fused(self):
@@ -313,10 +336,7 @@ class Module(BaseModule):
         arg_params, aux_params = self.get_params()
         save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
         if save_optimizer_states:
-            import pickle
-
-            with open(f"{prefix}-{epoch:04d}.states", "wb") as f:
-                f.write(pickle.dumps(self._updater.states))
+            self.save_optimizer_states(f"{prefix}-{epoch:04d}.states")
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):

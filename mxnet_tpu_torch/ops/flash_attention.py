@@ -25,7 +25,8 @@ import torch
 from .attention import gqa_group
 
 __all__ = ["flash_attention", "flash_attention_fwd_torch",
-           "flash_attention_bwd_torch", "gqa_group"]
+           "flash_attention_bwd_torch", "flash_attention_dkv_tf32",
+           "round_tf32", "gqa_group"]
 
 NEG_INF = -1e30      # the reference kernels' fully-masked sentinel
 _TINY = 1e-30
@@ -132,6 +133,63 @@ def flash_attention_bwd_torch(q, k, v, o, lse, do, dlse=None, causal=False,
         dv = dv.reshape(B, Hkv, group, Sk, D).sum(2)
     return (_bhsd(dq.to(q.dtype), layout), _bhsd(dk.to(k.dtype), layout),
             _bhsd(dv.to(v.dtype), layout))
+
+
+def round_tf32(x):
+    """float32 ``x`` rounded to the nearest TF32 value (10 mantissa bits,
+    ties away from zero: ``cvt.rna.tf32.f32``), kept as float32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """``a @ b`` as the float32 tensor-core dK/dV takes it: 3 is its
+    split (``csrc/tf32x3.cuh``: a_small b_big + a_big b_small + a_big
+    b_big, each half rounded to TF32), 1 one TF32 product of the operands
+    rounded once."""
+    a_big, b_big = round_tf32(a), round_tf32(b)
+    if products == 1:
+        return torch.matmul(a_big, b_big)
+    if products != 3:
+        raise ValueError(f"products must be 1 or 3 (got {products})")
+    a_small, b_small = round_tf32(a - a_big), round_tf32(b - b_big)
+    return (torch.matmul(a_small, b_big) + torch.matmul(a_big, b_small)
+            + torch.matmul(a_big, b_big))
+
+
+def flash_attention_dkv_tf32(q, k, v, o, lse, do, dlse=None, products=3,
+                             causal=False, scale=None, q_offset=0,
+                             k_offset=0, layout="bhsd", window=0):
+    """The float32 tensor-core dK/dV's arithmetic in plain torch: ``(dk,
+    dv)`` of :func:`flash_attention_bwd_torch` with each of its four
+    products (S = Q K^T, dP = dO V^T, dV = P^T dO, dK = dS^T Q) taken by
+    :func:`_tf32_matmul` with ``products`` TF32 products.  Not on any
+    path: it shows what the float32 bound tells apart (the kernel's
+    three-product split meets it, one TF32 product does not)."""
+    B, H, Sq, D, Sk, Hkv = _dims(q, k, layout)
+    group = gqa_group(H, Hkv)
+    scale = 1.0 / D ** 0.5 if scale is None else scale
+    qh, doh = (_bhsd(t, layout).float() for t in (q, do))
+    kh = _expand(_bhsd(k, layout).float(), group)
+    vh = _expand(_bhsd(v, layout).float(), group)
+    delta = (doh * _bhsd(o, layout).float()).sum(-1)
+    dlse = (torch.zeros_like(lse) if dlse is None
+            else dlse.to(torch.float32))
+    s = _tf32_matmul(qh, kh.transpose(-1, -2), products) * scale
+    keep = _keep(Sq, Sk, causal, q_offset, k_offset, window, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
+    dp = _tf32_matmul(doh, vh.transpose(-1, -2), products)
+    ds = p * (dp - delta[..., None] + dlse[..., None]) * scale
+    dk = _tf32_matmul(ds.transpose(-1, -2), qh, products)
+    dv = _tf32_matmul(p.transpose(-1, -2), doh, products)
+    if group > 1:
+        dk = dk.reshape(B, Hkv, group, Sk, D).sum(2)
+        dv = dv.reshape(B, Hkv, group, Sk, D).sum(2)
+    return _bhsd(dk, layout), _bhsd(dv, layout)
 
 
 class _Flash(torch.autograd.Function):

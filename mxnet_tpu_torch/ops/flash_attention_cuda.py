@@ -9,15 +9,19 @@ two variants, picked by :func:`_fwd_variant` from the operands: ``tc``
 other bf16 geometry).  dQ and dK/dV have the same two variants each,
 picked by :func:`_dq_variant` and :func:`_dkv_variant`: ``tc``
 (``csrc/flash_dq_tc.cu``, ``csrc/flash_dkv_tc.cu``) and ``simt``
-(``csrc/flash_attention.cu``).  They are built with ``nvcc`` at the
-first launch and called through ``ctypes``.  Each wrapper checks what its kernel takes and raises on
+(``csrc/flash_attention.cu``); dK/dV has a third, ``tc32``
+(``csrc/flash_dkv_f32tc.cu``: float32 on the tensor cores through
+split-TF32 products, ``csrc/tf32x3.cuh``, held to the float32 bound).
+They are built with ``nvcc`` at the first launch and called through
+``ctypes``.  Each wrapper checks what its kernel takes and raises on
 anything else; there is no fallback to the plain versions (those are
 ``ops.flash_attention.flash_attention_fwd_torch`` /
 ``flash_attention_bwd_torch``, which the CPU path runs), and no retreat
-from one variant to the other.  ``launches`` counts each kernel's
+from one variant to another.  ``launches`` counts each kernel's
 launches in this process (``flash_fwd``, ``flash_dq`` and
-``flash_dkv``: the tensor-core kernels; ``flash_fwd_simt``,
-``flash_dq_simt`` and ``flash_dkv_simt``: the others).
+``flash_dkv``: the bf16 tensor-core kernels; ``flash_dkv_f32``: the
+float32 tensor-core dK/dV; ``flash_fwd_simt``, ``flash_dq_simt`` and
+``flash_dkv_simt``: the others).
 
 Tensors are 4-D in either layout (``bhsd``: (B, H, S, D); ``bshd``:
 (B, S, H, D)), float32 or bfloat16, on one CUDA device, with a
@@ -39,12 +43,14 @@ __all__ = ["flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda", "launches"]
 
 LIB_NAME = "mxtt_flash_attention"
 SOURCES = ("flash_attention.cu", "flash_fwd_tc.cu", "flash_dq_tc.cu",
-           "flash_dkv_tc.cu", "tc_tile.cuh")
+           "flash_dkv_tc.cu", "flash_dkv_f32tc.cu", "flash_geo.cuh",
+           "tc_tile.cuh", "tf32x3.cuh")
 
 # kernel launches in this process, per kernel; reset by whoever counts a
 # window
 launches = {"flash_fwd": 0, "flash_fwd_simt": 0, "flash_dq": 0,
-            "flash_dq_simt": 0, "flash_dkv": 0, "flash_dkv_simt": 0}
+            "flash_dq_simt": 0, "flash_dkv": 0, "flash_dkv_f32": 0,
+            "flash_dkv_simt": 0}
 
 # what each kernel takes; a launch outside it returns cudaErrorInvalidValue
 LIMITS = {
@@ -56,11 +62,15 @@ LIMITS = {
     "flash_dq_simt": "float32 or bfloat16, head_dim <= 128",
     "flash_dkv": "bfloat16, head_dim 64, q/k/v/dO/dk/dv 16-byte aligned, "
                  "batch/head/sequence strides multiples of 8 elements",
+    "flash_dkv_f32": "float32, head_dim 64, q/k/v/dO/dk/dv 16-byte aligned, "
+                     "batch/head/sequence strides multiples of 4 elements",
     "flash_dkv_simt": "float32 or bfloat16, head_dim <= 128",
 }
 _TC_HEAD_DIMS = (64, 128)         # the forward's
 _TC_DQ_HEAD_DIMS = (64, 128)
 _TC_DKV_HEAD_DIMS = (64,)         # at 128 the tensor-core dK/dV spills
+# the float32 tensor-core dK/dV: at 128 it spills (csrc/flash_dkv_f32tc.cu)
+_TC32_DKV_HEAD_DIMS = (64,)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -76,9 +86,11 @@ def _lib():
         lib.mxtt_flash_dq_tc.argtypes = [i] + [vp] * 8 + tail
         lib.mxtt_flash_dkv.argtypes = [i] + [vp] * 9 + tail
         lib.mxtt_flash_dkv_tc.argtypes = [i] + [vp] * 9 + tail
+        lib.mxtt_flash_dkv_f32tc.argtypes = [i] + [vp] * 9 + tail
         for fn in (lib.mxtt_flash_fwd, lib.mxtt_flash_fwd_tc,
                    lib.mxtt_flash_dq, lib.mxtt_flash_dq_tc,
-                   lib.mxtt_flash_dkv, lib.mxtt_flash_dkv_tc):
+                   lib.mxtt_flash_dkv, lib.mxtt_flash_dkv_tc,
+                   lib.mxtt_flash_dkv_f32tc):
             fn.restype = ctypes.c_int
     return lib
 
@@ -175,9 +187,17 @@ def _dq_variant(dtype, D, ptrs, strides):
 
 
 def _dkv_variant(dtype, D, ptrs, strides):
-    """The dK/dV kernel that takes a call, by the same rule as
-    :func:`_fwd_variant` over ``ptrs`` q, k, v, dO, dk, dv and their
-    strides, at the head dims in ``_TC_DKV_HEAD_DIMS``."""
+    """The dK/dV kernel that takes a call, over ``ptrs`` q, k, v, dO, dk,
+    dv and their strides: bfloat16 by the same rule as
+    :func:`_fwd_variant` at the head dims in ``_TC_DKV_HEAD_DIMS``;
+    float32 ``"tc32"`` (split-TF32 tensor cores) at the head dims in
+    ``_TC32_DKV_HEAD_DIMS`` with 16-byte-aligned ``ptrs`` and every
+    stride a multiple of 4 elements, else ``"simt"``."""
+    if dtype == torch.float32:
+        if (D in _TC32_DKV_HEAD_DIMS and not any(p % 16 for p in ptrs)
+                and not any(s % 4 for s in strides)):
+            return "tc32"
+        return "simt"
     return _tc_variant(dtype, D, ptrs, strides, _TC_DKV_HEAD_DIMS)
 
 
@@ -256,9 +276,10 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, dlse, causal=False, scale=None,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
     outs = (dk.data_ptr(), dv.data_ptr())
     lib = _lib()
-    fn, name = ((lib.mxtt_flash_dkv_tc, "flash_dkv")
-                if _dkv_variant(q.dtype, D, ptrs + outs, strides) == "tc"
-                else (lib.mxtt_flash_dkv, "flash_dkv_simt"))
+    fn, name = {"tc": (lib.mxtt_flash_dkv_tc, "flash_dkv"),
+                "tc32": (lib.mxtt_flash_dkv_f32tc, "flash_dkv_f32"),
+                "simt": (lib.mxtt_flash_dkv, "flash_dkv_simt")}[
+        _dkv_variant(q.dtype, D, ptrs + outs, strides)]
     _call(fn, q.dtype, ptrs + (lse.data_ptr(), delta.data_ptr(),
                                dlse.data_ptr()) + outs,
           (B, Hq, Hkv, Sq, Sk, D), strides, causal, window, q_offset,

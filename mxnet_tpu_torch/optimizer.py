@@ -11,9 +11,12 @@ in float32, with epsilon outside the square root.
 
 from __future__ import annotations
 
+import pickle
+
 import torch
 
 from . import random as _random
+from .context import cpu
 from .ndarray import zeros
 from .registry import Registry
 
@@ -358,8 +361,26 @@ class Test(Optimizer):
             state._data.copy_(weight._data)
 
 
+def _map_state(state, fn):
+    """``fn`` over the NDArrays of an optimizer state (None / NDArray /
+    tuple of NDArrays), keeping its structure."""
+    if state is None:
+        return None
+    if isinstance(state, (tuple, list)):
+        return type(state)(_map_state(s, fn) for s in state)
+    return fn(state)
+
+
 def get_updater(optimizer: Optimizer):
-    """Closure over per-index states (reference optimizer.py:803)."""
+    """Closure over per-index states (reference optimizer.py:803).
+
+    ``updater.get_states()`` gives the bytes of a ``.states`` file: a
+    pickled dict of ``states`` (index -> state, its NDArrays on the CPU),
+    the optimizer's per-index update counts (``index_update_count``, from
+    which Adam's bias correction is taken) and ``num_update`` (what an
+    lr scheduler reads).  ``updater.set_states(blob, ctx)`` loads such
+    bytes, the states on ``ctx``, so the next update continues the saved
+    run."""
     states = {}
 
     def updater(index, grad, weight):
@@ -367,8 +388,26 @@ def get_updater(optimizer: Optimizer):
             states[index] = optimizer.create_state(index, weight)
         optimizer.update(index, weight, grad, states[index])
 
+    def get_states():
+        host = cpu()
+        return pickle.dumps({
+            "states": {i: _map_state(s, lambda a: a.as_in_context(host))
+                       for i, s in states.items()},
+            "index_update_count": dict(optimizer._index_update_count),
+            "num_update": optimizer.num_update})
+
+    def set_states(blob, ctx):
+        saved = pickle.loads(blob)
+        states.clear()
+        states.update({i: _map_state(s, lambda a: a.as_in_context(ctx))
+                       for i, s in saved["states"].items()})
+        optimizer._index_update_count = dict(saved["index_update_count"])
+        optimizer.num_update = saved["num_update"]
+
     updater.states = states
     updater.optimizer = optimizer
+    updater.get_states = get_states
+    updater.set_states = set_states
     return updater
 
 

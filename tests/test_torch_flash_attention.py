@@ -409,7 +409,27 @@ DKV_VARIANT_CASES = {
                   tuple(2 * x for x in _DKV_BHSD), "simt"),
     "bf16_model_operands": (torch.bfloat16, 64, _DKV_FUSED_PTRS, _DKV_FUSED,
                             "tc"),
-    "float32": (torch.float32, 64, _DKV_PTRS, _DKV_BHSD, "simt"),
+    # float32 at head_dim 64 with 16-byte-aligned operands and strides in
+    # multiples of 4 runs the split-TF32 tensor-core kernel ("tc32")
+    "float32": (torch.float32, 64, _DKV_PTRS, _DKV_BHSD, "tc32"),
+    "float32_model_operands": (torch.float32, 64, _DKV_FUSED_PTRS,
+                               _DKV_FUSED, "tc32"),
+    "float32_misaligned_do": (torch.float32, 64,
+                              _DKV_PTRS[:3] + (_DKV_PTRS[3] + 4,)
+                              + _DKV_PTRS[4:], _DKV_BHSD, "simt"),
+    "float32_misaligned_dk": (torch.float32, 64,
+                              _DKV_PTRS[:4] + (_DKV_PTRS[4] + 8,)
+                              + _DKV_PTRS[5:], _DKV_BHSD, "simt"),
+    "float32_head_stride_not_multiple_of_4": (
+        torch.float32, 64, _DKV_PTRS,
+        _DKV_BHSD[:3] + (8 * 1024 * 64, 1026, 64) + _DKV_BHSD[6:], "simt"),
+    "float32_odd_sequence_stride": (torch.float32, 64, _DKV_PTRS,
+                                    (8 * 1024 * 65, 1024 * 65, 65) * 6,
+                                    "simt"),
+    "float32_d80": (torch.float32, 80, _DKV_PTRS,
+                    (8 * 1024 * 80, 1024 * 80, 80) * 6, "simt"),
+    "float32_d128": (torch.float32, 128, _DKV_PTRS,
+                     tuple(2 * x for x in _DKV_BHSD), "simt"),
     "bf16_d80": (torch.bfloat16, 80, _DKV_PTRS,
                  (8 * 1024 * 80, 1024 * 80, 80) * 6, "simt"),
     "bf16_odd_sequence_stride": (torch.bfloat16, 64, _DKV_PTRS,
@@ -439,7 +459,8 @@ class _FakeLib:
     def __init__(self, rc):
         self.calls = []
         for name in ("mxtt_flash_dq_tc", "mxtt_flash_dq",
-                     "mxtt_flash_dkv_tc", "mxtt_flash_dkv"):
+                     "mxtt_flash_dkv_tc", "mxtt_flash_dkv_f32tc",
+                     "mxtt_flash_dkv"):
             setattr(self, name, self._entry(name, rc))
 
     def _entry(self, name, rc):
@@ -486,9 +507,22 @@ def test_dkv_tensor_core_failure_raises_without_retreat(monkeypatch):
     assert fac.launches == dict.fromkeys(fac.launches, 0)
 
 
+def test_dkv_float32_tensor_core_failure_raises_without_retreat(
+        monkeypatch):
+    """A failed split-TF32 dK/dV launch raises with its name and limits;
+    neither the float32-FMA kernel nor the plain version runs."""
+    fake, err = _bwd_wrapper_on_cpu(monkeypatch, "flash_dkv_cuda",
+                                    torch.float32, rc=1)
+    assert isinstance(err, RuntimeError)
+    assert "flash_dkv_f32 launch failed with cudaError 1 " in str(err)
+    assert fac.LIMITS["flash_dkv_f32"] in str(err)
+    assert fake.calls == ["mxtt_flash_dkv_f32tc"]
+    assert fac.launches == dict.fromkeys(fac.launches, 0)
+
+
 @pytest.mark.parametrize("dtype,entry,counted", [
     (torch.bfloat16, "mxtt_flash_dkv_tc", "flash_dkv"),
-    (torch.float32, "mxtt_flash_dkv", "flash_dkv_simt")])
+    (torch.float32, "mxtt_flash_dkv_f32tc", "flash_dkv_f32")])
 def test_dkv_wrapper_counts_the_variant_it_launched(monkeypatch, dtype,
                                                     entry, counted):
     fake, launched = _bwd_wrapper_on_cpu(monkeypatch, "flash_dkv_cuda",
@@ -557,7 +591,7 @@ def _check_dkv(case, q, k, v, do, dlse, want):
     dk, dv = fac.flash_dkv_cuda(q, k, v, do, lse, delta, dlse, **kw)
     torch.cuda.synchronize()
     ran = {n: fac.launches[n] - before[n]
-           for n in ("flash_dkv", "flash_dkv_simt")}
+           for n in ("flash_dkv", "flash_dkv_f32", "flash_dkv_simt")}
     assert ran == {n: int(n == want) for n in ran}
     up = [t.float() for t in (q, k, v, do)]
     _, pdk, pdv = flash_attention_bwd_torch(*up[:3], o.float(), lse, up[3],
@@ -601,18 +635,27 @@ def test_cuda_tensor_core_dkv_on_model_operands():
     _check_dkv(case, q, k, v, do, dlse, "flash_dkv")
 
 
+def _off_by_one(t):
+    """A copy of contiguous ``t`` whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.cuda
 def test_cuda_float32_and_misaligned_bf16_run_the_simt_dkv():
+    """Misaligned dO takes the float32-FMA dK/dV in both dtypes (aligned
+    float32 takes the split-TF32 kernel: tests/test_torch_flash_f32tc.py)."""
     _need_cuda()
     case = TC_CASES["bhsd_causal_d64"]
     q, k, v = _tc_operands(case)
     do, dlse = _bf16_grads_in(case)
-    buf = torch.empty(do.numel() + 1, dtype=do.dtype, device="cuda")
-    do_off = buf[1:].view(do.shape)     # 2 bytes past a 16-byte boundary
-    do_off.copy_(do)
-    _check_dkv(case, q, k, v, do_off, dlse, "flash_dkv_simt")
-    _check_dkv(case, *(t.float() for t in (q, k, v, do)), dlse,
-               "flash_dkv_simt")
+    _check_dkv(case, q, k, v, _off_by_one(do), dlse, "flash_dkv_simt")
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    _check_dkv(case, q, k, v, _off_by_one(do), dlse, "flash_dkv_simt")
+    _check_dkv(case, q, k, v, do, dlse, "flash_dkv_f32")
 
 
 # -- dQ's two variants --------------------------------------------------------

@@ -282,12 +282,62 @@ def test_input_grads_shared_module_and_states(tmp_path):
                                       _params(mod)["fc2_weight"])
         import pickle
         with open(prefix + "-0001.states", "rb") as f:
-            states = pickle.load(f)
+            saved = pickle.load(f)
+        states = saved["states"]
         assert set(states) == set(range(4)) and len(states[0]) == 2
+        assert saved["index_update_count"] == dict.fromkeys(range(4), 1)
     # the reference reads the same .params
     ref_args = mx.nd.load(str(tmp_path / "p.params"))
     np.testing.assert_array_equal(ref_args["arg:fc2_weight"].asnumpy(),
                                   _params(mod)["fc2_weight"])
+
+
+def test_module_load_resumes_the_optimizer_states(tmp_path):
+    """ROADMAP C15: a checkpoint saved with its optimizer states and
+    loaded by Module.load(load_optimizer_states=True) continues the run:
+    2 Adam steps, the round trip, then 1 step give the parameters of 3
+    uninterrupted steps bit for bit (the moments and the update counts
+    that Adam's bias correction reads come back)."""
+    with mt.cpu():
+        net = _mlp(mt)
+        start = {k: mt.nd.array(v) for k, v in _mlp_params(net).items()}
+        db = mt.io.DataBatch([mt.nd.array(X[:16])], [mt.nd.array(Y[:16])])
+        shapes = ([("data", (16, 10))], [("softmax_label", (16,))])
+
+        def module():
+            mod = mt.mod.Module(net, context=mt.cpu())
+            mod.bind(*shapes)
+            mod.init_params(arg_params=start)
+            mod.init_optimizer(optimizer="adam",
+                               optimizer_params=(("learning_rate", 0.01),))
+            return mod
+
+        def step(mod):
+            mod.forward(db, is_train=True)
+            mod.backward()
+            mod.update()
+
+        straight = module()
+        for _ in range(3):
+            step(straight)
+        first = module()
+        for _ in range(2):
+            step(first)
+        prefix = str(tmp_path / "resume")
+        first.save_checkpoint(prefix, 2, save_optimizer_states=True)
+        resumed = mt.mod.Module.load(prefix, 2, load_optimizer_states=True,
+                                     context=mt.cpu())
+        resumed.bind(*shapes)
+        resumed.init_optimizer(optimizer="adam",
+                               optimizer_params=(("learning_rate", 0.01),))
+        assert resumed._preload_opt_states is None
+        assert resumed._optimizer._index_update_count == dict.fromkeys(
+            range(4), 2)
+        step(resumed)
+        got, want = _params(resumed), _params(straight)
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
 
 def test_multiple_contexts_and_kvstores_raise_naming_a18():

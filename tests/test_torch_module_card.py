@@ -5,12 +5,14 @@ On the CPU the ``FlashAttention`` op with ``attn_impl="flash"`` runs the
 plain flash versions and launches no kernel; a few Adam steps lower the
 loss.  On the card (``cuda`` marker; skipped here with a stated reason,
 and run by ``python3 -m pytest -q -m cuda --noconftest
-tests/test_torch_module_card.py``) the same Module launches the float32
-flash kernels (``flash_fwd_simt``, ``flash_dq_simt``,
-``flash_dkv_simt``) once a layer and step each, and its outputs and
+tests/test_torch_module_card.py``) the same Module, at head_dim 64 (the
+training model's), launches the float32 flash kernels
+(``flash_fwd_simt``, ``flash_dq_simt`` and the split-TF32
+``flash_dkv_f32``) once a layer and step each, and its outputs and
 gradients agree with the CPU Module's from the same parameters: outputs
-within 1e-5, each gradient within 2e-5 of its largest (summation order
-alone, as chip_smoke's ``module_small_check`` states).  This file
+within 1e-5, each gradient within 2e-5 of its largest (float32-accurate
+products summed in another order, as chip_smoke's ``module_small_check``
+states).  This file
 imports no JAX, so it runs on the card.
 """
 
@@ -25,12 +27,14 @@ from mxnet_tpu_torch.ops import flash_attention_cuda as fac
 
 CFG = dict(num_layers=2, d_model=64, num_heads=4, fused_qkv=True,
            attn_impl="flash")
+# the card's model: head_dim 64, within the split-TF32 dK/dV's limits
+CARD_CFG = dict(CFG, d_model=128, num_heads=2)
 VOCAB, SEQ, BATCH = 53, 32, 4
 
 
-def _module(ctx, params=None):
+def _module(ctx, params=None, cfg=CFG):
     with mt.sym.NameManager():
-        net = mt.models.gpt_symbol(VOCAB, SEQ, **CFG)
+        net = mt.models.gpt_symbol(VOCAB, SEQ, **cfg)
     mod = mt.mod.Module(net, context=ctx)
     mod.bind([("data", (BATCH, SEQ))], [("softmax_label", (BATCH, SEQ))])
     if params is None:
@@ -76,9 +80,9 @@ def test_card_module_launches_float32_kernels_and_matches_cpu():
                     "by nvcc for sm_90a and have no CPU or interpret mode; "
                     "chip_smoke.py's train_module phase runs them on the "
                     "card")
-    card = _module(mt.gpu(0))
+    card = _module(mt.gpu(0), cfg=CARD_CFG)
     params = {k: v.asnumpy() for k, v in card.get_params()[0].items()}
-    host = _module(mt.cpu(), params)
+    host = _module(mt.cpu(), params, cfg=CARD_CFG)
     outs, grads = {}, {}
     for tag, mod in (("card", card), ("cpu", host)):
         ctx = mod._context[0]
@@ -88,10 +92,11 @@ def test_card_module_launches_float32_kernels_and_matches_cpu():
         mod.backward()
         ran = {k: fac.launches[k] - before[k] for k in fac.launches}
         if tag == "card":
-            want = CFG["num_layers"]
+            want = CARD_CFG["num_layers"]
             assert ran == {"flash_fwd": 0, "flash_fwd_simt": want,
                            "flash_dq": 0, "flash_dq_simt": want,
-                           "flash_dkv": 0, "flash_dkv_simt": want}
+                           "flash_dkv": 0, "flash_dkv_f32": want,
+                           "flash_dkv_simt": 0}
         outs[tag] = mod.get_outputs()[0].asnumpy()
         exe = mod._exec_group.execs[0]
         grads[tag] = {k: exe.grad_dict[k].asnumpy() for k in params}
