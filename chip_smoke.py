@@ -32,11 +32,11 @@ Phases (any failure exits non-zero; nothing is caught):
      held element by element, scaled by each output, and the check is
      shown to fail on an output that skipped one tile; float32 is held
      to its own bound, shown at the training shape to tell the split-TF32
-     dK/dV's three products from one TF32 product (torch models of both on
-     the same inputs: the split passes, the single product fails); each
-     check says which forward, dQ and dK/dV kernel ran (bf16: the
-     tensor-core ones; float32: the float32-FMA forward and dQ and the
-     split-TF32 dK/dV);
+     forward's and dK/dV's three products from one TF32 product (torch
+     models of both on the same inputs: the split passes, the single
+     product fails); each check says which forward, dQ and dK/dV kernel
+     ran (bf16: the tensor-core ones; float32: the split-TF32 forward and
+     dK/dV and the float32-FMA dQ);
   3. serving: the paged op captured in a CUDA graph, replayed on new
      inputs, against an eager call (decode shape and ctx 2048, bit for
      bit); a full-width GPT (the repo's on-chip serve config, its depth
@@ -212,8 +212,9 @@ Phases (any failure exits non-zero; nothing is caught):
      Symbol (models.gpt_symbol) and trained by mod.Module on gpu(0) in
      float32 (the reference Module's dtype; Xavier, Adam 3e-4) for 2 + 10
      steps, each float32 flash kernel's launches checked against layers x
-     steps (dK/dV on the split-TF32 kernel, none on the bf16 ones or the
-     float32-FMA dK/dV), the NLL finite and falling and
+     steps (the forward and dK/dV on the split-TF32 kernels, none on the
+     bf16 ones or the float32-FMA forward and dK/dV), the NLL finite and
+     falling and
      the output (16384, 32768); the Module against ShardedTrainer from the
      same numpy parameters over 3 Adam steps; a tiny gpt_symbol Module on
      the card against the CPU's plain flash versions (outputs and every
@@ -249,9 +250,9 @@ Phases (any failure exits non-zero; nothing is caught):
      (float32-FMA) kernel at the same bf16 shape and the tensor-core
      kernel's ptxas registers and spills, then the float32 kernels (the
      Module path's) at the training shape beside SDPA in float32, the
-     split-TF32 dK/dV with the float32-FMA one beside it, its ptxas
-     registers and spills, and both its bounds (3 TF32 products at 495
-     TFLOP/s; float32 FMAs at 67), and
+     split-TF32 forward and dK/dV each with the float32-FMA one beside
+     it, their ptxas registers and spills, and both their bounds (3 TF32
+     products at 495 TFLOP/s; float32 FMAs at 67), and
      for the RNN kernels the
      barrier floor (an
      empty cooperative kernel of T grid barriers), and for the RNN
@@ -5916,15 +5917,15 @@ def check_flash(tag, shape, dtype):
     o, lse, dq, dk, dv = flash_through_autograd(*args, kw)
     torch.cuda.synchronize()
     # every shape here is within the tensor-core kernels' limits: bf16
-    # runs them, float32 the float32-FMA forward and dQ and the split-TF32
-    # dK/dV
+    # runs them, float32 the split-TF32 forward and dK/dV and the
+    # float32-FMA dQ
     fwd_ran, dq_ran, dkv_ran = (
         [n for n in names if fac.launches[n] != before[n]]
-        for names in (("flash_fwd", "flash_fwd_simt"),
+        for names in (("flash_fwd", "flash_fwd_f32", "flash_fwd_simt"),
                       ("flash_dq", "flash_dq_simt"),
                       ("flash_dkv", "flash_dkv_f32", "flash_dkv_simt")))
     tc = dtype == torch.bfloat16
-    fwd_want = "flash_fwd" if tc else "flash_fwd_simt"
+    fwd_want = "flash_fwd" if tc else "flash_fwd_f32"
     dq_want = "flash_dq" if tc else "flash_dq_simt"
     dkv_want = "flash_dkv" if tc else "flash_dkv_f32"
     up = [t.float() for t in (q, k, v, do)]
@@ -5972,7 +5973,7 @@ def check_flash(tag, shape, dtype):
         ok = ok and all(caught.values())
     if tag == "train" and dtype == torch.float32:
         row["tf32_models"] = tf32_models(q, k, v, o, lse, do, dlse, kw, ref,
-                                         A)
+                                         A, row)
         ok = ok and row["tf32_models"]["ok"]
     row["bound"] = ("|k - plain32| <= 2^-8 (|plain32| + A) + 1e-5 A + 1e-6"
                     if dtype == torch.bfloat16 else
@@ -5984,27 +5985,32 @@ def check_flash(tag, shape, dtype):
     return row
 
 
-def tf32_models(q, k, v, o, lse, do, dlse, kw, ref, A):
-    """The float32 bound tells split TF32 from plain TF32: dK/dV from
-    torch models of the kernel's four products on the same inputs, with
-    the three-product split (it must pass) and with one TF32 product of
-    operands rounded once (a planted fault: it must fail); each one's
-    worst share of the bound beside the kernel's."""
-    from mxnet_tpu_torch.ops.flash_attention import flash_attention_dkv_tf32
+def tf32_models(q, k, v, o, lse, do, dlse, kw, ref, A, row):
+    """The float32 bound tells split TF32 from plain TF32: o from torch
+    models of the forward kernel's two products and dK/dV from models of
+    the dK/dV kernel's four, on the same inputs, with the three-product
+    split (it must pass) and with one TF32 product of operands rounded
+    once (a planted fault: it must fail on every output); each one's
+    worst share of the bound beside the kernel's (``row``)."""
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_dkv_tf32, flash_attention_fwd_tf32)
 
     res = {}
     for products in (3, 1):
+        mo, _ = flash_attention_fwd_tf32(q, k, v, products=products, **kw)
         dk, dv = flash_attention_dkv_tf32(q, k, v, o, lse, do, dlse,
                                           products=products, **kw)
         res[f"products_{products}"] = {
             n: within_bound(x, ref[n], A[n], torch.float32)
-            for n, x in (("dk", dk), ("dv", dv))}
-        del dk, dv
+            for n, x in (("o", mo), ("dk", dk), ("dv", dv))}
+        del mo, dk, dv
     torch.cuda.empty_cache()
     split, single = res["products_3"], res["products_1"]
     caught = all(not fine for fine, _ in single.values())
     return {"split_3_worst_share": {n: v[1] for n, v in split.items()},
             "single_1_worst_share": {n: v[1] for n, v in single.items()},
+            "kernel_worst_share": {n: row[f"{n}_worst_share_of_bound"]
+                                   for n in split},
             "split_passes": all(fine for fine, _ in split.values()),
             "single_caught": caught,
             "ok": caught and all(fine for fine, _ in split.values())}
@@ -6095,18 +6101,17 @@ def time_flash(shape, dtype):
     bwd = (q, k, v, do, lse, delta, dlse)
     # bf16: the tensor-core kernels and, in the same run, the other
     # kernels at the same shape (through the selectors: q 2 bytes off
-    # alignment); float32: the float32-FMA forward and dQ, which it always
-    # takes, and the split-TF32 dK/dV beside the float32-FMA one (q 4
+    # alignment); float32: the float32-FMA dQ, which it always takes, and
+    # the split-TF32 forward and dK/dV beside the float32-FMA ones (q 4
     # bytes off alignment)
     fac.launches.update({n: 0 for n in fac.launches})
     t = {"flash_fwd": time_ms(lambda: fac.flash_fwd_cuda(q, k, v, **kw)),
          "flash_dq": time_ms(lambda: fac.flash_dq_cuda(*bwd, **kw)),
          "flash_dkv": time_ms(lambda: fac.flash_dkv_cuda(*bwd, **kw))}
     q_simt = misaligned_copy(q)
-    ms_simt = {}
+    ms_simt = {"flash_fwd": time_ms(lambda: fac.flash_fwd_cuda(
+        q_simt, k, v, **kw))}
     if tc:
-        ms_simt["flash_fwd"] = time_ms(lambda: fac.flash_fwd_cuda(
-            q_simt, k, v, **kw))
         ms_simt["flash_dq"] = time_ms(lambda: fac.flash_dq_cuda(
             q_simt, *bwd[1:], **kw))
     ms_simt["flash_dkv"] = time_ms(lambda: fac.flash_dkv_cuda(
@@ -6114,11 +6119,11 @@ def time_flash(shape, dtype):
     timed = dict(fac.launches)
     fac.launches.update(saved)        # timing launches are not the path's
     ran = {n: c for n, c in timed.items() if c}
-    names = {n: (n if tc else "flash_dkv_f32" if n == "flash_dkv"
-                 else f"{n}_simt") for n in t}
+    names = {n: (n if tc else "flash_dq_simt" if n == "flash_dq"
+                 else f"{n}_f32") for n in t}
     want = ({"flash_fwd", "flash_fwd_simt", "flash_dq", "flash_dq_simt",
              "flash_dkv", "flash_dkv_simt"} if tc else
-            set(names.values()) | {"flash_dkv_simt"})
+            set(names.values()) | {"flash_fwd_simt", "flash_dkv_simt"})
     if set(ran) != want or len(set(ran.values())) != 1:
         raise SystemExit(f"flash_time: variants not as timed: {timed}")
     plain_fwd = time_ms(lambda: flash_attention_fwd_torch(q, k, v, **kw),
@@ -6153,7 +6158,7 @@ def time_flash(shape, dtype):
         if not tc:
             rows[name]["source"] = "csrc/flash_attention.cu"
         if name in ms_simt:
-            src = f"{name}_tc" if tc else "flash_dkv_f32tc"
+            src = f"{name}_tc" if tc else f"{name}_f32tc"
             rows[name].update({
                 "source": f"csrc/{src}.cu",
                 "ms_simt": ms_simt[name],
@@ -6164,7 +6169,7 @@ def time_flash(shape, dtype):
                 "ptxas": ptxas_report(
                     _build.BUILD_LOGS.get(fac.LIB_NAME, ""),
                     f"{src}_kernel")})
-        if not tc and name == "flash_dkv":
+        if not tc and name != "flash_dq":
             # its products are three TF32 ones: that bound, and the
             # float32-FMA one of the same work beside it
             t_b, t_o = nbytes / PEAK_BYTES_S, 3 * ops / PEAK_TF32_OPS_S
@@ -6245,9 +6250,9 @@ def train_main_path():
     want = cfg["num_layers"] * TRAIN_STEPS
     # every bf16 flash launch on the tensor-core kernels, none on the
     # others
-    expected = {"flash_fwd": want, "flash_fwd_simt": 0, "flash_dq": want,
-                "flash_dq_simt": 0, "flash_dkv": want, "flash_dkv_f32": 0,
-                "flash_dkv_simt": 0}
+    expected = {"flash_fwd": want, "flash_fwd_f32": 0, "flash_fwd_simt": 0,
+                "flash_dq": want, "flash_dq_simt": 0, "flash_dkv": want,
+                "flash_dkv_f32": 0, "flash_dkv_simt": 0}
     finite = all(np.isfinite(nll))
     ok = (finite and nll[-1] < nll[0] and launches == expected
           and tuple(probs.shape) == (TRAIN_BATCH * cfg["seq_len"],
@@ -6307,9 +6312,10 @@ def profiler_warmup():
 
 
 def train_profile(step, steps=2):
-    """Device time by kernel over ``steps`` more calls of ``step`` (one
-    train step each; torch.profiler), and the device's busy share of
-    their wall time."""
+    """Device time and kernel instances by kind over ``steps`` more calls
+    of ``step`` (one train step each; torch.profiler), and the device's
+    busy share of their wall time.  The instances say whether the trace
+    holds every launch of the window."""
     from mxnet_tpu_torch import profiler
 
     torch.cuda.synchronize()
@@ -6320,17 +6326,19 @@ def train_profile(step, steps=2):
                 step()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        kernels = traced_kernels(logdir)[0]
-    kinds = {}
+        kernels, counts = traced_kernels(logdir)
+    kinds, instances = {}, {}
     for name, ms in kernels.items():
         kind = _kernel_kind(name)
         kinds[kind] = kinds.get(kind, 0.0) + ms / steps
+        instances[kind] = instances.get(kind, 0) + counts[name]
     device_ms = sum(kernels.values()) / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": device_ms,
             "device_busy_share": device_ms * steps / wall_ms,
             "ms_per_step_by_kind": kinds,
+            "kernels_traced_by_kind": instances,
             "top_kernels_ms_per_step": [(n[:120], ms / steps)
                                         for n, ms in top]}
 
@@ -6434,8 +6442,8 @@ def small_train_check():
 # The train phase's model built as the reference's Symbol
 # (models.gpt_symbol at TRAIN_CFG) and trained by module.Module on
 # gpu(0) in float32, the reference Module's bind dtype, with Xavier and
-# Adam(3e-4): its attention runs the float32 flash kernels
-# (flash_fwd_simt, flash_dq_simt and the split-TF32 flash_dkv_f32), never
+# Adam(3e-4): its attention runs the float32 flash kernels (the
+# split-TF32 flash_fwd_f32 and flash_dkv_f32, and flash_dq_simt), never
 # the bf16 tensor-core ones.
 MODULE_LR = 3e-4
 # the card-vs-CPU model: 2 layers, d_model 64, 4 heads, S 128, with
@@ -6528,11 +6536,11 @@ def train_module_main_path(train_row):
     profile = train_profile(lambda: module_step(mod, db))
     lap("module_train_profile")
     want = cfg["num_layers"] * TRAIN_STEPS
-    # every float32 flash launch on the float32 kernels (dK/dV on the
-    # split-TF32 one), none on the bf16 tensor-core ones
-    expected = {"flash_fwd": 0, "flash_fwd_simt": want, "flash_dq": 0,
-                "flash_dq_simt": want, "flash_dkv": 0, "flash_dkv_f32": want,
-                "flash_dkv_simt": 0}
+    # every float32 flash launch on the float32 kernels (the forward and
+    # dK/dV on the split-TF32 ones), none on the bf16 tensor-core ones
+    expected = {"flash_fwd": 0, "flash_fwd_f32": want, "flash_fwd_simt": 0,
+                "flash_dq": 0, "flash_dq_simt": want, "flash_dkv": 0,
+                "flash_dkv_f32": want, "flash_dkv_simt": 0}
     finite = all(np.isfinite(nll))
     shape = tuple(probs.shape)
     ok = (finite and nll[-1] < nll[0] and launches == expected
@@ -7382,9 +7390,9 @@ def aot_tp_main():
 
 def train_module_main():
     """``--train-module``: the flash library built, the float32 flash
-    checks at every flash shape (the split-TF32 dK/dV and its planted
-    one-product fault), the bf16 ``train`` phase (the ratio's other
-    side), the float32 gradient check, then ``train_module``,
+    checks at every flash shape (the split-TF32 forward and dK/dV and
+    their planted one-product faults), the bf16 ``train`` phase (the
+    ratio's other side), the float32 gradient check, then ``train_module``,
     ``module_vs_trainer``, ``module_small_check`` and the float32
     kernels' timings."""
     from mxnet_tpu_torch.ops import flash_attention_cuda as fac

@@ -119,24 +119,6 @@ static_assert(LD % 32 == 4, "fragment reads on 32 distinct banks");
 
 using namespace flash;
 
-// Rows [row0, row0 + ROWS) of a float32 tensor (row stride ss elements,
-// contiguous rows of D floats) into a padded shared tile at dst, as
-// 16-byte cp.async copies; rows at or past `valid` are zero-filled.
-__device__ __forceinline__ void load_tile(uint32_t dst, const float* src,
-                                          long long ss, int row0,
-                                          int valid) {
-  constexpr int CH = D / 4;  // 16-byte chunks a row
-  static_assert(BM * CH % NT == 0, "whole chunks per thread");
-#pragma unroll
-  for (int j = 0; j < BM * CH / NT; ++j) {
-    const int i = threadIdx.x + j * NT;
-    const int r = i / CH, c = i % CH;
-    const bool ok = r < valid;
-    const float* p = ok ? src + (row0 + r) * ss + c * 4 : src;
-    tc::cp_async16(dst + 4 * (r * LD + c * 4), p, ok);
-  }
-}
-
 // P^T and dS^T of one q tile for a warp's 16 k rows, as flash_dkv_tc.cu's
 // p_ds_step without the rounding: s holds the raw K Q^T block and dp the
 // V dO^T block on entry; on exit s holds p and dp holds ds.  C element
@@ -257,10 +239,11 @@ __global__ void __launch_bounds__(NT)
     const int gi = it / nqt, qt = qt_lo + it - gi * nqt;
     const int h = hk * g.group + gi;
     const int q0 = qt * BM, qn = min(BM, g.Sq - q0);
-    load_tile(tc::smem_addr(sQ + stage * TILE), q + b * qs.b + h * qs.h,
-              qs.s, q0, qn);
-    load_tile(tc::smem_addr(sO + stage * TILE), dO + b * dos.b + h * dos.h,
-              dos.s, q0, qn);
+    tf32x3::load_tile<BM, D, LD, NT>(tc::smem_addr(sQ + stage * TILE),
+                                     q + b * qs.b + h * qs.h, qs.s, q0, qn);
+    tf32x3::load_tile<BM, D, LD, NT>(tc::smem_addr(sO + stage * TILE),
+                                     dO + b * dos.b + h * dos.h, dos.s, q0,
+                                     qn);
     const long long r0 = ((long long)b * g.Hq + h) * g.Sq + q0;
     const uint32_t dst = tc::smem_addr(rows + stage * NROW * BM);
     for (int i = threadIdx.x; i < NROW * BM; i += NT) {
@@ -271,8 +254,10 @@ __global__ void __launch_bounds__(NT)
     }
   };
   // groups: K and V, then one per Q/dO tile (empty past the last one)
-  load_tile(tc::smem_addr(sK), k + b * ks.b + hk * ks.h, ks.s, k0, kn);
-  load_tile(tc::smem_addr(sV), v + b * vs.b + hk * vs.h, vs.s, k0, kn);
+  tf32x3::load_tile<BN, D, LD, NT>(tc::smem_addr(sK),
+                                   k + b * ks.b + hk * ks.h, ks.s, k0, kn);
+  tf32x3::load_tile<BN, D, LD, NT>(tc::smem_addr(sV),
+                                   v + b * vs.b + hk * vs.h, vs.s, k0, kn);
   tc::cp_async_commit();
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {

@@ -30,15 +30,38 @@
 // and B reads rows k0 + 2t and k0 + 2t + 1 (c_to_a, load_b_kn).
 //
 // Tiles are float32 in shared memory, row-major with a padded row of LD
-// floats.  LD = D + 4 (LD % 32 == 4) puts the 32 words of every fragment
-// read below on 32 distinct banks: rows g (A, load_b_nk) at 4 g + t, and
-// rows 2t, 2t + 1 (load_b_kn) at 8 t + g and 8 t + 4 + g.
+// floats, filled by load_tile's 16-byte cp.async copies.  LD = D + 4
+// (LD % 32 == 4) puts the 32 words of every fragment read below on 32
+// distinct banks: rows g (A, load_b_nk) at 4 g + t, and rows 2t, 2t + 1
+// (load_b_kn) at 8 t + g and 8 t + 4 + g.
 
 #pragma once
 
 #include <stdint.h>
 
+#include "tc_tile.cuh"
+
 namespace tf32x3 {
+
+// Rows [row0, row0 + ROWS) of a float32 tensor (row stride ss elements,
+// contiguous rows of COLS floats) into a tile of rows of LD floats at
+// shared address dst, as 16-byte cp.async copies shared by NT threads;
+// rows at or past `valid` are zero-filled.
+template <int ROWS, int COLS, int LD, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst, const float* src,
+                                          long long ss, int row0,
+                                          int valid) {
+  constexpr int CH = COLS / 4;  // 16-byte chunks a row
+  static_assert(ROWS * CH % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int j = 0; j < ROWS * CH / NT; ++j) {
+    const int i = threadIdx.x + j * NT;
+    const int r = i / CH, c = i % CH;
+    const bool ok = r < valid;
+    const float* p = ok ? src + (row0 + r) * ss + c * 4 : src;
+    tc::cp_async16(dst + 4 * (r * LD + c * 4), p, ok);
+  }
+}
 
 // x = big + small (+ <= 2^-22 |x|), each a TF32 operand.  On sm_90a
 // ptxas expands cvt.rna.tf32.f32 into an inf/NaN test, an add of half a

@@ -25,8 +25,8 @@ import torch
 from .attention import gqa_group
 
 __all__ = ["flash_attention", "flash_attention_fwd_torch",
-           "flash_attention_bwd_torch", "flash_attention_dkv_tf32",
-           "round_tf32", "gqa_group"]
+           "flash_attention_bwd_torch", "flash_attention_fwd_tf32",
+           "flash_attention_dkv_tf32", "round_tf32", "gqa_group"]
 
 NEG_INF = -1e30      # the reference kernels' fully-masked sentinel
 _TINY = 1e-30
@@ -143,7 +143,7 @@ def round_tf32(x):
 
 
 def _tf32_matmul(a, b, products):
-    """``a @ b`` as the float32 tensor-core dK/dV takes it: 3 is its
+    """``a @ b`` as the float32 tensor-core kernels take it: 3 is their
     split (``csrc/tf32x3.cuh``: a_small b_big + a_big b_small + a_big
     b_big, each half rounded to TF32), 1 one TF32 product of the operands
     rounded once."""
@@ -155,6 +155,39 @@ def _tf32_matmul(a, b, products):
     a_small, b_small = round_tf32(a - a_big), round_tf32(b - b_big)
     return (torch.matmul(a_small, b_big) + torch.matmul(a_big, b_small)
             + torch.matmul(a_big, b_big))
+
+
+def flash_attention_fwd_tf32(q, k, v, products=3, causal=False, scale=None,
+                             q_offset=0, k_offset=0, layout="bhsd",
+                             window=0):
+    """The float32 tensor-core forward's arithmetic in plain torch: ``(o,
+    lse)`` of :func:`flash_attention_fwd_torch` with its two products
+    (S = Q K^T, then P V on the unnormalised P) taken by
+    :func:`_tf32_matmul` with ``products`` TF32 products.  Not on any
+    path: it shows what the float32 bound tells apart (the kernel's
+    three-product split meets it, one TF32 product does not)."""
+    B, H, Sq, D, Sk, Hkv = _dims(q, k, layout)
+    group = gqa_group(H, Hkv)
+    scale = 1.0 / D ** 0.5 if scale is None else scale
+    qh = _bhsd(q, layout).float()
+    kh = _expand(_bhsd(k, layout).float(), group)
+    vh = _expand(_bhsd(v, layout).float(), group)
+    s = _tf32_matmul(qh, kh.transpose(-1, -2), products) * scale
+    keep = _keep(Sq, Sk, causal, q_offset, k_offset, window, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
+    l_row = p.sum(dim=-1)
+    valid = l_row > 0.0
+    l_fin = l_row.clamp_min(_TINY)
+    o = _tf32_matmul(p, vh, products) / l_fin[..., None]
+    o = torch.where(valid[..., None], o, torch.zeros((), device=o.device))
+    lse = torch.where(valid, m[..., 0] + torch.log(l_fin),
+                      torch.full((), NEG_INF, device=o.device))
+    return _bhsd(o, layout), lse
 
 
 def flash_attention_dkv_tf32(q, k, v, o, lse, do, dlse=None, products=3,

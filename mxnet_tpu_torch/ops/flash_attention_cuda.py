@@ -2,26 +2,25 @@
 
 The kernels replace the TPU kernels of ``mxnet_tpu/ops/flash_attention.py``:
 ``_fwd_kernel`` (forward: ``o`` and the per-row log-sum-exp),
-``_bwd_dq_kernel`` (dQ) and ``_bwd_dkv_kernel`` (dK/dV).  The forward has
-two variants, picked by :func:`_fwd_variant` from the operands: ``tc``
-(``csrc/flash_fwd_tc.cu``, bf16 tensor cores, within its limits) and
-``simt`` (``csrc/flash_attention.cu``, float32 FMAs: float32 and every
-other bf16 geometry).  dQ and dK/dV have the same two variants each,
-picked by :func:`_dq_variant` and :func:`_dkv_variant`: ``tc``
-(``csrc/flash_dq_tc.cu``, ``csrc/flash_dkv_tc.cu``) and ``simt``
-(``csrc/flash_attention.cu``); dK/dV has a third, ``tc32``
-(``csrc/flash_dkv_f32tc.cu``: float32 on the tensor cores through
-split-TF32 products, ``csrc/tf32x3.cuh``, held to the float32 bound).
-They are built with ``nvcc`` at the first launch and called through
-``ctypes``.  Each wrapper checks what its kernel takes and raises on
-anything else; there is no fallback to the plain versions (those are
-``ops.flash_attention.flash_attention_fwd_torch`` /
+``_bwd_dq_kernel`` (dQ) and ``_bwd_dkv_kernel`` (dK/dV).  Each has up to
+three variants, picked from the operands by :func:`_fwd_variant`,
+:func:`_dq_variant` and :func:`_dkv_variant`: ``tc`` (bf16 on the tensor
+cores within its limits: ``csrc/flash_fwd_tc.cu``, ``csrc/flash_dq_tc.cu``,
+``csrc/flash_dkv_tc.cu``), ``tc32`` (float32 on the tensor cores through
+split-TF32 products, ``csrc/tf32x3.cuh``, held to the float32 bound, within
+its limits: the forward's ``csrc/flash_fwd_f32tc.cu`` and dK/dV's
+``csrc/flash_dkv_f32tc.cu``; dQ has none yet) and ``simt``
+(``csrc/flash_attention.cu``, float32 FMAs: every other geometry of
+either dtype).  They are built with ``nvcc`` at the first launch and
+called through ``ctypes``.  Each wrapper checks what its kernel takes and
+raises on anything else; there is no fallback to the plain versions
+(those are ``ops.flash_attention.flash_attention_fwd_torch`` /
 ``flash_attention_bwd_torch``, which the CPU path runs), and no retreat
 from one variant to another.  ``launches`` counts each kernel's
 launches in this process (``flash_fwd``, ``flash_dq`` and
-``flash_dkv``: the bf16 tensor-core kernels; ``flash_dkv_f32``: the
-float32 tensor-core dK/dV; ``flash_fwd_simt``, ``flash_dq_simt`` and
-``flash_dkv_simt``: the others).
+``flash_dkv``: the bf16 tensor-core kernels; ``flash_fwd_f32`` and
+``flash_dkv_f32``: the float32 tensor-core ones; ``flash_fwd_simt``,
+``flash_dq_simt`` and ``flash_dkv_simt``: the others).
 
 Tensors are 4-D in either layout (``bhsd``: (B, H, S, D); ``bshd``:
 (B, S, H, D)), float32 or bfloat16, on one CUDA device, with a
@@ -42,20 +41,22 @@ from .._build import load_library
 __all__ = ["flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda", "launches"]
 
 LIB_NAME = "mxtt_flash_attention"
-SOURCES = ("flash_attention.cu", "flash_fwd_tc.cu", "flash_dq_tc.cu",
-           "flash_dkv_tc.cu", "flash_dkv_f32tc.cu", "flash_geo.cuh",
-           "tc_tile.cuh", "tf32x3.cuh")
+SOURCES = ("flash_attention.cu", "flash_fwd_tc.cu", "flash_fwd_f32tc.cu",
+           "flash_dq_tc.cu", "flash_dkv_tc.cu", "flash_dkv_f32tc.cu",
+           "flash_geo.cuh", "tc_tile.cuh", "tf32x3.cuh")
 
 # kernel launches in this process, per kernel; reset by whoever counts a
 # window
-launches = {"flash_fwd": 0, "flash_fwd_simt": 0, "flash_dq": 0,
-            "flash_dq_simt": 0, "flash_dkv": 0, "flash_dkv_f32": 0,
-            "flash_dkv_simt": 0}
+launches = {"flash_fwd": 0, "flash_fwd_f32": 0, "flash_fwd_simt": 0,
+            "flash_dq": 0, "flash_dq_simt": 0, "flash_dkv": 0,
+            "flash_dkv_f32": 0, "flash_dkv_simt": 0}
 
 # what each kernel takes; a launch outside it returns cudaErrorInvalidValue
 LIMITS = {
     "flash_fwd": "bfloat16, head_dim 64 or 128, q/k/v/o 16-byte aligned, "
                  "batch/head/sequence strides multiples of 8 elements",
+    "flash_fwd_f32": "float32, head_dim 64, q/k/v/o 16-byte aligned, "
+                     "batch/head/sequence strides multiples of 4 elements",
     "flash_fwd_simt": "float32 or bfloat16, head_dim <= 128",
     "flash_dq": "bfloat16, head_dim 64 or 128, q/k/v/dO/dq 16-byte aligned, "
                 "batch/head/sequence strides multiples of 8 elements",
@@ -67,6 +68,8 @@ LIMITS = {
     "flash_dkv_simt": "float32 or bfloat16, head_dim <= 128",
 }
 _TC_HEAD_DIMS = (64, 128)         # the forward's
+# the float32 tensor-core forward (csrc/flash_fwd_f32tc.cu)
+_TC32_FWD_HEAD_DIMS = (64,)
 _TC_DQ_HEAD_DIMS = (64, 128)
 _TC_DKV_HEAD_DIMS = (64,)         # at 128 the tensor-core dK/dV spills
 # the float32 tensor-core dK/dV: at 128 it spills (csrc/flash_dkv_f32tc.cu)
@@ -82,15 +85,16 @@ def _lib():
         tail = [vp, vp, i, i, i, i, f, vp]    # dims, strides, mask, stream
         lib.mxtt_flash_fwd.argtypes = [i] + [vp] * 5 + tail
         lib.mxtt_flash_fwd_tc.argtypes = [i] + [vp] * 5 + tail
+        lib.mxtt_flash_fwd_f32tc.argtypes = [i] + [vp] * 5 + tail
         lib.mxtt_flash_dq.argtypes = [i] + [vp] * 8 + tail
         lib.mxtt_flash_dq_tc.argtypes = [i] + [vp] * 8 + tail
         lib.mxtt_flash_dkv.argtypes = [i] + [vp] * 9 + tail
         lib.mxtt_flash_dkv_tc.argtypes = [i] + [vp] * 9 + tail
         lib.mxtt_flash_dkv_f32tc.argtypes = [i] + [vp] * 9 + tail
         for fn in (lib.mxtt_flash_fwd, lib.mxtt_flash_fwd_tc,
-                   lib.mxtt_flash_dq, lib.mxtt_flash_dq_tc,
-                   lib.mxtt_flash_dkv, lib.mxtt_flash_dkv_tc,
-                   lib.mxtt_flash_dkv_f32tc):
+                   lib.mxtt_flash_fwd_f32tc, lib.mxtt_flash_dq,
+                   lib.mxtt_flash_dq_tc, lib.mxtt_flash_dkv,
+                   lib.mxtt_flash_dkv_tc, lib.mxtt_flash_dkv_f32tc):
             fn.restype = ctypes.c_int
     return lib
 
@@ -171,11 +175,23 @@ def _tc_variant(dtype, D, ptrs, strides, head_dims):
     return "tc"
 
 
+def _tc32_variant(D, ptrs, strides, head_dims):
+    if (D in head_dims and not any(p % 16 for p in ptrs)
+            and not any(s % 4 for s in strides)):
+        return "tc32"
+    return "simt"
+
+
 def _fwd_variant(dtype, D, ptrs, strides):
     """The forward kernel that takes a call: ``"tc"`` (tensor cores) for
     bfloat16 at head_dim 64 or 128 with 16-byte-aligned ``ptrs`` (q, k,
     v, o) and every stride in ``strides`` (batch, head, sequence of each)
-    a multiple of 8 elements; ``"simt"`` for everything else."""
+    a multiple of 8 elements; float32 ``"tc32"`` (split-TF32 tensor
+    cores) at the head dims in ``_TC32_FWD_HEAD_DIMS`` with
+    16-byte-aligned ``ptrs`` and every stride a multiple of 4 elements;
+    ``"simt"`` for everything else."""
+    if dtype == torch.float32:
+        return _tc32_variant(D, ptrs, strides, _TC32_FWD_HEAD_DIMS)
     return _tc_variant(dtype, D, ptrs, strides, _TC_HEAD_DIMS)
 
 
@@ -194,10 +210,7 @@ def _dkv_variant(dtype, D, ptrs, strides):
     ``_TC32_DKV_HEAD_DIMS`` with 16-byte-aligned ``ptrs`` and every
     stride a multiple of 4 elements, else ``"simt"``."""
     if dtype == torch.float32:
-        if (D in _TC32_DKV_HEAD_DIMS and not any(p % 16 for p in ptrs)
-                and not any(s % 4 for s in strides)):
-            return "tc32"
-        return "simt"
+        return _tc32_variant(D, ptrs, strides, _TC32_DKV_HEAD_DIMS)
     return _tc_variant(dtype, D, ptrs, strides, _TC_DKV_HEAD_DIMS)
 
 
@@ -216,9 +229,10 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, q_offset=0,
     strides = sum((_strides(t, layout) for t in (q, k, v, o)), ())
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     lib = _lib()
-    fn, name = ((lib.mxtt_flash_fwd_tc, "flash_fwd")
-                if _fwd_variant(q.dtype, D, ptrs, strides) == "tc" else
-                (lib.mxtt_flash_fwd, "flash_fwd_simt"))
+    fn, name = {"tc": (lib.mxtt_flash_fwd_tc, "flash_fwd"),
+                "tc32": (lib.mxtt_flash_fwd_f32tc, "flash_fwd_f32"),
+                "simt": (lib.mxtt_flash_fwd, "flash_fwd_simt")}[
+        _fwd_variant(q.dtype, D, ptrs, strides)]
     _call(fn, q.dtype, ptrs + (lse.data_ptr(),), (B, Hq, Hkv, Sq, Sk, D),
           strides, causal, window, q_offset, k_offset, scale, q.device, name)
     return o, lse

@@ -246,11 +246,11 @@ def test_cuda_kernels_reject_what_they_do_not_take():
         fac.flash_fwd_cuda(wide, wide, wide)
 
 
-# -- the forward's two variants ---------------------------------------------
+# -- the forward's three variants -------------------------------------------
 # (dtype, head_dim, q/k/v/o data pointers, batch/head/sequence strides of
 # q, k, v, o): the contiguous bhsd training shape, its fused-QKV views
 # (rows 3 d_model apart, k and v 1024 and 2048 bytes into the row), and
-# one departure from the tensor-core kernel's limits each
+# one departure from the tensor-core kernels' limits each
 _PTRS = (0x7F0000000000, 0x7F0000100000, 0x7F0000200000, 0x7F0000300000)
 _BHSD = (8 * 1024 * 64, 1024 * 64, 64) * 4
 _FUSED_PTRS = (0x7F0000000000, 0x7F0000000400, 0x7F0000000800,
@@ -261,7 +261,26 @@ VARIANT_CASES = {
     "bf16_d128": (torch.bfloat16, 128, _PTRS,
                   tuple(2 * x for x in _BHSD), "tc"),
     "bf16_fused_qkv_views": (torch.bfloat16, 64, _FUSED_PTRS, _FUSED, "tc"),
-    "float32": (torch.float32, 64, _PTRS, _BHSD, "simt"),
+    # float32 at head_dim 64 with 16-byte-aligned operands and strides in
+    # multiples of 4 runs the split-TF32 tensor-core kernel ("tc32")
+    "float32": (torch.float32, 64, _PTRS, _BHSD, "tc32"),
+    "float32_fused_qkv_views": (torch.float32, 64,
+                                (0x7F0000000000, 0x7F0000000800,
+                                 0x7F0000001000, 0x7F0000300000),
+                                (1024 * 1536, 64, 1536) * 3
+                                + (8 * 1024 * 64, 1024 * 64, 64), "tc32"),
+    "float32_misaligned_k": (torch.float32, 64,
+                             (_PTRS[0], _PTRS[1] + 4) + _PTRS[2:], _BHSD,
+                             "simt"),
+    "float32_misaligned_o": (torch.float32, 64,
+                             _PTRS[:3] + (_PTRS[3] + 8,), _BHSD, "simt"),
+    "float32_d128": (torch.float32, 128, _PTRS,
+                     tuple(2 * x for x in _BHSD), "simt"),
+    "float32_d80": (torch.float32, 80, _PTRS,
+                    (8 * 1024 * 80, 1024 * 80, 80) * 4, "simt"),
+    "float32_odd_sequence_stride": (torch.float32, 64, _PTRS,
+                                    (8 * 1024 * 66, 1024 * 66, 66) * 4,
+                                    "simt"),
     "bf16_d80": (torch.bfloat16, 80, _PTRS, (8 * 1024 * 80, 1024 * 80, 80)
                  * 4, "simt"),
     "bf16_d32": (torch.bfloat16, 32, _PTRS, (8 * 1024 * 32, 1024 * 32, 32)
@@ -370,23 +389,40 @@ def test_cuda_tensor_core_forward_on_fused_qkv_views():
 
 @pytest.mark.cuda
 def test_cuda_float32_and_misaligned_bf16_run_the_simt_forward():
+    """Misaligned q takes the float32-FMA forward in both dtypes (aligned
+    float32 takes the split-TF32 kernel: the test below and
+    tests/test_torch_flash_fwd_f32tc.py)."""
     _need_cuda()
     case = TC_CASES["bhsd_causal_d64"]
     q, k, v = _tc_operands(case)
-    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
-    q_off = buf[1:].view(q.shape)       # 2 bytes past a 16-byte boundary
-    q_off.copy_(q)
     before = dict(fac.launches)
-    fac.flash_fwd_cuda(q.float(), k.float(), v.float(), **_kw(case))
-    o_simt, lse_simt = fac.flash_fwd_cuda(q_off, k, v, **_kw(case))
-    assert fac.launches["flash_fwd_simt"] == before["flash_fwd_simt"] + 2
-    assert fac.launches["flash_fwd"] == before["flash_fwd"]
+    o_simt, lse_simt = fac.flash_fwd_cuda(_off_by_one(q), k, v, **_kw(case))
+    fac.flash_fwd_cuda(_off_by_one(q.float()), k.float(), v.float(),
+                       **_kw(case))
+    ran = {n: fac.launches[n] - before[n] for n in fac.launches}
+    assert ran == {n: 2 * (n == "flash_fwd_simt") for n in ran}
     torch.cuda.synchronize()
     _within_bf16_bound(case, q, k, v, o_simt, lse_simt)
     wide = torch.zeros(1, 1, 4, 160, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="flash_fwd_simt launch failed "
                                            "with cudaError 1 "):
         fac.flash_fwd_cuda(wide, wide, wide)
+
+
+@pytest.mark.cuda
+def test_cuda_aligned_float32_runs_the_split_tf32_forward():
+    _need_cuda()
+    case = TC_CASES["bhsd_causal_d64"]
+    q, k, v = (t.float() for t in _tc_operands(case))
+    before = dict(fac.launches)
+    o, lse = fac.flash_fwd_cuda(q, k, v, **_kw(case))
+    ran = {n: fac.launches[n] - before[n] for n in fac.launches}
+    assert ran == {n: int(n == "flash_fwd_f32") for n in ran}
+    torch.cuda.synchronize()
+    po, plse = flash_attention_fwd_torch(q, k, v, **_kw(case))
+    A, _ = flash_attention_fwd_torch(q, k, v.abs(), **_kw(case))
+    assert bool(((o - po).abs() <= F32_GRAD * A + 1e-6).all())
+    assert bool(((lse - plse).abs() <= F32_GRAD * (1 + plse.abs())).all())
 
 
 # -- dK/dV's two variants ----------------------------------------------------
@@ -458,7 +494,8 @@ class _FakeLib:
 
     def __init__(self, rc):
         self.calls = []
-        for name in ("mxtt_flash_dq_tc", "mxtt_flash_dq",
+        for name in ("mxtt_flash_fwd_tc", "mxtt_flash_fwd_f32tc",
+                     "mxtt_flash_fwd", "mxtt_flash_dq_tc", "mxtt_flash_dq",
                      "mxtt_flash_dkv_tc", "mxtt_flash_dkv_f32tc",
                      "mxtt_flash_dkv"):
             setattr(self, name, self._entry(name, rc))
@@ -493,6 +530,50 @@ def _bwd_wrapper_on_cpu(monkeypatch, wrapper, dtype, rc):
     except RuntimeError as err:
         return fake, err
     return fake, dict(fac.launches)
+
+
+def _fwd_wrapper_on_cpu(monkeypatch, dtype, rc):
+    """flash_fwd_cuda on CPU tensors of the D 64 training layout, with the
+    library replaced by a fake, as :func:`_bwd_wrapper_on_cpu`: (fake,
+    launches after the call or the raised error)."""
+    import contextlib
+
+    case = ("bhsd", 1, 2, 2, 64, 64, 64, True, 0, 0, 0)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _inputs(case)[:3])
+    fake = _FakeLib(rc)
+    monkeypatch.setattr(fac, "launches", dict.fromkeys(fac.launches, 0))
+    monkeypatch.setattr(fac, "_lib", lambda: fake)
+    monkeypatch.setattr(fac, "_geometry",
+                        lambda *a: (1, 2, 2, 64, 64, 64))
+    monkeypatch.setattr(fac, "_launch_stream",
+                        lambda device: contextlib.nullcontext(0))
+    try:
+        fac.flash_fwd_cuda(q, k, v, causal=True)
+    except RuntimeError as err:
+        return fake, err
+    return fake, dict(fac.launches)
+
+
+def test_fwd_float32_tensor_core_failure_raises_without_retreat(
+        monkeypatch):
+    """A failed split-TF32 forward launch raises with its name and limits;
+    neither the float32-FMA kernel nor the plain version runs."""
+    fake, err = _fwd_wrapper_on_cpu(monkeypatch, torch.float32, rc=1)
+    assert isinstance(err, RuntimeError)
+    assert "flash_fwd_f32 launch failed with cudaError 1 " in str(err)
+    assert fac.LIMITS["flash_fwd_f32"] in str(err)
+    assert fake.calls == ["mxtt_flash_fwd_f32tc"]
+    assert fac.launches == dict.fromkeys(fac.launches, 0)
+
+
+@pytest.mark.parametrize("dtype,entry,counted", [
+    (torch.bfloat16, "mxtt_flash_fwd_tc", "flash_fwd"),
+    (torch.float32, "mxtt_flash_fwd_f32tc", "flash_fwd_f32")])
+def test_fwd_wrapper_counts_the_variant_it_launched(monkeypatch, dtype,
+                                                    entry, counted):
+    fake, launched = _fwd_wrapper_on_cpu(monkeypatch, dtype, rc=0)
+    assert fake.calls == [entry]
+    assert launched == {**dict.fromkeys(launched, 0), counted: 1}
 
 
 def test_dkv_tensor_core_failure_raises_without_retreat(monkeypatch):

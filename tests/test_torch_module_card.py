@@ -7,8 +7,8 @@ loss.  On the card (``cuda`` marker; skipped here with a stated reason,
 and run by ``python3 -m pytest -q -m cuda --noconftest
 tests/test_torch_module_card.py``) the same Module, at head_dim 64 (the
 training model's), launches the float32 flash kernels
-(``flash_fwd_simt``, ``flash_dq_simt`` and the split-TF32
-``flash_dkv_f32``) once a layer and step each, and its outputs and
+(the split-TF32 ``flash_fwd_f32`` and ``flash_dkv_f32``, and
+``flash_dq_simt``) once a layer and step each, and its outputs and
 gradients agree with the CPU Module's from the same parameters: outputs
 within 1e-5, each gradient within 2e-5 of its largest (float32-accurate
 products summed in another order, as chip_smoke's ``module_small_check``
@@ -27,7 +27,8 @@ from mxnet_tpu_torch.ops import flash_attention_cuda as fac
 
 CFG = dict(num_layers=2, d_model=64, num_heads=4, fused_qkv=True,
            attn_impl="flash")
-# the card's model: head_dim 64, within the split-TF32 dK/dV's limits
+# the card's model: head_dim 64, within the split-TF32 forward's and
+# dK/dV's limits
 CARD_CFG = dict(CFG, d_model=128, num_heads=2)
 VOCAB, SEQ, BATCH = 53, 32, 4
 
@@ -93,7 +94,8 @@ def test_card_module_launches_float32_kernels_and_matches_cpu():
         ran = {k: fac.launches[k] - before[k] for k in fac.launches}
         if tag == "card":
             want = CARD_CFG["num_layers"]
-            assert ran == {"flash_fwd": 0, "flash_fwd_simt": want,
+            assert ran == {"flash_fwd": 0, "flash_fwd_f32": want,
+                           "flash_fwd_simt": 0,
                            "flash_dq": 0, "flash_dq_simt": want,
                            "flash_dkv": 0, "flash_dkv_f32": want,
                            "flash_dkv_simt": 0}
