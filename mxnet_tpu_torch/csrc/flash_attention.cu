@@ -32,8 +32,10 @@
 // the FMA rate, far from that bound.  The bfloat16 forward, dQ and dK/dV
 // within their limits run on the tensor cores in flash_fwd_tc.cu,
 // flash_dq_tc.cu and flash_dkv_tc.cu (mma.sync on cp.async-fed tiles,
-// tc_tile.cuh); the three kernels here now serve float32 and the bf16
-// geometries outside those limits.
+// tc_tile.cuh), and the float32 forward, dQ and dK/dV at head_dim 64 in
+// flash_fwd_f32tc.cu, flash_dq_f32tc.cu and flash_dkv_f32tc.cu
+// (split-TF32 mma.sync, tf32x3.cuh); the three kernels here now serve
+// only the geometries of either dtype outside those kernels' limits.
 //
 // Limits: head_dim <= 128; float32 or bfloat16; the last dimension of
 // every tensor contiguous.  A launch outside them returns

@@ -1,5 +1,6 @@
 // What the flash tensor-core kernels (flash_fwd_tc.cu, flash_dq_tc.cu,
-// flash_dkv_tc.cu, flash_dkv_f32tc.cu) share: the call's geometry and mask
+// flash_dkv_tc.cu, flash_fwd_f32tc.cu, flash_dq_f32tc.cu,
+// flash_dkv_f32tc.cu) share: the call's geometry and mask
 // (Geo, from the C entry points' dims), a tensor's element strides (Str),
 // the reference's mask rules (_mask_for: keep; _tile_live: tile_live;
 // tile_full: every score of a tile kept, so the per-element test can be

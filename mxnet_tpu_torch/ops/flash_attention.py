@@ -26,7 +26,8 @@ from .attention import gqa_group
 
 __all__ = ["flash_attention", "flash_attention_fwd_torch",
            "flash_attention_bwd_torch", "flash_attention_fwd_tf32",
-           "flash_attention_dkv_tf32", "round_tf32", "gqa_group"]
+           "flash_attention_dq_tf32", "flash_attention_dkv_tf32",
+           "round_tf32", "gqa_group"]
 
 NEG_INF = -1e30      # the reference kernels' fully-masked sentinel
 _TINY = 1e-30
@@ -62,6 +63,12 @@ def _keep(Sq, Sk, causal, q_offset, k_offset, window, device):
     return (qp - kp < window) & (kp - qp < window)
 
 
+def _acc_dtype(x):
+    """Where the plain versions sum: float32, or float64 for float64
+    inputs (a reference for the float32 kernels)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _expand(x, group):
     return x if group == 1 else x.repeat_interleave(group, dim=1)
 
@@ -70,15 +77,18 @@ def flash_attention_fwd_torch(q, k, v, causal=False, scale=None,
                               q_offset=0, k_offset=0, layout="bhsd",
                               window=0):
     """Plain version of the forward kernel: ``(o, lse)`` with ``o`` in
-    q's layout and dtype, ``lse`` float32 (B, H, Sq)."""
+    q's layout and dtype, ``lse`` (B, H, Sq) in float32 (float64 for
+    float64 inputs: every sum is taken in the wider of float32 and the
+    input dtype)."""
     B, H, Sq, D, Sk, Hkv = _dims(q, k, layout)
     group = gqa_group(H, Hkv)
     scale = 1.0 / D ** 0.5 if scale is None else scale
     qh = _bhsd(q, layout)
     kh = _expand(_bhsd(k, layout), group)
     vh = _expand(_bhsd(v, layout), group)
-    # q.k products of the input values, summed in float32
-    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    acc = _acc_dtype(q)
+    # q.k products of the input values, summed in float32 (or wider)
+    s = torch.matmul(qh.to(acc), kh.to(acc).transpose(-1, -2)) * scale
     keep = _keep(Sq, Sk, causal, q_offset, k_offset, window, q.device)
     if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
@@ -91,7 +101,7 @@ def flash_attention_fwd_torch(q, k, v, causal=False, scale=None,
     valid = l_row > 0.0
     l_fin = l_row.clamp_min(_TINY)
     # p rounded to v's dtype before P.V, as the kernel does
-    o = torch.matmul(p.to(v.dtype).float(), vh.float()) / l_fin[..., None]
+    o = torch.matmul(p.to(v.dtype).to(acc), vh.to(acc)) / l_fin[..., None]
     o = torch.where(valid[..., None], o, torch.zeros((), device=o.device))
     lse = torch.where(valid, m[..., 0] + torch.log(l_fin),
                       torch.full((), NEG_INF, device=o.device))
@@ -104,7 +114,8 @@ def flash_attention_bwd_torch(q, k, v, o, lse, do, dlse=None, causal=False,
     """Plain version of the two backward kernels: ``(dq, dk, dv)`` from
     the forward's ``o`` and ``lse`` and the output gradients ``do`` and
     ``dlse`` (None: zero).  P is recomputed from ``lse`` as the kernels
-    do; each kv head sums its group's gradients in float32."""
+    do; each kv head sums its group's gradients in float32 (float64 for
+    float64 inputs, as every sum here)."""
     B, H, Sq, D, Sk, Hkv = _dims(q, k, layout)
     group = gqa_group(H, Hkv)
     scale = 1.0 / D ** 0.5 if scale is None else scale
@@ -112,22 +123,23 @@ def flash_attention_bwd_torch(q, k, v, o, lse, do, dlse=None, causal=False,
     qh, doh = _bhsd(q, layout), _bhsd(do, layout)
     kh = _expand(_bhsd(k, layout), group)
     vh = _expand(_bhsd(v, layout), group)
-    delta = (doh.float() * _bhsd(o, layout).float()).sum(-1)
-    dlse = (torch.zeros_like(lse) if dlse is None
-            else dlse.to(torch.float32))
-    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    acc = _acc_dtype(q)
+    delta = (doh.to(acc) * _bhsd(o, layout).to(acc)).sum(-1)
+    lse = lse.to(acc)
+    dlse = torch.zeros_like(lse) if dlse is None else dlse.to(acc)
+    s = torch.matmul(qh.to(acc), kh.to(acc).transpose(-1, -2)) * scale
     keep = _keep(Sq, Sk, causal, q_offset, k_offset, window, q.device)
     if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
     p = torch.exp(s - lse[..., None])
     if keep is not None:
         p = p.masked_fill(~keep, 0.0)   # fully-masked rows: lse = NEG_INF
-    dp = torch.matmul(doh.float(), vh.float().transpose(-1, -2))
+    dp = torch.matmul(doh.to(acc), vh.to(acc).transpose(-1, -2))
     # ds from the o path (p (dp - delta)) and the lse output (p dlse)
     ds = p * (dp - delta[..., None] + dlse[..., None]) * scale
-    dq = torch.matmul(ds.to(k.dtype).float(), kh.float())
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qh.float())
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), doh.float())
+    dq = torch.matmul(ds.to(k.dtype).to(acc), kh.to(acc))
+    dk = torch.matmul(ds.to(q.dtype).to(acc).transpose(-1, -2), qh.to(acc))
+    dv = torch.matmul(p.to(do.dtype).to(acc).transpose(-1, -2), doh.to(acc))
     if group > 1:
         dk = dk.reshape(B, Hkv, group, Sk, D).sum(2)
         dv = dv.reshape(B, Hkv, group, Sk, D).sum(2)
@@ -190,15 +202,12 @@ def flash_attention_fwd_tf32(q, k, v, products=3, causal=False, scale=None,
     return _bhsd(o, layout), lse
 
 
-def flash_attention_dkv_tf32(q, k, v, o, lse, do, dlse=None, products=3,
-                             causal=False, scale=None, q_offset=0,
-                             k_offset=0, layout="bhsd", window=0):
-    """The float32 tensor-core dK/dV's arithmetic in plain torch: ``(dk,
-    dv)`` of :func:`flash_attention_bwd_torch` with each of its four
-    products (S = Q K^T, dP = dO V^T, dV = P^T dO, dK = dS^T Q) taken by
-    :func:`_tf32_matmul` with ``products`` TF32 products.  Not on any
-    path: it shows what the float32 bound tells apart (the kernel's
-    three-product split meets it, one TF32 product does not)."""
+def _tf32_p_ds(q, k, v, o, lse, do, dlse, products, causal, scale,
+               q_offset, k_offset, layout, window):
+    """What the float32 tensor-core backward kernels share, in plain
+    torch: float32 bhsd ``(qh, doh, kh, p, ds)`` with K repeated over the
+    GQA group, P recomputed from ``lse`` and S = Q K^T, dP = dO V^T each
+    taken by :func:`_tf32_matmul` with ``products`` TF32 products."""
     B, H, Sq, D, Sk, Hkv = _dims(q, k, layout)
     group = gqa_group(H, Hkv)
     scale = 1.0 / D ** 0.5 if scale is None else scale
@@ -217,9 +226,41 @@ def flash_attention_dkv_tf32(q, k, v, o, lse, do, dlse=None, products=3,
         p = p.masked_fill(~keep, 0.0)
     dp = _tf32_matmul(doh, vh.transpose(-1, -2), products)
     ds = p * (dp - delta[..., None] + dlse[..., None]) * scale
+    return qh, doh, kh, p, ds
+
+
+def flash_attention_dq_tf32(q, k, v, o, lse, do, dlse=None, products=3,
+                            causal=False, scale=None, q_offset=0,
+                            k_offset=0, layout="bhsd", window=0):
+    """The float32 tensor-core dQ's arithmetic in plain torch: ``dq`` of
+    :func:`flash_attention_bwd_torch` with each of its three products
+    (S = Q K^T, dP = dO V^T, dQ = dS K) taken by :func:`_tf32_matmul`
+    with ``products`` TF32 products.  Not on any path: it shows what the
+    float32 bound tells apart (the kernel's three-product split meets it,
+    one TF32 product does not)."""
+    _, _, kh, _, ds = _tf32_p_ds(q, k, v, o, lse, do, dlse, products,
+                                 causal, scale, q_offset, k_offset, layout,
+                                 window)
+    return _bhsd(_tf32_matmul(ds, kh, products), layout)
+
+
+def flash_attention_dkv_tf32(q, k, v, o, lse, do, dlse=None, products=3,
+                             causal=False, scale=None, q_offset=0,
+                             k_offset=0, layout="bhsd", window=0):
+    """The float32 tensor-core dK/dV's arithmetic in plain torch: ``(dk,
+    dv)`` of :func:`flash_attention_bwd_torch` with each of its four
+    products (S = Q K^T, dP = dO V^T, dV = P^T dO, dK = dS^T Q) taken by
+    :func:`_tf32_matmul` with ``products`` TF32 products.  Not on any
+    path: it shows what the float32 bound tells apart (the kernel's
+    three-product split meets it, one TF32 product does not)."""
+    B, H, Sq, D, Sk, Hkv = _dims(q, k, layout)
+    qh, doh, _, p, ds = _tf32_p_ds(q, k, v, o, lse, do, dlse, products,
+                                   causal, scale, q_offset, k_offset,
+                                   layout, window)
     dk = _tf32_matmul(ds.transpose(-1, -2), qh, products)
     dv = _tf32_matmul(p.transpose(-1, -2), doh, products)
-    if group > 1:
+    if Hkv != H:
+        group = H // Hkv
         dk = dk.reshape(B, Hkv, group, Sk, D).sum(2)
         dv = dv.reshape(B, Hkv, group, Sk, D).sum(2)
     return _bhsd(dk, layout), _bhsd(dv, layout)

@@ -8,18 +8,18 @@ three variants, picked from the operands by :func:`_fwd_variant`,
 cores within its limits: ``csrc/flash_fwd_tc.cu``, ``csrc/flash_dq_tc.cu``,
 ``csrc/flash_dkv_tc.cu``), ``tc32`` (float32 on the tensor cores through
 split-TF32 products, ``csrc/tf32x3.cuh``, held to the float32 bound, within
-its limits: the forward's ``csrc/flash_fwd_f32tc.cu`` and dK/dV's
-``csrc/flash_dkv_f32tc.cu``; dQ has none yet) and ``simt``
-(``csrc/flash_attention.cu``, float32 FMAs: every other geometry of
-either dtype).  They are built with ``nvcc`` at the first launch and
+its limits: the forward's ``csrc/flash_fwd_f32tc.cu``, dQ's
+``csrc/flash_dq_f32tc.cu`` and dK/dV's ``csrc/flash_dkv_f32tc.cu``) and
+``simt`` (``csrc/flash_attention.cu``, float32 FMAs: every other geometry
+of either dtype).  They are built with ``nvcc`` at the first launch and
 called through ``ctypes``.  Each wrapper checks what its kernel takes and
 raises on anything else; there is no fallback to the plain versions
 (those are ``ops.flash_attention.flash_attention_fwd_torch`` /
 ``flash_attention_bwd_torch``, which the CPU path runs), and no retreat
 from one variant to another.  ``launches`` counts each kernel's
 launches in this process (``flash_fwd``, ``flash_dq`` and
-``flash_dkv``: the bf16 tensor-core kernels; ``flash_fwd_f32`` and
-``flash_dkv_f32``: the float32 tensor-core ones; ``flash_fwd_simt``,
+``flash_dkv``: the bf16 tensor-core kernels; ``flash_fwd_f32``,
+``flash_dq_f32`` and ``flash_dkv_f32``: the float32 tensor-core ones; ``flash_fwd_simt``,
 ``flash_dq_simt`` and ``flash_dkv_simt``: the others).
 
 Tensors are 4-D in either layout (``bhsd``: (B, H, S, D); ``bshd``:
@@ -42,14 +42,15 @@ __all__ = ["flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda", "launches"]
 
 LIB_NAME = "mxtt_flash_attention"
 SOURCES = ("flash_attention.cu", "flash_fwd_tc.cu", "flash_fwd_f32tc.cu",
-           "flash_dq_tc.cu", "flash_dkv_tc.cu", "flash_dkv_f32tc.cu",
+           "flash_dq_tc.cu", "flash_dq_f32tc.cu", "flash_dkv_tc.cu",
+           "flash_dkv_f32tc.cu",
            "flash_geo.cuh", "tc_tile.cuh", "tf32x3.cuh")
 
 # kernel launches in this process, per kernel; reset by whoever counts a
 # window
 launches = {"flash_fwd": 0, "flash_fwd_f32": 0, "flash_fwd_simt": 0,
-            "flash_dq": 0, "flash_dq_simt": 0, "flash_dkv": 0,
-            "flash_dkv_f32": 0, "flash_dkv_simt": 0}
+            "flash_dq": 0, "flash_dq_f32": 0, "flash_dq_simt": 0,
+            "flash_dkv": 0, "flash_dkv_f32": 0, "flash_dkv_simt": 0}
 
 # what each kernel takes; a launch outside it returns cudaErrorInvalidValue
 LIMITS = {
@@ -60,6 +61,8 @@ LIMITS = {
     "flash_fwd_simt": "float32 or bfloat16, head_dim <= 128",
     "flash_dq": "bfloat16, head_dim 64 or 128, q/k/v/dO/dq 16-byte aligned, "
                 "batch/head/sequence strides multiples of 8 elements",
+    "flash_dq_f32": "float32, head_dim 64, q/k/v/dO/dq 16-byte aligned, "
+                    "batch/head/sequence strides multiples of 4 elements",
     "flash_dq_simt": "float32 or bfloat16, head_dim <= 128",
     "flash_dkv": "bfloat16, head_dim 64, q/k/v/dO/dk/dv 16-byte aligned, "
                  "batch/head/sequence strides multiples of 8 elements",
@@ -71,6 +74,8 @@ _TC_HEAD_DIMS = (64, 128)         # the forward's
 # the float32 tensor-core forward (csrc/flash_fwd_f32tc.cu)
 _TC32_FWD_HEAD_DIMS = (64,)
 _TC_DQ_HEAD_DIMS = (64, 128)
+# the float32 tensor-core dQ: at 128 it spills (csrc/flash_dq_f32tc.cu)
+_TC32_DQ_HEAD_DIMS = (64,)
 _TC_DKV_HEAD_DIMS = (64,)         # at 128 the tensor-core dK/dV spills
 # the float32 tensor-core dK/dV: at 128 it spills (csrc/flash_dkv_f32tc.cu)
 _TC32_DKV_HEAD_DIMS = (64,)
@@ -88,12 +93,14 @@ def _lib():
         lib.mxtt_flash_fwd_f32tc.argtypes = [i] + [vp] * 5 + tail
         lib.mxtt_flash_dq.argtypes = [i] + [vp] * 8 + tail
         lib.mxtt_flash_dq_tc.argtypes = [i] + [vp] * 8 + tail
+        lib.mxtt_flash_dq_f32tc.argtypes = [i] + [vp] * 8 + tail
         lib.mxtt_flash_dkv.argtypes = [i] + [vp] * 9 + tail
         lib.mxtt_flash_dkv_tc.argtypes = [i] + [vp] * 9 + tail
         lib.mxtt_flash_dkv_f32tc.argtypes = [i] + [vp] * 9 + tail
         for fn in (lib.mxtt_flash_fwd, lib.mxtt_flash_fwd_tc,
                    lib.mxtt_flash_fwd_f32tc, lib.mxtt_flash_dq,
-                   lib.mxtt_flash_dq_tc, lib.mxtt_flash_dkv,
+                   lib.mxtt_flash_dq_tc, lib.mxtt_flash_dq_f32tc,
+                   lib.mxtt_flash_dkv,
                    lib.mxtt_flash_dkv_tc, lib.mxtt_flash_dkv_f32tc):
             fn.restype = ctypes.c_int
     return lib
@@ -196,9 +203,14 @@ def _fwd_variant(dtype, D, ptrs, strides):
 
 
 def _dq_variant(dtype, D, ptrs, strides):
-    """The dQ kernel that takes a call, by the same rule as
-    :func:`_fwd_variant` over ``ptrs`` q, k, v, dO, dq and their strides,
-    at the head dims in ``_TC_DQ_HEAD_DIMS``."""
+    """The dQ kernel that takes a call, over ``ptrs`` q, k, v, dO, dq and
+    their strides: bfloat16 by the same rule as :func:`_fwd_variant` at
+    the head dims in ``_TC_DQ_HEAD_DIMS``; float32 ``"tc32"`` (split-TF32
+    tensor cores) at the head dims in ``_TC32_DQ_HEAD_DIMS`` with
+    16-byte-aligned ``ptrs`` and every stride a multiple of 4 elements,
+    else ``"simt"``."""
+    if dtype == torch.float32:
+        return _tc32_variant(D, ptrs, strides, _TC32_DQ_HEAD_DIMS)
     return _tc_variant(dtype, D, ptrs, strides, _TC_DQ_HEAD_DIMS)
 
 
@@ -263,10 +275,10 @@ def flash_dq_cuda(q, k, v, do, lse, delta, dlse, causal=False, scale=None,
     strides = sum((_strides(t, layout) for t in (q, k, v, do, dq)), ())
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
     lib = _lib()
-    fn, name = ((lib.mxtt_flash_dq_tc, "flash_dq")
-                if _dq_variant(q.dtype, D, ptrs + (dq.data_ptr(),),
-                               strides) == "tc"
-                else (lib.mxtt_flash_dq, "flash_dq_simt"))
+    fn, name = {"tc": (lib.mxtt_flash_dq_tc, "flash_dq"),
+                "tc32": (lib.mxtt_flash_dq_f32tc, "flash_dq_f32"),
+                "simt": (lib.mxtt_flash_dq, "flash_dq_simt")}[
+        _dq_variant(q.dtype, D, ptrs + (dq.data_ptr(),), strides)]
     _call(fn, q.dtype, ptrs + (lse.data_ptr(), delta.data_ptr(),
                                dlse.data_ptr(), dq.data_ptr()),
           (B, Hq, Hkv, Sq, Sk, D), strides, causal, window, q_offset,

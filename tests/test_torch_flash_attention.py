@@ -495,7 +495,8 @@ class _FakeLib:
     def __init__(self, rc):
         self.calls = []
         for name in ("mxtt_flash_fwd_tc", "mxtt_flash_fwd_f32tc",
-                     "mxtt_flash_fwd", "mxtt_flash_dq_tc", "mxtt_flash_dq",
+                     "mxtt_flash_fwd", "mxtt_flash_dq_tc",
+                     "mxtt_flash_dq_f32tc", "mxtt_flash_dq",
                      "mxtt_flash_dkv_tc", "mxtt_flash_dkv_f32tc",
                      "mxtt_flash_dkv"):
             setattr(self, name, self._entry(name, rc))
@@ -755,7 +756,27 @@ DQ_VARIANT_CASES = {
                   tuple(2 * x for x in _DQ_BHSD), "tc"),
     "bf16_model_operands": (torch.bfloat16, 64, _DQ_FUSED_PTRS, _DQ_FUSED,
                             "tc"),
-    "float32": (torch.float32, 64, _DQ_PTRS, _DQ_BHSD, "simt"),
+    # float32 at head_dim 64 with 16-byte-aligned operands and strides in
+    # multiples of 4 runs the split-TF32 tensor-core kernel ("tc32")
+    "float32": (torch.float32, 64, _DQ_PTRS, _DQ_BHSD, "tc32"),
+    "float32_model_operands": (torch.float32, 64, _DQ_FUSED_PTRS, _DQ_FUSED,
+                               "tc32"),
+    "float32_misaligned_do": (torch.float32, 64,
+                              _DQ_PTRS[:3] + (_DQ_PTRS[3] + 4,)
+                              + _DQ_PTRS[4:], _DQ_BHSD, "simt"),
+    "float32_misaligned_dq": (torch.float32, 64,
+                              _DQ_PTRS[:4] + (_DQ_PTRS[4] + 8,), _DQ_BHSD,
+                              "simt"),
+    "float32_head_stride_not_multiple_of_4": (
+        torch.float32, 64, _DQ_PTRS,
+        _DQ_BHSD[:3] + (8 * 1024 * 64, 1026, 64) + _DQ_BHSD[6:], "simt"),
+    "float32_odd_sequence_stride": (torch.float32, 64, _DQ_PTRS,
+                                    (8 * 1024 * 65, 1024 * 65, 65) * 5,
+                                    "simt"),
+    "float32_d80": (torch.float32, 80, _DQ_PTRS,
+                    (8 * 1024 * 80, 1024 * 80, 80) * 5, "simt"),
+    "float32_d128": (torch.float32, 128, _DQ_PTRS,
+                     tuple(2 * x for x in _DQ_BHSD), "simt"),
     "bf16_d80": (torch.bfloat16, 80, _DQ_PTRS,
                  (8 * 1024 * 80, 1024 * 80, 80) * 5, "simt"),
     "bf16_odd_sequence_stride": (torch.bfloat16, 64, _DQ_PTRS,
@@ -790,9 +811,22 @@ def test_dq_tensor_core_failure_raises_without_retreat(monkeypatch):
     assert fac.launches == dict.fromkeys(fac.launches, 0)
 
 
+def test_dq_float32_tensor_core_failure_raises_without_retreat(
+        monkeypatch):
+    """A failed split-TF32 dQ launch raises with its name and limits;
+    neither the float32-FMA kernel nor the plain version runs."""
+    fake, err = _bwd_wrapper_on_cpu(monkeypatch, "flash_dq_cuda",
+                                    torch.float32, rc=1)
+    assert isinstance(err, RuntimeError)
+    assert "flash_dq_f32 launch failed with cudaError 1 " in str(err)
+    assert fac.LIMITS["flash_dq_f32"] in str(err)
+    assert fake.calls == ["mxtt_flash_dq_f32tc"]
+    assert fac.launches == dict.fromkeys(fac.launches, 0)
+
+
 @pytest.mark.parametrize("dtype,entry,counted", [
     (torch.bfloat16, "mxtt_flash_dq_tc", "flash_dq"),
-    (torch.float32, "mxtt_flash_dq", "flash_dq_simt")])
+    (torch.float32, "mxtt_flash_dq_f32tc", "flash_dq_f32")])
 def test_dq_wrapper_counts_the_variant_it_launched(monkeypatch, dtype,
                                                    entry, counted):
     fake, launched = _bwd_wrapper_on_cpu(monkeypatch, "flash_dq_cuda",
@@ -814,7 +848,9 @@ def _dq_terms(case, q, k, v, o, lse, do, dlse):
 def _check_dq(case, q, k, v, do, dlse, want):
     """Runs the dQ wrapper and asserts which kernel ran (``want``) and dq
     within the bound of the operands' dtype (float32: the same products
-    summed in another order, 1e-5 A + 1e-6); returns dq."""
+    summed in another order, 1e-5 A + 1e-6; the split-TF32 kernel against
+    the plain dq summed in float64, as chip_smoke.py holds it, the others
+    against the plain dq summed in float32); returns dq."""
     kw = _kw(case)
     o, lse = fac.flash_fwd_cuda(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
@@ -825,11 +861,12 @@ def _check_dq(case, q, k, v, do, dlse, want):
     dq = fac.flash_dq_cuda(q, k, v, do, lse, delta, dlse, **kw)
     torch.cuda.synchronize()
     ran = {n: fac.launches[n] - before[n]
-           for n in ("flash_dq", "flash_dq_simt")}
+           for n in ("flash_dq", "flash_dq_f32", "flash_dq_simt")}
     assert ran == {n: int(n == want) for n in ran}
-    up = [t.float() for t in (q, k, v, do)]
-    ref, _, _ = flash_attention_bwd_torch(*up[:3], o.float(), lse, up[3],
-                                          dlse, **kw)
+    dt = torch.float64 if want == "flash_dq_f32" else torch.float32
+    up = [t.to(dt) for t in (q, k, v, do)]
+    ref, _, _ = flash_attention_bwd_torch(*up[:3], o.to(dt), lse.to(dt),
+                                          up[3], dlse.to(dt), **kw)
     A = _dq_terms(case, q, k, v, o, lse, do, dlse)
     assert bool(torch.isfinite(dq).all())
     allowed = F32_GRAD * A + 1e-6
@@ -867,13 +904,24 @@ def test_cuda_tensor_core_dq_on_model_operands():
 
 @pytest.mark.cuda
 def test_cuda_float32_and_misaligned_bf16_run_the_simt_dq():
+    """Misaligned q takes the float32-FMA dQ in both dtypes (aligned
+    float32 takes the split-TF32 kernel: the test below)."""
     _need_cuda()
     case = TC_CASES["bhsd_causal_d64"]
     q, k, v = _tc_operands(case)
     do, dlse = _bf16_grads_in(case)
-    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
-    q_off = buf[1:].view(q.shape)       # 2 bytes past a 16-byte boundary
-    q_off.copy_(q)
-    _check_dq(case, q_off, k, v, do, dlse, "flash_dq_simt")
+    _check_dq(case, _off_by_one(q), k, v, do, dlse, "flash_dq_simt")
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    _check_dq(case, _off_by_one(q), k, v, do, dlse, "flash_dq_simt")
+
+
+@pytest.mark.cuda
+def test_cuda_aligned_float32_runs_the_split_tf32_dq():
+    """Aligned float32 at head_dim 64 takes the split-TF32 dQ (its own
+    cases: tests/test_torch_flash_dq_f32tc.py)."""
+    _need_cuda()
+    case = TC_CASES["bhsd_causal_d64"]
+    q, k, v = _tc_operands(case)
+    do, dlse = _bf16_grads_in(case)
     _check_dq(case, *(t.float() for t in (q, k, v, do)), dlse,
-              "flash_dq_simt")
+              "flash_dq_f32")

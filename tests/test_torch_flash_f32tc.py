@@ -5,7 +5,7 @@ three TF32 products of operands split into big + small halves
 (``csrc/tf32x3.cuh``).  Its arithmetic is modelled in plain torch by
 ``ops.flash_attention.flash_attention_dkv_tf32``: here, on the CPU, the
 three-product model meets the float32 bound that chip_smoke.py holds
-the kernel to (|x - plain32| <= 1e-5 A + 1e-6, A the sum of the
+the kernel to (|x - plain| <= 1e-5 A + 1e-6, A the sum of the
 magnitudes of the terms x adds up) against the plain backward, and the
 one-product model (operands rounded to TF32 once) fails it, so the bound
 tells the two apart.  The kernel's own cases carry the ``cuda`` marker

@@ -6,7 +6,7 @@ big + small halves (``csrc/tf32x3.cuh``).  Its arithmetic is modelled in
 plain torch by ``ops.flash_attention.flash_attention_fwd_tf32``: here,
 on the CPU, the three-product model meets the float32 bound that
 chip_smoke.py holds the kernel to against the plain forward (o:
-|x - plain32| <= 1e-5 A + 1e-6 with A = P |V|; lse: 1e-5 (1 + |lse|)),
+|x - plain| <= 1e-5 A + 1e-6 with A = P |V|; lse: 1e-5 (1 + |lse|)),
 and the one-product model (operands rounded to TF32 once) fails it on
 o, so the bound tells the two apart.  The kernel's own cases carry the
 ``cuda`` marker and skip without a card (the kernel is compiled by nvcc

@@ -6,9 +6,9 @@ plain flash versions and launches no kernel; a few Adam steps lower the
 loss.  On the card (``cuda`` marker; skipped here with a stated reason,
 and run by ``python3 -m pytest -q -m cuda --noconftest
 tests/test_torch_module_card.py``) the same Module, at head_dim 64 (the
-training model's), launches the float32 flash kernels
-(the split-TF32 ``flash_fwd_f32`` and ``flash_dkv_f32``, and
-``flash_dq_simt``) once a layer and step each, and its outputs and
+training model's), launches the split-TF32 float32 flash kernels
+(``flash_fwd_f32``, ``flash_dq_f32`` and ``flash_dkv_f32``) once a
+layer and step each, and its outputs and
 gradients agree with the CPU Module's from the same parameters: outputs
 within 1e-5, each gradient within 2e-5 of its largest (float32-accurate
 products summed in another order, as chip_smoke's ``module_small_check``
@@ -96,7 +96,8 @@ def test_card_module_launches_float32_kernels_and_matches_cpu():
             want = CARD_CFG["num_layers"]
             assert ran == {"flash_fwd": 0, "flash_fwd_f32": want,
                            "flash_fwd_simt": 0,
-                           "flash_dq": 0, "flash_dq_simt": want,
+                           "flash_dq": 0, "flash_dq_f32": want,
+                           "flash_dq_simt": 0,
                            "flash_dkv": 0, "flash_dkv_f32": want,
                            "flash_dkv_simt": 0}
         outs[tag] = mod.get_outputs()[0].asnumpy()
