@@ -238,6 +238,20 @@ Phases (any failure exits non-zero; nothing is caught):
      falling; one full-width float32 step's gradients through the kernels
      against the eager scan, shown to fail on a planted fault; a small
      LSTM LM's CUDA trainer against its CPU trainer over 3 Adam steps;
+     the sequence half of the training framework in float32, where the
+     float32 fused kernels run: the RNN-op LM as a Symbol
+     (tests/test_rnn.py:124-150 at the same width) trained by
+     mod.BucketingModule over buckets 32/64/128 of rnn_io.
+     BucketSentenceIter (SGD 0.01, momentum 0.9, wd 1e-5), 2 float32 LSTM
+     forward and 2 backward launches a step in every bucket, no other
+     launch and no scan step, the buckets' arrays aliased, the NLL of a
+     held batch falling, one update a bucket against the float64 scan
+     (shown to fail on a planted fault), a profile window and a Monitor
+     step; model.FeedForward over the GRU LM (fit, predict, score, a
+     save/load round trip predicting identically, the float32 GRU
+     launches counted); a SequentialModule (body and head Modules)
+     against the one-Module LM over 3 steps; CTCLoss on the card against
+     the CPU (blank first and last, repeated and padded labels, lengths);
   6. timings with CUDA events (warm-up excluded, L2 flushed before each
      launch, medians): each kernel, its plain version, a PyTorch
      yardstick (SDPA; cuDNN's nn.LSTM / nn.GRU) and the bound computed
@@ -258,7 +272,9 @@ Phases (any failure exits non-zero; nothing is caught):
      empty cooperative kernel of T grid barriers), and for the RNN
      backward the other kernel at the same bf16 inputs, the tensor-core
      kernel's cluster size, units a CTA, ptxas registers and spills and
-     the floor of its split barrier (T arrive/wait pairs alone).
+     the floor of its split barrier (T arrive/wait pairs alone), then the
+     float32 RNN kernels (the Module family's path) beside cuDNN in
+     float32 with their ptxas registers and spills.
 
 Prints JSON lines, then the card's name and power limit, then the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -289,12 +305,20 @@ runs only the float32 flash checks at every flash shape (with the
 planted one-product TF32 dK/dV), the train phase, the float32 gradient
 check, train_module, module_vs_trainer, module_small_check and the
 float32 flash timings (their lines, then the card line).
+
+    python3 chip_smoke.py --train-seq
+
+runs only the float32 RNN kernel checks at the main shape and against
+cuDNN, train_bucketing, train_feedforward, module_family_check,
+ctc_card_check and the float32 RNN timings (their lines, then the card
+line).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import glob
 import json
 import os
@@ -6461,21 +6485,32 @@ def profiler_warmup():
         traced_kernels(logdir)
 
 
-def train_profile(step, steps=2):
+def _launch_kind(name):
+    """The trace kind of a launch counter's name: the fused-RNN
+    counters (``lstm_fwd_simt``, ...) by direction, the rest as traced."""
+    if name.startswith(("lstm_", "gru_")):
+        return "fused_rnn_" + name.split("_")[1]
+    return _kernel_kind(name)
+
+
+def train_profile(step, steps=2, counted="flash"):
     """Device time and kernel instances by kind over ``steps`` more calls
     of ``step`` (one train step each; torch.profiler), and the device's
-    busy share of their wall time.  The flash wrappers' launches are
-    counted over the same window: ``flash_traced_vs_launched`` holds, for
-    each flash kind, the instances in the trace beside the launches, and
-    ``trace_complete`` says whether the trace holds every one (a kind's
-    ms a step is read only from a complete window; an incomplete one is
-    reported, not re-run)."""
+    busy share of their wall time.  The ``counted`` wrappers' launches
+    (the flash kernels', or the fused RNN kernels' with ``"rnn"``) are
+    counted over the same window: ``<counted>_traced_vs_launched``
+    holds, for each of their kinds, the instances in the trace beside the
+    launches, and ``trace_complete`` says whether the trace holds every
+    one (a kind's ms a step is read only from a complete window; an
+    incomplete one is reported, not re-run)."""
     from mxnet_tpu_torch import profiler
     from mxnet_tpu_torch.ops import flash_attention_cuda as fac
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
 
+    counters = fac.launches if counted == "flash" else frc.launches
     torch.cuda.synchronize()
-    saved = dict(fac.launches)
-    fac.launches.update(dict.fromkeys(fac.launches, 0))
+    saved = dict(counters)
+    counters.update(dict.fromkeys(counters, 0))
     with tempfile.TemporaryDirectory() as logdir:
         with profiler.trace(logdir):
             t0 = time.perf_counter()
@@ -6484,23 +6519,23 @@ def train_profile(step, steps=2):
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         kernels, counts = traced_kernels(logdir)
-    counted = dict(fac.launches)
-    fac.launches.update({n: saved[n] + c for n, c in counted.items()})
+    counted_now = dict(counters)
+    counters.update({n: saved[n] + c for n, c in counted_now.items()})
     kinds, instances = {}, {}
     for name, ms in kernels.items():
         kind = _kernel_kind(name)
         kinds[kind] = kinds.get(kind, 0.0) + ms / steps
         instances[kind] = instances.get(kind, 0) + counts[name]
     launched = {}
-    for name, c in counted.items():
-        kind = _kernel_kind(name)
+    for name, c in counted_now.items():
+        kind = _launch_kind(name)
         launched[kind] = launched.get(kind, 0) + c
-    flash = {kind: {"traced": instances.get(kind, 0), "launched": c}
-             for kind, c in launched.items()
-             if c or instances.get(kind, 0)}
-    complete = all(v["traced"] == v["launched"] for v in flash.values())
+    traced = {kind: {"traced": instances.get(kind, 0), "launched": c}
+              for kind, c in launched.items()
+              if c or instances.get(kind, 0)}
+    complete = all(v["traced"] == v["launched"] for v in traced.values())
     if not complete:
-        print(f"train_profile: trace incomplete: {flash}", file=sys.stderr)
+        print(f"train_profile: trace incomplete: {traced}", file=sys.stderr)
     device_ms = sum(kernels.values()) / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
@@ -6508,7 +6543,7 @@ def train_profile(step, steps=2):
             "device_busy_share": device_ms * steps / wall_ms,
             "ms_per_step_by_kind": kinds,
             "kernels_traced_by_kind": instances,
-            "flash_traced_vs_launched": flash,
+            f"{counted}_traced_vs_launched": traced,
             "trace_complete": complete,
             "top_kernels_ms_per_step": [(n[:120], ms / steps)
                                         for n, ms in top]}
@@ -7241,11 +7276,15 @@ def rnn_bounds(mode, shape, dtype):
 
 def time_rnn(mode, dtype=torch.bfloat16):
     """Kernel, plain, library (cuDNN) and barrier-floor times at the main
-    shape; the bound from this run's shapes.  The forward and the backward
-    are each timed on the tensor-core kernel and, in the same run, on the
-    other one (``_variant="simt"``, ``ms_simt``), with the tensor-core
-    kernel's plan (cluster size, CTAs, units a CTA, shared memory), its
-    ptxas registers and spills and the floor of its split barrier."""
+    shape; the bound from this run's shapes.  bf16: the forward and the
+    backward are each timed on the tensor-core kernel and, in the same
+    run, on the other one (``_variant="simt"``, ``ms_simt``), with the
+    tensor-core kernel's plan (cluster size, CTAs, units a CTA, shared
+    memory), its ptxas registers and spills and the floor of its split
+    barrier.  float32: the kernels the float32 path launches
+    (``rnn_fwd_kernel<float, G>``, ``rnn_bwd_kernel<float, G>``) with
+    their ptxas registers and spills, cuDNN in float32 (TF32 off) beside
+    them."""
     from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops import fused_gru as fg
     from mxnet_tpu_torch.ops import fused_lstm as fl
@@ -7253,6 +7292,7 @@ def time_rnn(mode, dtype=torch.bfloat16):
 
     shape = RNN_SHAPES["main"]
     T, N, H = shape
+    f32 = dtype == torch.float32
     ins, cot = rnn_case(mode, shape, dtype, seed=1)
     saved = dict(frc.launches)
     res = rnn_kernels(mode, ins, cot)
@@ -7272,26 +7312,33 @@ def time_rnn(mode, dtype=torch.bfloat16):
         ms = time_ms(fn)
         return ms, {k for k, v in frc.launches.items() if v != before[k]}
 
-    k_ms, simt_ms, plans, ran = {}, {}, {}, {}
+    k_ms, simt_ms, plans, ran, want = {}, {}, {}, {}, {}
     for kind, call in (("fwd", lambda **kw: fwd(**ins, save=True, **kw)),
                        ("bwd", lambda **kw: bwd(*bwd_args, **cot, **kw))):
         k_ms[kind], ran[kind] = timed(call)
+        if f32:
+            want[kind] = {f"{mode}_{kind}_simt"}
+            continue
+        want[kind] = {f"{mode}_{kind}"}
+        want[f"{kind}_simt"] = {f"{mode}_{kind}_simt"}
         plans[kind] = dict(frc.last_fwd_tc_plan if kind == "fwd"
                            else frc.last_tc_plan)
         simt_ms[kind], ran[f"{kind}_simt"] = timed(
             lambda: call(_variant="simt"))
     frc.launches.update(saved)        # timing launches are not the path's
-    if any(ran[k] != {f"{mode}_{k}"} for k in ran):
+    if ran != want:
         raise SystemExit(f"rnn_time: {mode} kernel variants not as timed: "
                          f"{ran}")
     floor = time_ms(lambda: frc.barrier_floor_cuda(T, H, DEVICE))
-    split_floor = time_ms(lambda: frc.split_barrier_floor_cuda(T, N, H,
-                                                               DEVICE))
+    if not f32:
+        split_floor = time_ms(lambda: frc.split_barrier_floor_cuda(
+            T, N, H, DEVICE))
     p_fwd = time_ms(lambda: p_fwd_fn(**ins, save=True), reps=3, warmup=1)
     p_bwd = time_ms(lambda: p_bwd_fn(*bwd_args, **cot), reps=3, warmup=1)
     # the library yardstick the port never calls: cuDNN's nn.LSTM / nn.GRU
-    # in the same dtype, forward (with its input projection) and its
-    # backward alone on a retained graph
+    # in the same dtype (float32 with TF32 off, the port's setting),
+    # forward (with its input projection) and its backward alone on a
+    # retained graph
     cls = torch.nn.LSTM if mode == "lstm" else torch.nn.GRU
     cell = cls(H, H).to(DEVICE, dtype)
     cell.flatten_parameters()         # one contiguous weight buffer
@@ -7309,11 +7356,11 @@ def time_rnn(mode, dtype=torch.bfloat16):
     for kind, p_ms, l_ms in (("fwd", p_fwd, lib_fwd), ("bwd", p_bwd, lib_bwd)):
         name = f"{mode}_{kind}"
         b_ms, b_by, ops, nbytes = bounds[name]
-        plan = plans[kind]
         rows[name] = {
             "phase": "rnn_time", "kernel": name, "shape": "main",
             "dtype": str(dtype)[6:], "ms": k_ms[kind], "plain_ms": p_ms,
-            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms, "library_over_kernel": l_ms / k_ms[kind],
+            "bound_ms": b_ms, "bound_by": b_by,
             "ops": ops, "bytes": nbytes, "bound_share": b_ms / k_ms[kind],
             "barrier_floor_ms": floor,
             "library": f"cuDNN nn.{cls.__name__} "
@@ -7322,7 +7369,17 @@ def time_rnn(mode, dtype=torch.bfloat16):
             "plain_and_library_cover":
                 "the plain times cover the recurrence only; the library "
                 "times also include the input projection x Wi^T + bi"
-                + (" and its gradients" if kind == "bwd" else ""),
+                + (" and its gradients" if kind == "bwd" else "")}
+        if f32:
+            rows[name].update({
+                "source": "csrc/fused_rnn.cuh",
+                "cuda_kernel": f"rnn_{kind}_kernel<float, {_GATES[mode]}>",
+                "ptxas": ptxas_report(log, f"rnn_{kind}_kernelIf",
+                                      ("G",)).get(f"G{_GATES[mode]}")})
+            emit(rows[name])
+            continue
+        plan = plans[kind]
+        rows[name].update({
             "source": f"csrc/fused_rnn_{kind}_tc.cuh",
             "ms_simt": simt_ms[kind],
             "simt_over_tc": simt_ms[kind] / k_ms[kind],
@@ -7335,7 +7392,7 @@ def time_rnn(mode, dtype=torch.bfloat16):
                                    f"barrier alone, {T} arrive/wait pairs "
                                    "on the LSTM backward's launch",
             "ptxas": ptxas_report(log, f"rnn_{kind}_tc_kernel",
-                                  ("G",)).get(f"G{_GATES[mode]}")}
+                                  ("G",)).get(f"G{_GATES[mode]}")})
         emit(rows[name])
     return rows
 
@@ -7499,6 +7556,565 @@ def rnn_small_train_check():
         raise SystemExit("small LSTM LM: CUDA vs CPU trainers disagree")
 
 
+# -- the sequence half of the training framework on the card ----------------
+# The RNN-op language model of tests/test_rnn.py:124-150 (batch-major
+# (N, T) tokens -> Embedding -> SwapAxis -> RNN -> SwapAxis -> Reshape(-1, H)
+# -> FullyConnected -> SoftmaxOutput) as a Symbol, at RNN_CFG's width
+# (vocabulary 10,000, embedding 512, H 512, 2 layers, batch 32), trained by
+# the Module family on gpu(0) in float32, the reference Module's dtype: its
+# LSTM and GRU layers run the float32 fused kernels (rnn_fwd_kernel<float,
+# G>, rnn_bwd_kernel<float, G>; the "_simt" launch counters), never the bf16
+# tensor-core ones.  SGD as examples/lstm_bucketing.py:74-79 (lr 0.01,
+# momentum 0.9, wd 1e-5), Xavier.  BucketingModule's buckets are 32, 64 and
+# 128 (the default), fed by rnn_io.BucketSentenceIter over a seeded corpus of
+# lengths 5-128 that follows examples/rnn_time_major.py:98-102's successor
+# rule (the next token is the successor with probability 0.9).
+SEQ_BUCKETS = (32, 64, 128)
+SEQ_SENTENCES = 480
+SEQ_SGD = (("learning_rate", 0.01), ("momentum", 0.9), ("wd", 1e-5))
+# One update in each bucket (32, 64, 128 in turn) through the kernels in
+# float32 against the same three updates through the eager scan in float64
+# (MXNET_TPU_FUSED_RNN=0), parameter by parameter:
+#     |p32 - p64| <= 4 2^-24 |p64| + SEQ_AGREE_REL max|p64 - p0|,
+# the first term the float32 rounding of p over three updates, the second
+# the float32 gradients' error as a share of the tensor's largest update
+# (rnn_grad_check's kernels-vs-scan gradient bound, 1e-4 of the largest
+# gradient).  The planted fault, the float64 scan with its forget gate's
+# recurrent bias dropped, must fail it.  module_family_check holds a
+# SequentialModule to the one-Module LM at the same bound.
+SEQ_AGREE_REL = 1e-4
+# CTCLoss on the card against the port on the CPU, the same float32 inputs:
+# max|loss_card - loss_cpu| <= CTC_REL max|loss_cpu|, and the same for the
+# gradient with respect to data (float32 log-space sums over T 24 steps in
+# another order and another libm)
+CTC_REL = 2e-5
+CTC_SHAPE = (24, 32, 9)        # examples/speech_ctc.py: T 24, batch 32, 8+1
+
+
+def seq_sentence(rng, length):
+    """``length`` token ids 1..V-1 (0 pads) by the successor rule."""
+    V = RNN_CFG["vocab"]
+    tok, sent = int(rng.randint(1, V)), []
+    for _ in range(length):
+        sent.append(tok)
+        tok = (tok % (V - 1) + 1 if rng.rand() < 0.9
+               else int(rng.randint(1, V)))
+    return sent
+
+
+def seq_corpus(n=SEQ_SENTENCES, seed=7):
+    """``n`` sentences of lengths 5-128."""
+    rng = np.random.RandomState(seed)
+    return [seq_sentence(rng, int(rng.randint(5, SEQ_BUCKETS[-1] + 1)))
+            for _ in range(n)]
+
+
+def seq_lm_body(mode):
+    """The LM's body: (N, T) tokens -> Embedding -> SwapAxis -> RNN ->
+    SwapAxis -> (N, T, H)."""
+    import mxnet_tpu_torch as mt
+
+    V, H, L = RNN_CFG["vocab"], RNN_CFG["hidden"], RNN_CFG["num_layers"]
+    emb = mt.sym.Embedding(mt.sym.Variable("data"), input_dim=V,
+                           output_dim=H, name="embed")          # (N, T, E)
+    rnn = mt.sym.RNN(mt.sym.SwapAxis(emb, dim1=0, dim2=1), state_size=H,
+                     num_layers=L, mode=mode, name=mode)       # (T, N, H)
+    return mt.sym.SwapAxis(rnn, dim1=0, dim2=1)
+
+
+def seq_lm_symbol(mode):
+    """The LM as tests/test_rnn.py:124-150 builds it: the body, then
+    Reshape(-1, H) -> FullyConnected -> SoftmaxOutput over the flattened
+    labels."""
+    import mxnet_tpu_torch as mt
+
+    V, H = RNN_CFG["vocab"], RNN_CFG["hidden"]
+    fc = mt.sym.FullyConnected(mt.sym.Reshape(seq_lm_body(mode),
+                                              shape=(-1, H)),
+                               num_hidden=V, name="cls")       # (N T, V)
+    label = mt.sym.Reshape(mt.sym.Variable("softmax_label"), shape=(-1,))
+    return mt.sym.SoftmaxOutput(fc, label, name="softmax")
+
+
+def seq_lm_parts(mode, T):
+    """The LM's body and a head ((N, T, H) -> the vocabulary's softmax,
+    (N, V, T)) at sequence length ``T``: the head gives its logits the
+    batch axis back (SoftmaxOutput's multi_output over axis 1), so a
+    module of it infers its outputs from its data alone and slices its
+    data and (N, T) labels on one batch axis."""
+    import mxnet_tpu_torch as mt
+
+    V, H = RNN_CFG["vocab"], RNN_CFG["hidden"]
+    fc = mt.sym.FullyConnected(
+        mt.sym.Reshape(mt.sym.Variable("data"), shape=(-1, H)),
+        num_hidden=V, name="cls")                               # (N T, V)
+    logits = mt.sym.transpose(mt.sym.Reshape(fc, shape=(-1, T, V)),
+                              axes=(0, 2, 1))                   # (N, V, T)
+    return seq_lm_body(mode), mt.sym.SoftmaxOutput(
+        logits, mt.sym.Variable("softmax_label"), multi_output=True,
+        name="softmax")
+
+
+def seq_bucket_module(params=None, seed=0):
+    """A bound, initialised BucketingModule over the LSTM LM with SGD:
+    Xavier from ``mt.random.seed(seed)``, or ``params`` (numpy)."""
+    import mxnet_tpu_torch as mt
+
+    N, T = RNN_CFG["batch"], SEQ_BUCKETS[-1]
+    bm = mt.mod.BucketingModule(
+        lambda key: (seq_lm_symbol("lstm"), ["data"], ["softmax_label"]),
+        default_bucket_key=T, context=module_ctx())
+    bm.bind([("data", (N, T))], [("softmax_label", (N, T))])
+    if params is None:
+        mt.random.seed(seed)
+        bm.init_params(mt.init.Xavier())
+    else:
+        bm.set_params(params, {})
+    bm.init_optimizer(optimizer="sgd", optimizer_params=SEQ_SGD)
+    return bm
+
+
+def seq_batches():
+    """The corpus's batches, in BucketSentenceIter's order (seed 0)."""
+    import mxnet_tpu_torch as mt
+
+    with module_ctx():
+        return list(mt.rnn_io.BucketSentenceIter(
+            seq_corpus(), RNN_CFG["batch"], buckets=list(SEQ_BUCKETS),
+            seed=0))
+
+
+@contextlib.contextmanager
+def scan_steps(counts, fault=False):
+    """Counts the eager scan's steps (``ops.rnn._cell_step``'s step
+    calls) in ``counts[0]``; with ``fault``, its LSTM step drops the
+    forget gate's recurrent bias (the planted fault)."""
+    from mxnet_tpu_torch.ops import rnn as rnn_op
+
+    real = rnn_op._cell_step
+
+    def cell_step(mode, H):
+        step = real(mode, H)
+
+        def counted(carry, gx, wh, bh):
+            counts[0] += 1
+            if fault:
+                bh = torch.cat([bh[:H], torch.zeros_like(bh[H:2 * H]),
+                                bh[2 * H:]])
+            return step(carry, gx, wh, bh)
+        return counted
+
+    rnn_op._cell_step = cell_step
+    try:
+        yield counts
+    finally:
+        rnn_op._cell_step = real
+
+
+def seq_step(mod, db):
+    mod.forward(db, is_train=True)
+    mod.backward()
+    mod.update()
+    return mod.get_outputs()[0]._data
+
+
+def seq_launches(before):
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
+
+    return {k: v - before[k] for k, v in frc.launches.items()
+            if v != before[k]}
+
+
+def seq_eval_nll(mod, db):
+    mod.forward(db, is_train=False)
+    return nll_of(mod.get_outputs()[0]._data, db.label[0]._data)
+
+
+def seq_param_share(got, want, p0):
+    """The worst share of SEQ_AGREE_REL's bound over every parameter."""
+    worst, worst_name = 0.0, None
+    for k in want:
+        allowed = (4 * 2.0 ** -24 * np.abs(want[k])
+                   + SEQ_AGREE_REL * float(np.abs(want[k] - p0[k]).max()))
+        share = float((np.abs(got[k] - want[k])
+                       / np.maximum(allowed, 1e-300)).max())
+        if share > worst:
+            worst, worst_name = share, k
+    return worst, worst_name
+
+
+def seq_reference_updates(p0, batches, fault=False):
+    """``batches``' updates in float64 through the eager scan: one
+    Executor a bucket, the port's SGD created as ``Module.init_optimizer``
+    creates it (rescale 1/N, the Symbol's wd multipliers), applied in
+    Module's parameter order."""
+    import mxnet_tpu_torch as mt
+
+    N, ctx = RNN_CFG["batch"], module_ctx()
+    sym = seq_lm_symbol("lstm")
+    args = sym.list_arguments()
+    names = [n for n in args if n not in ("data", "softmax_label")]
+    W = {n: mt.nd.array(p0[n], ctx=ctx, dtype=np.float64) for n in names}
+    optimizer = mt.opt.create(
+        "sgd", param_idx2name=dict(enumerate(names)), sym=sym,
+        rescale_grad=1.0 / N, **dict(SEQ_SGD))
+    updater = mt.opt.get_updater(optimizer)
+    env = os.environ.get("MXNET_TPU_FUSED_RNN")
+    os.environ["MXNET_TPU_FUSED_RNN"] = "0"
+    steps = [0]
+    try:
+        with scan_steps(steps, fault=fault):
+            for db in batches:
+                T = db.bucket_key
+                exe = sym.simple_bind(
+                    ctx, grad_req={n: "write" if n in W else "null"
+                                   for n in args},
+                    type_dict={n: np.float64 for n in args},
+                    data=(N, T), softmax_label=(N, T))
+                for n in names:
+                    exe.arg_dict[n][:] = W[n]
+                exe.arg_dict["data"][:] = db.data[0]
+                exe.arg_dict["softmax_label"][:] = db.label[0]
+                exe.forward(is_train=True)
+                exe.backward()
+                for i, n in enumerate(names):
+                    updater(i, exe.grad_dict[n], W[n])
+    finally:
+        if env is None:
+            os.environ.pop("MXNET_TPU_FUSED_RNN", None)
+        else:
+            os.environ["MXNET_TPU_FUSED_RNN"] = env
+    if not steps[0]:
+        raise SystemExit("seq_reference_updates: the scan did not run")
+    return {n: W[n].asnumpy() for n in names}
+
+
+def bucket_agreement(batches):
+    """One update in each bucket through the kernels (float32) against
+    the float64 scan, and against the planted fault."""
+    firsts = [next(b for b in batches if b.bucket_key == k)
+              for k in SEQ_BUCKETS]
+    bm = seq_bucket_module(seed=1)
+    p0 = {k: v.asnumpy() for k, v in bm.get_params()[0].items()}
+    for db in firsts:
+        seq_step(bm, db)
+    got = {k: v.asnumpy() for k, v in bm.get_params()[0].items()}
+    del bm
+    want = seq_reference_updates(p0, firsts)
+    share, name = seq_param_share(got, want, p0)
+    planted, _ = seq_param_share(
+        got, seq_reference_updates(p0, firsts, fault=True), p0)
+    return {"buckets": list(SEQ_BUCKETS),
+            "bound": "|p32 - p64| <= 4 2^-24 |p64| + 1e-4 max|p64 - p0| "
+                     "per parameter, one SGD update a bucket",
+            "worst_share_of_bound": share, "worst_param": name,
+            "planted_fault": "float64 scan with the forget gate's "
+                             "recurrent bias dropped",
+            "planted_worst_share_of_bound": planted,
+            "planted_caught": planted > 1.0,
+            "ok": share <= 1.0 and planted > 1.0}
+
+
+def train_bucketing_main_path():
+    """The LSTM LM by BucketingModule over buckets 32, 64 and 128 for one
+    pass of the corpus: 2 float32 LSTM forward and 2 backward launches a
+    step in every bucket, no bf16 launch, no scan step; the buckets'
+    arrays alias the default bucket's; the held batch's NLL falls; then
+    the agreement with the float64 scan, a profile window and a
+    Monitor step."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
+
+    N = RNN_CFG["batch"]
+    torch.cuda.reset_peak_memory_stats()
+    batches = seq_batches()
+    bm = seq_bucket_module()
+    held = next(b for b in batches if b.bucket_key == SEQ_BUCKETS[-1])
+    nll_before = seq_eval_nll(bm, held)
+    lap("bucketing_setup")
+    by_bucket = {k: {"step_ms": [], "launches": []} for k in SEQ_BUCKETS}
+    scans = [0]
+    torch.cuda.synchronize()
+    for name in frc.launches:          # the main path's window opens
+        frc.launches[name] = 0
+    with scan_steps(scans):
+        for db in batches:
+            before = dict(frc.launches)
+            ts = time.perf_counter()
+            seq_step(bm, db)
+            torch.cuda.synchronize()
+            row = by_bucket[db.bucket_key]
+            row["step_ms"].append(1e3 * (time.perf_counter() - ts))
+            row["launches"].append(seq_launches(before))
+    launches = dict(frc.launches)      # ... and closes
+    lap("bucketing_steps")
+    nll_after = seq_eval_nll(bm, held)
+    steps = len(batches)
+    per_step = {"lstm_fwd_simt": 2, "lstm_bwd_simt": 2}
+    expected = {k: 0 for k in launches}
+    expected.update({k: v * steps for k, v in per_step.items()})
+    every_step = all(d == per_step for r in by_bucket.values()
+                     for d in r["launches"])
+    # aliasing: every bucket's parameter arrays are the default bucket's
+    # storage; a switch after the updates reads the trained values
+    def ptrs(mod):
+        exe = mod._exec_group.execs[0]
+        return {n: exe.arg_dict[n]._data.data_ptr() for n in mod._param_names}
+    default = bm._buckets[SEQ_BUCKETS[-1]]
+    aliased = all(ptrs(m) == ptrs(default) for m in bm._buckets.values())
+    seq_step(bm, held)
+    trained = {n: default._exec_group.execs[0].arg_dict[n].asnumpy()
+               for n in default._param_names}
+    bm.switch_bucket(SEQ_BUCKETS[0], [("data", (N, SEQ_BUCKETS[0]))],
+                     [("softmax_label", (N, SEQ_BUCKETS[0]))])
+    small = bm._curr_module._exec_group.execs[0].arg_dict
+    got = bm.get_params()[0]
+    switch_sees = all(np.array_equal(small[n].asnumpy(), v)
+                      and np.array_equal(got[n].asnumpy(), v)
+                      for n, v in trained.items())
+    lap("bucketing_checks")
+    profile = train_profile(lambda: seq_step(bm, held), counted="rnn")
+    lap("bucketing_profile")
+    mon = mt.monitor.Monitor(1, pattern=".*weight")
+    bm.install_monitor(mon)
+    mon.tic()
+    seq_step(bm, held)
+    stats = mon.toc()
+    names = sorted({n for _, n, _ in stats})
+    monitor_ok = (names == ["cls_weight", "cls_weight_grad", "embed_weight",
+                            "embed_weight_grad"]
+                  and all(np.isfinite(v) for _, _, v in stats))
+    agree = bucket_agreement(batches)
+    lap("bucketing_agreement")
+    timed = {k: r["step_ms"][1:] for k, r in by_bucket.items()}
+    tokens = sum(N * k * len(v) for k, v in timed.items())
+    secs = sum(sum(v) for v in timed.values()) / 1e3
+    ok = (launches == expected and every_step and scans[0] == 0
+          and aliased and switch_sees and monitor_ok and agree["ok"]
+          and bool(np.isfinite(nll_after)) and nll_after < nll_before)
+    row = {"phase": "train_bucketing", "dtype": "float32",
+           "config": RNN_CFG, "mode": "lstm", "buckets": list(SEQ_BUCKETS),
+           "entry": "mod.BucketingModule(sym_gen) over rnn_io."
+                    "BucketSentenceIter (bind, init_params(Xavier), "
+                    "init_optimizer(sgd 0.01, momentum 0.9, wd 1e-5), "
+                    "forward/backward/update)",
+           "steps": steps,
+           "steps_by_bucket": {k: len(r["step_ms"])
+                               for k, r in by_bucket.items()},
+           "kernel_launches": launches, "launches_expected": expected,
+           "launches_every_step": per_step, "every_step_as_expected":
+               every_step, "scan_steps": scans[0],
+           "step_ms_by_bucket": {k: r["step_ms"]
+                                 for k, r in by_bucket.items()},
+           "step_ms_median_by_bucket": {k: statistics.median(v)
+                                        for k, v in timed.items() if v},
+           "tokens_per_s": tokens / secs if secs else None,
+           "nll_held_before": nll_before, "nll_held_after": nll_after,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "aliased_to_default_bucket": aliased,
+           "switch_after_update_sees_trained_values": switch_sees,
+           "monitor": {"names": names, "stats": len(stats), "ok": monitor_ok},
+           "agreement": agree, "profile": profile, "ok": ok}
+    emit(row)
+    del bm, batches, held
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("BucketingModule training failed its checks")
+    return row
+
+
+def seq_rows(n, seed=5):
+    """``n`` rows of the successor rule at T 128: tokens and next-token
+    labels (numpy float32, as NDArrayIter feeds them)."""
+    T = SEQ_BUCKETS[-1]
+    rng = np.random.RandomState(seed)
+    rows = np.array([seq_sentence(rng, T + 1) for _ in range(n)],
+                    np.float32)
+    return rows[:, :T], rows[:, 1:]
+
+
+def train_feedforward_main_path():
+    """FeedForward over the GRU LM: fit for one epoch of 3 batches (1
+    float32 GRU forward and 1 backward launch a layer and step), then
+    predict and score, then a save/load round trip that predicts
+    identically."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
+
+    N = RNN_CFG["batch"]
+    X, y = seq_rows(3 * N)
+    mt.random.seed(2)
+    ff = mt.model.FeedForward(
+        seq_lm_symbol("gru"), ctx=module_ctx(), num_epoch=1, epoch_size=3,
+        optimizer="sgd", initializer=mt.init.Xavier(), numpy_batch_size=N,
+        **dict(SEQ_SGD))
+    torch.cuda.synchronize()
+    for name in frc.launches:          # the main path's window opens
+        frc.launches[name] = 0
+    t0 = time.perf_counter()
+    ff.fit(X, y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(frc.launches)      # ... and closes
+    before = dict(frc.launches)
+    # predict from an iterator with labels: a module bound without the
+    # label's shape cannot infer the label's Reshape (the reference's
+    # FeedForward.predict on numpy alone fails there the same way)
+    with module_ctx():
+        probs = ff.predict(mt.io.NDArrayIter(X[:N], y[:N], N))
+    acc = float(ff.score(X, y))
+    eval_launches = seq_launches(before)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "gru_lm")
+        ff.save(prefix, 1)
+        loaded = mt.model.FeedForward.load(prefix, 1, ctx=module_ctx(),
+                                           numpy_batch_size=N)
+        with module_ctx():
+            again = loaded.predict(mt.io.NDArrayIter(X[:N], y[:N], N))
+    steps = 3
+    per_layer = {"gru_fwd_simt": RNN_CFG["num_layers"] * steps,
+                 "gru_bwd_simt": RNN_CFG["num_layers"] * steps}
+    expected = {k: 0 for k in launches}
+    expected.update(per_layer)
+    same = bool(np.array_equal(probs, again))
+    shape = tuple(probs.shape)
+    ok = (launches == expected and same and bool(np.isfinite(probs).all())
+          and shape == (N * SEQ_BUCKETS[-1], RNN_CFG["vocab"])
+          and bool(np.isfinite(acc)))
+    row = {"phase": "train_feedforward", "dtype": "float32",
+           "config": RNN_CFG, "mode": "gru",
+           "entry": "model.FeedForward(sym, ctx=gpu(0), num_epoch=1, "
+                    "optimizer='sgd', Xavier).fit(X, y), predict, score, "
+                    "save, FeedForward.load",
+           "rows": int(X.shape[0]), "steps": steps, "fit_s": fit_s,
+           "kernel_launches": launches, "launches_expected": expected,
+           "eval_launches": eval_launches, "predict_shape": shape,
+           "score_acc": acc, "save_load_predicts_identically": same,
+           "ok": ok}
+    emit(row)
+    del ff, loaded, probs, again
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("FeedForward failed its checks")
+    return row
+
+
+def module_family_check():
+    """A SequentialModule of the LM's body (Embedding and the LSTM) and
+    head (FullyConnected, SoftmaxOutput: take_labels, auto_wiring) against
+    the one-Module LM at train_bucketing's width, 3 SGD steps from the
+    same parameters and batches: parameters within SEQ_AGREE_REL's
+    bound, the kernels launched as in one Module."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
+
+    N, T = RNN_CFG["batch"], SEQ_BUCKETS[-1]
+    ctx = module_ctx()
+    data, label = [("data", (N, T))], [("softmax_label", (N, T))]
+    body, head = seq_lm_parts("lstm", T)
+    one = mt.mod.Module(head(data=body), context=ctx)
+    one.bind(data, label)
+    mt.random.seed(3)
+    one.init_params(mt.init.Xavier())
+    one.init_optimizer(optimizer="sgd", optimizer_params=SEQ_SGD)
+    p0 = module_params(one)
+    seq = mt.mod.SequentialModule()
+    seq.add(mt.mod.Module(body, label_names=[], context=ctx))
+    seq.add(mt.mod.Module(head, context=ctx), take_labels=True,
+            auto_wiring=True)
+    seq.bind(data, label)
+    seq.init_params(arg_params=p0)
+    seq.init_optimizer(optimizer="sgd", optimizer_params=SEQ_SGD)
+    X, y = seq_rows(3 * N, seed=9)
+    out_err, launches = [], []
+    for i in range(3):
+        db = mt.io.DataBatch(
+            [mt.nd.array(X[i * N:(i + 1) * N], ctx=ctx)],
+            [mt.nd.array(y[i * N:(i + 1) * N], ctx=ctx)])
+        a = seq_step(one, db)
+        before = dict(frc.launches)
+        b = seq_step(seq, db)
+        launches.append(seq_launches(before))
+        out_err.append(float((a - b).abs().max()))
+    got = {k: v.asnumpy() for k, v in seq.get_params()[0].items()}
+    share, name = seq_param_share(got, module_params(one), p0)
+    per_step = {"lstm_fwd_simt": 2, "lstm_bwd_simt": 2}
+    ok = (share <= 1.0 and sorted(got) == sorted(p0)
+          and all(d == per_step for d in launches)
+          and all(np.isfinite(out_err)))
+    emit({"phase": "module_family_check", "dtype": "float32", "steps": 3,
+          "modules": ["Module(Embedding, LSTM)",
+                      "Module(FullyConnected, SoftmaxOutput): take_labels, "
+                      "auto_wiring"],
+          "out_max_abs_err": out_err, "launches_by_step": launches,
+          "bound": "|p_seq - p_one| <= 4 2^-24 |p_one| + 1e-4 "
+                   "max|p_one - p0| per parameter",
+          "param_worst_share_of_bound": share, "worst_param": name,
+          "ok": ok})
+    del one, seq
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("SequentialModule and Module disagree")
+
+
+def ctc_card_check():
+    """CTCLoss's forward and data gradient through an Executor on the
+    card against the port on the CPU at the same float32 inputs: blank
+    first (padded labels, repeated labels) and blank last (label and data
+    lengths)."""
+    import mxnet_tpu_torch as mt
+
+    T, N, C = CTC_SHAPE
+    rng = np.random.RandomState(11)
+    x = rng.standard_normal((T, N, C)).astype(np.float32)
+    L = 4
+    first = rng.randint(1, C, (N, L)).astype(np.float32)
+    first[::3, 1] = first[::3, 0]                 # repeated labels
+    first[1::4, 2:] = -1                          # padded tails
+    last = rng.randint(0, C - 1, (N, L)).astype(np.float32)
+    last[::2, 3] = last[::2, 2]
+    label_lens = rng.randint(1, L + 1, N).astype(np.float32)
+    data_lens = rng.randint(T // 2, T + 1, N).astype(np.float32)
+    cases = {"blank_first": ({"blank_label": "first"}, first, {}),
+             "blank_last": ({"blank_label": "last", "use_label_lengths": True,
+                             "use_data_lengths": True}, last,
+                            {"data_lengths": data_lens,
+                             "label_lengths": label_lens})}
+    rows, ok = {}, True
+    for tag, (kw, lab, extra) in cases.items():
+        sym = mt.sym.ctc_loss(*[mt.sym.Variable(n) for n in (
+            "data", "label", *extra)], **kw)
+        res = {}
+        for where, ctx in (("card", module_ctx()), ("cpu", mt.cpu())):
+            arrays = {"data": x, "label": lab, **extra}
+            exe = sym.simple_bind(
+                ctx, grad_req={n: "write" if n == "data" else "null"
+                               for n in sym.list_arguments()},
+                **{k: v.shape for k, v in arrays.items()})
+            for k, v in arrays.items():
+                exe.arg_dict[k][:] = v
+            loss = exe.forward(is_train=True)[0].asnumpy()
+            exe.backward()
+            res[where] = (loss, exe.grad_dict["data"].asnumpy())
+        (l_card, g_card), (l_cpu, g_cpu) = res["card"], res["cpu"]
+        loss_share = float(np.abs(l_card - l_cpu).max()
+                           / (CTC_REL * np.abs(l_cpu).max()))
+        grad_share = float(np.abs(g_card - g_cpu).max()
+                           / (CTC_REL * np.abs(g_cpu).max()))
+        good = (loss_share <= 1.0 and grad_share <= 1.0
+                and bool(np.isfinite(l_card).all())
+                and bool(np.isfinite(g_card).all()))
+        rows[tag] = {"loss_share_of_bound": loss_share,
+                     "grad_share_of_bound": grad_share,
+                     "loss_mean": float(l_cpu.mean()), "ok": good}
+        ok = ok and good
+    emit({"phase": "ctc_card_check", "shape_TNC": CTC_SHAPE,
+          "bound": "max|card - cpu| <= 2e-5 max|cpu|, loss and data "
+                   "gradient", "cases": rows, "ok": ok})
+    if not ok:
+        raise SystemExit("CTCLoss: card vs CPU disagree")
+
+
 def overhead_main(args):
     """``--overhead``: the telemetry overhead arms alone, on the
     package ``args.package`` (default: this checkout's)."""
@@ -7582,6 +8198,29 @@ def train_module_main():
     return 0
 
 
+def train_seq_main():
+    """``--train-seq``: the fused-RNN library built, the float32 kernel
+    checks at the main shape and against cuDNN, then ``train_bucketing``,
+    ``train_feedforward``, ``module_family_check``, ``ctc_card_check`` and
+    the float32 RNN kernels' timings."""
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
+
+    frc._lib()
+    card = card_line()
+    profiler_warmup()
+    for mode in ("lstm", "gru"):
+        check_rnn(mode, "main", torch.float32)
+        cudnn_check(mode)
+    train_bucketing_main_path()
+    train_feedforward_main_path()
+    module_family_check()
+    ctc_card_check()
+    time_rnn("lstm", torch.float32)
+    time_rnn("gru", torch.float32)
+    print(card)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
@@ -7606,6 +8245,12 @@ def main():
                     help="run only the float32 flash checks, the train "
                          "phase, the float32 gradient check and the "
                          "Module phases")
+    ap.add_argument("--train-seq", dest="train_seq_only",
+                    action="store_true",
+                    help="run only the float32 RNN checks, the sequence "
+                         "phases (BucketingModule, FeedForward, "
+                         "SequentialModule, CTCLoss) and the float32 RNN "
+                         "timings")
     ap.add_argument("--aot-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--aot-manifest", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--aot-child-tp", type=int, default=1,
@@ -7629,6 +8274,8 @@ def main():
         return aot_tp_main()
     if args.train_module_only:
         return train_module_main()
+    if args.train_seq_only:
+        return train_seq_main()
     if args.fleet:
         return fleet_main()
     from mxnet_tpu_torch import _build
@@ -7779,6 +8426,13 @@ def main():
     lap("rnn_grad_check")
     rnn_small_train_check()
     lap("rnn_small_check")
+    seq = {"lstm": train_bucketing_main_path(),
+           "gru": train_feedforward_main_path()}
+    lap("train_seq")
+    module_family_check()
+    lap("module_family_check")
+    ctc_card_check()
+    lap("ctc_card_check")
 
     timings = {}
     for dtype in ("bfloat16", "float32", "int8", "int8_bf16q"):
@@ -7797,6 +8451,8 @@ def main():
     flash_t32 = time_flash(FLASH_SHAPES["train"], torch.float32)
     lap("flash_time")
     rnn_t = {**time_rnn("lstm"), **time_rnn("gru")}
+    rnn_t32 = {**time_rnn("lstm", torch.float32),
+               **time_rnn("gru", torch.float32)}
     lap("rnn_time")
     main_t = timings[("decode", "bfloat16")]
     q8_t = timings[("decode", "int8_bf16q")]
@@ -7938,6 +8594,27 @@ def main():
         entry.update({k: t[k] for k in (
             "ms_simt", "cluster_size", "hs", "split_barrier_floor_ms",
             "ptxas")})
+        # the float32 variant: the Module family's path (train_bucketing's
+        # LSTM, train_feedforward's GRU)
+        t32 = rnn_t32[kname]
+        err32 = rnn_rows[(mode, "main", torch.float32)]["max_abs_err"]
+        n32 = seq[mode]["kernel_launches"][f"{kname}_simt"]
+        entry["launches_by_path"] = {
+            f"train_{mode}": entry["launches"],
+            ("train_bucketing" if mode == "lstm" else "train_feedforward"):
+                n32}
+        entry["float32"] = {
+            "name": f"{kname}_simt", "route": "cuda",
+            "cuda_kernel": t32["cuda_kernel"],
+            "source": f"mxnet_tpu_torch/{t32['source']}",
+            "replaces": replaces, "launches": n32,
+            "max_abs_err": max(err32[o] for o in RNN_OUTPUTS[kind]
+                               if o in err32),
+            "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+            "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+            "library_ms": t32["library_ms"],
+            "barrier_floor_ms": t32["barrier_floor_ms"],
+            "ptxas": t32["ptxas"]}
         kernels["kernels"].append(entry)
     REPORT["kernels"] = kernels
     REPORT["card"] = card

@@ -12,8 +12,11 @@ Hopper fused-LSTM and fused-GRU kernels (``ops.fused_rnn_cuda``).
 
 The training frontend is the reference's: ``nd`` (NDArray), ``sym``
 (Symbol, generated from the op registry), ``Executor``, the optimizers,
-metrics, callbacks, ``io.NDArrayIter`` and ``mod.Module``; a GPT Symbol
-(``models.gpt_symbol``) trains through it on the same flash kernels.
+metrics, callbacks, ``io.NDArrayIter``, ``mod.Module``,
+``mod.BucketingModule``, ``mod.SequentialModule``, the Python modules,
+``model.FeedForward``, ``monitor.Monitor`` and ``rnn_io``; a GPT Symbol
+(``models.gpt_symbol``) trains through it on the same flash kernels, and
+an RNN-op language model on the fused-LSTM/GRU kernels.
 Contexts default to ``gpu(0)``.
 
 The package imports ``torch`` and ``numpy`` only — never ``jax`` and
@@ -33,7 +36,7 @@ from . import (context, convert, flops, initializer, models,  # noqa: E402
 from . import registry, param, random  # noqa: E402
 from . import ndarray, symbol, attribute, graph, executor  # noqa: E402
 from . import lr_scheduler, optimizer, metric, callback, io  # noqa: E402
-from . import model, module  # noqa: E402
+from . import model, module, executor_manager, rnn_io  # noqa: E402
 from . import ndarray as nd, symbol as sym, module as mod  # noqa: E402
 from . import initializer as init, optimizer as opt  # noqa: E402
 from .base import MXNetError  # noqa: E402
@@ -52,6 +55,6 @@ __all__ = ["aot", "base", "context", "convert", "flops", "fleet",
            "registry", "param", "random", "ndarray", "nd", "symbol", "sym",
            "attribute", "graph", "executor", "Executor", "lr_scheduler",
            "optimizer", "opt", "metric", "callback", "io", "model",
-           "module", "mod", "init", "MXNetError", "Context", "cpu",
-           "cpu_pinned", "gpu", "tpu", "current_context", "num_devices",
+           "module", "mod", "executor_manager", "rnn_io", "init",
+           "MXNetError", "Context", "cpu", "cpu_pinned", "gpu", "tpu", "current_context", "num_devices",
            "AttrScope", "Group", "Variable"]

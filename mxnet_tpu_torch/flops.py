@@ -1,15 +1,17 @@
-"""Analytic FLOP counts of GPT serving, and the card's peak rates.
+"""Analytic FLOP counts of Symbol graphs and GPT serving, and the card's
+peak rates.
 
-The port of ``mxnet_tpu/flops.py``'s serving half: the closed forms
-:func:`gpt_token_flops` and :func:`gpt_prefill_flops` are copies (one
-MAC = 2 FLOPs, elementwise free), the MFU and MBU denominators of the
-serve engine's performance attribution.  :func:`peak_flops_per_chip`
+The port of ``mxnet_tpu/flops.py``: :func:`count_flops` walks a Symbol
+graph's matmul-dominant nodes (Convolution, Deconvolution,
+FullyConnected, FlashAttention, the dot family) under concrete input
+shapes, as the reference's; the closed forms :func:`gpt_token_flops` and
+:func:`gpt_prefill_flops` are copies (one MAC = 2 FLOPs, elementwise
+free), the MFU and MBU denominators of the serve engine's performance
+attribution.  :func:`peak_flops_per_chip`
 and :func:`peak_hbm_bytes_per_chip` read the CUDA card's name from
 torch (NVIDIA data-sheet figures: dense bf16 tensor-core FLOP/s and HBM
 bytes/s) and give None for a card they do not know, or for the CPU, as
-the reference does off TPU.  :func:`count_flops` (the reference's walk
-of a Symbol graph's per-op FLOPs) is not ported yet (ROADMAP §A15b): it
-raises.
+the reference does off TPU.
 """
 
 from __future__ import annotations
@@ -18,11 +20,68 @@ __all__ = ["count_flops", "peak_flops_per_chip", "peak_hbm_bytes_per_chip",
            "gpt_token_flops", "gpt_prefill_flops"]
 
 
-def count_flops(symbol, **input_shapes):
-    """Forward-pass FLOPs of a Symbol graph: not ported."""
-    raise NotImplementedError(
-        "flops.count_flops (per-op FLOPs of a Symbol graph) is not ported "
-        "yet (ROADMAP §A15b)")
+def _prod(t):
+    out = 1
+    for v in t:
+        out *= int(v)
+    return out
+
+
+def count_flops(symbol, **input_shapes) -> int:
+    """Forward-pass FLOPs of ``symbol`` under the given input shapes
+    (one MAC = 2 FLOPs).
+
+    Counts Convolution / Deconvolution / FullyConnected / FlashAttention
+    / dot-family nodes; everything else (the RNN op included, as in the
+    reference) is treated as free.
+    """
+    internals = symbol.get_internals()
+    _, out_shapes, _ = internals.infer_shape_partial(**input_shapes)
+    heads = internals._heads
+    shape_of = {}  # (node, idx) -> shape
+    for (node, idx), shp in zip(heads, out_shapes):
+        shape_of[(node, idx)] = shp
+
+    total = 0
+    for node, idx in heads:
+        if idx != 0 or node.is_variable:
+            continue
+        op_name = node.op.name
+        params = node.params
+        out_shp = shape_of[(node, idx)]
+        in_shp = (shape_of.get(node.inputs[0]) if node.inputs else None)
+        if out_shp is None or in_shp is None:
+            continue
+        if op_name == "Convolution":
+            kh, kw = params.kernel
+            groups = getattr(params, "num_group", 1) or 1
+            # output spatial positions x per-position dot of size
+            # kh*kw*Cin/groups; layout-agnostic via element counts
+            cin = (in_shp[-1] if getattr(params, "layout", "NCHW") == "NHWC"
+                   else in_shp[1])
+            total += 2 * _prod(out_shp) * kh * kw * cin // groups
+        elif op_name == "Deconvolution":
+            # transposed conv MACs scale with the INPUT extent: every
+            # input position scatters a kh*kw*Cout patch
+            kh, kw = params.kernel
+            groups = getattr(params, "num_group", 1) or 1
+            total += (2 * _prod(in_shp) * kh * kw
+                      * params.num_filter // groups)
+        elif op_name == "FullyConnected":
+            in_dim = _prod(in_shp[1:])
+            total += 2 * _prod(out_shp) * in_dim
+        elif op_name == "FlashAttention":
+            # (B, H, T, D): QK^T and PV are each 2*B*H*T^2*D
+            b, h, t, d = in_shp
+            total += 4 * b * h * t * t * d
+        elif op_name in ("dot", "batch_dot", "linalg_gemm2"):
+            rhs_shp = shape_of.get(node.inputs[1])
+            if rhs_shp:
+                # contraction length, transpose-flag agnostic:
+                # |lhs|*|rhs| = (m k)(k n) and |out| = m n  =>  k^2
+                k2 = (_prod(in_shp) * _prod(rhs_shp)) / max(_prod(out_shp), 1)
+                total += int(2 * _prod(out_shp) * (k2 ** 0.5))
+    return int(total)
 
 
 def gpt_token_flops(n_layers, d_model, num_heads, head_dim, kv_heads,

@@ -6,8 +6,8 @@ between the packages in both directions).
 
 One device needs no kvstore: ``_create_kvstore`` returns ``(None,
 False)`` for it, and every kvstore (several devices, a ``dist_*`` or a
-``KVStore`` object) raises, naming ROADMAP §A18.  ``FeedForward`` waits
-for A15b.
+``KVStore`` object) raises, naming ROADMAP §A18.  ``FeedForward`` is
+the reference's estimator over ``module.Module``.
 """
 
 from __future__ import annotations
@@ -19,9 +19,11 @@ import threading
 import numpy as np
 
 from . import context as ctx_mod
+from . import io as io_mod
 from . import ndarray as nd
 from . import symbol as sym_mod
 from .base import MXNetError
+from .initializer import Uniform
 from .ops.op import not_ported
 
 __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint"]
@@ -167,7 +169,135 @@ def load_checkpoint(prefix, epoch):
 
 
 class FeedForward:
-    """The reference's sklearn-style estimator; waits for A15b."""
+    """The sklearn-style estimator (MXNet's model.py:386 FeedForward),
+    over the Module API as the reference's: ``fit``, ``predict``,
+    ``score``, ``save``, ``load`` and ``create`` with its constructor's
+    surface.  Numpy inputs become ``NDArrayIter``s of
+    ``numpy_batch_size`` rows (shuffled, ``roll_over``, for training);
+    ``epoch_size`` is kept and, as in the reference, unused: an epoch is
+    one pass over the data."""
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("model.FeedForward")
+    def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
+                 optimizer="sgd", initializer=Uniform(0.01), numpy_batch_size=128,
+                 arg_params=None, aux_params=None, allow_extra_params=False,
+                 begin_epoch=0, **kwargs):
+        self.symbol = symbol
+        if ctx is None:
+            ctx = [ctx_mod.current_context()]
+        elif isinstance(ctx, ctx_mod.Context):
+            ctx = [ctx]
+        self.ctx = ctx
+        self.num_epoch = num_epoch
+        self.epoch_size = epoch_size
+        self.optimizer = optimizer
+        self.initializer = initializer
+        self.numpy_batch_size = numpy_batch_size
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.allow_extra_params = allow_extra_params
+        self.begin_epoch = begin_epoch
+        self.kwargs = dict(kwargs)
+        self._module = None
+
+    # -- helpers -----------------------------------------------------------
+    def _init_iter(self, X, y, is_train):
+        if isinstance(X, io_mod.DataIter):
+            return X
+        X = np.asarray(X)
+        if y is not None:
+            y = np.asarray(y)
+        batch_size = min(self.numpy_batch_size, X.shape[0])
+        if is_train:
+            if y is None:
+                raise ValueError("y is required for training")
+            return io_mod.NDArrayIter(X, y, batch_size, shuffle=True,
+                                      last_batch_handle="roll_over")
+        return io_mod.NDArrayIter(X, y, batch_size, shuffle=False)
+
+    def _get_module(self, data):
+        from .module import Module
+
+        data_names = [d[0] for d in data.provide_data]
+        label_names = [l[0] for l in data.provide_label]
+        return Module(self.symbol, data_names=data_names,
+                      label_names=label_names, context=self.ctx)
+
+    # -- public API --------------------------------------------------------
+    def fit(self, X, y=None, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            logger=None, work_load_list=None, monitor=None,
+            eval_end_callback=None, eval_batch_end_callback=None):
+        data = self._init_iter(X, y, is_train=True)
+        if eval_data is not None and not isinstance(eval_data, io_mod.DataIter):
+            ex, ey = eval_data
+            eval_data = self._init_iter(np.asarray(ex), np.asarray(ey), False)
+        self._module = self._get_module(data)
+        opt_params = dict(self.kwargs)
+        self._module.fit(data, eval_data=eval_data, eval_metric=eval_metric,
+                         epoch_end_callback=epoch_end_callback,
+                         batch_end_callback=batch_end_callback,
+                         kvstore=kvstore, optimizer=self.optimizer,
+                         optimizer_params=opt_params,
+                         eval_end_callback=eval_end_callback,
+                         eval_batch_end_callback=eval_batch_end_callback,
+                         initializer=self.initializer,
+                         arg_params=self.arg_params, aux_params=self.aux_params,
+                         allow_missing=True, begin_epoch=self.begin_epoch,
+                         num_epoch=self.num_epoch, monitor=monitor)
+        self.arg_params, self.aux_params = self._module.get_params()
+        return self
+
+    def predict(self, X, num_batch=None, return_data=False, reset=True):
+        data = self._init_iter(X, None, is_train=False)
+        if self._module is None or not self._module.binded:
+            self._module = self._get_module(data)
+            self._module.bind(data.provide_data, data.provide_label,
+                              for_training=False)
+            self._module.set_params(self.arg_params, self.aux_params or {},
+                                    allow_missing=True)
+        out = self._module.predict(data, num_batch=num_batch, reset=reset)
+        if isinstance(out, list):
+            return [o.asnumpy() for o in out]
+        return out.asnumpy()
+
+    def score(self, X, y=None, eval_metric="acc", num_batch=None, reset=True):
+        data = self._init_iter(X, y, is_train=False)
+        if self._module is None or not self._module.binded:
+            self._module = self._get_module(data)
+            self._module.bind(data.provide_data, data.provide_label,
+                              for_training=False)
+            self._module.set_params(self.arg_params, self.aux_params or {},
+                                    allow_missing=True)
+        res = self._module.score(data, eval_metric, num_batch=num_batch,
+                                 reset=reset)
+        return res[0][1]
+
+    def save(self, prefix, epoch=None):
+        if epoch is None:
+            epoch = self.num_epoch
+        save_checkpoint(prefix, epoch, self.symbol, self.arg_params or {},
+                        self.aux_params or {})
+
+    @staticmethod
+    def load(prefix, epoch, ctx=None, **kwargs):
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        return FeedForward(symbol, ctx=ctx, arg_params=arg_params,
+                           aux_params=aux_params, begin_epoch=epoch, **kwargs)
+
+    @staticmethod
+    def create(symbol, X, y=None, ctx=None, num_epoch=None, epoch_size=None,
+               optimizer="sgd", initializer=Uniform(0.01), eval_data=None,
+               eval_metric="acc", epoch_end_callback=None,
+               batch_end_callback=None, kvstore="local", logger=None,
+               work_load_list=None, eval_end_callback=None,
+               eval_batch_end_callback=None, **kwargs):
+        model = FeedForward(symbol, ctx=ctx, num_epoch=num_epoch,
+                            epoch_size=epoch_size, optimizer=optimizer,
+                            initializer=initializer, **kwargs)
+        model.fit(X, y, eval_data=eval_data, eval_metric=eval_metric,
+                  epoch_end_callback=epoch_end_callback,
+                  batch_end_callback=batch_end_callback, kvstore=kvstore,
+                  logger=logger, work_load_list=work_load_list,
+                  eval_end_callback=eval_end_callback,
+                  eval_batch_end_callback=eval_batch_end_callback)
+        return model

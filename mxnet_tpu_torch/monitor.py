@@ -1,26 +1,88 @@
-"""Serving monitor: the port of ``mxnet_tpu/monitor.py``'s
-``ServeMonitor``.
+"""Monitors: the port of ``mxnet_tpu/monitor.py``.
+
+``Monitor`` installs a per-output callback on executors
+(``Executor.set_monitor_callback``) and, every ``interval`` steps,
+collects a statistic of each node output, argument and argument
+gradient whose name matches ``pattern`` (``tic`` before the step,
+``toc``/``toc_print`` after it).  Its default statistic is the mean
+absolute value; the reference's default, ``abs(x)`` of an NDArray,
+raises there (its NDArray has no ``__abs__``), so the port computes it
+on the host copy.
 
 ``ServeMonitor`` logs the reference's line, byte for byte on the same
 ``Engine.stats()`` values, and samples the process-global time-series
-ring (``MXTPU_TIMESERIES``) on each log tick.  The training ``Monitor``
-(tensor-stat hooks on executors) comes with the rest of the training
-framework (ROADMAP §A15b) and raises on access until then.
+ring (``MXTPU_TIMESERIES``) on each log tick.
 """
 
 from __future__ import annotations
 
 import logging
+import re
 
-__all__ = ["ServeMonitor"]
+import numpy as np
+
+__all__ = ["Monitor", "ServeMonitor"]
 
 
-def __getattr__(name):
-    if name == "Monitor":
-        raise NotImplementedError(
-            "mxnet_tpu_torch.monitor.Monitor (tensor-stat hooks on "
-            "executors) is not ported yet (ROADMAP §A item 15: A15b)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+def _mean_abs(x):
+    return np.abs(x.asnumpy()).mean()
+
+
+class Monitor:
+    """Tensor statistics of executors every ``interval`` steps
+    (reference ``monitor.Monitor``): ``stat_func(NDArray)`` of each
+    matching node output during the forward, and of each matching
+    argument and gradient (``<name>_grad``) at ``toc``."""
+
+    def __init__(self, interval, stat_func=None, pattern=".*", sort=False):
+        self.stat_func = stat_func or _mean_abs
+        self.interval = interval
+        self.activated = False
+        self.queue = []
+        self.step = 0
+        self.exes = []
+        self.re_prog = re.compile(pattern)
+        self.sort = sort
+
+        def stat_helper(name, arr):
+            if not self.activated or not self.re_prog.match(name):
+                return
+            self.queue.append((self.step, name, self.stat_func(arr)))
+
+        self.stat_helper = stat_helper
+
+    def install(self, exe):
+        exe.set_monitor_callback(self.stat_helper)
+        self.exes.append(exe)
+
+    def tic(self):
+        if self.step % self.interval == 0:
+            self.queue = []
+            self.activated = True
+        self.step += 1
+
+    def toc(self):
+        """The collected ``(step, name, stat)`` triples of the step that
+        ``tic`` activated, arguments and gradients appended; [] when it
+        did not activate one."""
+        if not self.activated:
+            return []
+        self.activated = False
+        for exe in self.exes:
+            for name, array in zip(exe.arg_names, exe.arg_arrays):
+                if self.re_prog.match(name):
+                    self.queue.append((self.step, name, self.stat_func(array)))
+            for name, array in zip(exe.arg_names, exe.grad_arrays):
+                if array is not None and self.re_prog.match(name):
+                    self.queue.append((self.step, name + "_grad",
+                                       self.stat_func(array)))
+        res = sorted(self.queue, key=lambda x: x[1]) if self.sort else self.queue
+        self.queue = []
+        return res
+
+    def toc_print(self):
+        for n, k, v_list in self.toc():
+            logging.info("Batch: %7d %30s %s", n, k, str(v_list))
 
 
 class ServeMonitor:

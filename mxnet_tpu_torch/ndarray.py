@@ -44,10 +44,15 @@ _pysum = sum
 
 
 def _host(t):
-    """A tensor's values as a numpy array (bfloat16 as float32)."""
+    """A tensor's values as a new numpy array (bfloat16 as float32),
+    never a view of the tensor's storage: a later in-place update of
+    the array leaves it as it was, as the reference's copy to the host
+    does."""
     t = t.detach()
     if t.dtype == torch.bfloat16:
-        t = t.float()
+        return t.float().cpu().numpy()
+    if t.device.type == "cpu":
+        return t.numpy().copy()
     return t.cpu().numpy()
 
 

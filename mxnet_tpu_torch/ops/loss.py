@@ -9,9 +9,10 @@ SoftmaxOutput's backward is ``(softmax(x) - onehot(label)) * grad_scale``
 The registered loss ops of the training frontend are the reference's:
 ``SoftmaxOutput`` and ``SoftmaxCELoss`` run the functions here; the
 regression outputs, ``MakeLoss``, ``BlockGrad``, ``SVMOutput`` and
-``softmax_cross_entropy`` declare their backward, run through
-``op.apply_op``'s autograd Function; ``CTCLoss`` raises when run
-(ROADMAP §A15b).
+``softmax_cross_entropy`` and ``CTCLoss`` (with its aliases ``ctc_loss``,
+``WarpCTC`` and ``_contrib_CTCLoss``: the reference's log-space alpha
+recursion in plain torch ops) declare their backward, run through
+``op.apply_op``'s autograd Function.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from ..param import Params, field
-from .op import OpDef, not_ported, register_op, register_simple_op
+from .op import OpDef, register_op, register_simple_op
 
 __all__ = ["SoftmaxOutput", "SoftmaxCELoss"]
 
@@ -440,10 +441,75 @@ class CTCLossParam(Params):
     padding_mask = field(float, default=-1.0)
 
 
+def _ctc_nll(log_probs, labels, data_lens, label_lens, blank):
+    """Negative log likelihood under CTC of each (T, C) sequence of
+    ``log_probs`` (T, N, C): the reference's log-space alpha recursion
+    (forward algorithm) over the extended label sequence blank, l1,
+    blank, l2, ..., blank, the whole batch at once.  ``labels`` (N, L)
+    int64, ``data_lens`` and ``label_lens`` (N,) int64.  -1e30 stands for
+    log 0, as in the reference, so no gradient meets an infinity."""
+    T, N, _ = log_probs.shape
+    S = 2 * labels.shape[1] + 1
+    dev, dt = log_probs.device, log_probs.dtype
+    neg_inf = torch.full((), -1e30, dtype=dt, device=dev)
+    z = torch.full((N, S), blank, dtype=torch.int64, device=dev)
+    z[:, 1::2] = labels
+    s_idx = torch.arange(S, device=dev)
+    valid_s = s_idx[None] < (2 * label_lens + 1)[:, None]
+    # a skip over a blank is allowed where z_s != blank and z_s != z_{s-2}
+    z_shift2 = torch.cat([torch.full((N, 2), -1, dtype=torch.int64,
+                                     device=dev), z[:, :-2]], 1)
+    can_skip = (z != blank) & (z != z_shift2)
+    lp_z = log_probs.gather(2, z[None].expand(T, N, S))       # (T, N, S)
+    # alpha_0: the first blank, and the first label where there is one
+    start = (s_idx == 0)[None] | ((s_idx == 1)[None]
+                                  & (label_lens > 0)[:, None])
+    alpha = torch.where(start & valid_s, lp_z[0], neg_inf)
+    pad1 = neg_inf.expand(N, 1)
+    pad2 = neg_inf.expand(N, 2)
+    for t in range(1, T):
+        a2 = torch.cat([pad1, alpha[:, :-1]], 1)
+        a3 = torch.where(can_skip, torch.cat([pad2, alpha[:, :-2]], 1),
+                         neg_inf)
+        new = torch.logaddexp(torch.logaddexp(alpha, a2), a3) + lp_z[t]
+        new = torch.where(valid_s, new, neg_inf)
+        # frozen past each sequence's end
+        alpha = torch.where((t < data_lens)[:, None], new, alpha)
+    end = 2 * label_lens      # the final blank of each extended sequence
+    a_last = alpha.gather(1, end[:, None])[:, 0]
+    a_prev = alpha.gather(1, (end - 1).clamp_min(0)[:, None])[:, 0]
+    a_prev = torch.where(label_lens > 0, a_prev, neg_inf)
+    return -torch.logaddexp(a_last, a_prev)
+
+
+def _ctc_loss(params, inputs):
+    data, label = inputs[0], inputs[1]
+    T, N, C = data.shape
+    blank = 0 if params.blank_label == "first" else C - 1
+    log_probs = torch.log_softmax(data, dim=-1)
+    idx = 2
+    if params.use_data_lengths:
+        data_lens = inputs[idx].to(torch.int64)
+        idx += 1
+    else:
+        data_lens = torch.full((N,), T, dtype=torch.int64, device=data.device)
+    if params.use_label_lengths:
+        label_lens = inputs[idx].to(torch.int64)
+    else:
+        label_lens = (label != params.padding_mask).sum(1)
+    return _ctc_nll(log_probs, label.clamp_min(0).to(torch.int64),
+                    data_lens, label_lens, blank)
+
+
 @register_op("CTCLoss", aliases=("ctc_loss", "WarpCTC", "_contrib_CTCLoss"))
 class CTCLossOp(OpDef):
-    """The reference's ``CTCLoss`` signature and shape rules; running it
-    waits for A15b."""
+    """Connectionist Temporal Classification loss, the reference's
+    ``CTCLoss``: data (T, N, C) unnormalized activations, label (N, L)
+    padded with ``padding_mask`` (or exact with ``use_label_lengths``),
+    optional data_lengths and label_lengths (N,); the output is the loss
+    (N,).  The backward is the exact CTC gradient with respect to data,
+    the recursion differentiated by autograd; like the reference's it
+    ignores the head gradient."""
 
     param_cls = CTCLossParam
     is_loss = True
@@ -470,7 +536,14 @@ class CTCLossOp(OpDef):
         return shapes, [(N,)], []
 
     def forward(self, params, inputs, aux, train, key):
-        raise not_ported("the CTCLoss op")
+        return [_ctc_loss(params, inputs)], []
+
+    def backward(self, params, out_grads, inputs, outputs):
+        with torch.enable_grad():
+            data = inputs[0].detach().requires_grad_()
+            loss = _ctc_loss(params, [data] + list(inputs[1:]))
+            grad, = torch.autograd.grad(loss.sum(), data)
+        return [grad] + [torch.zeros_like(x) for x in inputs[1:]]
 
 
 def _softmax_cross_entropy(data, label):

@@ -15,6 +15,11 @@ the fused kernels (``ops/fused_lstm``, ``ops/fused_gru``) where
 :func:`_fused_dispatch` takes them, else the eager scan of
 :func:`_cell_step`.  The reverse direction flips gx before the
 recurrence and ys after it.
+
+:func:`RNN` is the op's function over torch tensors; :class:`RNNOp`
+registers it as the reference's ``RNN`` Symbol op (its arguments,
+outputs and shape rule), so a bound graph's LSTM and GRU layers take the
+same path.
 """
 
 from __future__ import annotations
@@ -23,31 +28,37 @@ import os
 
 import torch
 
-__all__ = ["RNN", "RNNParam", "rnn_infer_shape"]
+from ..param import Params, field
+from .op import OpDef, register_op
+
+__all__ = ["RNN", "RNNParam", "RNNOp", "rnn_infer_shape"]
 
 _GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
 
 
-class RNNParam:
-    """The reference's ``RNNParam`` fields and checks."""
+class RNNParam(Params):
+    """The reference's ``RNNParam`` fields and checks; positional
+    arguments fill the fields in order."""
 
-    def __init__(self, state_size, num_layers, mode, bidirectional=False,
-                 p=0.0, state_outputs=False):
-        if int(state_size) < 1:
+    state_size = field(int, required=True)
+    num_layers = field(int, required=True)
+    mode = field(str, required=True)
+    bidirectional = field(bool, default=False)
+    p = field(float, default=0.0, doc="dropout between layers")
+    state_outputs = field(bool, default=False)
+
+    def __init__(self, *args, **kwargs):
+        kwargs.update(zip(self.argument_names(), args))
+        super().__init__(**kwargs)
+        if self.state_size < 1:
             raise ValueError(f"RNN: state_size must be >= 1 "
-                             f"(got {state_size})")
-        if int(num_layers) < 1:
+                             f"(got {self.state_size})")
+        if self.num_layers < 1:
             raise ValueError(f"RNN: num_layers must be >= 1 "
-                             f"(got {num_layers})")
-        if mode not in _GATES:
+                             f"(got {self.num_layers})")
+        if self.mode not in _GATES:
             raise ValueError(f"RNN: mode must be one of {tuple(_GATES)} "
-                             f"(got {mode!r})")
-        self.state_size = int(state_size)
-        self.num_layers = int(num_layers)
-        self.mode = mode
-        self.bidirectional = bool(bidirectional)
-        self.p = float(p)
-        self.state_outputs = bool(state_outputs)
+                             f"(got {self.mode!r})")
 
 
 def _dirs(params):
@@ -172,50 +183,46 @@ def _run_direction(mode, x, h0, c0, wi, wh, bi, bh, reverse):
     return ys, hT, cT
 
 
-def rnn_infer_shape(data_shape, state_size, num_layers, mode,
-                    bidirectional=False, state_outputs=False):
-    """The reference op's ``infer_shape``: ``(argument shapes, output
-    shapes)`` for data (T, N, input_size), arguments in the op's order
+def _infer_shape(params, data_shape):
+    """The reference op's ``infer_shape`` for data (T, N, input_size):
+    ``(argument shapes, output shapes)``, arguments in the op's order
     (data, parameters, state[, state_cell])."""
-    params = RNNParam(state_size, num_layers, mode, bidirectional,
-                      state_outputs=state_outputs)
     T, N, input_size = data_shape
     H, D, L = params.state_size, _dirs(params), params.num_layers
     state_shape = (L * D, N, H)
     args = [tuple(data_shape), (_weight_size(params, input_size),),
             state_shape]
-    if mode == "lstm":
+    if params.mode == "lstm":
         args.append(state_shape)
     outs = [(T, N, H * D)]
-    if state_outputs:
+    if params.state_outputs:
         outs.append(state_shape)
-        if mode == "lstm":
+        if params.mode == "lstm":
             outs.append(state_shape)
     return args, outs
 
 
-def RNN(data, parameters, state, state_cell=None, *, state_size, num_layers,
-        mode, bidirectional=False, p=0.0, state_outputs=False):
-    """The reference ``RNN`` op's forward: a multi-layer, optionally
-    bidirectional RNN over time-major ``data`` (T, N, input_size).
+def rnn_infer_shape(data_shape, state_size, num_layers, mode,
+                    bidirectional=False, state_outputs=False):
+    """The reference op's ``infer_shape``: ``(argument shapes, output
+    shapes)`` for data (T, N, input_size), arguments in the op's order
+    (data, parameters, state[, state_cell])."""
+    return _infer_shape(RNNParam(state_size, num_layers, mode, bidirectional,
+                                 state_outputs=state_outputs), data_shape)
 
-    ``parameters`` is the flat cuDNN-layout vector, ``state`` (and, for
-    ``mode="lstm"``, ``state_cell``) the (L*D, N, H) initial states.
-    Returns the output (T, N, H*D); with ``state_outputs`` the tuple
-    ``(output, hN[, cN])``.  Differentiable.  Grad mode says whether this
-    is a training pass: dropout between layers (``p > 0``) when training
-    is not ported yet and raises; under ``torch.no_grad`` ``p`` has no
-    effect, as in the reference outside training."""
-    params = RNNParam(state_size, num_layers, mode, bidirectional, p,
-                      state_outputs)
-    if params.p > 0 and torch.is_grad_enabled() and params.num_layers > 1:
+
+def _rnn(params, data, parameters, state, state_cell, train):
+    """The op's forward: the outputs' list (output, then hN and cN with
+    ``state_outputs``)."""
+    mode = params.mode
+    if params.p > 0 and train and params.num_layers > 1:
         raise NotImplementedError(
             "RNN(p>0): dropout between layers when training is not ported "
             "yet (ROADMAP §A16)")
     if mode == "lstm" and state_cell is None:
         raise ValueError("RNN(mode='lstm') needs state_cell")
     T, N, input_size = data.shape
-    H, D, L = params.state_size, _dirs(params), params.num_layers
+    D, L = _dirs(params), params.num_layers
     if parameters.numel() != _weight_size(params, input_size):
         raise ValueError(f"RNN: parameters hold {parameters.numel()} values, "
                          f"the layout needs "
@@ -237,9 +244,64 @@ def RNN(data, parameters, state, state_cell=None, *, state_size, num_layers,
             if cT is not None:
                 cTs.append(cT)
         x = torch.cat(outs_dir, dim=-1) if D == 2 else outs_dir[0]
-    if not params.state_outputs:
-        return x
-    outputs = [x, torch.stack(hTs).to(x.dtype)]
-    if mode == "lstm":
-        outputs.append(torch.stack(cTs).to(x.dtype))
-    return tuple(outputs)
+    outputs = [x]
+    if params.state_outputs:
+        outputs.append(torch.stack(hTs).to(x.dtype))
+        if mode == "lstm":
+            outputs.append(torch.stack(cTs).to(x.dtype))
+    return outputs
+
+
+def RNN(data, parameters, state, state_cell=None, *, state_size, num_layers,
+        mode, bidirectional=False, p=0.0, state_outputs=False):
+    """The reference ``RNN`` op's forward: a multi-layer, optionally
+    bidirectional RNN over time-major ``data`` (T, N, input_size).
+
+    ``parameters`` is the flat cuDNN-layout vector, ``state`` (and, for
+    ``mode="lstm"``, ``state_cell``) the (L*D, N, H) initial states.
+    Returns the output (T, N, H*D); with ``state_outputs`` the tuple
+    ``(output, hN[, cN])``.  Differentiable.  Grad mode says whether this
+    is a training pass: dropout between layers (``p > 0``) when training
+    is not ported yet and raises; under ``torch.no_grad`` ``p`` has no
+    effect, as in the reference outside training."""
+    params = RNNParam(state_size, num_layers, mode, bidirectional, p,
+                      state_outputs)
+    outputs = _rnn(params, data, parameters, state, state_cell,
+                   torch.is_grad_enabled())
+    return tuple(outputs) if params.state_outputs else outputs[0]
+
+
+@register_op("RNN")
+class RNNOp(OpDef):
+    """The reference's ``RNN`` Symbol op (``mxnet_tpu/ops/rnn.py``
+    ``RNNOp``): its arguments, outputs and shape rule over :func:`_rnn`,
+    so the LSTM and GRU layers of a bound graph take the fused kernels
+    where :func:`_fused_dispatch` does."""
+
+    param_cls = RNNParam
+    need_rng = True
+
+    def list_arguments(self, params):
+        args = ["data", "parameters", "state"]
+        if params.mode == "lstm":
+            args.append("state_cell")
+        return args
+
+    def list_outputs(self, params):
+        outs = ["output"]
+        if params.state_outputs:
+            outs.append("state")
+            if params.mode == "lstm":
+                outs.append("state_cell")
+        return outs
+
+    def infer_shape(self, params, in_shapes):
+        if in_shapes[0] is None:
+            raise ValueError("RNN: data shape unknown")
+        args, outs = _infer_shape(params, in_shapes[0])
+        return args, outs, []
+
+    def forward(self, params, inputs, aux, train, key):
+        cell = inputs[3] if params.mode == "lstm" else None
+        return _rnn(params, inputs[0], inputs[1], inputs[2], cell,
+                    train), []

@@ -1182,7 +1182,9 @@ def test_monitor_perf_tail_only_after_sample(monkeypatch):
 
 
 def test_training_monitor_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        mt.monitor.Monitor
+    # the training Monitor raised here, naming item 15, until A15b-1
+    # ported it; the module still has no other name
+    assert mt.monitor.Monitor.__name__ == "Monitor"
+    assert callable(mt.monitor.Monitor(1).tic)
     with pytest.raises(AttributeError):
         mt.monitor.NoSuchThing

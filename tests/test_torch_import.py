@@ -69,7 +69,11 @@ import mxnet_tpu_torch.random, mxnet_tpu_torch.registry
 import mxnet_tpu_torch.param, mxnet_tpu_torch.attribute
 import mxnet_tpu_torch.ops.op, mxnet_tpu_torch.ops.elementwise
 import mxnet_tpu_torch.ops.reduce, mxnet_tpu_torch.ops.matrix
-import mxnet_tpu_torch.ops.sample
+import mxnet_tpu_torch.ops.sample, mxnet_tpu_torch.ops.sequence
+import mxnet_tpu_torch.module.bucketing_module
+import mxnet_tpu_torch.module.sequential_module
+import mxnet_tpu_torch.module.python_module
+import mxnet_tpu_torch.executor_manager, mxnet_tpu_torch.rnn_io
 import torch
 # the port's own name starts with "mxnet_tpu": match the reference by
 # exact key or by the "mxnet_tpu." prefix, never by bare prefix

@@ -269,5 +269,5 @@ def test_unported_ops_raise_naming_a15b():
     for name in ("Pooling", "LRN", "UpSampling", "Deconvolution",
                  "InstanceNorm", "CTCLoss"):
         assert name.lower() in mt.ops.OP_REGISTRY
-    with pytest.raises(NotImplementedError, match="A15b"):
-        mt.model.FeedForward(got)
+    # FeedForward, which raised here until A15b-1, now takes the graph
+    assert mt.model.FeedForward(got, ctx=mt.cpu()).symbol is got

@@ -644,8 +644,10 @@ def test_peaks_by_card_name(monkeypatch):
         monkeypatch.setattr(torch.cuda, "get_device_name",
                             lambda d=None, n=other: n)
         assert port_flops.peak_flops_per_chip("cuda:0") is None
-    with pytest.raises(NotImplementedError, match="A15"):
-        port_flops.count_flops(None, data=(1, 2))
+    # count_flops, which raised here until A15b-1, counts a graph: one
+    # (2, 3) x (3, 4) FullyConnected is 2 * 2 * 3 * 4 FLOPs
+    fc = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=4)
+    assert port_flops.count_flops(fc, data=(2, 3)) == 48
 
 
 # -- cudamon: kernel builds and captures --------------------------------------
