@@ -308,8 +308,9 @@ float32 flash timings (their lines, then the card line).
 
     python3 chip_smoke.py --train-seq
 
-runs only the float32 RNN kernel checks at the main shape and against
-cuDNN, train_bucketing, train_feedforward, module_family_check,
+runs only the float32 RNN kernel checks at every RNN shape (with the
+planted one-product TF32 backward at the main shape) and against cuDNN,
+train_bucketing, train_feedforward, module_family_check,
 ctc_card_check and the float32 RNN timings (their lines, then the card
 line).
 """
@@ -6457,6 +6458,7 @@ def _kernel_kind(name):
                       ("rnn_fwd_tc_kernel", "fused_rnn_fwd"),
                       ("rnn_bwd_kernel", "fused_rnn_bwd"),
                       ("rnn_bwd_tc_kernel", "fused_rnn_bwd"),
+                      ("rnn_bwd_f32tc_kernel", "fused_rnn_bwd"),
                       ("paged_attention", "paged_attention"),
                       ("indexselect", "gather"),
                       ("gemm", "matmul"),
@@ -7103,11 +7105,14 @@ def rnn_plain_permuted(mode, ins, cot, perm):
 
 def check_rnn(mode, tag, dtype):
     """The forward and backward kernels against their plain versions at
-    one shape and dtype (bounds above); returns the report row.  Each is
-    the tensor-core kernel in bfloat16 and the other one in float32 (the
-    row says which ran); at the main shape in bfloat16 the other forward
-    and the other backward (``_variant="simt"``) are held to the same
-    bounds, each with the other pass on its tensor-core kernel."""
+    one shape and dtype (bounds above); returns the report row.  In
+    bfloat16 both are the tensor-core kernels; in float32 the forward is
+    the FMA kernel and the backward the split-TF32 tensor-core one (the
+    row says which ran).  At the main shape the FMA backward
+    (``_variant="simt"``) and, in bfloat16, the FMA forward are held to
+    the same bounds, each with the other pass on its rule's kernel; in
+    float32 the torch models of the backward's split-TF32 products must
+    pass and its one-product model must fail (``rnn_tf32_models``)."""
     from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
 
     shape = RNN_SHAPES[tag]
@@ -7120,16 +7125,17 @@ def check_rnn(mode, tag, dtype):
     ran = {kind: [k for k in frc.launches
                   if kind in k and frc.launches[k] != before[k]]
            for kind in ("fwd", "bwd")}
-    suffix = "" if dtype == torch.bfloat16 else "_simt"
-    want = {kind: f"{mode}_{kind}{suffix}" for kind in ("fwd", "bwd")}
+    bf16 = dtype == torch.bfloat16
+    want = {"fwd": f"{mode}_fwd" + ("" if bf16 else "_simt"),
+            "bwd": f"{mode}_bwd" + ("" if bf16 else "_f32")}
     ref = rnn_plain(mode, ins, cot)
     row = {"phase": "rnn_check", "mode": mode, "shape": tag,
            "tnh": list(shape), "dtype": str(dtype)[6:],
            "fwd_kernel": ran["fwd"], "fwd_kernel_expected": want["fwd"],
            "bwd_kernel": ran["bwd"], "bwd_kernel_expected": want["bwd"]}
-    if dtype == torch.bfloat16:
+    if bf16:
         row["fwd_tc_plan"] = dict(frc.last_fwd_tc_plan)
-        row["tc_plan"] = dict(frc.last_tc_plan)
+    row["tc_plan"] = dict(frc.last_tc_plan)
     bound = {}
     if dtype == torch.bfloat16:
         H = shape[2]
@@ -7153,12 +7159,15 @@ def check_rnn(mode, tag, dtype):
     finite = all(bool(torch.isfinite(v).all()) for v in got.values())
     ok = (finite and all(s <= 1.0 for s in share.values())
           and all(ran[kind] == [want[kind]] for kind in ran))
-    if dtype == torch.bfloat16 and tag == "main":
+    if tag == "main":
         # the other kernels on the same inputs: the simt backward from the
-        # tc forward's residuals, and the simt forward (with the tc
-        # backward from its residuals), every output held to the bounds
-        for kind, kw in (("bwd", {"variant": "simt"}),
-                         ("fwd", {"fwd_variant": "simt"})):
+        # rule's forward's residuals, and in bf16 the simt forward (with
+        # the tc backward from its residuals), every output held to the
+        # bounds
+        others = [("bwd", {"variant": "simt"})]
+        if bf16:
+            others.append(("fwd", {"fwd_variant": "simt"}))
+        for kind, kw in others:
             before = dict(frc.launches)
             simt = rnn_kernels(mode, ins, cot, **kw)
             torch.cuda.synchronize()
@@ -7174,6 +7183,9 @@ def check_rnn(mode, tag, dtype):
                   and ran_simt == [f"{mode}_{kind}_simt"])
     row.update({"max_abs_err": err, "worst_share_of_bound":
                 max(share.values()), "share_by_output": share})
+    if tag == "main" and not bf16:
+        row["tf32_models"] = rnn_tf32_models(mode, ins, cot, ref, bound)
+        ok = ok and row["tf32_models"]["ok"]
     if tag == "main":
         # the check binds: a plain output with one step's recurrent
         # product dropped must fail it, for every output, at the step
@@ -7195,6 +7207,36 @@ def check_rnn(mode, tag, dtype):
         raise SystemExit(f"fused {mode} kernels disagree with plain: {tag} "
                          f"{dtype}")
     return row
+
+
+def rnn_tf32_models(mode, ins, cot, ref, bound):
+    """The float32 bound tells split TF32 from plain TF32: the backward's
+    outputs from torch models of the float32 tensor-core backward's
+    recurrent products (``fused_{lstm,gru}_bwd_tf32``) on the plain
+    forward's residuals, with the three-product split (it must pass) and
+    with one TF32 product of operands rounded once (a planted fault: it
+    must fail on every output); each output's share of the bound."""
+    from mxnet_tpu_torch.ops import fused_gru as fg
+    from mxnet_tpu_torch.ops import fused_lstm as fl
+
+    shares = {}
+    for products in (3, 1):
+        if mode == "lstm":
+            out = fl.fused_lstm_bwd_tf32(
+                ref["acts"], ref["cells"], ref["ys"], ins["h0"], ins["c0"],
+                ins["wh"], **cot, products=products)
+        else:
+            out = fg.fused_gru_bwd_tf32(ref["acts"], ref["ys"], ins["h0"],
+                                        ins["wh"], **cot, products=products)
+        shares[products] = {
+            k: float((o.float() - ref[k].float()).abs().max())
+            / max(bound[k], 1e-30)
+            for k, o in zip(RNN_OUTPUTS["bwd"], out)}
+    split = all(v <= 1.0 for v in shares[3].values())
+    caught = all(v > 1.0 for v in shares[1].values())
+    return {"split_3_share": shares[3], "single_1_share": shares[1],
+            "split_passes": split, "single_caught": caught,
+            "ok": split and caught}
 
 
 def cudnn_check(mode):
@@ -7276,15 +7318,15 @@ def rnn_bounds(mode, shape, dtype):
 
 def time_rnn(mode, dtype=torch.bfloat16):
     """Kernel, plain, library (cuDNN) and barrier-floor times at the main
-    shape; the bound from this run's shapes.  bf16: the forward and the
-    backward are each timed on the tensor-core kernel and, in the same
-    run, on the other one (``_variant="simt"``, ``ms_simt``), with the
-    tensor-core kernel's plan (cluster size, CTAs, units a CTA, shared
-    memory), its ptxas registers and spills and the floor of its split
-    barrier.  float32: the kernels the float32 path launches
-    (``rnn_fwd_kernel<float, G>``, ``rnn_bwd_kernel<float, G>``) with
-    their ptxas registers and spills, cuDNN in float32 (TF32 off) beside
-    them."""
+    shape; the bound from this run's shapes.  Each tensor-core kernel (in
+    bf16 the forward and the backward, in float32 the backward) is timed
+    beside the FMA kernel on the same inputs in the same run
+    (``_variant="simt"``, ``ms_simt``), with its plan (cluster size, CTAs,
+    units a CTA, shared memory), its ptxas registers and spills and the
+    floor of its split barrier; the float32 forward is the FMA kernel
+    (``rnn_fwd_kernel<float, G>``).  float32: cuDNN in float32 (TF32 off)
+    beside them; the backward's bound at three TF32 products (495
+    TFLOP/s), its FMA bound (67 TFLOP/s) beside it."""
     from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops import fused_gru as fg
     from mxnet_tpu_torch.ops import fused_lstm as fl
@@ -7316,10 +7358,10 @@ def time_rnn(mode, dtype=torch.bfloat16):
     for kind, call in (("fwd", lambda **kw: fwd(**ins, save=True, **kw)),
                        ("bwd", lambda **kw: bwd(*bwd_args, **cot, **kw))):
         k_ms[kind], ran[kind] = timed(call)
-        if f32:
+        if f32 and kind == "fwd":
             want[kind] = {f"{mode}_{kind}_simt"}
             continue
-        want[kind] = {f"{mode}_{kind}"}
+        want[kind] = {f"{mode}_{kind}" + ("_f32" if f32 else "")}
         want[f"{kind}_simt"] = {f"{mode}_{kind}_simt"}
         plans[kind] = dict(frc.last_fwd_tc_plan if kind == "fwd"
                            else frc.last_tc_plan)
@@ -7330,9 +7372,8 @@ def time_rnn(mode, dtype=torch.bfloat16):
         raise SystemExit(f"rnn_time: {mode} kernel variants not as timed: "
                          f"{ran}")
     floor = time_ms(lambda: frc.barrier_floor_cuda(T, H, DEVICE))
-    if not f32:
-        split_floor = time_ms(lambda: frc.split_barrier_floor_cuda(
-            T, N, H, DEVICE))
+    split_floor = time_ms(lambda: frc.split_barrier_floor_cuda(
+        T, N, H, DEVICE))
     p_fwd = time_ms(lambda: p_fwd_fn(**ins, save=True), reps=3, warmup=1)
     p_bwd = time_ms(lambda: p_bwd_fn(*bwd_args, **cot), reps=3, warmup=1)
     # the library yardstick the port never calls: cuDNN's nn.LSTM / nn.GRU
@@ -7370,17 +7411,22 @@ def time_rnn(mode, dtype=torch.bfloat16):
                 "the plain times cover the recurrence only; the library "
                 "times also include the input projection x Wi^T + bi"
                 + (" and its gradients" if kind == "bwd" else "")}
-        if f32:
+        G = _GATES[mode]
+        fma_ptxas = ptxas_report(log, f"rnn_{kind}_kernelIf",
+                                 ("G",)).get(f"G{G}")
+        if kind not in plans:         # the float32 forward: the FMA kernel
             rows[name].update({
                 "source": "csrc/fused_rnn.cuh",
-                "cuda_kernel": f"rnn_{kind}_kernel<float, {_GATES[mode]}>",
-                "ptxas": ptxas_report(log, f"rnn_{kind}_kernelIf",
-                                      ("G",)).get(f"G{_GATES[mode]}")})
+                "cuda_kernel": f"rnn_{kind}_kernel<float, {G}>",
+                "ptxas": fma_ptxas})
             emit(rows[name])
             continue
         plan = plans[kind]
+        tc_kernel = "rnn_bwd_f32tc_kernel" if f32 else f"rnn_{kind}_tc_kernel"
         rows[name].update({
-            "source": f"csrc/fused_rnn_{kind}_tc.cuh",
+            "source": ("csrc/fused_rnn_bwd_f32tc.cuh" if f32
+                       else f"csrc/fused_rnn_{kind}_tc.cuh"),
+            "cuda_kernel": f"{tc_kernel}<{G}>",
             "ms_simt": simt_ms[kind],
             "simt_over_tc": simt_ms[kind] / k_ms[kind],
             "simt": f"rnn_{kind}_kernel (csrc/fused_rnn.cuh), the same "
@@ -7390,9 +7436,22 @@ def time_rnn(mode, dtype=torch.bfloat16):
             "split_barrier_floor_ms": split_floor,
             "split_barrier_floor": "the tensor-core kernels' split "
                                    f"barrier alone, {T} arrive/wait pairs "
-                                   "on the LSTM backward's launch",
-            "ptxas": ptxas_report(log, f"rnn_{kind}_tc_kernel",
-                                  ("G",)).get(f"G{_GATES[mode]}")})
+                                   "on the bf16 LSTM backward's launch",
+            "ptxas": ptxas_report(log, tc_kernel, ("G",)).get(f"G{G}")})
+        if f32:
+            # its products are three TF32 ones: that bound, and the
+            # float32-FMA one of the same work beside it
+            t_b, t_o = nbytes / PEAK_BYTES_S, 3 * ops / PEAK_TF32_OPS_S
+            rows[name].update({
+                "bound_ms": 1e3 * max(t_b, t_o),
+                "bound_by": "bytes" if t_b >= t_o else "operations",
+                "bound_share": 1e3 * max(t_b, t_o) / k_ms[kind],
+                "bound_rule": "3 x ops at 495 TFLOP/s (split TF32) vs "
+                              "bytes at 3.35 TB/s",
+                "bound_fma_ms": b_ms, "bound_fma_by": b_by,
+                "bound_fma_rule": "ops at 67 TFLOP/s (float32 FMA) vs "
+                                  "bytes at 3.35 TB/s",
+                "ptxas_simt": fma_ptxas})
         emit(rows[name])
     return rows
 
@@ -7430,9 +7489,10 @@ def rnn_train_main_path(mode, steps):
     lap(f"{mode}_train_profile")
     want = cfg["num_layers"] * steps
     path = {k: v for k, v in launches.items() if k.startswith(mode)}
-    # bf16: every forward and backward on the tensor-core kernels, none
-    # on the others
-    expected = {k: 0 if k.endswith("_simt") else want for k in path}
+    # bf16: every forward and backward on the bf16 tensor-core kernels,
+    # none on the others
+    expected = {k: want if k in (f"{mode}_fwd", f"{mode}_bwd") else 0
+                for k in path}
     tokens = cfg["seq_len"] * B
     # Adam at the example's lr 0.01 spikes the loss around step 5 on the
     # repeated batch: the LSTM's 12 steps end below the start, the GRU's 7
@@ -7563,8 +7623,8 @@ def rnn_small_train_check():
 # (vocabulary 10,000, embedding 512, H 512, 2 layers, batch 32), trained by
 # the Module family on gpu(0) in float32, the reference Module's dtype: its
 # LSTM and GRU layers run the float32 fused kernels (rnn_fwd_kernel<float,
-# G>, rnn_bwd_kernel<float, G>; the "_simt" launch counters), never the bf16
-# tensor-core ones.  SGD as examples/lstm_bucketing.py:74-79 (lr 0.01,
+# G> and rnn_bwd_f32tc_kernel<G>: the "_simt" forward and "_f32" backward
+# launch counters), never the bf16 tensor-core ones.  SGD as examples/lstm_bucketing.py:74-79 (lr 0.01,
 # momentum 0.9, wd 1e-5), Xavier.  BucketingModule's buckets are 32, 64 and
 # 128 (the default), fed by rnn_io.BucketSentenceIter over a seeded corpus of
 # lengths 5-128 that follows examples/rnn_time_major.py:98-102's successor
@@ -7817,9 +7877,10 @@ def bucket_agreement(batches):
 
 def train_bucketing_main_path():
     """The LSTM LM by BucketingModule over buckets 32, 64 and 128 for one
-    pass of the corpus: 2 float32 LSTM forward and 2 backward launches a
-    step in every bucket, no bf16 launch, no scan step; the buckets'
-    arrays alias the default bucket's; the held batch's NLL falls; then
+    pass of the corpus: 2 float32 LSTM forward (FMA) and 2 backward
+    (split-TF32 tensor-core) launches a step in every bucket, no bf16
+    launch, no scan step; the buckets' arrays alias the default bucket's;
+    the held batch's NLL falls; then
     the agreement with the float64 scan, a profile window and a
     Monitor step."""
     import mxnet_tpu_torch as mt
@@ -7850,7 +7911,7 @@ def train_bucketing_main_path():
     lap("bucketing_steps")
     nll_after = seq_eval_nll(bm, held)
     steps = len(batches)
-    per_step = {"lstm_fwd_simt": 2, "lstm_bwd_simt": 2}
+    per_step = {"lstm_fwd_simt": 2, "lstm_bwd_f32": 2}
     expected = {k: 0 for k in launches}
     expected.update({k: v * steps for k, v in per_step.items()})
     every_step = all(d == per_step for r in by_bucket.values()
@@ -7973,7 +8034,7 @@ def train_feedforward_main_path():
             again = loaded.predict(mt.io.NDArrayIter(X[:N], y[:N], N))
     steps = 3
     per_layer = {"gru_fwd_simt": RNN_CFG["num_layers"] * steps,
-                 "gru_bwd_simt": RNN_CFG["num_layers"] * steps}
+                 "gru_bwd_f32": RNN_CFG["num_layers"] * steps}
     expected = {k: 0 for k in launches}
     expected.update(per_layer)
     same = bool(np.array_equal(probs, again))
@@ -8038,7 +8099,7 @@ def module_family_check():
         out_err.append(float((a - b).abs().max()))
     got = {k: v.asnumpy() for k, v in seq.get_params()[0].items()}
     share, name = seq_param_share(got, module_params(one), p0)
-    per_step = {"lstm_fwd_simt": 2, "lstm_bwd_simt": 2}
+    per_step = {"lstm_fwd_simt": 2, "lstm_bwd_f32": 2}
     ok = (share <= 1.0 and sorted(got) == sorted(p0)
           and all(d == per_step for d in launches)
           and all(np.isfinite(out_err)))
@@ -8200,7 +8261,7 @@ def train_module_main():
 
 def train_seq_main():
     """``--train-seq``: the fused-RNN library built, the float32 kernel
-    checks at the main shape and against cuDNN, then ``train_bucketing``,
+    checks at every RNN shape and against cuDNN, then ``train_bucketing``,
     ``train_feedforward``, ``module_family_check``, ``ctc_card_check`` and
     the float32 RNN kernels' timings."""
     from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
@@ -8209,7 +8270,8 @@ def train_seq_main():
     card = card_line()
     profiler_warmup()
     for mode in ("lstm", "gru"):
-        check_rnn(mode, "main", torch.float32)
+        for tag in RNN_SHAPES:
+            check_rnn(mode, tag, torch.float32)
         cudnn_check(mode)
     train_bucketing_main_path()
     train_feedforward_main_path()
@@ -8598,13 +8660,14 @@ def main():
         # LSTM, train_feedforward's GRU)
         t32 = rnn_t32[kname]
         err32 = rnn_rows[(mode, "main", torch.float32)]["max_abs_err"]
-        n32 = seq[mode]["kernel_launches"][f"{kname}_simt"]
+        k32 = f"{kname}_f32" if kind == "bwd" else f"{kname}_simt"
+        n32 = seq[mode]["kernel_launches"][k32]
         entry["launches_by_path"] = {
             f"train_{mode}": entry["launches"],
             ("train_bucketing" if mode == "lstm" else "train_feedforward"):
                 n32}
         entry["float32"] = {
-            "name": f"{kname}_simt", "route": "cuda",
+            "name": k32, "route": "cuda",
             "cuda_kernel": t32["cuda_kernel"],
             "source": f"mxnet_tpu_torch/{t32['source']}",
             "replaces": replaces, "launches": n32,
@@ -8615,6 +8678,9 @@ def main():
             "library_ms": t32["library_ms"],
             "barrier_floor_ms": t32["barrier_floor_ms"],
             "ptxas": t32["ptxas"]}
+        entry["float32"].update({key: t32[key] for key in (
+            "ms_simt", "bound_fma_ms", "ptxas_simt", "cluster_size",
+            "split_barrier_floor_ms") if key in t32})
         kernels["kernels"].append(entry)
     REPORT["kernels"] = kernels
     REPORT["card"] = card

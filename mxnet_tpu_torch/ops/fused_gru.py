@@ -18,12 +18,15 @@ block is ``dn_pre``), and dWh/dbh sum dhp.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from .flash_attention import _tf32_matmul
 from .fused_lstm import fused_rnn_eligible
 
 __all__ = ["fused_gru", "fused_gru_eligible", "fused_gru_fwd_torch",
-           "fused_gru_bwd_torch"]
+           "fused_gru_bwd_torch", "fused_gru_bwd_tf32"]
 
 
 def fused_gru_eligible(T, N, H, force=None, dtype=torch.float32):
@@ -60,19 +63,37 @@ def fused_gru_fwd_torch(gx, h0, wh, bh, save=True):
 
 def fused_gru_bwd_torch(acts, ys, h0, wh, dys, dhT):
     """Plain version of the backward kernel: ``(dgx, dwh, dbh, dh0)``,
-    dgx in ys's dtype, the rest float32."""
+    dgx in ys's dtype, the rest float32 (sums in the wider of float32
+    and ys's dtype, as the LSTM's)."""
+    return _gru_bwd(acts, ys, h0, wh, dys, dhT, torch.matmul)
+
+
+def fused_gru_bwd_tf32(acts, ys, h0, wh, dys, dhT, products=3):
+    """The float32 tensor-core backward's arithmetic in plain torch:
+    :func:`fused_gru_bwd_torch` with its recurrent products taken as
+    :func:`~.fused_lstm.fused_lstm_bwd_tf32` takes them.  float32 only."""
+    if ys.dtype != torch.float32:
+        raise ValueError(f"the TF32 model takes float32, not {ys.dtype}")
+    return _gru_bwd(acts, ys, h0, wh, dys, dhT,
+                    functools.partial(_tf32_matmul, products=products))
+
+
+def _gru_bwd(acts, ys, h0, wh, dys, dhT, mm):
+    """The backward's recurrence with its recurrent products taken by
+    ``mm``."""
     T, N, _ = acts.shape
     H = ys.shape[-1]
     dt = ys.dtype
-    w = wh.to(dt).float()
-    dh = dhT.float()
-    dwh = torch.zeros(3 * H, H, device=acts.device)
-    dbh = torch.zeros(3 * H, device=acts.device)
+    acc = torch.promote_types(dt, torch.float32)
+    w = wh.to(dt).to(acc)
+    dh = dhT.to(acc)
+    dwh = torch.zeros(3 * H, H, dtype=acc, device=acts.device)
+    dbh = torch.zeros(3 * H, dtype=acc, device=acts.device)
     dgx = torch.empty(T, N, 3 * H, dtype=dt, device=acts.device)
     for t in range(T - 1, -1, -1):
-        r, z, n, nh = acts[t].split(H, dim=-1)
-        h_prev = h0.float() if t == 0 else ys[t - 1].float()
-        dh = dh + dys[t].float()
+        r, z, n, nh = acts[t].to(acc).split(H, dim=-1)
+        h_prev = h0.to(acc) if t == 0 else ys[t - 1].to(acc)
+        dh = dh + dys[t].to(acc)
         dz = dh * (h_prev - n)
         dn = dh * (1.0 - z)
         dn_pre = dn * (1.0 - n * n)
@@ -82,10 +103,10 @@ def fused_gru_bwd_torch(acts, ys, h0, wh, dys, dhT):
         dz_pre = dz * z * (1.0 - z)
         dgx[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1).to(dt)
         dhp = torch.cat([dr_pre, dz_pre, dnh], dim=-1)
-        dhp_lo = dhp.to(dt).float()
-        dwh += dhp_lo.t() @ h_prev.to(dt).float()
+        dhp_lo = dhp.to(dt).to(acc)
+        dwh += mm(dhp_lo.t(), h_prev.to(dt).to(acc))
         dbh += dhp.sum(0)
-        dh = dh * z + dhp_lo @ w
+        dh = dh * z + mm(dhp_lo, w)
     return dgx, dwh, dbh, dh
 
 

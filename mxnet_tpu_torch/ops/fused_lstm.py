@@ -11,9 +11,12 @@ the reference contract: one LSTM layer over precomputed gate inputs
 On CUDA tensors its forward launches a fused-LSTM forward kernel and its
 backward a fused-LSTM backward kernel, each picked by
 ``ops/fused_rnn_cuda`` (``_fwd_variant``, ``_bwd_variant``: the
-tensor-core kernels in bf16 within their limits, else the float32-FMA
-ones); on CPU tensors it runs :func:`fused_lstm_fwd_torch` and
-:func:`fused_lstm_bwd_torch`, the plain versions.  Both keep the TPU
+tensor-core kernels in bf16 within their limits and the float32
+tensor-core backward in float32, else the float32-FMA ones); on CPU
+tensors it runs :func:`fused_lstm_fwd_torch` and
+:func:`fused_lstm_bwd_torch`, the plain versions.
+:func:`fused_lstm_bwd_tf32` models the float32 tensor-core backward's
+split-TF32 products; nothing on the card's path calls it.  Both keep the TPU
 kernels' cast points: the recurrent product's operands (h, Wh; dgates,
 Wh; dgates, h_prev) in gx's dtype and summed in float32; gx, bh, the
 carried state, the saved activations and cells in float32; ys, hT, cT
@@ -24,13 +27,16 @@ primal's dtype by the backward.  Without a gradient (eval,
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
 
+from .flash_attention import _tf32_matmul
+
 __all__ = ["fused_lstm", "fused_lstm_eligible", "fused_lstm_fwd_torch",
-           "fused_lstm_bwd_torch", "fused_rnn_eligible", "fused_rnn_fits",
-           "KERNEL_DTYPES"]
+           "fused_lstm_bwd_torch", "fused_lstm_bwd_tf32", "fused_rnn_eligible",
+           "fused_rnn_fits", "KERNEL_DTYPES"]
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -127,21 +133,45 @@ def fused_lstm_bwd_torch(acts, cells, ys, h0, c0, wh, dys, dhT, dcT):
     """Plain version of the backward kernel (``_bwd_kernel``): reverse
     time from the saved residuals, no recompute.  ``dys``/``dhT``/
     ``dcT`` in ys's dtype.  Returns ``(dgx, dwh, dbh, dh0, dc0)``: dgx in
-    ys's dtype, the rest float32."""
+    ys's dtype, the rest float32 (sums in the wider of float32 and ys's
+    dtype: float64 residuals give a float64 reference)."""
+    return _lstm_bwd(acts, cells, ys, h0, c0, wh, dys, dhT, dcT,
+                     torch.matmul)
+
+
+def fused_lstm_bwd_tf32(acts, cells, ys, h0, c0, wh, dys, dhT, dcT,
+                        products=3):
+    """The float32 tensor-core backward's arithmetic in plain torch
+    (``csrc/fused_rnn_bwd_f32tc.cuh``): :func:`fused_lstm_bwd_torch` with
+    its two recurrent products, dh = dgates Wh and dWh += dgates^T
+    h_prev, taken as the kernel takes them: ``products=3`` its split
+    TF32 (a_small b_big + a_big b_small + a_big b_big, each half rounded
+    to TF32), 1 one TF32 product of operands rounded once (what the
+    float32 bound must tell from the split).  float32 only."""
+    if ys.dtype != torch.float32:
+        raise ValueError(f"the TF32 model takes float32, not {ys.dtype}")
+    return _lstm_bwd(acts, cells, ys, h0, c0, wh, dys, dhT, dcT,
+                     functools.partial(_tf32_matmul, products=products))
+
+
+def _lstm_bwd(acts, cells, ys, h0, c0, wh, dys, dhT, dcT, mm):
+    """The backward's recurrence with its recurrent products taken by
+    ``mm``."""
     T, N, G = acts.shape
     H = G // 4
     dt = ys.dtype
-    w = wh.to(dt).float()
-    dh, dc = dhT.float(), dcT.float()
-    dwh = torch.zeros(G, H, device=acts.device)
-    dbh = torch.zeros(G, device=acts.device)
+    acc = torch.promote_types(dt, torch.float32)
+    w = wh.to(dt).to(acc)
+    dh, dc = dhT.to(acc), dcT.to(acc)
+    dwh = torch.zeros(G, H, dtype=acc, device=acts.device)
+    dbh = torch.zeros(G, dtype=acc, device=acts.device)
     dgx = torch.empty(T, N, G, dtype=dt, device=acts.device)
     for t in range(T - 1, -1, -1):
-        i, f, g, o = acts[t].split(H, dim=-1)
-        c = cells[t]
-        c_prev = c0.float() if t == 0 else cells[t - 1]
-        h_prev = h0.float() if t == 0 else ys[t - 1].float()
-        dh = dh + dys[t].float()
+        i, f, g, o = acts[t].to(acc).split(H, dim=-1)
+        c = cells[t].to(acc)
+        c_prev = (c0 if t == 0 else cells[t - 1]).to(acc)
+        h_prev = h0.to(acc) if t == 0 else ys[t - 1].to(acc)
+        dh = dh + dys[t].to(acc)
         tc = torch.tanh(c)
         do = dh * tc
         dc = dc + dh * o * (1.0 - tc * tc)
@@ -149,10 +179,10 @@ def fused_lstm_bwd_torch(acts, cells, ys, h0, c0, wh, dys, dhT, dcT):
         dgates = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f),
                             dg * (1.0 - g * g), do * o * (1.0 - o)], dim=-1)
         dgx[t] = dgates.to(dt)
-        dg_lo = dgates.to(dt).float()
-        dwh += dg_lo.t() @ h_prev.to(dt).float()
+        dg_lo = dgates.to(dt).to(acc)
+        dwh += mm(dg_lo.t(), h_prev.to(dt).to(acc))
         dbh += dgates.sum(0)
-        dh = dg_lo @ w
+        dh = mm(dg_lo, w)
         dc = dc * f
     return dgx, dwh, dbh, dh, dc
 

@@ -11,9 +11,13 @@ CTAs: ``csrc/fused_rnn_fwd_tc.cuh``, units ``csrc/fused_{lstm,gru}_fwd_tc.cu``,
 h_{t-1} multicast to the cluster; ``csrc/fused_rnn_bwd_tc.cuh``, units
 ``csrc/fused_{lstm,gru}_bwd_tc.cu``, the recurrent product split by K
 across the cluster) and ``simt`` (``rnn_fwd_kernel`` and
-``rnn_bwd_kernel`` in ``csrc/fused_rnn.cuh``: float32 FMAs, for float32
-and every geometry outside the tensor-core kernels' limits).  They are
-built with ``nvcc`` at the first launch and called through ``ctypes``.
+``rnn_bwd_kernel`` in ``csrc/fused_rnn.cuh``: float32 FMAs, for the
+float32 forward and every geometry outside the tensor-core kernels'
+limits).  The backward has a third, ``tc32`` (float32 on tensor cores
+through split-TF32 products over the same clusters:
+``csrc/fused_rnn_bwd_f32tc.cuh``, units
+``csrc/fused_{lstm,gru}_bwd_f32tc.cu``).  They are built with ``nvcc`` at
+the first launch and called through ``ctypes``.
 Each wrapper checks what its kernel takes and raises on anything else; a
 failed build or launch (a refused cluster or cooperative launch too)
 raises its ``cudaError``, and there is no fallback to the plain versions
@@ -21,7 +25,9 @@ raises its ``cudaError``, and there is no fallback to the plain versions
 ``ops.fused_gru.fused_gru_{fwd,bwd}_torch``, which the CPU path runs) nor
 from one variant to the other.  ``launches`` counts each kernel's
 launches in this process (``lstm_fwd``/``lstm_bwd``/``gru_fwd``/
-``gru_bwd``: the tensor-core kernels; the ``_simt`` names: the others).
+``gru_bwd``: the bf16 tensor-core kernels; ``lstm_bwd_f32``/
+``gru_bwd_f32``: the float32 tensor-core backwards; the ``_simt`` names:
+the others).
 
 gx (T, N, G H) is float32 or bfloat16; wh is cast to gx's dtype (the
 product's operand type, as the TPU kernels cast it) and bh to float32;
@@ -47,31 +53,39 @@ SOURCES = ("fused_rnn.cuh", "fused_lstm_fwd.cu", "fused_lstm_bwd.cu",
            "fused_gru_fwd.cu", "fused_gru_bwd.cu", "rnn_tc_sync.cuh",
            "tc_tile.cuh", "fused_rnn_bwd_tc.cuh", "fused_lstm_bwd_tc.cu",
            "fused_gru_bwd_tc.cu", "fused_rnn_fwd_tc.cuh",
-           "fused_lstm_fwd_tc.cu", "fused_gru_fwd_tc.cu")
+           "fused_lstm_fwd_tc.cu", "fused_gru_fwd_tc.cu", "tf32x3.cuh",
+           "fused_rnn_bwd_f32tc.cuh", "fused_lstm_bwd_f32tc.cu",
+           "fused_gru_bwd_f32tc.cu")
 
 # kernel launches in this process, per kernel; reset by whoever counts a
 # window
 launches = {"lstm_fwd": 0, "lstm_fwd_simt": 0, "lstm_bwd": 0,
-            "lstm_bwd_simt": 0, "gru_fwd": 0, "gru_fwd_simt": 0, "gru_bwd": 0,
+            "lstm_bwd_f32": 0, "lstm_bwd_simt": 0, "gru_fwd": 0,
+            "gru_fwd_simt": 0, "gru_bwd": 0, "gru_bwd_f32": 0,
             "gru_bwd_simt": 0}
 
-# the last tensor-core backward's and forward's launch plans: cluster size
-# C, grid CTAs, shared-memory bytes and units a CTA
+# the last tensor-core backward's (bf16 or float32) and forward's launch
+# plans: cluster size C, grid CTAs, shared-memory bytes and units a CTA
 last_tc_plan = {}
 last_fwd_tc_plan = {}
 
-# The tensor-core kernels' limits (csrc/fused_rnn_{fwd,bwd}_tc.cuh,
-# Limits): registers sized for N <= 32 (two m16 tiles of the batch) and
-# H <= 512 (the backward: 4 pairs of dWh n-tiles and 8 k-steps of Wh
-# fragments a warp; the forward: 4 k-steps a warp), H a multiple of 8
-# (16-byte rows), and their shared memory (tc_smem_bytes,
-# fwd_tc_smem_bytes) within a block's 227 KB.  A CTA owns TC_HS hidden
-# units, a cluster TC_CLUSTER CTAs.
+# The tensor-core kernels' limits (csrc/fused_rnn_{fwd,bwd}_tc.cuh and
+# csrc/fused_rnn_bwd_f32tc.cuh, Limits): registers sized for N <= 32 (two
+# m16 tiles of the batch) and H <= 512 (the bf16 backward: 4 pairs of dWh
+# n-tiles and 8 k-steps of Wh fragments a warp; the float32 backward: 16
+# k-steps of Wh fragments and 64 dWh columns a warp; the forward: 4
+# k-steps a warp), H a multiple of 8 (16-byte rows), and their shared
+# memory (tc_smem_bytes, tc32_smem_bytes, fwd_tc_smem_bytes) within a
+# block's 227 KB.  A CTA owns TC_HS hidden units, a cluster TC_CLUSTER
+# CTAs.
 TC_MAX_N, TC_MAX_H = 32, 512
 TC_HS, TC_CLUSTER = 8, 16
 _SMEM_MAX = 232448
 _TC_FWD_SPLIT_K = 4            # the forward's product: K-quarters
 _TC_PART_STRIDE = 40           # floats a row of a quarter's partial sums
+# the float32 backward's dWh sums: 8 warps x 8 n-tiles x 2 m-tiles of
+# 16-byte fragments a lane
+_TC32_DWH_BYTES = 8 * 8 * 2 * 32 * 16
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -89,11 +103,13 @@ def _lib():
         lib.mxtt_rnn_barrier_floor.argtypes = [i, i, vp]
         lib.mxtt_rnn_barrier_floor.restype = ctypes.c_int
         for mode in ("lstm", "gru"):
-            tc = getattr(lib, f"mxtt_{mode}_bwd_tc")
-            tc.argtypes = [vp] * 16 + [i] * 3 + [vp, vp]
+            for suffix in ("tc", "f32tc"):
+                tc = getattr(lib, f"mxtt_{mode}_bwd_{suffix}")
+                tc.argtypes = [vp] * 16 + [i] * 3 + [vp, vp]
+                tc.restype = ctypes.c_int
             fwd_tc = getattr(lib, f"mxtt_{mode}_fwd_tc")
             fwd_tc.argtypes = [vp] * 11 + [i] * 4 + [vp, vp]
-            tc.restype = fwd_tc.restype = ctypes.c_int
+            fwd_tc.restype = ctypes.c_int
         lib.mxtt_rnn_split_barrier_floor.argtypes = [i] * 3 + [vp] * 3
         lib.mxtt_rnn_split_barrier_floor.restype = ctypes.c_int
     return lib
@@ -116,7 +132,7 @@ def _check(rc, name):
     if rc != 0:
         # 1 (cudaErrorInvalidValue): a geometry outside the kernels' limits;
         # 82 (cudaErrorCooperativeLaunchTooLarge): a grid (or, for the
-        # tensor-core backward, its clusters) not co-resident
+        # tensor-core kernels, its clusters) not co-resident
         raise RuntimeError(f"fused_rnn_cuda: {name} launch failed with "
                            f"cudaError {rc}")
     launches[name] += 1
@@ -215,6 +231,20 @@ def tc_smem_bytes(N, H, G):
             + TC_CLUSTER * 16 * mt * 8 * 4 + 16)        # partials, mbarriers
 
 
+def tc32_smem_bytes(N, H, G):
+    """Shared memory of the float32 tensor-core backward, in bytes: the
+    layout of ``tc32_geo`` (csrc/fused_rnn_bwd_f32tc.cuh) in closed form.
+    At most 195,600 (N 32, H 512, G 4) within its limits."""
+    up = lambda a, b: _cdiv(a, b) * b
+    mt, kb = _cdiv(N, 16), _cdiv(N, 8)         # m16 tiles, k8 steps
+    return (2 * 16 * mt * (up(_cdiv(G * H, TC_CLUSTER), 8) + 4) * 4
+            + 8 * kb * (up(H, 32) + 8) * 4              # slice; h_prev
+            + _TC32_DWH_BYTES                           # dWh sums
+            + 2 * 32 * (8 * kb + 4) * 4                 # dg^T, big/small
+            + N * G * TC_HS * 4                         # staged X_t
+            + TC_CLUSTER * 16 * mt * 8 * 4 + 16)        # partials, mbarrier
+
+
 def fwd_tc_smem_bytes(N, H):
     """Shared memory of the tensor-core forward, in bytes: the layout of
     ``fwd_geo`` (csrc/fused_rnn_fwd_tc.cuh) in closed form, the same for
@@ -226,8 +256,8 @@ def fwd_tc_smem_bytes(N, H):
             + N * TC_HS * 2 + 16)                       # staged h, mbarriers
 
 
-def _tc_limits(dtype, N, H):
-    return (dtype == torch.bfloat16 and 1 <= N <= TC_MAX_N and H % 8 == 0
+def _tc_limits(dtype, N, H, want=torch.bfloat16):
+    return (dtype == want and 1 <= N <= TC_MAX_N and H % 8 == 0
             and 8 <= H <= TC_MAX_H)
 
 
@@ -245,10 +275,15 @@ def _fwd_variant(dtype, N, H, G):
 def _bwd_variant(dtype, N, H, G):
     """Which backward kernel takes a layer: ``"tc"`` (bf16 tensor cores)
     where its limits hold (bfloat16, N <= 32, H a multiple of 8 up to
-    512, its shared memory within 227 KB), else ``"simt"``.
+    512, its shared memory within 227 KB), ``"tc32"`` (float32 tensor
+    cores, split TF32) where the same limits hold in float32
+    (:func:`tc32_smem_bytes` within 227 KB), else ``"simt"``.
     A pure function of its arguments, decided on the host."""
     if _tc_limits(dtype, N, H) and tc_smem_bytes(N, H, G) <= _SMEM_MAX:
         return "tc"
+    if (_tc_limits(dtype, N, H, torch.float32)
+            and tc32_smem_bytes(N, H, G) <= _SMEM_MAX):
+        return "tc32"
     return "simt"
 
 
@@ -290,12 +325,18 @@ def _bwd(G, name, acts, cells, ys, h0, c0, wh, dys, dhT, dcT, variant=None):
     T, N, H = _bwd_checks(G, acts, cells, ys, h0, c0, wh, dys, dhT, dcT)
     dt, dev = ys.dtype, ys.device
     variant = variant or _bwd_variant(dt, N, H, G)
-    _need(variant in ("tc", "simt"), f"unknown variant {variant!r}")
+    _need(variant in ("tc", "tc32", "simt"), f"unknown variant {variant!r}")
+    _need(variant != "tc" or dt == torch.bfloat16,
+          f"the tc backward takes bfloat16, not {dt}")
+    _need(variant != "tc32" or dt == torch.float32,
+          f"the tc32 backward takes float32, not {dt}")
     c = [None if t is None else t.contiguous()
          for t in (acts, cells, ys, dys, dhT, dcT)]
-    if variant == "tc" and c[2].data_ptr() % 16:
+    if variant != "simt" and c[2].data_ptr() % 16:
         c[2] = c[2].clone()      # the bulk copies of ys rows: 16-byte aligned
     h0 = h0.float().contiguous()
+    if variant == "tc32" and h0.data_ptr() % 16:
+        h0 = h0.clone()          # and of h0's
     c0 = None if c0 is None else c0.float().contiguous()
     wh = wh.to(dt).contiguous()
     dgx = torch.empty(T, N, G * H, dtype=dt, device=dev)
@@ -309,27 +350,29 @@ def _bwd(G, name, acts, cells, ys, h0, c0, wh, dys, dhT, dcT, variant=None):
             _ptr(wh), _ptr(c[3]), _ptr(c[4]), _ptr(c[5]), _ptr(dgx),
             _ptr(xbuf), _ptr(dwh), _ptr(dbh), _ptr(dh0), _ptr(dc0))
     with _launch_stream(dev) as stream:
-        if variant == "tc":
+        if variant == "simt":
+            rc = getattr(_lib(), f"mxtt_{name}")(
+                _DTYPE_CODE[dt], *ptrs, T, N, H, stream)
+        else:
             ctr = torch.zeros(1, dtype=torch.int32, device=dev)
             info = (ctypes.c_int * 3)()
-            rc = getattr(_lib(), f"mxtt_{name}_tc")(
+            entry = "tc" if variant == "tc" else "f32tc"
+            rc = getattr(_lib(), f"mxtt_{name}_{entry}")(
                 *ptrs, _ptr(ctr), T, N, H, info, stream)
             if rc == 0:
                 last_tc_plan.clear()
                 last_tc_plan.update(C=info[0], grid=info[1],
                                     smem_bytes=info[2], hs=TC_HS)
-        else:
-            rc = getattr(_lib(), f"mxtt_{name}")(
-                _DTYPE_CODE[dt], *ptrs, T, N, H, stream)
-    _check(rc, name if variant == "tc" else f"{name}_simt")
+    _check(rc, {"tc": name, "tc32": f"{name}_f32",
+                "simt": f"{name}_simt"}[variant])
     return dgx, dwh, dbh, dh0, dc0
 
 
 def lstm_bwd_cuda(acts, cells, ys, h0, c0, wh, dys, dhT, dcT, _variant=None):
     """Fused-LSTM backward kernel: ``(dgx, dwh, dbh, dh0, dc0)``; the
     cotangents in ys's dtype, dgx in ys's dtype, the rest float32.
-    ``_variant`` ("tc" or "simt") overrides :func:`_bwd_variant`: for
-    tests and timings only."""
+    ``_variant`` ("tc", "tc32" or "simt") overrides :func:`_bwd_variant`:
+    for tests and timings only."""
     return _bwd(4, "lstm_bwd", acts, cells, ys, h0, c0, wh, dys, dhT, dcT,
                 _variant)
 

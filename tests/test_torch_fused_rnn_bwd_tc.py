@@ -1,17 +1,18 @@
-"""The fused-RNN backward's two kernels in the PyTorch port: the host rule
+"""The fused-RNN backward's kernels in the PyTorch port: the host rule
 that picks one, and the wrapper around it, on the CPU.
 
-The tensor-core backward (``csrc/fused_rnn_bwd_tc.cuh``) and the float32
+The bf16 tensor-core backward (``csrc/fused_rnn_bwd_tc.cuh``), the
+float32 one (``csrc/fused_rnn_bwd_f32tc.cuh``, split TF32) and the
 FMA backward (``rnn_bwd_kernel`` in ``csrc/fused_rnn.cuh``) run only on
 the card; their arithmetic is the plain versions', which
 ``tests/test_torch_fused_rnn.py`` holds against the reference's Pallas
-kernels, and their ``cuda``-marked cases there hold both kernels against
+kernels, and their ``cuda``-marked cases there hold the kernels against
 the plain versions on the card.  Here: ``_bwd_variant`` is a pure rule
 that maps every geometry the fused path admits (``fused_rnn_fits``) to
-exactly one kernel, the tensor-core one at the shapes chip_smoke.py
-checks; the wrapper counts the kernel it launched under its own name,
-raises on a refused launch without running the other kernel, and a CPU
-tensor launches nothing.  The wrapper's launch path runs here with the
+exactly one kernel, a tensor-core one in either dtype at the shapes
+chip_smoke.py checks; the wrapper counts the kernel it launched under its
+own name, raises on a refused launch without running another kernel,
+and a CPU tensor launches nothing.  The wrapper's launch path runs here with the
 library replaced by a fake (no device is needed to pick and call a
 kernel).
 """
@@ -36,27 +37,27 @@ GATES = {"lstm": 4, "gru": 3}
 @pytest.mark.parametrize("tag", sorted(chip_smoke.RNN_SHAPES))
 @pytest.mark.parametrize("mode", ["lstm", "gru"])
 def test_variant_at_the_checked_shapes(mode, tag, dtype):
-    """Every shape chip_smoke.py checks runs the tensor-core backward in
-    bf16 and the other kernel in float32."""
+    """Every shape chip_smoke.py checks runs a tensor-core backward: the
+    bf16 one in bf16, the split-TF32 one in float32."""
     _, N, H = chip_smoke.RNN_SHAPES[tag]
-    want = "tc" if dtype == torch.bfloat16 else "simt"
+    want = "tc" if dtype == torch.bfloat16 else "tc32"
     assert frc._bwd_variant(dtype, N, H, GATES[mode]) == want
 
 
-def _tc_limits_hold(N, H, G):
+def _tc_limits_hold(N, H, G, smem=frc.tc_smem_bytes):
     return (1 <= N <= frc.TC_MAX_N and H % 8 == 0
-            and 8 <= H <= frc.TC_MAX_H
-            and frc.tc_smem_bytes(N, H, G) <= 232448)
+            and 8 <= H <= frc.TC_MAX_H and smem(N, H, G) <= 232448)
 
 
 @pytest.mark.parametrize("mode", ["lstm", "gru"])
 def test_every_admitted_geometry_maps_to_one_variant(mode):
     """A sweep over H <= 700 and N in {1, 3, 32, 33, 64}: each geometry
-    the fused path admits runs on exactly one kernel, the tensor-core one
-    exactly where its limits hold (bf16) and never in float32; the rule
-    is pure (the same answer twice)."""
+    the fused path admits runs on exactly one kernel, the bf16
+    tensor-core one exactly where its limits hold in bf16, the float32
+    one exactly where its limits hold in float32, the FMA one elsewhere;
+    the rule is pure (the same answer twice)."""
     G = GATES[mode]
-    seen = {"tc": 0, "simt": 0}
+    seen = {"tc": 0, "tc32": 0, "simt": 0}
     for N in (1, 3, 32, 33, 64):
         for H in range(1, 701):
             if not fl.fused_rnn_fits(N, H, G):
@@ -65,9 +66,14 @@ def test_every_admitted_geometry_maps_to_one_variant(mode):
             assert got in ("tc", "simt")
             assert got == frc._bwd_variant(torch.bfloat16, N, H, G)
             assert (got == "tc") == _tc_limits_hold(N, H, G), (N, H)
-            assert frc._bwd_variant(torch.float32, N, H, G) == "simt"
             seen[got] += 1
-    assert seen["tc"] and seen["simt"]        # both sides of the rule met
+            got = frc._bwd_variant(torch.float32, N, H, G)
+            assert got in ("tc32", "simt")
+            assert got == frc._bwd_variant(torch.float32, N, H, G)
+            assert (got == "tc32") == _tc_limits_hold(
+                N, H, G, frc.tc32_smem_bytes), (N, H)
+            seen[got] += 1
+    assert all(seen.values())                 # every side of the rule met
 
 
 def test_tc_shared_memory_in_closed_form():
@@ -89,8 +95,9 @@ def test_tc_shared_memory_in_closed_form():
 
 def test_launch_counts_carry_both_backward_kernels():
     assert set(frc.launches) == {"lstm_fwd", "lstm_fwd_simt", "lstm_bwd",
-                                 "lstm_bwd_simt", "gru_fwd", "gru_fwd_simt",
-                                 "gru_bwd", "gru_bwd_simt"}
+                                 "lstm_bwd_f32", "lstm_bwd_simt", "gru_fwd",
+                                 "gru_fwd_simt", "gru_bwd", "gru_bwd_f32",
+                                 "gru_bwd_simt"}
     assert all(isinstance(v, int) for v in frc.launches.values())
 
 
@@ -176,13 +183,14 @@ def _bwd_on_cpu(monkeypatch, mode, dtype, rc, variant=None):
 @pytest.mark.parametrize("dtype,variant,suffix,counted", [
     (torch.bfloat16, None, "_tc", ""),
     (torch.bfloat16, "simt", "", "_simt"),
-    (torch.float32, None, "", "_simt")])
+    (torch.float32, None, "_f32tc", "_f32"),
+    (torch.float32, "simt", "", "_simt")])
 @pytest.mark.parametrize("mode", ["lstm", "gru"])
 def test_wrapper_counts_the_kernel_it_launched(monkeypatch, mode, dtype,
                                                variant, suffix, counted):
-    """bf16 goes to the tensor-core entry by the rule, ``_variant="simt"``
-    and float32 to the other one; each launch is counted under its own
-    kernel's name and nowhere else."""
+    """bf16 goes to the bf16 tensor-core entry by the rule, float32 to the
+    float32 one, ``_variant="simt"`` to the FMA one in either dtype; each
+    launch is counted under its own kernel's name and nowhere else."""
     fake, launched = _bwd_on_cpu(monkeypatch, mode, dtype, 0, variant)
     assert fake.calls == [f"mxtt_{mode}_bwd{suffix}"]
     assert launched == {**dict.fromkeys(launched, 0),
