@@ -26,8 +26,11 @@ GRU:
         fused_lstm_bwd_f32tc.cu "constexpr int KG = 4;" \
         "constexpr int KG = 16;"
 
-(options before the unit).  A failed check is printed and the timing
-goes on.  Needs nvcc (the card's machine) and, with ``--flash`` or
+builds and times a draft of the float32 backward (a changed header
+reaches both gate counts' units; the forward's, fused_rnn_fwd_f32tc.cuh
+with fused_lstm_fwd_f32tc.cu, the same way); a run with no OLD NEW pairs
+times the kernels as built.  Options go before the unit.  A failed check
+is printed and the timing goes on.  Needs nvcc (the card's machine) and, with ``--flash`` or
 ``--rnn``, the card; exits 1 if a string is not found once or the
 compile fails.
 """

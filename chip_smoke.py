@@ -226,9 +226,11 @@ Phases (any failure exits non-zero; nothing is caught):
      bfloat16 at the language model's shape (T 128, N 32, H 512) and at
      contract shapes (H 200 with N 3, T 1, a reverse direction's flipped
      input), each bound stated and shown to fail on planted faults, each
-     check saying which backward ran (bf16: the tensor-core one, also
-     the other one held to the same bounds at the main shape; float32:
-     the other one); the
+     check saying which forward and backward ran (the tensor-core ones:
+     bf16, or float32 through split-TF32 products; the FMA ones held to
+     the same bounds at the main shape, where in float32 the torch models
+     of the split-TF32 products pass and their one-product models fail);
+     the
      float32 kernels against cuDNN's nn.LSTM / nn.GRU; the RNN-op LM of
      examples/rnn_time_major.py (vocab 10,000, embedding and hidden 512,
      2 layers, T 128, N 32, bf16, Adam 0.01, Xavier) trained by
@@ -269,12 +271,12 @@ Phases (any failure exits non-zero; nothing is caught):
      products at 495 TFLOP/s; float32 FMAs at 67), and
      for the RNN kernels the
      barrier floor (an
-     empty cooperative kernel of T grid barriers), and for the RNN
-     backward the other kernel at the same bf16 inputs, the tensor-core
-     kernel's cluster size, units a CTA, ptxas registers and spills and
-     the floor of its split barrier (T arrive/wait pairs alone), then the
-     float32 RNN kernels (the Module family's path) beside cuDNN in
-     float32 with their ptxas registers and spills.
+     empty cooperative kernel of T grid barriers), and for each RNN
+     kernel the other (FMA) kernel at the same inputs, the tensor-core
+     kernel's cluster size, units a CTA, microseconds a step, ptxas
+     registers and spills and the floor of its split barrier (T
+     arrive/wait pairs alone), then the float32 RNN kernels (the Module
+     family's path) beside cuDNN in float32, with both their bounds.
 
 Prints JSON lines, then the card's name and power limit, then the
 ``kernels`` line, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -6456,6 +6458,7 @@ def _kernel_kind(name):
                       ("flash_dkv", "flash_dkv"),
                       ("rnn_fwd_kernel", "fused_rnn_fwd"),
                       ("rnn_fwd_tc_kernel", "fused_rnn_fwd"),
+                      ("rnn_fwd_f32tc_kernel", "fused_rnn_fwd"),
                       ("rnn_bwd_kernel", "fused_rnn_bwd"),
                       ("rnn_bwd_tc_kernel", "fused_rnn_bwd"),
                       ("rnn_bwd_f32tc_kernel", "fused_rnn_bwd"),
@@ -6489,7 +6492,7 @@ def profiler_warmup():
 
 def _launch_kind(name):
     """The trace kind of a launch counter's name: the fused-RNN
-    counters (``lstm_fwd_simt``, ...) by direction, the rest as traced."""
+    counters (``lstm_fwd_f32``, ...) by direction, the rest as traced."""
     if name.startswith(("lstm_", "gru_")):
         return "fused_rnn_" + name.split("_")[1]
     return _kernel_kind(name)
@@ -7017,7 +7020,7 @@ def rnn_case(mode, shape, dtype, seed=0):
 def rnn_kernels(mode, ins, cot, variant=None, fwd_variant=None):
     """Kernel outputs by name: the forward kernel with residuals, then the
     backward kernel from them (``fwd_variant`` and ``variant`` force the
-    forward's and the backward's: "tc" or "simt"; by default the
+    forward's and the backward's: "tc", "tc32" or "simt"; by default the
     wrappers' rules pick them)."""
     from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
 
@@ -7106,13 +7109,13 @@ def rnn_plain_permuted(mode, ins, cot, perm):
 def check_rnn(mode, tag, dtype):
     """The forward and backward kernels against their plain versions at
     one shape and dtype (bounds above); returns the report row.  In
-    bfloat16 both are the tensor-core kernels; in float32 the forward is
-    the FMA kernel and the backward the split-TF32 tensor-core one (the
-    row says which ran).  At the main shape the FMA backward
-    (``_variant="simt"``) and, in bfloat16, the FMA forward are held to
-    the same bounds, each with the other pass on its rule's kernel; in
-    float32 the torch models of the backward's split-TF32 products must
-    pass and its one-product model must fail (``rnn_tf32_models``)."""
+    bfloat16 both are the bf16 tensor-core kernels; in float32 both are
+    the split-TF32 tensor-core ones (the row says which ran).  At the
+    main shape the FMA backward (``_variant="simt"``) and the FMA forward
+    are held to the same bounds, each with the other pass on its rule's
+    kernel; in float32 the torch models of the forward's and the
+    backward's split-TF32 products must pass and their one-product
+    models must fail (``rnn_tf32_models``)."""
     from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
 
     shape = RNN_SHAPES[tag]
@@ -7126,16 +7129,15 @@ def check_rnn(mode, tag, dtype):
                   if kind in k and frc.launches[k] != before[k]]
            for kind in ("fwd", "bwd")}
     bf16 = dtype == torch.bfloat16
-    want = {"fwd": f"{mode}_fwd" + ("" if bf16 else "_simt"),
-            "bwd": f"{mode}_bwd" + ("" if bf16 else "_f32")}
+    want = {kind: f"{mode}_{kind}" + ("" if bf16 else "_f32")
+            for kind in ("fwd", "bwd")}
     ref = rnn_plain(mode, ins, cot)
     row = {"phase": "rnn_check", "mode": mode, "shape": tag,
            "tnh": list(shape), "dtype": str(dtype)[6:],
            "fwd_kernel": ran["fwd"], "fwd_kernel_expected": want["fwd"],
-           "bwd_kernel": ran["bwd"], "bwd_kernel_expected": want["bwd"]}
-    if bf16:
-        row["fwd_tc_plan"] = dict(frc.last_fwd_tc_plan)
-    row["tc_plan"] = dict(frc.last_tc_plan)
+           "bwd_kernel": ran["bwd"], "bwd_kernel_expected": want["bwd"],
+           "fwd_tc_plan": dict(frc.last_fwd_tc_plan),
+           "tc_plan": dict(frc.last_tc_plan)}
     bound = {}
     if dtype == torch.bfloat16:
         H = shape[2]
@@ -7161,13 +7163,10 @@ def check_rnn(mode, tag, dtype):
           and all(ran[kind] == [want[kind]] for kind in ran))
     if tag == "main":
         # the other kernels on the same inputs: the simt backward from the
-        # rule's forward's residuals, and in bf16 the simt forward (with
-        # the tc backward from its residuals), every output held to the
-        # bounds
-        others = [("bwd", {"variant": "simt"})]
-        if bf16:
-            others.append(("fwd", {"fwd_variant": "simt"}))
-        for kind, kw in others:
+        # rule's forward's residuals, and the simt forward (with the rule's
+        # backward from its residuals), every output held to the bounds
+        for kind, kw in (("bwd", {"variant": "simt"}),
+                         ("fwd", {"fwd_variant": "simt"})):
             before = dict(frc.launches)
             simt = rnn_kernels(mode, ins, cot, **kw)
             torch.cuda.synchronize()
@@ -7210,9 +7209,10 @@ def check_rnn(mode, tag, dtype):
 
 
 def rnn_tf32_models(mode, ins, cot, ref, bound):
-    """The float32 bound tells split TF32 from plain TF32: the backward's
-    outputs from torch models of the float32 tensor-core backward's
-    recurrent products (``fused_{lstm,gru}_bwd_tf32``) on the plain
+    """The float32 bound tells split TF32 from plain TF32: the outputs of
+    torch models of the float32 tensor-core kernels' recurrent products,
+    the forward's (``fused_{lstm,gru}_fwd_tf32``) on the kernels' inputs
+    and the backward's (``fused_{lstm,gru}_bwd_tf32``) on the plain
     forward's residuals, with the three-product split (it must pass) and
     with one TF32 product of operands rounded once (a planted fault: it
     must fail on every output); each output's share of the bound."""
@@ -7222,16 +7222,21 @@ def rnn_tf32_models(mode, ins, cot, ref, bound):
     shares = {}
     for products in (3, 1):
         if mode == "lstm":
-            out = fl.fused_lstm_bwd_tf32(
+            fwd = fl.fused_lstm_fwd_tf32(**ins, save=True, products=products)
+            bwd = fl.fused_lstm_bwd_tf32(
                 ref["acts"], ref["cells"], ref["ys"], ins["h0"], ins["c0"],
                 ins["wh"], **cot, products=products)
         else:
-            out = fg.fused_gru_bwd_tf32(ref["acts"], ref["ys"], ins["h0"],
+            fwd = fg.fused_gru_fwd_tf32(**ins, save=True, products=products)
+            bwd = fg.fused_gru_bwd_tf32(ref["acts"], ref["ys"], ins["h0"],
                                         ins["wh"], **cot, products=products)
+        names = [k for k in RNN_OUTPUTS["fwd"] if k in ref]
+        out = dict(zip(names, (o for o in fwd if o is not None)))
+        out.update(zip(RNN_OUTPUTS["bwd"], bwd))
         shares[products] = {
             k: float((o.float() - ref[k].float()).abs().max())
             / max(bound[k], 1e-30)
-            for k, o in zip(RNN_OUTPUTS["bwd"], out)}
+            for k, o in out.items() if o is not None}
     split = all(v <= 1.0 for v in shares[3].values())
     caught = all(v > 1.0 for v in shares[1].values())
     return {"split_3_share": shares[3], "single_1_share": shares[1],
@@ -7318,15 +7323,14 @@ def rnn_bounds(mode, shape, dtype):
 
 def time_rnn(mode, dtype=torch.bfloat16):
     """Kernel, plain, library (cuDNN) and barrier-floor times at the main
-    shape; the bound from this run's shapes.  Each tensor-core kernel (in
-    bf16 the forward and the backward, in float32 the backward) is timed
-    beside the FMA kernel on the same inputs in the same run
-    (``_variant="simt"``, ``ms_simt``), with its plan (cluster size, CTAs,
-    units a CTA, shared memory), its ptxas registers and spills and the
-    floor of its split barrier; the float32 forward is the FMA kernel
-    (``rnn_fwd_kernel<float, G>``).  float32: cuDNN in float32 (TF32 off)
-    beside them; the backward's bound at three TF32 products (495
-    TFLOP/s), its FMA bound (67 TFLOP/s) beside it."""
+    shape; the bound from this run's shapes.  Each tensor-core kernel (the
+    forward and the backward, bf16 or float32) is timed beside the FMA
+    kernel on the same inputs in the same run (``_variant="simt"``,
+    ``ms_simt``), with its plan (cluster size, CTAs, units a CTA, shared
+    memory), its microseconds a step, its ptxas registers and spills and
+    the floor of its split barrier.  float32: cuDNN in float32 (TF32 off) beside
+    them; the bounds at three TF32 products (495 TFLOP/s), the FMA bound
+    (67 TFLOP/s) beside each."""
     from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops import fused_gru as fg
     from mxnet_tpu_torch.ops import fused_lstm as fl
@@ -7358,9 +7362,6 @@ def time_rnn(mode, dtype=torch.bfloat16):
     for kind, call in (("fwd", lambda **kw: fwd(**ins, save=True, **kw)),
                        ("bwd", lambda **kw: bwd(*bwd_args, **cot, **kw))):
         k_ms[kind], ran[kind] = timed(call)
-        if f32 and kind == "fwd":
-            want[kind] = {f"{mode}_{kind}_simt"}
-            continue
         want[kind] = {f"{mode}_{kind}" + ("_f32" if f32 else "")}
         want[f"{kind}_simt"] = {f"{mode}_{kind}_simt"}
         plans[kind] = dict(frc.last_fwd_tc_plan if kind == "fwd"
@@ -7414,19 +7415,13 @@ def time_rnn(mode, dtype=torch.bfloat16):
         G = _GATES[mode]
         fma_ptxas = ptxas_report(log, f"rnn_{kind}_kernelIf",
                                  ("G",)).get(f"G{G}")
-        if kind not in plans:         # the float32 forward: the FMA kernel
-            rows[name].update({
-                "source": "csrc/fused_rnn.cuh",
-                "cuda_kernel": f"rnn_{kind}_kernel<float, {G}>",
-                "ptxas": fma_ptxas})
-            emit(rows[name])
-            continue
         plan = plans[kind]
-        tc_kernel = "rnn_bwd_f32tc_kernel" if f32 else f"rnn_{kind}_tc_kernel"
+        tc = f"{kind}_f32tc" if f32 else f"{kind}_tc"
+        tc_kernel = f"rnn_{tc}_kernel"
         rows[name].update({
-            "source": ("csrc/fused_rnn_bwd_f32tc.cuh" if f32
-                       else f"csrc/fused_rnn_{kind}_tc.cuh"),
+            "source": f"csrc/fused_rnn_{tc}.cuh",
             "cuda_kernel": f"{tc_kernel}<{G}>",
+            "us_per_step": 1e3 * k_ms[kind] / T,
             "ms_simt": simt_ms[kind],
             "simt_over_tc": simt_ms[kind] / k_ms[kind],
             "simt": f"rnn_{kind}_kernel (csrc/fused_rnn.cuh), the same "
@@ -7434,6 +7429,7 @@ def time_rnn(mode, dtype=torch.bfloat16):
             "cluster_size": plan["C"], "hs": plan["hs"],
             "grid_ctas": plan["grid"], "smem_bytes": plan["smem_bytes"],
             "split_barrier_floor_ms": split_floor,
+            "split_barrier_floor_us_per_step": 1e3 * split_floor / T,
             "split_barrier_floor": "the tensor-core kernels' split "
                                    f"barrier alone, {T} arrive/wait pairs "
                                    "on the bf16 LSTM backward's launch",
@@ -7622,9 +7618,9 @@ def rnn_small_train_check():
 # -> FullyConnected -> SoftmaxOutput) as a Symbol, at RNN_CFG's width
 # (vocabulary 10,000, embedding 512, H 512, 2 layers, batch 32), trained by
 # the Module family on gpu(0) in float32, the reference Module's dtype: its
-# LSTM and GRU layers run the float32 fused kernels (rnn_fwd_kernel<float,
-# G> and rnn_bwd_f32tc_kernel<G>: the "_simt" forward and "_f32" backward
-# launch counters), never the bf16 tensor-core ones.  SGD as examples/lstm_bucketing.py:74-79 (lr 0.01,
+# LSTM and GRU layers run the float32 fused kernels (rnn_fwd_f32tc_kernel<G>
+# and rnn_bwd_f32tc_kernel<G>: the "_f32" forward and backward launch
+# counters), never the bf16 tensor-core ones.  SGD as examples/lstm_bucketing.py:74-79 (lr 0.01,
 # momentum 0.9, wd 1e-5), Xavier.  BucketingModule's buckets are 32, 64 and
 # 128 (the default), fed by rnn_io.BucketSentenceIter over a seeded corpus of
 # lengths 5-128 that follows examples/rnn_time_major.py:98-102's successor
@@ -7877,8 +7873,8 @@ def bucket_agreement(batches):
 
 def train_bucketing_main_path():
     """The LSTM LM by BucketingModule over buckets 32, 64 and 128 for one
-    pass of the corpus: 2 float32 LSTM forward (FMA) and 2 backward
-    (split-TF32 tensor-core) launches a step in every bucket, no bf16
+    pass of the corpus: 2 float32 LSTM forward and 2 backward (split-TF32
+    tensor-core) launches a step in every bucket, no bf16
     launch, no scan step; the buckets' arrays alias the default bucket's;
     the held batch's NLL falls; then
     the agreement with the float64 scan, a profile window and a
@@ -7911,7 +7907,7 @@ def train_bucketing_main_path():
     lap("bucketing_steps")
     nll_after = seq_eval_nll(bm, held)
     steps = len(batches)
-    per_step = {"lstm_fwd_simt": 2, "lstm_bwd_f32": 2}
+    per_step = {"lstm_fwd_f32": 2, "lstm_bwd_f32": 2}
     expected = {k: 0 for k in launches}
     expected.update({k: v * steps for k, v in per_step.items()})
     every_step = all(d == per_step for r in by_bucket.values()
@@ -8033,7 +8029,7 @@ def train_feedforward_main_path():
         with module_ctx():
             again = loaded.predict(mt.io.NDArrayIter(X[:N], y[:N], N))
     steps = 3
-    per_layer = {"gru_fwd_simt": RNN_CFG["num_layers"] * steps,
+    per_layer = {"gru_fwd_f32": RNN_CFG["num_layers"] * steps,
                  "gru_bwd_f32": RNN_CFG["num_layers"] * steps}
     expected = {k: 0 for k in launches}
     expected.update(per_layer)
@@ -8099,7 +8095,7 @@ def module_family_check():
         out_err.append(float((a - b).abs().max()))
     got = {k: v.asnumpy() for k, v in seq.get_params()[0].items()}
     share, name = seq_param_share(got, module_params(one), p0)
-    per_step = {"lstm_fwd_simt": 2, "lstm_bwd_f32": 2}
+    per_step = {"lstm_fwd_f32": 2, "lstm_bwd_f32": 2}
     ok = (share <= 1.0 and sorted(got) == sorted(p0)
           and all(d == per_step for d in launches)
           and all(np.isfinite(out_err)))
@@ -8660,7 +8656,7 @@ def main():
         # LSTM, train_feedforward's GRU)
         t32 = rnn_t32[kname]
         err32 = rnn_rows[(mode, "main", torch.float32)]["max_abs_err"]
-        k32 = f"{kname}_f32" if kind == "bwd" else f"{kname}_simt"
+        k32 = f"{kname}_f32"
         n32 = seq[mode]["kernel_launches"][k32]
         entry["launches_by_path"] = {
             f"train_{mode}": entry["launches"],

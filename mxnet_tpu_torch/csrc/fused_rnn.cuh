@@ -9,11 +9,12 @@
 //   rnn_bwd_kernel<T, 4>  <- pallas_lstm.py _bwd_call / _bwd_kernel (call :216)
 //   rnn_fwd_kernel<T, 3>  <- pallas_gru.py  _fwd / _fwd_kernel      (call :94)
 //   rnn_bwd_kernel<T, 3>  <- pallas_gru.py  _bwd_call / _bwd_kernel (call :169)
-// For bfloat16 within their limits the forward and the backward run
-// instead on the tensor cores (fused_rnn_fwd_tc.cuh and
-// fused_rnn_bwd_tc.cuh, picked on the host by ops/fused_rnn_cuda.py
-// _fwd_variant and _bwd_variant); rnn_fwd_kernel and rnn_bwd_kernel take
-// float32 and every other geometry.
+// Within their limits the forward and the backward run instead on the
+// tensor cores, in bfloat16 (fused_rnn_fwd_tc.cuh, fused_rnn_bwd_tc.cuh)
+// and in float32 through split-TF32 products (fused_rnn_fwd_f32tc.cuh,
+// fused_rnn_bwd_f32tc.cuh), picked on the host by ops/fused_rnn_cuda.py
+// _fwd_variant and _bwd_variant; rnn_fwd_kernel and rnn_bwd_kernel take
+// every other geometry.
 // Each computes what its TPU kernel computes, at the same cast points: the
 // recurrent products take operands in gx's type T (h, Wh; dgates, Wh;
 // dgates, h_prev) and sum in float32; gx, bh and the carried state are

@@ -14,9 +14,9 @@
 // (float32) in float32; the carried state (c for the LSTM, h for the
 // GRU's z h) stays float32; ys, hT and cT are bf16; the saved activations
 // (T, N, 4 H: i, f, g, o or r, z, n, hp_n) and cells (T, N, H) are
-// float32, and without `save` nothing of them is written.  float32 (and
-// every geometry outside the limits below) runs rnn_fwd_kernel in
-// fused_rnn.cuh.
+// float32, and without `save` nothing of them is written.  float32 runs
+// fused_rnn_fwd_f32tc.cuh, and every geometry outside the limits below
+// rnn_fwd_kernel in fused_rnn.cuh.
 //
 // What bounds it.  At the language model's shape (T 128, N 32, H 512) the
 // forward is 2 T N G H^2 = 8.6 GFLOP and ~26 MB: ~0.02 ms on the card.

@@ -26,7 +26,7 @@ from .flash_attention import _tf32_matmul
 from .fused_lstm import fused_rnn_eligible
 
 __all__ = ["fused_gru", "fused_gru_eligible", "fused_gru_fwd_torch",
-           "fused_gru_bwd_torch", "fused_gru_bwd_tf32"]
+           "fused_gru_bwd_torch", "fused_gru_fwd_tf32", "fused_gru_bwd_tf32"]
 
 
 def fused_gru_eligible(T, N, H, force=None, dtype=torch.float32):
@@ -38,18 +38,37 @@ def fused_gru_eligible(T, N, H, force=None, dtype=torch.float32):
 def fused_gru_fwd_torch(gx, h0, wh, bh, save=True):
     """Plain version of the forward kernel: ``(ys, hT)`` in gx's dtype
     and, with ``save``, the float32 residual ``acts`` (T, N, 4H:
-    r, z, n, hp_n), else None."""
+    r, z, n, hp_n), else None (sums in the wider of float32 and gx's
+    dtype, as the LSTM's)."""
+    return _gru_fwd(gx, h0, wh, bh, save, torch.matmul)
+
+
+def fused_gru_fwd_tf32(gx, h0, wh, bh, save=True, products=3):
+    """The float32 tensor-core forward's arithmetic in plain torch:
+    :func:`fused_gru_fwd_torch` with its recurrent product taken as
+    :func:`~.fused_lstm.fused_lstm_fwd_tf32` takes it.  float32 only."""
+    if gx.dtype != torch.float32:
+        raise ValueError(f"the TF32 model takes float32, not {gx.dtype}")
+    return _gru_fwd(gx, h0, wh, bh, save,
+                    functools.partial(_tf32_matmul, products=products))
+
+
+def _gru_fwd(gx, h0, wh, bh, save, mm):
+    """The forward's recurrence with its recurrent product taken by
+    ``mm``."""
     T, N, G = gx.shape
     H = G // 3
     dt = gx.dtype
-    w = wh.to(dt).float().t()
-    b = bh.reshape(-1).float()
-    h = h0.float()
+    acc = torch.promote_types(dt, torch.float32)
+    w = wh.to(dt).to(acc).t()
+    b = bh.reshape(-1).to(acc)
+    h = h0.to(acc)
     ys = torch.empty(T, N, H, dtype=dt, device=gx.device)
-    acts = torch.empty(T, N, 4 * H, device=gx.device) if save else None
+    acts = (torch.empty(T, N, 4 * H, dtype=acc, device=gx.device) if save
+            else None)
     for t in range(T):
-        hp = h.to(dt).float() @ w + b
-        x = gx[t].float()
+        hp = mm(h.to(dt).to(acc), w) + b
+        x = gx[t].to(acc)
         r = torch.sigmoid(x[:, :H] + hp[:, :H])
         z = torch.sigmoid(x[:, H:2 * H] + hp[:, H:2 * H])
         nh = hp[:, 2 * H:]

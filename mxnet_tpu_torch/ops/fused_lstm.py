@@ -12,11 +12,12 @@ On CUDA tensors its forward launches a fused-LSTM forward kernel and its
 backward a fused-LSTM backward kernel, each picked by
 ``ops/fused_rnn_cuda`` (``_fwd_variant``, ``_bwd_variant``: the
 tensor-core kernels in bf16 within their limits and the float32
-tensor-core backward in float32, else the float32-FMA ones); on CPU
+tensor-core ones in float32, else the float32-FMA ones); on CPU
 tensors it runs :func:`fused_lstm_fwd_torch` and
 :func:`fused_lstm_bwd_torch`, the plain versions.
-:func:`fused_lstm_bwd_tf32` models the float32 tensor-core backward's
-split-TF32 products; nothing on the card's path calls it.  Both keep the TPU
+:func:`fused_lstm_fwd_tf32` and :func:`fused_lstm_bwd_tf32` model the
+float32 tensor-core kernels' split-TF32 products; nothing on the card's
+path calls them.  Both keep the TPU
 kernels' cast points: the recurrent product's operands (h, Wh; dgates,
 Wh; dgates, h_prev) in gx's dtype and summed in float32; gx, bh, the
 carried state, the saved activations and cells in float32; ys, hT, cT
@@ -35,8 +36,9 @@ import torch
 from .flash_attention import _tf32_matmul
 
 __all__ = ["fused_lstm", "fused_lstm_eligible", "fused_lstm_fwd_torch",
-           "fused_lstm_bwd_torch", "fused_lstm_bwd_tf32", "fused_rnn_eligible",
-           "fused_rnn_fits", "KERNEL_DTYPES"]
+           "fused_lstm_bwd_torch", "fused_lstm_fwd_tf32",
+           "fused_lstm_bwd_tf32", "fused_rnn_eligible", "fused_rnn_fits",
+           "KERNEL_DTYPES"]
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -102,20 +104,39 @@ def fused_lstm_fwd_torch(gx, h0, c0, wh, bh, save=True):
     """Plain version of the forward kernel: ``(ys, hT, cT)`` in gx's
     dtype and, with ``save``, the float32 residuals ``acts`` (T, N, 4H:
     the activated i, f, g, o) and ``cells`` (T, N, H), None without
-    ``save``."""
+    ``save`` (sums in the wider of float32 and gx's dtype: a float64 gx
+    gives a float64 reference)."""
+    return _lstm_fwd(gx, h0, c0, wh, bh, save, torch.matmul)
+
+
+def fused_lstm_fwd_tf32(gx, h0, c0, wh, bh, save=True, products=3):
+    """The float32 tensor-core forward's arithmetic in plain torch
+    (``csrc/fused_rnn_fwd_f32tc.cuh``): :func:`fused_lstm_fwd_torch` with
+    its recurrent product h_{t-1} Wh^T taken as the kernel takes it
+    (``products`` as :func:`fused_lstm_bwd_tf32`'s).  float32 only."""
+    if gx.dtype != torch.float32:
+        raise ValueError(f"the TF32 model takes float32, not {gx.dtype}")
+    return _lstm_fwd(gx, h0, c0, wh, bh, save,
+                     functools.partial(_tf32_matmul, products=products))
+
+
+def _lstm_fwd(gx, h0, c0, wh, bh, save, mm):
+    """The forward's recurrence with its recurrent product taken by
+    ``mm``."""
     T, N, G = gx.shape
     H = G // 4
     dt = gx.dtype
-    w = wh.to(dt).float().t()                   # operands in gx's dtype
-    b = bh.reshape(-1).float()
-    h, c = h0.float(), c0.float()
+    acc = torch.promote_types(dt, torch.float32)
+    w = wh.to(dt).to(acc).t()                   # operands in gx's dtype
+    b = bh.reshape(-1).to(acc)
+    h, c = h0.to(acc), c0.to(acc)
     ys = torch.empty(T, N, H, dtype=dt, device=gx.device)
     acts = cells = None
     if save:
-        acts = torch.empty(T, N, G, device=gx.device)
-        cells = torch.empty(T, N, H, device=gx.device)
+        acts = torch.empty(T, N, G, dtype=acc, device=gx.device)
+        cells = torch.empty(T, N, H, dtype=acc, device=gx.device)
     for t in range(T):
-        gates = gx[t].float() + h.to(dt).float() @ w + b
+        gates = gx[t].to(acc) + mm(h.to(dt).to(acc), w) + b
         i = torch.sigmoid(gates[:, :H])
         f = torch.sigmoid(gates[:, H:2 * H])
         g = torch.tanh(gates[:, 2 * H:3 * H])

@@ -4,20 +4,20 @@ The kernels (``csrc/fused_rnn.cuh``, one translation unit each:
 ``csrc/fused_{lstm,gru}_{fwd,bwd}.cu``) replace the TPU kernels of
 ``mxnet_tpu/ops/pallas_lstm.py`` (``_fwd_kernel``, ``_bwd_kernel``) and
 ``mxnet_tpu/ops/pallas_gru.py`` (``_fwd_kernel``, ``_bwd_kernel``).  The
-forward and the backward each have two variants, picked by
+forward and the backward each have three variants, picked by
 :func:`_fwd_variant` and :func:`_bwd_variant` from the dtype and the
 geometry: ``tc`` (bf16 tensor cores over thread-block clusters of 16
 CTAs: ``csrc/fused_rnn_fwd_tc.cuh``, units ``csrc/fused_{lstm,gru}_fwd_tc.cu``,
 h_{t-1} multicast to the cluster; ``csrc/fused_rnn_bwd_tc.cuh``, units
 ``csrc/fused_{lstm,gru}_bwd_tc.cu``, the recurrent product split by K
-across the cluster) and ``simt`` (``rnn_fwd_kernel`` and
-``rnn_bwd_kernel`` in ``csrc/fused_rnn.cuh``: float32 FMAs, for the
-float32 forward and every geometry outside the tensor-core kernels'
-limits).  The backward has a third, ``tc32`` (float32 on tensor cores
-through split-TF32 products over the same clusters:
-``csrc/fused_rnn_bwd_f32tc.cuh``, units
-``csrc/fused_{lstm,gru}_bwd_f32tc.cu``).  They are built with ``nvcc`` at
-the first launch and called through ``ctypes``.
+across the cluster), ``tc32`` (float32 on tensor cores through split-TF32
+products over the same clusters: ``csrc/fused_rnn_fwd_f32tc.cuh``, units
+``csrc/fused_{lstm,gru}_fwd_f32tc.cu``; ``csrc/fused_rnn_bwd_f32tc.cuh``,
+units ``csrc/fused_{lstm,gru}_bwd_f32tc.cu``) and ``simt``
+(``rnn_fwd_kernel`` and ``rnn_bwd_kernel`` in ``csrc/fused_rnn.cuh``:
+float32 FMAs, for every geometry outside the tensor-core kernels'
+limits).  They are built with ``nvcc`` at the first launch and called
+through ``ctypes``.
 Each wrapper checks what its kernel takes and raises on anything else; a
 failed build or launch (a refused cluster or cooperative launch too)
 raises its ``cudaError``, and there is no fallback to the plain versions
@@ -25,9 +25,9 @@ raises its ``cudaError``, and there is no fallback to the plain versions
 ``ops.fused_gru.fused_gru_{fwd,bwd}_torch``, which the CPU path runs) nor
 from one variant to the other.  ``launches`` counts each kernel's
 launches in this process (``lstm_fwd``/``lstm_bwd``/``gru_fwd``/
-``gru_bwd``: the bf16 tensor-core kernels; ``lstm_bwd_f32``/
-``gru_bwd_f32``: the float32 tensor-core backwards; the ``_simt`` names:
-the others).
+``gru_bwd``: the bf16 tensor-core kernels; ``lstm_fwd_f32``/
+``lstm_bwd_f32``/``gru_fwd_f32``/``gru_bwd_f32``: the float32 tensor-core
+kernels; the ``_simt`` names: the others).
 
 gx (T, N, G H) is float32 or bfloat16; wh is cast to gx's dtype (the
 product's operand type, as the TPU kernels cast it) and bh to float32;
@@ -55,33 +55,36 @@ SOURCES = ("fused_rnn.cuh", "fused_lstm_fwd.cu", "fused_lstm_bwd.cu",
            "fused_gru_bwd_tc.cu", "fused_rnn_fwd_tc.cuh",
            "fused_lstm_fwd_tc.cu", "fused_gru_fwd_tc.cu", "tf32x3.cuh",
            "fused_rnn_bwd_f32tc.cuh", "fused_lstm_bwd_f32tc.cu",
-           "fused_gru_bwd_f32tc.cu")
+           "fused_gru_bwd_f32tc.cu", "fused_rnn_fwd_f32tc.cuh",
+           "fused_lstm_fwd_f32tc.cu", "fused_gru_fwd_f32tc.cu")
 
 # kernel launches in this process, per kernel; reset by whoever counts a
 # window
-launches = {"lstm_fwd": 0, "lstm_fwd_simt": 0, "lstm_bwd": 0,
-            "lstm_bwd_f32": 0, "lstm_bwd_simt": 0, "gru_fwd": 0,
-            "gru_fwd_simt": 0, "gru_bwd": 0, "gru_bwd_f32": 0,
-            "gru_bwd_simt": 0}
+launches = {"lstm_fwd": 0, "lstm_fwd_f32": 0, "lstm_fwd_simt": 0,
+            "lstm_bwd": 0, "lstm_bwd_f32": 0, "lstm_bwd_simt": 0,
+            "gru_fwd": 0, "gru_fwd_f32": 0, "gru_fwd_simt": 0, "gru_bwd": 0,
+            "gru_bwd_f32": 0, "gru_bwd_simt": 0}
 
-# the last tensor-core backward's (bf16 or float32) and forward's launch
-# plans: cluster size C, grid CTAs, shared-memory bytes and units a CTA
+# the last tensor-core backward's and forward's (each bf16 or float32)
+# launch plans: cluster size C, grid CTAs, shared-memory bytes and units a CTA
 last_tc_plan = {}
 last_fwd_tc_plan = {}
 
 # The tensor-core kernels' limits (csrc/fused_rnn_{fwd,bwd}_tc.cuh and
-# csrc/fused_rnn_bwd_f32tc.cuh, Limits): registers sized for N <= 32 (two
-# m16 tiles of the batch) and H <= 512 (the bf16 backward: 4 pairs of dWh
-# n-tiles and 8 k-steps of Wh fragments a warp; the float32 backward: 16
-# k-steps of Wh fragments and 64 dWh columns a warp; the forward: 4
-# k-steps a warp), H a multiple of 8 (16-byte rows), and their shared
-# memory (tc_smem_bytes, tc32_smem_bytes, fwd_tc_smem_bytes) within a
+# csrc/fused_rnn_{fwd,bwd}_f32tc.cuh, Limits): registers sized for N <= 32
+# (two m16 tiles of the batch) and H <= 512 (the bf16 backward: 4 pairs of
+# dWh n-tiles and 8 k-steps of Wh fragments a warp; the float32 backward:
+# 16 k-steps of Wh fragments and 64 dWh columns a warp; the bf16 forward:
+# 8 k16-steps a warp; the float32 forward: 8 k8-steps a warp), H a
+# multiple of 8 (16-byte rows), and their shared memory (tc_smem_bytes,
+# tc32_smem_bytes, fwd_tc_smem_bytes, fwd_tc32_smem_bytes) within a
 # block's 227 KB.  A CTA owns TC_HS hidden units, a cluster TC_CLUSTER
 # CTAs.
 TC_MAX_N, TC_MAX_H = 32, 512
 TC_HS, TC_CLUSTER = 8, 16
 _SMEM_MAX = 232448
-_TC_FWD_SPLIT_K = 4            # the forward's product: K-quarters
+_TC_FWD_SPLIT_K = 4            # the bf16 forward's product: K-quarters
+_TC32_FWD_SPLIT_K = 8          # the float32 forward's: K parts, one a warp
 _TC_PART_STRIDE = 40           # floats a row of a quarter's partial sums
 # the float32 backward's dWh sums: 8 warps x 8 n-tiles x 2 m-tiles of
 # 16-byte fragments a lane
@@ -107,9 +110,10 @@ def _lib():
                 tc = getattr(lib, f"mxtt_{mode}_bwd_{suffix}")
                 tc.argtypes = [vp] * 16 + [i] * 3 + [vp, vp]
                 tc.restype = ctypes.c_int
-            fwd_tc = getattr(lib, f"mxtt_{mode}_fwd_tc")
-            fwd_tc.argtypes = [vp] * 11 + [i] * 4 + [vp, vp]
-            fwd_tc.restype = ctypes.c_int
+            for suffix in ("tc", "f32tc"):
+                fwd_tc = getattr(lib, f"mxtt_{mode}_fwd_{suffix}")
+                fwd_tc.argtypes = [vp] * 11 + [i] * 4 + [vp, vp]
+                fwd_tc.restype = ctypes.c_int
         lib.mxtt_rnn_split_barrier_floor.argtypes = [i] * 3 + [vp] * 3
         lib.mxtt_rnn_split_barrier_floor.restype = ctypes.c_int
     return lib
@@ -162,9 +166,11 @@ def _fwd(G, name, gx, h0, c0, wh, bh, save, variant=None):
     _need(bh.numel() == G * H and bh.device == dev,
           f"bh must hold {G * H} values on {dev}")
     variant = variant or _fwd_variant(dt, N, H, G)
-    _need(variant in ("tc", "simt"), f"unknown variant {variant!r}")
-    _need(variant == "simt" or dt == torch.bfloat16,
+    _need(variant in ("tc", "tc32", "simt"), f"unknown variant {variant!r}")
+    _need(variant != "tc" or dt == torch.bfloat16,
           f"the tc forward takes bfloat16, not {dt}")
+    _need(variant != "tc32" or dt == torch.float32,
+          f"the tc32 forward takes float32, not {dt}")
     gx = gx.contiguous()
     h0 = h0.float().contiguous()
     c0 = None if c0 is None else c0.float().contiguous()
@@ -180,10 +186,11 @@ def _fwd(G, name, gx, h0, c0, wh, bh, save, variant=None):
     ptrs = (_ptr(gx), _ptr(h0), _ptr(c0), _ptr(wh), _ptr(bh), _ptr(ys),
             _ptr(hT), _ptr(cT), _ptr(acts), _ptr(cells))
     with _launch_stream(dev) as stream:
-        if variant == "tc":
+        if variant != "simt":
             ctr = torch.zeros(1, dtype=torch.int32, device=dev)
             info = (ctypes.c_int * 3)()
-            rc = getattr(_lib(), f"mxtt_{name}_tc")(
+            entry = "tc" if variant == "tc" else "f32tc"
+            rc = getattr(_lib(), f"mxtt_{name}_{entry}")(
                 *ptrs, _ptr(ctr), T, N, H, int(save), info, stream)
             if rc == 0:
                 last_fwd_tc_plan.clear()
@@ -192,14 +199,15 @@ def _fwd(G, name, gx, h0, c0, wh, bh, save, variant=None):
         else:
             rc = getattr(_lib(), f"mxtt_{name}")(
                 _DTYPE_CODE[dt], *ptrs, T, N, H, int(save), stream)
-    _check(rc, name if variant == "tc" else f"{name}_simt")
+    _check(rc, {"tc": name, "tc32": f"{name}_f32",
+                "simt": f"{name}_simt"}[variant])
     return ys, hT, cT, acts, cells
 
 
 def lstm_fwd_cuda(gx, h0, c0, wh, bh, save=True, _variant=None):
     """Fused-LSTM forward kernel: ``(ys, hT, cT, acts, cells)``, the
     residuals (float32 acts (T, N, 4H), cells (T, N, H)) None without
-    ``save``.  ``_variant`` ("tc" or "simt") overrides
+    ``save``.  ``_variant`` ("tc", "tc32" or "simt") overrides
     :func:`_fwd_variant`: for tests and timings only."""
     return _fwd(4, "lstm_fwd", gx, h0, c0, wh, bh, save, _variant)
 
@@ -256,6 +264,18 @@ def fwd_tc_smem_bytes(N, H):
             + N * TC_HS * 2 + 16)                       # staged h, mbarriers
 
 
+def fwd_tc32_smem_bytes(N, H):
+    """Shared memory of the float32 tensor-core forward, in bytes: the
+    layout of ``fwd32_geo`` (csrc/fused_rnn_fwd_f32tc.cuh) in closed form,
+    the same for both gate counts.  At most 174,096 (N 32, H 512) within
+    its limits."""
+    up = lambda a, b: _cdiv(a, b) * b
+    mt = _cdiv(N, 16)                          # m16 tiles of the batch
+    return (2 * 16 * mt * (up(H, 32) + 4) * 4           # h, two halves
+            + _TC32_FWD_SPLIT_K * 16 * mt * _TC_PART_STRIDE * 4  # partials
+            + N * TC_HS * 4 + 16)                       # staged h, mbarriers
+
+
 def _tc_limits(dtype, N, H, want=torch.bfloat16):
     return (dtype == want and 1 <= N <= TC_MAX_N and H % 8 == 0
             and 8 <= H <= TC_MAX_H)
@@ -265,10 +285,15 @@ def _fwd_variant(dtype, N, H, G):
     """Which forward kernel takes a layer of G gates: ``"tc"`` (bf16
     tensor cores) where its limits hold (bfloat16, N <= 32, H a multiple
     of 8 up to 512, its shared memory within 227 KB; the same for both
-    gate counts), else ``"simt"``.  A pure function of its arguments,
-    decided on the host."""
+    gate counts), ``"tc32"`` (float32 tensor cores, split TF32) where the
+    same limits hold in float32 (:func:`fwd_tc32_smem_bytes` within 227
+    KB), else ``"simt"``.  A pure function of its arguments, decided on
+    the host."""
     if _tc_limits(dtype, N, H) and fwd_tc_smem_bytes(N, H) <= _SMEM_MAX:
         return "tc"
+    if (_tc_limits(dtype, N, H, torch.float32)
+            and fwd_tc32_smem_bytes(N, H) <= _SMEM_MAX):
+        return "tc32"
     return "simt"
 
 

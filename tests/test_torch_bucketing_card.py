@@ -5,8 +5,8 @@ BucketingModule over buckets 8 and 16 launches no kernel and lowers the
 loss.  On the card (``cuda`` marker; skipped here with a stated reason,
 and run by ``python3 -m pytest -q -m cuda --noconftest
 tests/test_torch_bucketing_card.py``) the same module launches the
-float32 fused-LSTM kernels (``lstm_fwd_simt``, the FMA forward, and
-``lstm_bwd_f32``, the split-TF32 tensor-core backward) once a layer and
+float32 fused-LSTM kernels (``lstm_fwd_f32`` and ``lstm_bwd_f32``, the
+split-TF32 tensor-core forward and backward) once a layer and
 step each, in both buckets, and no bf16 one, and its
 parameters after four SGD steps agree with the same module's through the
 eager scan (``MXNET_TPU_FUSED_RNN=0``) on the card: each within 4 2^-24
@@ -104,7 +104,7 @@ def test_card_bucketing_launches_float32_kernels_and_matches_scan(
     card = _module(mt.gpu(0))
     p0 = _values(card)
     launches, nll = _train(card, mt.gpu(0))
-    per_step = {"lstm_fwd_simt": L, "lstm_bwd_f32": L}
+    per_step = {"lstm_fwd_f32": L, "lstm_bwd_f32": L}
     assert launches == [per_step] * len(BUCKETS)
     got = _values(card)
     monkeypatch.setenv("MXNET_TPU_FUSED_RNN", "0")

@@ -332,11 +332,23 @@ def _kernel_vs_plain(mode, shape, dtype, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(6, 4, 8), (13, 3, 16), (1, 3, 200),
-                                   (128, 32, 512)])
+                                   (128, 32, 512), (13, 40, 16), (5, 3, 12)])
 @pytest.mark.parametrize("mode", ["lstm", "gru"])
 def test_cuda_kernels_match_plain_versions_f32(mode, shape):
+    """The float32 kernels that the rule picks (the tensor-core pair
+    within its limits; past N 32 or at an H not a multiple of 8, the
+    float32-FMA pair) against the plain versions; the launches are
+    counted under the kernels that ran."""
     _need_cuda()
+    _, N, H = shape
+    suffix = {"tc32": "_f32", "simt": "_simt"}
+    fwd = suffix[frc._fwd_variant(torch.float32, N, H, GATES[mode])]
+    bwd = suffix[frc._bwd_variant(torch.float32, N, H, GATES[mode])]
+    before = dict(frc.launches)
     assert _kernel_vs_plain(mode, shape, torch.float32) <= 1e-5
+    assert {k: frc.launches[k] - before[k] for k in frc.launches
+            if frc.launches[k] != before[k]} == {f"{mode}_fwd{fwd}": 1,
+                                                 f"{mode}_bwd{bwd}": 1}
 
 
 @pytest.mark.cuda

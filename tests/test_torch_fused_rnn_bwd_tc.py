@@ -94,10 +94,10 @@ def test_tc_shared_memory_in_closed_form():
 
 
 def test_launch_counts_carry_both_backward_kernels():
-    assert set(frc.launches) == {"lstm_fwd", "lstm_fwd_simt", "lstm_bwd",
-                                 "lstm_bwd_f32", "lstm_bwd_simt", "gru_fwd",
-                                 "gru_fwd_simt", "gru_bwd", "gru_bwd_f32",
-                                 "gru_bwd_simt"}
+    assert set(frc.launches) == {"lstm_fwd", "lstm_fwd_f32", "lstm_fwd_simt",
+                                 "lstm_bwd", "lstm_bwd_f32", "lstm_bwd_simt",
+                                 "gru_fwd", "gru_fwd_f32", "gru_fwd_simt",
+                                 "gru_bwd", "gru_bwd_f32", "gru_bwd_simt"}
     assert all(isinstance(v, int) for v in frc.launches.values())
 
 

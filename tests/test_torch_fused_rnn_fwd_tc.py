@@ -1,14 +1,16 @@
-"""The fused-RNN forward's two kernels in the PyTorch port: the host rule
+"""The fused-RNN forward's kernels in the PyTorch port: the host rule
 that picks one, and the wrapper around it, on the CPU.
 
-The tensor-core forward (``csrc/fused_rnn_fwd_tc.cuh``) and the float32
-FMA forward (``rnn_fwd_kernel`` in ``csrc/fused_rnn.cuh``) run only on the
-card; their arithmetic is the plain versions', which
-``tests/test_torch_fused_rnn.py`` holds against the reference's Pallas
-kernels, and their ``cuda``-marked cases there hold both kernels against
-the plain forward on the card.  Here: ``_fwd_variant`` is a pure rule that
-maps every geometry the fused path admits (``fused_rnn_fits``) to exactly
-one kernel, the tensor-core one at the shapes chip_smoke.py checks; the
+The bf16 tensor-core forward (``csrc/fused_rnn_fwd_tc.cuh``), the float32
+one (``csrc/fused_rnn_fwd_f32tc.cuh``, whose own cases are in
+``tests/test_torch_fused_rnn_fwd_f32tc.py``) and the float32 FMA forward
+(``rnn_fwd_kernel`` in ``csrc/fused_rnn.cuh``) run only on the card; their
+arithmetic is the plain versions', which ``tests/test_torch_fused_rnn.py``
+holds against the reference's Pallas kernels, and their ``cuda``-marked
+cases hold the kernels against the plain forward on the card.  Here:
+``_fwd_variant`` is a pure rule that maps every geometry the fused path
+admits (``fused_rnn_fits``) to exactly one kernel, a tensor-core one at
+the shapes chip_smoke.py checks; the
 wrapper counts the kernel it launched under its own name, raises on a
 refused launch without running the other kernel or the plain version, and
 a CPU tensor launches nothing.  The wrapper's launch path runs here with
@@ -36,25 +38,26 @@ GATES = {"lstm": 4, "gru": 3}
 @pytest.mark.parametrize("tag", sorted(chip_smoke.RNN_SHAPES))
 @pytest.mark.parametrize("mode", ["lstm", "gru"])
 def test_variant_at_the_checked_shapes(mode, tag, dtype):
-    """Every shape chip_smoke.py checks runs the tensor-core forward in
-    bf16 and the other kernel in float32."""
+    """Every shape chip_smoke.py checks runs the bf16 tensor-core forward
+    in bf16 and the float32 one (split TF32) in float32."""
     _, N, H = chip_smoke.RNN_SHAPES[tag]
-    want = "tc" if dtype == torch.bfloat16 else "simt"
+    want = "tc" if dtype == torch.bfloat16 else "tc32"
     assert frc._fwd_variant(dtype, N, H, GATES[mode]) == want
 
 
-def _fwd_tc_limits_hold(N, H):
+def _fwd_tc_limits_hold(N, H, smem=frc.fwd_tc_smem_bytes):
     return (1 <= N <= frc.TC_MAX_N and H % 8 == 0
-            and 8 <= H <= frc.TC_MAX_H
-            and frc.fwd_tc_smem_bytes(N, H) <= 232448)
+            and 8 <= H <= frc.TC_MAX_H and smem(N, H) <= 232448)
 
 
 @pytest.mark.parametrize("mode", ["lstm", "gru"])
 def test_every_admitted_geometry_maps_to_one_variant(mode):
     """A sweep over H <= 700 and N in {1, 3, 32, 33, 64}: each geometry
-    the fused path admits runs on exactly one forward kernel, the
-    tensor-core one exactly where its limits hold (bf16) and never in
-    float32; the rule is pure (the same answer twice)."""
+    the fused path admits runs on exactly one forward kernel, the bf16
+    tensor-core one exactly where its limits hold in bf16, the float32
+    one exactly where the same limits hold in float32 (its own layout
+    within 227 KB), else the FMA one; the rule is pure (the same answer
+    twice)."""
     G = GATES[mode]
     seen = {"tc": 0, "simt": 0}
     for N in (1, 3, 32, 33, 64):
@@ -65,7 +68,9 @@ def test_every_admitted_geometry_maps_to_one_variant(mode):
             assert got in ("tc", "simt")
             assert got == frc._fwd_variant(torch.bfloat16, N, H, G)
             assert (got == "tc") == _fwd_tc_limits_hold(N, H), (N, H)
-            assert frc._fwd_variant(torch.float32, N, H, G) == "simt"
+            f32 = _fwd_tc_limits_hold(N, H, frc.fwd_tc32_smem_bytes)
+            assert (frc._fwd_variant(torch.float32, N, H, G)
+                    == ("tc32" if f32 else "simt")), (N, H)
             seen[got] += 1
     assert seen["tc"] and seen["simt"]        # both sides of the rule met
 
@@ -165,13 +170,14 @@ def _fwd_on_cpu(monkeypatch, mode, dtype, rc, variant=None, save=True):
     (torch.bfloat16, None, "_tc", ""),
     (torch.bfloat16, "tc", "_tc", ""),
     (torch.bfloat16, "simt", "", "_simt"),
-    (torch.float32, None, "", "_simt")])
+    (torch.float32, None, "_f32tc", "_f32"),
+    (torch.float32, "simt", "", "_simt")])
 @pytest.mark.parametrize("mode", ["lstm", "gru"])
 def test_wrapper_counts_the_kernel_it_launched(monkeypatch, mode, dtype,
                                                variant, suffix, counted):
-    """bf16 goes to the tensor-core entry by the rule, ``_variant="simt"``
-    and float32 to the other one; each launch is counted under its own
-    kernel's name and nowhere else."""
+    """bf16 goes to the bf16 tensor-core entry by the rule, float32 to
+    the float32 one, ``_variant="simt"`` to the FMA one; each launch is
+    counted under its own kernel's name and nowhere else."""
     fake, launched, _ = _fwd_on_cpu(monkeypatch, mode, dtype, 0, variant)
     assert fake.calls == [f"mxtt_{mode}_fwd{suffix}"]
     assert launched == {**dict.fromkeys(launched, 0),
