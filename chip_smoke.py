@@ -254,6 +254,23 @@ Phases (any failure exits non-zero; nothing is caught):
      launches counted); a SequentialModule (body and head Modules)
      against the one-Module LM over 3 steps; CTCLoss on the card against
      the CPU (blank first and last, repeated and padded labels, lengths);
+     the vision half in float32 with TF32 off (plain torch and cuDNN, no
+     kernel of the repo): ResNet-18 (cifar stem, 32 x 32, batch 8)
+     through mod.Module on the card against the CPU (probabilities, every
+     gradient and every moving statistic after a training forward, an
+     inference forward, NHWC against NCHW from the same OIHW weights, the
+     NLL of a seeded batch falling over 5 SGD steps, a Module.load round
+     trip bit for bit, and BatchNorm's moving statistics by F.batch_norm's
+     rule planted and caught); ResNet-50 (bench.py:218-258,
+     examples/train_imagenet.py's synthetic mode: 1000 classes,
+     224 x 224, NCHW, batch 128, 8 batches) trained by
+     model.FeedForward.fit (SGD 0.1, momentum 0.9, wd 1e-4,
+     Xavier(in, 2.34), kvstore "local", Speedometer): images/s, step ms,
+     peak memory, a profile window by kind (conv, batchnorm, pool, matmul,
+     elementwise), FLOP/s against the float32 FMA peak, every parameter
+     and moving statistic finite and on the card, every BatchNorm's
+     moving statistics moved, no TF32 kernel traced, no flash or fused-RNN
+     launch;
   6. timings with CUDA events (warm-up excluded, L2 flushed before each
      launch, medians): each kernel, its plain version, a PyTorch
      yardstick (SDPA; cuDNN's nn.LSTM / nn.GRU) and the bound computed
@@ -315,6 +332,11 @@ planted one-product TF32 backward at the main shape) and against cuDNN,
 train_bucketing, train_feedforward, module_family_check,
 ctc_card_check and the float32 RNN timings (their lines, then the card
 line).
+
+    python3 chip_smoke.py --train-vision
+
+runs only vision_small_check and train_vision (their lines, then the
+card line).
 """
 
 from __future__ import annotations
@@ -6464,6 +6486,16 @@ def _kernel_kind(name):
                       ("rnn_bwd_f32tc_kernel", "fused_rnn_bwd"),
                       ("paged_attention", "paged_attention"),
                       ("indexselect", "gather"),
+                      # cuDNN's convolutions, batch norm and pooling
+                      # before the matmul keys, which their names hold
+                      ("fprop", "conv"), ("dgrad", "conv"),
+                      ("wgrad", "conv"), ("convolve", "conv"),
+                      ("conv2d", "conv"), ("winograd", "conv"),
+                      ("fft2d", "conv"), ("conv_depthwise", "conv"),
+                      ("nchwtonhwc", "conv"), ("nhwctonchw", "conv"),
+                      ("scalepackedtensor", "conv"),
+                      ("batch_norm", "batchnorm"), ("bn_fw", "batchnorm"),
+                      ("bn_bw", "batchnorm"), ("pool", "pool"),
                       ("gemm", "matmul"),
                       ("xmma", "matmul"), ("cutlass", "matmul"),
                       ("nvjet", "matmul"),
@@ -8172,6 +8204,498 @@ def ctc_card_check():
         raise SystemExit("CTCLoss: card vs CPU disagree")
 
 
+# -- the vision half: Convolution, BatchNorm, Pooling through Module --------
+# vision_small_check's model: ResNet-18 with the cifar stem, 10 classes,
+# 32 x 32 images, batch 8, NCHW (and NHWC from the same OIHW weights)
+VISION_SMALL = dict(num_classes=10, num_layers=18, image_shape=(3, 32, 32))
+VISION_SMALL_BATCH = 8
+# card against the port's CPU path in float64 from the same parameters
+# and batch, on the branches the card took at every ReLU (the reference
+# replays the card's masks: an input within float32 noise of 0 takes
+# either branch, and one element's flip moves a conv's weight gradient
+# by a few per cent at this size): probabilities and moving statistics
+# within VISION_OUT_REL of each one's largest magnitude, each parameter's
+# gradient within VISION_GRAD_REL of its largest.  The gradient bound is
+# 5x the flash checks' GRAD_REL: with benchmark off cuDNN's heuristics
+# take Winograd F(4x4, 3x3) weight-gradient kernels (winograd_nonfused)
+# here, whose float32 error is about ten times a direct sum's (on an
+# H100: 2.2e-5 of the largest gradient; the CPU's direct sums 2.5e-6)
+VISION_OUT_REL = 1e-5
+VISION_GRAD_REL = 1e-4
+# train_vision: bench.py:218-258 and examples/train_imagenet.py (its
+# synthetic mode, through examples/common.py's FeedForward): ResNet-50,
+# 1000 classes, 224 x 224, NCHW, float32, batch 128, 8 batches, SGD 0.1,
+# momentum 0.9, wd 1e-4, Xavier(factor_type="in", magnitude=2.34)
+VISION_CFG = dict(num_classes=1000, num_layers=50, image_shape=(3, 224, 224),
+                  batch=128, batches=8, warmup=2)
+VISION_SGD = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+
+
+def vision_symbol(cfg, layout="NCHW"):
+    import mxnet_tpu_torch as mt
+
+    with mt.sym.NameManager():
+        return mt.models.resnet(num_classes=cfg["num_classes"],
+                                num_layers=cfg["num_layers"],
+                                image_shape=cfg["image_shape"], layout=layout)
+
+
+def vision_module(cfg, batch, ctx, layout="NCHW", params=None, seed=0):
+    """A bound ResNet Module with SGD: Xavier(in, 2.34) from
+    ``mt.random.seed(seed)``, or ``params`` = (arg, aux) NDArray dicts."""
+    import mxnet_tpu_torch as mt
+
+    shape = (batch,) + tuple(cfg["image_shape"])
+    if layout == "NHWC":
+        shape = (batch,) + shape[2:] + shape[1:2]
+    mod = mt.mod.Module(vision_symbol(cfg, layout), context=ctx)
+    mod.bind([("data", shape)], [("softmax_label", (batch,))])
+    if params is None:
+        mt.random.seed(seed)
+        mod.init_params(mt.init.Xavier(factor_type="in", magnitude=2.34))
+    else:
+        mod.set_params(*params)
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params=tuple(VISION_SGD.items()))
+    return mod
+
+
+def vision_batch(cfg, batch, ctx, layout="NCHW", seed=0):
+    import mxnet_tpu_torch as mt
+
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((batch,) + tuple(cfg["image_shape"])).astype(
+        np.float32)
+    if layout == "NHWC":
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    y = rng.randint(0, cfg["num_classes"], batch).astype(np.float32)
+    return mt.io.DataBatch([mt.nd.array(x, ctx=ctx)],
+                           [mt.nd.array(y, ctx=ctx)])
+
+
+def _share(got, want, rel):
+    """max |got - want| over ``rel`` times max |want|."""
+    return float(np.abs(got - want).max()
+                 / max(rel * float(np.abs(want).max()), 1e-30))
+
+
+@contextlib.contextmanager
+def torch_convention_batchnorm():
+    """The planted fault: BatchNorm's moving statistics updated as
+    ``F.batch_norm`` updates its running ones (the unbiased variance and
+    ``new = (1 - m) old + m batch``); the outputs are unchanged."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import nn as port_nn
+
+    def forward(self, params, inputs, aux, train, key):
+        x, gamma, beta = inputs
+        if params.fix_gamma:
+            gamma = torch.ones_like(gamma)
+        rm, rv = aux[0].clone(), aux[1].clone()
+        y = F.batch_norm(x, rm, rv, gamma, beta, training=True,
+                         momentum=params.momentum, eps=params.eps)
+        return [y], [rm, rv]
+
+    saved = port_nn.BatchNormOp.forward
+    port_nn.BatchNormOp.forward = forward
+    try:
+        yield
+    finally:
+        port_nn.BatchNormOp.forward = saved
+
+
+@contextlib.contextmanager
+def relu_branches(masks, replay=False):
+    """Every ReLU of the graph records its branch mask (``x >= 0``, the
+    gradient's) into ``masks``, in the executor's order; with ``replay``
+    it takes the recorded masks instead, ``x * mask`` (the same branch
+    on another device or dtype)."""
+    from mxnet_tpu_torch.ops import nn as port_nn
+
+    saved = port_nn.ActivationOp.forward
+    replayed = iter(masks)
+
+    def forward(self, params, inputs, aux, train, key):
+        if params.act_type != "relu":
+            return saved(self, params, inputs, aux, train, key)
+        x = inputs[0]
+        if replay:
+            return [x * next(replayed).to(x.device, x.dtype)], []
+        masks.append((x >= 0).detach().cpu())
+        return saved(self, params, inputs, aux, train, key)
+
+    port_nn.ActivationOp.forward = forward
+    try:
+        yield
+    finally:
+        port_nn.ActivationOp.forward = saved
+
+
+def vision_fwd_bwd(mod, db, masks=None):
+    """One training forward and backward (its ReLU branches recorded
+    into ``masks``): the probabilities, every parameter's gradient and
+    every moving statistic after it."""
+    with relu_branches([] if masks is None else masks):
+        mod.forward(db, is_train=True)
+        mod.backward()
+    exe = mod._exec_group.execs[0]
+    return (mod.get_outputs()[0].asnumpy(),
+            {k: exe.grad_dict[k].asnumpy() for k in mod._param_names},
+            {k: v.asnumpy() for k, v in exe.aux_dict.items()})
+
+
+def vision_float64(cfg, layout, params, db, masks=None):
+    """The port's CPU path in float64: the same graph bound with float64
+    arrays, ``params`` and ``db``'s arrays cast up; a training forward
+    and backward on ``masks``' ReLU branches, or, without masks, an
+    inference forward.  (probabilities, gradients, moving statistics)."""
+    import mxnet_tpu_torch as mt
+
+    net = vision_symbol(cfg, layout)
+    x, y = db.data[0].asnumpy(), db.label[0].asnumpy()
+    with mt.cpu():
+        exe = net.simple_bind(
+            mt.cpu(), type_dict=dict.fromkeys(net.list_arguments(),
+                                              np.float64),
+            data=x.shape, softmax_label=y.shape)
+        for src, dst in ((params[0], exe.arg_dict), (params[1],
+                                                     exe.aux_dict)):
+            for k, v in src.items():
+                dst[k][:] = v.asnumpy().astype(np.float64)
+        exe.arg_dict["data"][:] = x.astype(np.float64)
+        exe.arg_dict["softmax_label"][:] = y.astype(np.float64)
+        if masks is None:
+            return exe.forward(is_train=False)[0].asnumpy(), {}, {}
+        with relu_branches(masks, replay=True):
+            out = exe.forward(is_train=True)[0].asnumpy()
+            exe.backward()
+        return (out, {k: exe.grad_dict[k].asnumpy() for k in params[0]},
+                {k: v.asnumpy() for k, v in exe.aux_dict.items()})
+
+
+def vision_shares(got, want):
+    """Worst shares of the bounds: probabilities, gradients (by
+    parameter), moving statistics."""
+    return {"out": _share(got[0], want[0], VISION_OUT_REL),
+            "grad": max(_share(got[1][k], want[1][k], VISION_GRAD_REL)
+                        for k in want[1]),
+            "aux": max(_share(got[2][k], want[2][k], VISION_OUT_REL)
+                       for k in want[2])}
+
+
+def vision_small_check():
+    """ResNet-18 (cifar stem, 10 classes, 32 x 32, batch 8) through Module
+    on the card from Xavier parameters, held to the port's CPU path in
+    float64 on the card's ReLU branches: the probabilities, every
+    gradient and every moving statistic after one training forward, then
+    an inference forward on the moving statistics; the same net in NHWC
+    on the card (the same OIHW weights) held the same way; the port's
+    CPU path in float32 held the same way; the NLL of one seeded batch
+    falling over 5 SGD steps; a Module.load round trip after them giving
+    bit-identical inference outputs; and the planted fault (moving
+    statistics by F.batch_norm's rule) failing the moving-statistic
+    bound.  Beside them, not judged: the card's shares with cuDNN allowed
+    TF32 for one run (``tf32_on``), which shows what the bounds tell
+    apart."""
+    import mxnet_tpu_torch as mt
+
+    cfg, B = VISION_SMALL, VISION_SMALL_BATCH
+    ctx = module_ctx()
+    card = vision_module(cfg, B, ctx, seed=4)
+    args, auxs = card.get_params()
+    params = ({k: v.copy() for k, v in args.items()},
+              {k: v.copy() for k, v in auxs.items()})
+    shares = {}
+    for tag, layout, where in (("card", "NCHW", ctx),
+                               ("card_nhwc", "NHWC", ctx),
+                               ("cpu_float32", "NCHW", mt.cpu()),
+                               ("tf32_on", "NCHW", ctx)):
+        mod = card if tag == "card" else vision_module(
+            cfg, B, where, layout=layout, params=params)
+        db = vision_batch(cfg, B, where, layout=layout, seed=5)
+        masks = []
+        torch.backends.cudnn.allow_tf32 = tag == "tf32_on"
+        try:
+            got = vision_fwd_bwd(mod, db, masks)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        want = vision_float64(cfg, layout, params, db, masks)
+        shares[tag] = vision_shares(got, want)
+        if tag == "card":
+            moved = all(not np.array_equal(got[2][k], params[1][k].asnumpy())
+                        for k in got[2])
+            finite = bool(np.isfinite(got[0]).all())
+            want_aux = want[2]
+    # inference on the moving statistics after that training forward
+    db = vision_batch(cfg, B, ctx, seed=6)
+    card.forward(db, is_train=False)
+    after = ({k: v.copy() for k, v in params[0].items()},
+             {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in want_aux.items()})
+    infer_share = _share(card.get_outputs()[0].asnumpy(),
+                         vision_float64(cfg, "NCHW", after, db)[0],
+                         VISION_OUT_REL)
+    # the planted fault: torch's running-statistic rule on the card
+    with torch_convention_batchnorm():
+        faulty = vision_module(cfg, B, ctx, params=params)
+        _, _, a_f = vision_fwd_bwd(faulty, vision_batch(cfg, B, ctx, seed=5))
+    planted_share = max(_share(a_f[k], want_aux[k], VISION_OUT_REL)
+                        for k in want_aux)
+    # 5 SGD steps on one seeded batch
+    db = vision_batch(cfg, B, ctx, seed=7)
+    labels = db.label[0]._data
+    nll = []
+    for _ in range(5):
+        card.forward(db, is_train=True)
+        card.backward()
+        card.update()
+        nll.append(nll_of(card.get_outputs()[0]._data, labels))
+    # Module.load round trip after the steps (an update marks the
+    # module's parameters for the sync that save_checkpoint reads, as
+    # the reference's does), inference bit for bit
+    db = vision_batch(cfg, B, ctx, seed=6)
+    card.forward(db, is_train=False)
+    want = card.get_outputs()[0].asnumpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "resnet18")
+        card.save_checkpoint(prefix, 1)
+        loaded = mt.mod.Module.load(prefix, 1, context=ctx)
+    loaded.bind([("data", (B,) + cfg["image_shape"])],
+                [("softmax_label", (B,))], for_training=False)
+    loaded.forward(db, is_train=False)
+    same = bool(np.array_equal(loaded.get_outputs()[0].asnumpy(), want))
+    ok = (all(v <= 1.0 for tag, sh in shares.items() if tag != "tf32_on"
+              for v in sh.values())
+          and infer_share <= 1.0 and moved and finite and same
+          and planted_share > 1.0 and bool(np.isfinite(nll).all())
+          and nll[-1] < nll[0])
+    emit({"phase": "vision_small_check", "config": cfg, "batch": B,
+          "dtype": "float32",
+          "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                   "cudnn": torch.backends.cudnn.allow_tf32},
+          "shares_of_bound_vs_cpu_float64": shares,
+          "moving_stats_moved": moved,
+          "inference_share_of_bound": infer_share,
+          "planted_torch_rule_moving_stats_share": planted_share,
+          "checkpoint_round_trip_identical": same, "sgd_nll": nll,
+          "bound": "against the port's CPU path in float64 on the same "
+                   "ReLU branches: probabilities and moving statistics "
+                   "max|got - want| <= 1e-5 max|want|; gradients 1e-4 "
+                   "max|want| per param; the planted fault must exceed "
+                   "the moving-statistic bound; tf32_on is reported "
+                   "(cuDNN allowed TF32 for one run), not judged",
+          "ok": ok})
+    del card, loaded, faulty, mod
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("vision: the card or the CPU against float64, the "
+                         "checkpoint or the planted BatchNorm fault check "
+                         "failed")
+
+
+# host ranges whose kernels vision_profile counts by the range: the
+# _BNTrain autograd Function (forward and backward) and the convolution
+# operators, forward and backward
+VISION_RANGES = {"_BNTrain": "batchnorm", "aten::cudnn_convolution": "conv",
+                 "aten::convolution_backward": "conv"}
+
+
+def range_kinds(logdir, markers):
+    """The kernels of the newest trace under ``logdir``, those launched
+    inside a host range whose name holds a key of ``markers`` mapped
+    ``{(name, ts): kind}`` (the kind of a range holding the launch), and whether every kernel launch the host
+    recorded reached the trace as a kernel and every kernel has its
+    launch: ``(kinds, kernels, complete)``."""
+    import gzip
+
+    path = sorted(glob.glob(os.path.join(logdir, "plugins", "profile", "*",
+                                         "*.trace.json.gz")),
+                  key=os.path.getmtime)[-1]
+    with gzip.open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    ranges = collections.defaultdict(list)
+    launches, kernels = {}, []
+    for e in events:
+        cat, name = e.get("cat"), e.get("name", "")
+        if cat == "cpu_op":
+            for key, kind in markers.items():
+                if key in name:
+                    ranges[e["pid"], e["tid"]].append(
+                        (e["ts"], e["ts"] + e.get("dur", 0), kind))
+        elif cat in ("cuda_runtime", "cuda_driver") and "LaunchKernel" in name:
+            launches[e.get("args", {}).get("correlation")] = e
+        elif cat == "kernel":
+            kernels.append(e)
+    kinds = {}
+    for k in kernels:
+        launch = launches.get(k.get("args", {}).get("correlation"))
+        if launch is None:
+            continue
+        for t0, t1, kind in ranges[launch["pid"], launch["tid"]]:
+            if t0 <= launch["ts"] <= t1:
+                kinds[k["name"], k["ts"]] = kind
+                break
+    corrs = {k.get("args", {}).get("correlation") for k in kernels}
+    return kinds, kernels, corrs == set(launches)
+
+
+def vision_profile(step, steps=2):
+    """Device ms a step by kind over ``steps`` more calls of ``step``
+    (torch.profiler): every kernel launched inside a host range of
+    ``VISION_RANGES`` by that range (the port's BatchNorm, forward and
+    backward: its reductions and elementwise passes; cuDNN's
+    convolutions: their GEMM, FFT and layout kernels too), the rest by
+    ``_kernel_kind`` (pool, matmul, elementwise, ...); the device's busy
+    share of the window's wall time; the traced kernel names holding
+    ``tf32``; and ``trace_complete``."""
+    from mxnet_tpu_torch import profiler
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiler.trace(logdir):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        by_range, kernels, complete = range_kinds(logdir, VISION_RANGES)
+    kinds, instances, by_name = {}, {}, {}
+    for k in kernels:
+        kind = (by_range.get((k["name"], k["ts"]))
+                or _kernel_kind(k["name"]))
+        ms = k.get("dur", 0) / 1e3 / steps
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        instances[kind] = instances.get(kind, 0) + 1
+        by_name[k["name"]] = by_name.get(k["name"], 0.0) + ms
+    if not complete:
+        print("vision_profile: trace incomplete", file=sys.stderr)
+    device_ms = sum(kinds.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms * steps / wall_ms,
+            "ms_per_step_by_kind": kinds,
+            "kernels_traced_by_kind": instances,
+            "tf32_kernels": sorted(n for n in by_name if "tf32" in n.lower()),
+            "trace_complete": complete,
+            "top_kernels_ms_per_step": [(n[:120], ms) for n, ms in top]}
+
+
+class _StepClock:
+    """A batch_end_callback: the card synchronised and the host clock
+    read at the end of every batch."""
+
+    def __init__(self):
+        self.stamps = [time.perf_counter()]
+
+    def __call__(self, param):
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+
+def train_vision_main_path():
+    """ResNet-50 (1000 classes, 224 x 224, NCHW, float32) trained by
+    FeedForward.fit over examples/train_imagenet.py's synthetic iterator
+    (standard-normal images, random labels, seed 0, 8 batches of 128), as
+    examples/common.py builds it: SGD 0.1, momentum 0.9, wd 1e-4,
+    Xavier(in, 2.34), kvstore "local", Speedometer.  Images/s and step ms
+    after the warm-up batches, peak memory, a profile window of two more
+    Module steps by kind, FLOP/s against the float32 FMA peak; every
+    parameter and moving statistic finite and on the card, every
+    BatchNorm's moving statistics moved, no TF32 kernel traced, no flash
+    or fused-RNN launch."""
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import flash_attention_cuda as fac
+    from mxnet_tpu_torch.ops import fused_rnn_cuda as frc
+
+    cfg, B = VISION_CFG, VISION_CFG["batch"]
+    net = vision_symbol(cfg)
+    rng = np.random.RandomState(0)
+    n = B * cfg["batches"]
+    X = rng.standard_normal((n,) + tuple(cfg["image_shape"])).astype(
+        np.float32)
+    y = rng.randint(0, cfg["num_classes"], n).astype(np.float32)
+    train = mt.io.NDArrayIter(X, y, B)
+    del X
+    mt.random.seed(0)
+    ff = mt.model.FeedForward(
+        net, ctx=module_ctx(), num_epoch=1, optimizer="sgd",
+        initializer=mt.init.Xavier(factor_type="in", magnitude=2.34),
+        **VISION_SGD)
+    lap("vision_train_setup")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (fac.launches, frc.launches)
+    before = [dict(c) for c in counters]
+    clock = _StepClock()
+    speed = mt.callback.Speedometer(B, 2)
+    ff.fit(train, kvstore="local", batch_end_callback=[speed, clock])
+    torch.cuda.synchronize()
+    moved_launches = {k: c[k] - b[k] for c, b in zip(counters, before)
+                      for k in c if c[k] != b[k]}
+    steps = np.diff(clock.stamps) * 1e3
+    timed = steps[cfg["warmup"]:]
+    images_s = B * len(timed) / (timed.sum() / 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lap("vision_train_fit")
+    mod = ff._module
+    exe = mod._exec_group.execs[0]
+    on_card = all(a._data.device.type == torch.device(DEVICE).type
+                  for a in [*exe.arg_dict.values(), *exe.aux_dict.values()])
+    finite = all(bool(np.isfinite(v.asnumpy()).all())
+                 for v in [*ff.arg_params.values(), *ff.aux_params.values()])
+    bn_names = [k[:-len("_moving_mean")] for k in ff.aux_params
+                if k.endswith("_moving_mean")]
+    bn_moved = all(
+        bool(np.abs(ff.aux_params[k + "_moving_mean"].asnumpy()).max() > 0)
+        and bool(np.abs(ff.aux_params[k + "_moving_var"].asnumpy()
+                        - 1.0).max() > 0) for k in bn_names)
+    train.reset()
+    db = next(iter(train))
+
+    def step():
+        mod.forward_backward(db)
+        mod.update()
+
+    profile = vision_profile(step)
+    lap("vision_train_profile")
+    fwd_flops = mt.flops.count_flops(
+        net, data=(B,) + tuple(cfg["image_shape"])) / B
+    flops_s = 3 * fwd_flops * images_s
+    probs = mod.get_outputs()[0].asnumpy()
+    ok = (on_card and finite and bn_moved and not moved_launches
+          and not profile["tf32_kernels"] and bool(np.isfinite(probs).all())
+          and probs.shape == (B, cfg["num_classes"]))
+    row = {"phase": "train_vision", "dtype": "float32",
+           "config": {k: cfg[k] for k in ("num_classes", "num_layers",
+                                          "image_shape")},
+           "layout": "NCHW", "batch": B, "batches": cfg["batches"],
+           "entry": "models.resnet + model.FeedForward(ctx=gpu(0), sgd 0.1, "
+                    "momentum 0.9, wd 1e-4, Xavier(in, 2.34)).fit("
+                    "io.NDArrayIter, kvstore='local', Speedometer)",
+           "warmup_batches": cfg["warmup"], "step_ms": steps.tolist(),
+           "step_ms_median": float(np.median(timed)),
+           "images_per_s": images_s,
+           "speedometer_last_samples_per_s": speed.last_speed,
+           "peak_mem_gib": peak, "profile": profile,
+           "forward_gflops_per_image": fwd_flops / 1e9,
+           "train_tflops_per_s_at_3x_forward": flops_s / 1e12,
+           "share_of_float32_fma_peak": flops_s / PEAK_OPS_S[torch.float32],
+           "cudnn_benchmark": torch.backends.cudnn.benchmark,
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32},
+           "params_on_card": on_card, "params_finite": finite,
+           "batchnorm_layers": len(bn_names),
+           "batchnorm_moving_stats_moved": bn_moved,
+           "flash_rnn_launches_moved": moved_launches, "ok": ok}
+    emit(row)
+    del ff, mod, exe, train, db
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("ResNet-50 FeedForward training failed its checks")
+    return row
+
+
 def overhead_main(args):
     """``--overhead``: the telemetry overhead arms alone, on the
     package ``args.package`` (default: this checkout's)."""
@@ -8279,6 +8803,17 @@ def train_seq_main():
     return 0
 
 
+def train_vision_main():
+    """``--train-vision``: ``vision_small_check`` and ``train_vision``
+    (ResNet-50 through FeedForward), then the card line."""
+    card = card_line()
+    profiler_warmup()
+    vision_small_check()
+    train_vision_main_path()
+    print(card)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
@@ -8309,6 +8844,11 @@ def main():
                          "phases (BucketingModule, FeedForward, "
                          "SequentialModule, CTCLoss) and the float32 RNN "
                          "timings")
+    ap.add_argument("--train-vision", dest="train_vision_only",
+                    action="store_true",
+                    help="run only the vision phases: vision_small_check "
+                         "(ResNet-18 card vs CPU) and train_vision "
+                         "(ResNet-50 through FeedForward)")
     ap.add_argument("--aot-child", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--aot-manifest", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--aot-child-tp", type=int, default=1,
@@ -8334,6 +8874,8 @@ def main():
         return train_module_main()
     if args.train_seq_only:
         return train_seq_main()
+    if args.train_vision_only:
+        return train_vision_main()
     if args.fleet:
         return fleet_main()
     from mxnet_tpu_torch import _build
@@ -8491,6 +9033,10 @@ def main():
     lap("module_family_check")
     ctc_card_check()
     lap("ctc_card_check")
+    vision_small_check()
+    lap("vision_small_check")
+    train_vision_main_path()
+    lap("train_vision")
 
     timings = {}
     for dtype in ("bfloat16", "float32", "int8", "int8_bf16q"):

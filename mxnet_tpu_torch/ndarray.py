@@ -607,7 +607,7 @@ def _make_ndarray_function(op_name):
 
 def Custom(*args, op_type=None, **kwargs):
     """The reference's custom-op invoker (``operator.py``); waits for
-    A15b."""
+    A15b-2."""
     raise not_ported("Custom (operator.py)")
 
 

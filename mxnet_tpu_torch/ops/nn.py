@@ -3,23 +3,24 @@
 The port of ``mxnet_tpu/ops/nn.py``.  :func:`FullyConnected` and
 :func:`Embedding` are plain functions on tensors (gradients from
 autograd), used by ``models.GPT`` and by the ops below.  The registered
-ops of the training frontend (``FullyConnected``, ``Activation``,
-``LeakyReLU``, ``Dropout``, ``Embedding``, ``SoftmaxActivation``,
-``L2Normalization``) call them or torch directly.  ``Convolution``,
-``Deconvolution``, ``BatchNorm``, ``InstanceNorm``, ``Pooling``, ``LRN``
-and ``UpSampling`` are registered with the reference's parameters and
-shape rules, so their symbols build, infer and serialize; running one
-raises, naming ROADMAP §A15b.
+ops of the training frontend call them or torch directly: the vision
+layers (``Convolution``, ``Deconvolution``, ``Pooling``, ``LRN``,
+``UpSampling``, ``InstanceNorm``) as plain torch whose gradients come
+from autograd (a convolution goes to cuDNN on the card), ``BatchNorm``
+as a ``torch.autograd.Function`` that keeps the reference's one-pass
+statistics, its hand-written backward and its moving-statistic rule.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..param import Params, field, tuple_of
-from .op import OpDef, not_ported, register_op
+from .op import OpDef, register_op
 
 __all__ = ["FullyConnected", "Embedding"]
 
@@ -111,8 +112,11 @@ def _conv_out_dim(d, k, s, p, dil):
 
 @register_op("Convolution")
 class ConvolutionOp(OpDef):
-    """The reference's ``Convolution`` signature and shape
-    rules; running it waits for A15b."""
+    """2D convolution (reference convolution-inl.h:489) by
+    ``F.conv2d``.  The weight is OIHW in both layouts (checkpoint parity
+    with the reference); an NHWC input is viewed as NCHW around the call
+    (on the card that view is channels-last memory, which cuDNN takes
+    as is) and the output viewed back."""
 
     param_cls = ConvolutionParam
 
@@ -143,7 +147,15 @@ class ConvolutionOp(OpDef):
         return completed, [out], []
 
     def forward(self, params, inputs, aux, train, key):
-        raise not_ported("the Convolution op")
+        x, w = inputs[0], inputs[1].to(inputs[0].dtype)
+        nhwc = params.layout == "NHWC"
+        if nhwc:
+            x = x.permute(0, 3, 1, 2)
+        bias = None if params.no_bias else inputs[2].to(x.dtype)
+        y = F.conv2d(x, w, bias, stride=_pair(params.stride),
+                     padding=_pair(params.pad, 2) if params.pad else 0,
+                     dilation=_pair(params.dilate), groups=params.num_group)
+        return [y.permute(0, 2, 3, 1) if nhwc else y], []
 
 
 class DeconvolutionParam(Params):
@@ -159,8 +171,9 @@ class DeconvolutionParam(Params):
 
 @register_op("Deconvolution")
 class DeconvolutionOp(OpDef):
-    """The reference's ``Deconvolution`` signature and shape
-    rules; running it waits for A15b."""
+    """Transposed convolution (reference deconvolution-inl.h) by
+    ``F.conv_transpose2d``, whose weight layout (in, out/group, kH, kW)
+    is the reference's; ``adj`` is its ``output_padding``."""
 
     param_cls = DeconvolutionParam
 
@@ -187,7 +200,13 @@ class DeconvolutionOp(OpDef):
         return completed, [(n, params.num_filter, oh, ow)], []
 
     def forward(self, params, inputs, aux, train, key):
-        raise not_ported("the Deconvolution op")
+        x, w = inputs[0], inputs[1].to(inputs[0].dtype)
+        bias = None if params.no_bias else inputs[2].to(x.dtype)
+        y = F.conv_transpose2d(
+            x, w, bias, stride=_pair(params.stride),
+            padding=_pair(params.pad, 2) if params.pad else 0,
+            output_padding=_pair(params.adj, 2), groups=params.num_group)
+        return [y], []
 
 
 class BatchNormParam(Params):
@@ -198,10 +217,65 @@ class BatchNormParam(Params):
     axis = field(int, default=1, doc="channel axis (use -1 for NHWC)")
 
 
+def _bn_stats(x, axes, eps):
+    """The reference's one-pass batch statistics in float32: the mean
+    and the biased variance ``max(E[x^2] - mean^2, 0)``, its inverse
+    square root and the count reduced over."""
+    n = 1
+    for i in axes:
+        n *= x.shape[i]
+    xf = x.float()
+    mean = xf.sum(axes) / n
+    var = torch.clamp_min(torch.square(xf).sum(axes) / n
+                          - torch.square(mean), 0.0)
+    return mean, var, torch.rsqrt(var + eps), n
+
+
+class _BNTrain(torch.autograd.Function):
+    """Training-mode batch normalisation: ``(y, mean, var)`` forward with
+    the reference's statistics (``_bn_train_fwd``), its hand-written
+    backward (``_bn_train_bwd``) from the same residuals (x, gamma,
+    mean, inv).  ``mean`` and ``var`` feed the moving statistics only:
+    their gradients are not taken."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, axes, eps):
+        mean, var, inv, n = _bn_stats(x, axes, eps)
+        shape = [x.shape[i] if i not in axes else 1 for i in range(x.dim())]
+        a = gamma.float() * inv
+        b = beta.float() - mean * a
+        y = (x.float() * a.reshape(shape) + b.reshape(shape)).to(x.dtype)
+        ctx.save_for_backward(x, gamma, mean, inv)
+        ctx.axes, ctx.n, ctx.shape = axes, n, shape
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, gamma, mean, inv = ctx.saved_tensors
+        axes, n, shape = ctx.axes, ctx.n, ctx.shape
+        dyf = dy.float()
+        xhat = (x.float() - mean.reshape(shape)) * inv.reshape(shape)
+        dbeta = dyf.sum(axes)
+        dgamma = (dyf * xhat).sum(axes)
+        a = (gamma.float() * inv).reshape(shape)
+        dx = a * (dyf - dbeta.reshape(shape) / n
+                  - xhat * dgamma.reshape(shape) / n)
+        return (dx.to(x.dtype), dgamma.to(gamma.dtype),
+                dbeta.to(gamma.dtype), None, None)
+
+
 @register_op("BatchNorm", aliases=("CuDNNBatchNorm",))
 class BatchNormOp(OpDef):
-    """The reference's ``BatchNorm`` signature and shape
-    rules; running it waits for A15b."""
+    """Batch normalization over ``axis`` (reference batch_norm-inl.h:314).
+
+    aux states: moving_mean, moving_var.  A training forward (without
+    ``use_global_stats``) normalises by the batch's one-pass statistics
+    (:class:`_BNTrain`) and returns the moving statistics updated by the
+    reference's rule ``m * old + (1 - m) * batch`` with the biased
+    variance; otherwise it normalises by the moving statistics, which
+    pass through unchanged.  ``fix_gamma`` replaces gamma by ones (its
+    gradient is then 0)."""
 
     param_cls = BatchNormParam
 
@@ -219,7 +293,28 @@ class BatchNormOp(OpDef):
         return [tuple(d), c, c], [tuple(d)], [c, c]
 
     def forward(self, params, inputs, aux, train, key):
-        raise not_ported("the BatchNorm op")
+        x, gamma, beta = inputs
+        moving_mean, moving_var = aux
+        if params.fix_gamma:
+            gamma = torch.ones_like(gamma)
+        ax = params.axis % x.dim()
+        axes = tuple(i for i in range(x.dim()) if i != ax)
+        if train and not params.use_global_stats:
+            y, mean, var = _BNTrain.apply(x, gamma, beta, axes, params.eps)
+            m = params.momentum
+            with torch.no_grad():
+                new_mean = (m * moving_mean + (1 - m) * mean).to(
+                    moving_mean.dtype)
+                new_var = (m * moving_var + (1 - m) * var).to(
+                    moving_var.dtype)
+            return [y], [new_mean, new_var]
+        shape = [x.shape[i] if i == ax else 1 for i in range(x.dim())]
+        inv = torch.rsqrt(moving_var.float() + params.eps)
+        y = (x.float() - moving_mean.float().reshape(shape)) * inv.reshape(
+            shape)
+        y = (y * gamma.float().reshape(shape)
+             + beta.float().reshape(shape))
+        return [y.to(x.dtype)], [moving_mean, moving_var]
 
 
 class InstanceNormParam(Params):
@@ -228,8 +323,8 @@ class InstanceNormParam(Params):
 
 @register_op("InstanceNorm")
 class InstanceNormOp(OpDef):
-    """The reference's ``InstanceNorm`` signature and shape
-    rules; running it waits for A15b."""
+    """Normalization of each (sample, channel) over its spatial axes
+    by the biased variance, then ``gamma`` and ``beta`` a channel."""
 
     param_cls = InstanceNormParam
 
@@ -242,7 +337,12 @@ class InstanceNormOp(OpDef):
         return [tuple(d), c, c], [tuple(d)], []
 
     def forward(self, params, inputs, aux, train, key):
-        raise not_ported("the InstanceNorm op")
+        x, gamma, beta = inputs
+        axes = tuple(range(2, x.dim()))
+        var, mean = torch.var_mean(x, dim=axes, correction=0, keepdim=True)
+        shape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+        y = (x - mean) * torch.rsqrt(var + params.eps)
+        return [y * gamma.reshape(shape) + beta.reshape(shape)], []
 
 
 class PoolingParam(Params):
@@ -257,8 +357,12 @@ class PoolingParam(Params):
 
 @register_op("Pooling")
 class PoolingOp(OpDef):
-    """The reference's ``Pooling`` signature and shape
-    rules; running it waits for A15b."""
+    """Max/avg/sum pooling (reference pooling-inl.h) in the reference's
+    two output-size conventions, 'valid' (floor) and 'full' (ceil).  The
+    input is padded explicitly, as the reference pads its window
+    reduction (-inf for max, 0 for the sums, plus the one-sided padding
+    'full' needs), and pooled without padding, so ``avg`` divides every
+    window by ``kh * kw``."""
 
     param_cls = PoolingParam
 
@@ -287,7 +391,25 @@ class PoolingOp(OpDef):
         return list(in_shapes), [out], []
 
     def forward(self, params, inputs, aux, train, key):
-        raise not_ported("the Pooling op")
+        x = inputs[0]
+        nhwc = params.layout == "NHWC"
+        if nhwc:
+            x = x.permute(0, 3, 1, 2)
+        h, w = x.shape[2], x.shape[3]
+        (kh, kw), (sh, sw), (ph, pw), (oh, ow) = self._geometry(params, h, w)
+        # 'full' convention can need extra one-sided padding to reach (oh, ow).
+        eh = max(0, (oh - 1) * sh + kh - h - 2 * ph)
+        ew = max(0, (ow - 1) * sw + kw - w - 2 * pw)
+        pads = (pw, pw + ew, ph, ph + eh)
+        is_max = params.pool_type == "max"
+        if any(pads):
+            x = F.pad(x, pads, value=float("-inf") if is_max else 0.0)
+        if is_max:
+            y = F.max_pool2d(x, (kh, kw), (sh, sw))
+        else:
+            y = F.avg_pool2d(x, (kh, kw), (sh, sw), divisor_override=(
+                None if params.pool_type == "avg" else 1))
+        return [y.permute(0, 2, 3, 1) if nhwc else y], []
 
 
 class LRNParam(Params):
@@ -299,13 +421,22 @@ class LRNParam(Params):
 
 @register_op("LRN")
 class LRNOp(OpDef):
-    """The reference's ``LRN`` signature and shape
-    rules; running it waits for A15b."""
+    """Local response normalization across channels (lrn-inl.h):
+    ``x * (knorm + alpha * S / nsize) ** -beta``, S the sum of squares
+    over ``nsize`` channels, the window padded ``nsize // 2`` before and
+    ``nsize - nsize // 2 - 1`` after, as the reference pads it."""
 
     param_cls = LRNParam
 
     def forward(self, params, inputs, aux, train, key):
-        raise not_ported("the LRN op")
+        x = inputs[0]
+        half = params.nsize // 2
+        sq = F.pad(torch.square(x), (0, 0, 0, 0, half,
+                                     params.nsize - half - 1))
+        acc = sq.unfold(1, params.nsize, 1).sum(-1)
+        scale = (params.knorm + params.alpha * acc / params.nsize) ** (
+            -params.beta)
+        return [x * scale], []
 
 
 class UpSamplingParam(Params):
@@ -319,8 +450,12 @@ class UpSamplingParam(Params):
 
 @register_op("UpSampling")
 class UpSamplingOp(OpDef):
-    """The reference's ``UpSampling`` signature and shape
-    rules; running it waits for A15b."""
+    """Nearest upsampling (one input, or ``num_args`` inputs each scaled
+    to the first's size times ``scale``, then concatenated on channels
+    or summed) and bilinear upsampling.  Bilinear resizes as the
+    reference's ``jax.image.resize(..., "bilinear")`` does (half-pixel
+    centres, the edge rows repeating the edge) and ignores its
+    ``weight`` argument, whose gradient is 0."""
 
     param_cls = UpSamplingParam
 
@@ -361,7 +496,22 @@ class UpSamplingOp(OpDef):
         return completed, [(d[0], c, oh, ow)], []
 
     def forward(self, params, inputs, aux, train, key):
-        raise not_ported("the UpSampling op")
+        s = params.scale
+        oh, ow = inputs[0].shape[2] * s, inputs[0].shape[3] * s
+        if params.sample_type == "bilinear":
+            return [F.interpolate(inputs[0], scale_factor=s, mode="bilinear",
+                                  align_corners=False)], []
+        outs = []
+        for x in inputs if params.num_args > 1 else inputs[:1]:
+            si, sj = oh // x.shape[2], ow // x.shape[3]
+            outs.append(x.repeat_interleave(si, 2).repeat_interleave(sj, 3))
+        if len(outs) > 1:
+            # multi-input nearest: concat channels, or elementwise sum
+            # (upsampling-inl.h up_enum::kSum)
+            if params.multi_input_mode == "sum":
+                return [functools.reduce(torch.add, outs)], []
+            return [torch.cat(outs, 1)], []
+        return [outs[0]], []
 
 
 # -- Activation --------------------------------------------------------------

@@ -795,7 +795,7 @@ def _make_symbol_function(op_name):
 
 def Custom(*args, op_type=None, **kwargs):
     """The reference's custom-op invoker (``operator.py``); waits for
-    A15b."""
+    A15b-2."""
     from .ops.op import not_ported
 
     raise not_ported("Custom (operator.py)")

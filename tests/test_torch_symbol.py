@@ -258,16 +258,44 @@ def test_pickle_deepcopy_and_attr_scope():
 
 
 def test_unported_ops_raise_naming_a15b():
-    """The vision ops build, infer and serialize like the reference's
-    and raise, naming A15b, when run."""
+    """The BatchNorm -> KL-sparse-reg -> Convolution graph, which raised
+    here until A15b-2a, builds, infers and runs like the reference's:
+    outputs, every argument's gradient and the auxiliary states after a
+    training forward within 10 TOL of each one's largest magnitude
+    (float32 convolutions summed in other orders).  ``Custom``, still
+    unported, raises naming A15b."""
     ref, got = _in_both(_aux)
     assert got.infer_shape(data=(2, 3, 8, 8)) == ref.infer_shape(
         data=(2, 3, 8, 8))
-    exe = got.simple_bind(mt.cpu(), data=(2, 3, 8, 8))
+    res = {}
+    for M, net in ((mx, ref), (mt, got)):
+        with M.cpu():
+            exe = net.simple_bind(M.cpu(), data=(2, 3, 8, 8))
+            for name, arr in sorted(exe.arg_dict.items()):
+                arr[:] = np.random.RandomState(len(name)).randn(
+                    *arr.shape).astype(np.float32)
+            exe.aux_dict["bn_moving_var"][:] = np.ones(3, np.float32)
+            out = exe.forward(is_train=True)[0].asnumpy()
+            head = np.random.RandomState(9).randn(*out.shape).astype(
+                np.float32)
+            exe.backward([M.nd.array(head)])
+            res[M] = (out, {k: v.asnumpy() for k, v in exe.grad_dict.items()},
+                      {k: v.asnumpy() for k, v in exe.aux_dict.items()})
+    want, got_res = res[mx], res[mt]
+    np.testing.assert_allclose(got_res[0], want[0], rtol=0,
+                               atol=10 * TOL * np.abs(want[0]).max())
+    assert sorted(got_res[1]) == sorted(want[1])
+    for k in want[1]:
+        np.testing.assert_allclose(got_res[1][k], want[1][k], rtol=0,
+                                   atol=10 * TOL * np.abs(want[1][k]).max())
+    for k in want[2]:
+        np.testing.assert_allclose(got_res[2][k], want[2][k], rtol=0,
+                                   atol=TOL)
+    assert not got_res[1]["bn_gamma"].any()       # fix_gamma's default
     with pytest.raises(NotImplementedError, match="A15b"):
-        exe.forward()
+        mt.sym.Custom(got, op_type="noop")
     for name in ("Pooling", "LRN", "UpSampling", "Deconvolution",
-                 "InstanceNorm", "CTCLoss"):
+                 "InstanceNorm", "CTCLoss", "ROIPooling"):
         assert name.lower() in mt.ops.OP_REGISTRY
     # FeedForward, which raised here until A15b-1, now takes the graph
     assert mt.model.FeedForward(got, ctx=mt.cpu()).symbol is got
