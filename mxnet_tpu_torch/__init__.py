@@ -17,7 +17,9 @@ metrics, callbacks, ``io.NDArrayIter``, ``mod.Module``,
 ``model.FeedForward``, ``monitor.Monitor`` and ``rnn_io``; a GPT Symbol
 (``models.gpt_symbol``) trains through it on the same flash kernels, and
 an RNN-op language model on the fused-LSTM/GRU kernels.
-Contexts default to ``gpu(0)``.
+``operator`` registers Python custom ops (``Custom``);
+``contrib.quantization`` rewrites a trained Symbol for int8 inference
+over the quantized ops.  Contexts default to ``gpu(0)``.
 
 The package imports ``torch`` and ``numpy`` only — never ``jax`` and
 nothing of ``mxnet_tpu``.  Entry points default to the card
@@ -37,6 +39,7 @@ from . import registry, param, random  # noqa: E402
 from . import ndarray, symbol, attribute, graph, executor  # noqa: E402
 from . import lr_scheduler, optimizer, metric, callback, io  # noqa: E402
 from . import model, module, executor_manager, rnn_io  # noqa: E402
+from . import operator, contrib  # noqa: E402
 from . import ndarray as nd, symbol as sym, module as mod  # noqa: E402
 from . import initializer as init, optimizer as opt  # noqa: E402
 from .base import MXNetError  # noqa: E402
@@ -56,5 +59,6 @@ __all__ = ["aot", "base", "context", "convert", "flops", "fleet",
            "attribute", "graph", "executor", "Executor", "lr_scheduler",
            "optimizer", "opt", "metric", "callback", "io", "model",
            "module", "mod", "executor_manager", "rnn_io", "init",
+           "operator", "contrib",
            "MXNetError", "Context", "cpu", "cpu_pinned", "gpu", "tpu", "current_context", "num_devices",
            "AttrScope", "Group", "Variable"]

@@ -22,8 +22,11 @@ __all__ = ["params_from_numpy", "to_tensor"]
 
 def to_tensor(a, device, dtype=None):
     """One array (numpy, incl. the ml_dtypes bfloat16 numpy type the
-    reference writes, or a torch tensor) as a tensor on ``device``;
-    ``dtype`` casts floating-point values only."""
+    reference writes, a torch tensor, or an NDArray, e.g. from
+    ``model.load_checkpoint``) as a tensor on ``device``; ``dtype`` casts
+    floating-point values only."""
+    if isinstance(getattr(a, "_data", None), torch.Tensor):
+        a = a._data                    # an NDArray: its tensor
     if not isinstance(a, torch.Tensor):
         a = np.ascontiguousarray(a)
         if not a.flags.writeable:      # e.g. a view of a jax array

@@ -18,13 +18,15 @@ at every replay.
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
 
 from ..context import resolve_device
 
-__all__ = ["gpt_generate", "normalize_gpt_params", "detect_gpt_variant"]
+__all__ = ["gpt_generate", "gpt_decode_config", "reconcile_decode_config",
+           "normalize_gpt_params", "detect_gpt_variant"]
 
 _M32 = 0xFFFFFFFF
 
@@ -82,6 +84,47 @@ def _fc(x, w, b):
 def _gelu(x):
     xf = x.float()
     return (0.5 * xf * (1.0 + torch.erf(xf / math.sqrt(2.0)))).to(x.dtype)
+
+
+def gpt_decode_config(symbol):
+    """Decode-time config a ``gpt_symbol`` carries that is not
+    recoverable from weight shapes: ``num_heads`` and the trained
+    sliding-window radius (``attn_window``).  Works on a freshly built
+    symbol or one round-tripped through ``model.load_checkpoint`` (node
+    attributes serialize).  Returns ``{"num_heads": int, "window": int}``;
+    raises if the symbol carries no gpt config attributes."""
+    heads = symbol.attr("__gpt_num_heads__")
+    if heads is None:
+        raise ValueError(
+            "symbol carries no __gpt_num_heads__ attr — not built by "
+            "models.gpt_symbol(), or saved before decode-config "
+            "persistence; pass num_heads/window explicitly")
+    return {"num_heads": int(heads),
+            "window": int(symbol.attr("__gpt_attn_window__") or 0)}
+
+
+def reconcile_decode_config(symbol, num_heads, window):
+    """Merge explicit ``num_heads``/``window`` with the symbol's decode
+    config (:func:`gpt_decode_config`), raising on a contradiction (the
+    reshapes would succeed either way and silently decode garbage).
+    Shared by :func:`gpt_generate`, ``serve.Engine`` and
+    ``serve.spec.DraftWorker``.  Returns ``(num_heads, window)``."""
+    cfg = gpt_decode_config(symbol)
+    if num_heads is None:
+        num_heads = cfg["num_heads"]
+    elif int(num_heads) != cfg["num_heads"]:
+        raise ValueError(
+            f"num_heads={num_heads} contradicts the symbol's "
+            f"num_heads={cfg['num_heads']} — the reshapes would "
+            "succeed and decode garbage")
+    if window is None:
+        window = cfg["window"]
+    elif int(window) != cfg["window"]:
+        raise ValueError(
+            f"window={window} contradicts the symbol's trained "
+            f"attn_window={cfg['window']} — decoding with a "
+            "different window silently changes the model")
+    return num_heads, window
 
 
 def _split_rows(a, bounds):
@@ -180,7 +223,7 @@ def _rot(u, t):
 @torch.no_grad()
 def gpt_generate(params, prompt, max_new_tokens, num_heads=None,
                  temperature=0.0, top_k=None, window=None, name="gpt",
-                 device="cuda", dtype=None, seed=0):
+                 device="cuda", dtype=None, seed=0, symbol=None):
     """Continuation of ``prompt`` (batch, prompt_len) with a KV cache;
     returns ``(batch, prompt_len + max_new_tokens)`` numpy int32 ids,
     prompt included.
@@ -190,7 +233,10 @@ def gpt_generate(params, prompt, max_new_tokens, num_heads=None,
     raises when CUDA is absent) in ``dtype`` (default: the checkpoint's
     own).  ``num_heads`` and ``window`` (the radius the model was
     trained with, 0 = full attention) are not recoverable from weight
-    shapes and must be passed.  ``temperature`` 0.0 is greedy argmax;
+    shapes: pass them, or ``symbol=`` (the trained ``gpt_symbol``) to
+    read them from the graph (a contradiction raises).  Without
+    ``window`` and ``symbol`` the model is decoded with full attention,
+    with a warning.  ``temperature`` 0.0 is greedy argmax;
     otherwise each token is drawn from ``softmax(logits / temperature)``,
     restricted to the ``top_k`` largest logits when given (ties at the
     k-th kept, as the reference's sort threshold keeps them), by
@@ -203,9 +249,22 @@ def gpt_generate(params, prompt, max_new_tokens, num_heads=None,
     prompt = np.asarray(prompt)
     if prompt.ndim != 2:
         raise ValueError("prompt must be (batch, prompt_len)")
+    if symbol is not None:
+        num_heads, window = reconcile_decode_config(symbol, num_heads,
+                                                    window)
     if num_heads is None:
-        raise ValueError("num_heads is required")
-    window = 0 if window is None else int(window)
+        raise ValueError("num_heads is required (pass it, or pass "
+                         "symbol= to read it from the trained graph)")
+    if window is None:
+        # a window-trained checkpoint decoded without window= would
+        # silently run full attention; window=0 or symbol= silences this
+        warnings.warn(
+            "gpt_generate: window not given and no symbol= to detect it "
+            "from; assuming full attention (window=0). If the model was "
+            "trained with attn_window>0 this is a silent mismatch — "
+            "pass window= or symbol=.", stacklevel=2)
+        window = 0
+    window = int(window)
     if window < 0:
         raise ValueError(f"window must be >= 0 (got {window})")
     B, P = prompt.shape

@@ -28,7 +28,7 @@ from . import random as _random
 from .base import MXNetError, np_dtype, numeric_types, torch_dtype
 from .context import Context, cpu, current_context
 from .ops import OP_REGISTRY
-from .ops.op import apply_op, not_ported
+from .ops.op import apply_op
 
 __all__ = [
     "NDArray", "array", "empty", "zeros", "ones", "full", "arange",
@@ -606,9 +606,14 @@ def _make_ndarray_function(op_name):
 
 
 def Custom(*args, op_type=None, **kwargs):
-    """The reference's custom-op invoker (``operator.py``); waits for
-    A15b-2."""
-    raise not_ported("Custom (operator.py)")
+    """Generic custom-op invoker (``mt.nd.Custom(..., op_type=name)``):
+    dispatches to the CustomOpProp registered under ``op_type``
+    (``operator.register``)."""
+    if op_type is None:
+        raise TypeError("Custom requires op_type=<registered custom op name>")
+    if op_type not in OP_REGISTRY:
+        raise MXNetError(f"Custom op {op_type!r} is not registered")
+    return _make_ndarray_function(op_type)(*args, **kwargs)
 
 
 def _init_ndarray_module():

@@ -16,14 +16,17 @@ tensors.  Kernels are built at first launch; each wrapper module's
 The op registry (``ops.op``): importing this package registers the
 operators of the training frontend (``elementwise``, ``reduce``,
 ``matrix``, ``nn``, ``loss``, ``sample``, ``attention``, ``rnn``,
-``sequence``, ``vision``), from which ``ndarray`` and ``symbol``
-generate their functions.  The vision layers run as plain torch (a
-convolution goes to cuDNN on the card): the reference computes them
-outside any Pallas kernel."""
+``sequence``, ``vision``, ``multibox``, ``quantized``), from which
+``ndarray`` and ``symbol`` generate their functions.  The vision layers
+and the multibox ops run as plain torch (a convolution goes to cuDNN on
+the card), the quantized ops' exact int8 contraction through
+``torch._int_mm`` on the card: the reference computes them outside any
+Pallas kernel."""
 
 from . import (flash_attention, flash_attention_cuda, fused_gru, fused_lstm,
                fused_rnn_cuda, paged_attention_cuda, rnn)
 from . import elementwise, matrix, reduce, sample, sequence, vision  # noqa: F401
+from . import multibox, quantized  # noqa: F401
 # (the imports above register their ops)
 from .attention import (FlashAttention, LayerNorm, RMSNorm, RoPE, gelu,
                         paged_attention, paged_attention_torch,

@@ -221,7 +221,7 @@ def as_np_dtype(d):
     return None if d is None else np_dtype(d)
 
 
-def not_ported(what, item="A15b-2"):
+def not_ported(what, item):
     """The error an op or option that a later slice ports raises."""
     return NotImplementedError(f"{what} is not ported yet (ROADMAP §{item})")
 

@@ -141,7 +141,7 @@ from ..base import env_flag, env_int
 from ..context import resolve_device
 from ..convert import params_from_numpy
 from ..models.generate import (_fc, _gelu, _gumbel, _ln,
-                               detect_gpt_variant)
+                               detect_gpt_variant, reconcile_decode_config)
 from ..ops import paged_attention_cuda as _pac
 from ..ops.attention import paged_attention, resolve_paged_impl
 from ..parallel import mesh as mesh_mod
@@ -239,11 +239,6 @@ def _rope(u, pos, base=10000.0):
     u1, u2 = uf[..., :half], uf[..., half:]
     return torch.cat([u1 * cos - u2 * sin, u1 * sin + u2 * cos],
                      dim=-1).to(u.dtype)
-
-
-def _unported(what, item):
-    return NotImplementedError(
-        f"serve.Engine: {what} is not ported yet (ROADMAP §A item {item})")
 
 
 # -- per-request sampling-parameter validation (submit + Engine defaults) ----
@@ -525,6 +520,11 @@ class Engine:
         fused-qkv and ``*_wscale`` checkpoints are normalized at load).
       num_heads / window: decode config not recoverable from weight
         shapes (window = the trained sliding-window radius, 0 = full).
+      symbol: the trained ``gpt_symbol`` (e.g. from
+        ``model.load_checkpoint``): ``num_heads`` and ``window`` are read
+        from it (``models.reconcile_decode_config``); an explicit value
+        that contradicts it raises.  ``draft_symbol`` does the same for
+        the draft.
       block_size: tokens per KV-cache block
         (env ``MXTPU_SERVE_BLOCK_SIZE``, default 16).
       num_blocks: physical blocks in the cache, incl. the reserved
@@ -631,12 +631,11 @@ class Engine:
                  host_kv_bytes=None, aot_dir=None, symbol=None,
                  partition_rules=None):
         if symbol is not None:
-            raise _unported("symbol= (decode config from a Symbol)", 15)
-        if draft_symbol is not None:
-            raise _unported("draft_symbol= (the draft's decode config "
-                            "from a Symbol)", 15)
+            num_heads, window = reconcile_decode_config(symbol, num_heads,
+                                                        window)
         if num_heads is None:
-            raise ValueError("num_heads is required")
+            raise ValueError("num_heads is required (pass it, or pass "
+                             "symbol= to read it from the trained graph)")
         window = 0 if window is None else int(window)
         if window < 0:
             raise ValueError(f"window must be >= 0 (got {window})")
@@ -859,7 +858,8 @@ class Engine:
         if self.spec_k:
             self._spec = spec_mod.DraftWorker(
                 self, draft_params, num_heads=draft_num_heads,
-                window=draft_window, name=draft_name or name, dtype=dtype)
+                window=draft_window, symbol=draft_symbol,
+                name=draft_name or name, dtype=dtype)
         # -- programs and their warm start (aot/) ----------------------------
         self._programs = {}            # (kind, bucket) -> _Program
         self.captures = 0              # CUDA graphs captured

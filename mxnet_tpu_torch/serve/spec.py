@@ -52,7 +52,8 @@ import torch
 
 from ..base import env_float
 from ..convert import params_from_numpy
-from ..models.generate import detect_gpt_variant, normalize_gpt_params
+from ..models.generate import (detect_gpt_variant, normalize_gpt_params,
+                               reconcile_decode_config)
 from ..ops.attention import resolve_paged_impl
 from ..telemetry import flight as flight_mod
 
@@ -82,10 +83,14 @@ class DraftWorker:
     """
 
     def __init__(self, engine, params, num_heads=None, window=None,
-                 name="gpt", dtype=None):
+                 name="gpt", dtype=None, symbol=None):
+        if symbol is not None:
+            num_heads, window = reconcile_decode_config(symbol, num_heads,
+                                                        window)
         if num_heads is None:
-            raise ValueError("draft num_heads is required (pass "
-                             "draft_num_heads=)")
+            raise ValueError(
+                "draft num_heads is required (pass draft_num_heads=, or "
+                "draft_symbol= to read it from the draft's trained graph)")
         window = 0 if window is None else int(window)
         if window < 0:
             raise ValueError(f"draft window must be >= 0 (got {window})")

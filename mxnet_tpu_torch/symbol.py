@@ -794,11 +794,14 @@ def _make_symbol_function(op_name):
 
 
 def Custom(*args, op_type=None, **kwargs):
-    """The reference's custom-op invoker (``operator.py``); waits for
-    A15b-2."""
-    from .ops.op import not_ported
-
-    raise not_ported("Custom (operator.py)")
+    """Generic custom-op invoker (``mt.sym.Custom(..., op_type=name)``):
+    dispatches to the CustomOpProp registered under ``op_type``
+    (``operator.register``)."""
+    if op_type is None:
+        raise TypeError("Custom requires op_type=<registered custom op name>")
+    if op_type not in OP_REGISTRY:
+        raise MXNetError(f"Custom op {op_type!r} is not registered")
+    return _make_symbol_function(op_type)(*args, **kwargs)
 
 
 def _init_symbol_module():

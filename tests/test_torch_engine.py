@@ -218,13 +218,20 @@ def test_shutdown_cancels_in_flight(model):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(adapters=1), "reserved base slot 0"),
-    (dict(symbol=object()), "item 15"),
-    (dict(spec_k=2, draft_symbol=object()), "item 15")])
+    (dict(symbol="plain"), "__gpt_num_heads__"),
+    (dict(spec_k=2, draft_symbol="plain"), "__gpt_num_heads__")])
 def test_unported_options_raise_with_their_roadmap_item(kw, item):
+    """Every option is served: adapters (item 11) refuse one slot, the one
+    invalid count; ``symbol=`` and ``draft_symbol=`` (item 15, ported)
+    refuse a Symbol that carries no gpt decode config
+    (test_torch_engine_symbol.py serves gpt symbols)."""
     _, params, heads = fx.model("gpt2")
-    # adapters (item 11) are served: one slot is the one invalid count
-    exc = ValueError if "adapters" in kw else NotImplementedError
-    with pytest.raises(exc, match=item):
+    with mt.sym.NameManager():
+        plain = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=4)
+    kw = {k: (plain if v == "plain" else v) for k, v in kw.items()}
+    if "draft_symbol" in kw:
+        kw["draft_params"] = params
+    with pytest.raises(ValueError, match=item):
         mt.serve.Engine(params, num_heads=heads, device="cpu", **kw)
 
 

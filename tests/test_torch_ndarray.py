@@ -292,7 +292,13 @@ def test_gpu_context_raises_without_cuda():
 
 
 def test_custom_waits_for_a15b():
-    with pytest.raises(NotImplementedError, match="A15b"):
-        mt.nd.Custom(op_type="anything")
-    with pytest.raises(NotImplementedError, match="A15b"):
-        mt.sym.Custom(op_type="anything")
+    """``Custom`` is ported: an unregistered ``op_type`` raises as the
+    reference's does (test_torch_custom_op.py drives registered ones),
+    and so does a call without one."""
+    for M in (mt, mx):
+        with pytest.raises(M.MXNetError, match="not registered"):
+            M.nd.Custom(op_type="anything")
+        with pytest.raises(M.MXNetError, match="not registered"):
+            M.sym.Custom(op_type="anything")
+        with pytest.raises(TypeError, match="op_type"):
+            M.nd.Custom(mt.nd.zeros((1,), ctx=mt.cpu()))
